@@ -120,7 +120,9 @@ def test_importing_kernels_needs_no_nvcc_and_no_gpu():
 
 def test_sources_are_plain_cuda():
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["attention_small.cu", "fused_mlp.cu"]
+    assert [s.name for s in srcs] == ["attention_small.cu",
+                                      "attention_small_bwd.cu",
+                                      "fused_mlp.cu"]
     for src in srcs:
         text = src.read_text()
         assert "torch/" not in text and "ATen" not in text
@@ -130,7 +132,7 @@ def test_sources_are_plain_cuda():
 
 def test_build_commands_compile_each_source_for_sm90a(tmp_path):
     compiles, link = _build.commands("nvcc", _build.sources(), tmp_path)
-    assert len(compiles) == 2
+    assert len(compiles) == 3
     for cmd in compiles + [link]:
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     for cmd, src in zip(compiles, _build.sources()):
@@ -158,5 +160,7 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
     import ctypes
     for name, argtypes in _build.SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p  # the stream
-        n_ptr = {"launch_attention_small": 4, "launch_fused_mlp": 6}[name]
+        n_ptr = {"launch_attention_small": 5,
+                 "launch_attention_small_bwd": 9,
+                 "launch_fused_mlp": 6}[name]
         assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr

@@ -136,7 +136,9 @@ def test_forward_matches_reference_golden(path):
 
 
 def test_trained_final_matches_jax_full_width():
-    params, state, step = load_checkpoint(FINAL)
+    params, state, opt, step = load_checkpoint(FINAL)
+    # the final carries its Adam state, with one moment per parameter
+    assert _flatten(opt["mu"]).keys() == _flatten(params).keys()
     assert step == 1000
     model = from_jax_params(params, state, CvTSpec(), device="cpu")
     jspec = JaxCvTSpec()
@@ -151,7 +153,7 @@ def test_trained_final_matches_jax_full_width():
 
 
 def test_checkpoint_round_trip_is_exact():
-    params, state, _ = load_checkpoint(FINAL)
+    params, state, _, _ = load_checkpoint(FINAL)
     model = from_jax_params(params, state, CvTSpec(), device="cpu")
     p2, s2 = to_jax_params(model)
     for a, b in ((params, p2), (state, s2)):
@@ -165,11 +167,11 @@ def test_checkpoint_round_trip_is_exact():
 
 
 def test_from_jax_params_rejects_missing_and_misshaped_leaves():
-    params, state, _ = load_checkpoint(FINAL)
+    params, state, _, _ = load_checkpoint(FINAL)
     del params["final"]["bias"]
     with pytest.raises(KeyError, match="final.bias"):
         from_jax_params(params, state, CvTSpec(), device="cpu")
-    params, state, _ = load_checkpoint(FINAL)
+    params, state, _, _ = load_checkpoint(FINAL)
     params["final"]["bias"] = np.zeros(2, np.float32)
     with pytest.raises(ValueError, match="final.bias"):
         from_jax_params(params, state, CvTSpec(), device="cpu")

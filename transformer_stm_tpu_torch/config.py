@@ -1,6 +1,7 @@
-"""Model and inference config: the port's own copy of the parts of
-transformer_stm_tpu/config.py that this slice reads (``StageSpec``,
-``CvTSpec`` :36-90 and the inference fields of ``TrainConfig`` :153)."""
+"""Model and training config: the port's own copy of the parts of
+transformer_stm_tpu/config.py that the port reads (``StageSpec``,
+``CvTSpec`` :36-90 and the single-target fields of ``TrainConfig``
+:143-169)."""
 
 from __future__ import annotations
 
@@ -59,7 +60,25 @@ class CvTSpec:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the training config that inference reads."""
+    """Training hyperparameters (reference: models/CvT(Par).py:44-50,
+    464-476): Adam at 1e-3, lr x0.8 every 50 epochs, 1,000 epochs, batch
+    128.  ``weight_decay`` > 0 makes the update AdamW (``optimizer`` names
+    which, as in the JAX config); ``checkpoint_every`` > 0 writes a
+    checkpoint every that many epochs.  Only float32 compute is ported."""
 
+    learning_rate: float = 1e-3
+    lr_decay: float = 0.8
+    lr_decay_every: int = 50
+    epochs: int = 1000
     batch_size: int = 128
     seed: int = 0
+    optimizer: str = "adam"  # adam | adamw
+    weight_decay: float = 0.0
+    compute_dtype: str = "float32"
+    checkpoint_every: int = 0  # epochs between mid-run checkpoints; 0 = off
+
+    def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={self.compute_dtype!r} is not ported yet; "
+                "the port computes in float32")

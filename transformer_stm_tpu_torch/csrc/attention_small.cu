@@ -1,9 +1,12 @@
-// attention_small forward: o = softmax(q k^T / sqrt(Dh)) v in f32, inference.
+// attention_small forward: o = softmax(q k^T / sqrt(Dh)) v in f32, and in
+// training the per-row log-sum-exp that the backward reads.
 //
 // Replaces the Pallas TPU kernel `_small_fwd_kernel`
 // (transformer_stm_tpu/kernels/flash_attention.py:680, launched by
-// `_small_fwd_impl` :703 through `attention_small` :935), without the lse
-// output that only its backward reads.
+// `_small_fwd_impl` :703 through `attention_small` :935).  With `with_lse`
+// the TPU kernel writes lse into lane 0 of an (BH, t_pad, 8) aux array; here
+// lse is its own (B, H, T) f32 array, m + log(l) of the online softmax, and
+// the inference launch passes a null pointer and stores nothing more.
 //
 // The TPU kernel keeps a whole K/V row of a head in VMEM.  At CvT stage 1
 // (S = 1,024, Dh = 64, f32) K and V are 256 KB each, more than the 227 KB of
@@ -19,7 +22,8 @@
 // four independent score accumulators, and V row-major, so one float4 load
 // feeds four output columns.  Plain FMA; no tensor cores yet.
 //
-// Layout: q (B, T, H, 64), k and v (B, S, H, 64), o like q, all contiguous.
+// Layout: q (B, T, H, 64), k and v (B, S, H, 64), o like q, lse (B, H, T),
+// all contiguous.
 // Keys past S in the last tile are zero-filled and their scores masked to
 // -1e30 (the ragged edge of stage 3's 65 tokens); query rows past T load
 // zeros and store nothing.
@@ -37,7 +41,8 @@ constexpr float MASKED = -1e30f;
 __global__ void __launch_bounds__(BQ)
 attention_small_fwd(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
-                    int T, int S, int H, float scale) {
+                    float* __restrict__ lse, int T, int S, int H,
+                    float scale) {
   __shared__ __align__(16) float kt[DH][BK];  // K tile, transposed
   __shared__ __align__(16) float vs[BK][DH];  // V tile
 
@@ -152,19 +157,22 @@ attention_small_fwd(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float4*>(orow + d) =
           make_float4(acc[d] / l, acc[d + 1] / l, acc[d + 2] / l, acc[d + 3] / l);
     }
+    if (lse != nullptr) lse[(long)blockIdx.y * T + t] = m + logf(l);
   }
 }
 
 }  // namespace
 
-// Returns a cudaError_t as int: 0 when the launch was accepted.
+// Returns a cudaError_t as int: 0 when the launch was accepted.  `lse` may be
+// null (inference).
 extern "C" int launch_attention_small(const float* q, const float* k, const float* v,
-                                      float* o, int B, int T, int S, int H, int Dh,
-                                      float scale, cudaStream_t stream) {
+                                      float* o, float* lse, int B, int T, int S,
+                                      int H, int Dh, float scale,
+                                      cudaStream_t stream) {
   if (Dh != DH || B <= 0 || T <= 0 || S <= 0 || H <= 0 || (long)B * H > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((T + BQ - 1) / BQ, B * H);
-  attention_small_fwd<<<grid, BQ, 0, stream>>>(q, k, v, o, T, S, H, scale);
+  attention_small_fwd<<<grid, BQ, 0, stream>>>(q, k, v, o, lse, T, S, H, scale);
   return (int)cudaGetLastError();
 }

@@ -35,9 +35,12 @@ CUDA_NVCC = "/usr/local/cuda/bin/nvcc"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # q, k, v, o, B, T, S, H, Dh, scale, stream
-    "launch_attention_small": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # q, k, v, o, lse (or null), B, T, S, H, Dh, scale, stream
+    "launch_attention_small": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P],
+    # q, k, v, dO, lse, delta, dq, dk, dv, B, T, S, H, Dh, scale, stream
+    "launch_attention_small_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # x, w1, b1, w2, b2, y, N, D, Hd, Dout, stream
     "launch_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

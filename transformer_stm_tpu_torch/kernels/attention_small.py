@@ -1,14 +1,19 @@
-"""attention_small: exact softmax(q k^T / sqrt(Dh)) v, inference forward.
+"""attention_small: exact softmax(q k^T / sqrt(Dh)) v, forward and backward.
 
 Port of the Pallas TPU kernel ``attention_small``
-(transformer_stm_tpu/kernels/flash_attention.py:935; forward
-``_small_fwd_impl`` :703 and ``_small_fwd_kernel`` :680).  The CUDA kernel
-is ``csrc/attention_small.cu``; its header says how it streams K/V where
-the TPU kernel held whole rows in VMEM.  The backward pair (:764, :791) is
-not ported yet: this slice only evaluates.
+(transformer_stm_tpu/kernels/flash_attention.py:935, a ``jax.custom_vjp``):
+the forward ``_small_fwd_impl`` :703 / ``_small_fwd_kernel`` :680 is
+``csrc/attention_small.cu``, the backward pair ``_small_bwd_dq_kernel`` :764
+and ``_small_bwd_dkv_kernel`` :791 (``_small_bwd_impl`` :825) is
+``csrc/attention_small_bwd.cu``.  Each source's header says how it streams
+K/V where the TPU kernels held whole rows in VMEM.
 
-``attention_small`` takes the plain version for tensors on the CPU and
-launches the kernel for tensors on a CUDA device, or raises.
+``attention_small(q, k, v)`` is differentiable: when autograd records (grad
+enabled and an input requires grad) it runs ``AttentionSmall``, whose
+forward also writes the per-row lse and saves q, k, v, o and lse for the
+backward kernels; otherwise it runs the lse-free forward and saves nothing.
+Tensors on the CPU take the plain versions below; tensors on a CUDA device
+launch the kernels, or raise.
 """
 
 from __future__ import annotations
@@ -22,15 +27,41 @@ from ._build import library
 HEAD_DIM = 64
 
 
-def attention_small_plain(q, k, v):
-    """The kernel's arithmetic in PyTorch: f32 scores (q . k) * scale, the
-    row max subtracted before exp, the output divided by the row sum.
-    q: (B, T, H, Dh); k, v: (B, S, H, Dh) -> (B, T, H, Dh)."""
+def attention_small_plain(q, k, v, with_lse: bool = False):
+    """The forward kernel's arithmetic in PyTorch: f32 scores (q . k) *
+    scale, the row max m subtracted before exp, the output divided by the
+    row sum l.  q: (B, T, H, Dh); k, v: (B, S, H, Dh) -> o (B, T, H, Dh),
+    and with ``with_lse`` also lse = m + log(l), (B, H, T)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bthd,bshd->bhts", q, k) * scale
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)  # (B, T, H, 1)
-    return torch.einsum("bhts,bshd->bthd", p, v) / l
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)  # (B, H, T, 1)
+    o = torch.einsum("bhts,bshd->bthd", p, v) / l.permute(0, 2, 1, 3)
+    if not with_lse:
+        return o
+    return o, (m + torch.log(l)).squeeze(-1)
+
+
+def attention_small_bwd_plain(q, k, v, o, lse, g):
+    """The backward kernels' arithmetic in PyTorch, step by step: p rebuilt
+    from the saved lse, dp = dO . v, delta = rowsum(dO * o),
+    dS = p (dp - delta); dq = scale dS k, dk = scale dS^T q, dv = p^T dO.
+    q, o, g: (B, T, H, Dh); k, v: (B, S, H, Dh); lse: (B, H, T)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bthd,bshd->bhts", q, k) * scale
+    p = torch.exp(s - lse.unsqueeze(-1))
+    dp = torch.einsum("bthd,bshd->bhts", g, v)
+    delta = (g * o).sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)  # (B, H, T, 1)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhts,bshd->bthd", ds, k) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, q) * scale
+    dv = torch.einsum("bhts,bthd->bshd", p, g)
+    return dq, dk, dv
+
+
+def _on_cpu(*tensors):
+    return all(t.device.type == "cpu" for t in tensors)
 
 
 def _check(q, k, v):
@@ -54,23 +85,86 @@ def _check(q, k, v):
         raise ValueError(f"attention_small: B*H = {b * h} exceeds 65,535")
 
 
-def attention_small(q, k, v):
-    """q: (B, T, H, 64); k, v: (B, S, H, 64), float32 -> (B, T, H, 64)."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and \
-            v.device.type == "cpu":
-        return attention_small_plain(q, k, v)
+def attention_small_fwd(q, k, v, with_lse: bool = False):
+    """(o, lse or None) outside autograd: the plain version on the CPU,
+    else the kernel."""
+    if _on_cpu(q, k, v):
+        if with_lse:
+            return attention_small_plain(q, k, v, with_lse=True)
+        return attention_small_plain(q, k, v), None
     _check(q, k, v)
     b, t, h, dh = q.shape
     o = torch.empty_like(q)
+    lse = q.new_empty((b, h, t)) if with_lse else None
     rc = library().launch_attention_small(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if with_lse else None,
         b, t, k.shape[1], h, dh, 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch_attention_small failed: CUDA error {rc}")
     attention_small.launches += 1
-    return o
+    return o, lse
 
 
-# Kernel launches so far; a caller resets it to 0 to count a run.
+def attention_small_bwd(q, k, v, o, lse, g):
+    """(dq, dk, dv) from the forward's inputs, output and lse and the
+    output's gradient g; all float32, g contiguous."""
+    if _on_cpu(q, k, v, o, lse, g):
+        return attention_small_bwd_plain(q, k, v, o, lse, g)
+    _check(q, k, v)
+    b, t, h, dh = q.shape
+    for name, x, shape in (("o", o, q.shape), ("g", g, q.shape),
+                           ("lse", lse, (b, h, t))):
+        if x.device != q.device or x.dtype != torch.float32 or \
+                not x.is_contiguous() or tuple(x.shape) != tuple(shape):
+            raise ValueError(f"attention_small_bwd: {name} must be a "
+                             "contiguous float32 tensor of shape "
+                             f"{tuple(shape)} on {q.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    # delta = rowsum(dO * o), (B, H, T): one reduction before the kernels,
+    # as the JAX package computes it outside its kernels (:852-860).
+    delta = (g * o).sum(dim=-1).transpose(1, 2).contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = library().launch_attention_small_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, t, k.shape[1], h, dh, 1.0 / math.sqrt(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"launch_attention_small_bwd failed: CUDA error {rc}")
+    attention_small_bwd.launches += 1
+    return dq, dk, dv
+
+
+class AttentionSmall(torch.autograd.Function):
+    """The forward kernel with lse; the backward kernel pair."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = attention_small_fwd(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        return attention_small_bwd(q, k, v, o, lse, g.contiguous())
+
+
+def attention_small(q, k, v):
+    """q: (B, T, H, 64); k, v: (B, S, H, 64), float32 -> (B, T, H, 64)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return AttentionSmall.apply(q, k, v)
+    return attention_small_fwd(q, k, v)[0]
+
+
+# Kernel launches so far; a caller resets them to 0 to count a run.  The
+# forward counts its launches with or without lse; the backward counts each
+# call, which launches its two kernels.
 attention_small.launches = 0
+attention_small_bwd.launches = 0

@@ -4,10 +4,13 @@ Port of the Pallas TPU kernel ``fused_mlp``
 (transformer_stm_tpu/kernels/fused_mlp.py:62; body ``_mlp_kernel`` :52),
 the inference MLP of every CvT block.  The CUDA kernel is
 ``csrc/fused_mlp.cu``.  The training kernels of that module
-(``make_fused_mlp_train`` :291) are not ported yet.
+(``make_fused_mlp_train`` :291) are not ported yet; training takes the
+plain MLP (``ops/blocks.py``), as the JAX single-target trainer does.
 
-``fused_mlp`` takes the plain version for tensors on the CPU and launches
-the kernel for tensors on a CUDA device, or raises.
+``fused_mlp`` has no backward: it raises while autograd records (grad
+enabled and an input requires grad) rather than return a result cut off
+from the graph.  Otherwise it takes the plain version for tensors on the
+CPU and launches the kernel for tensors on a CUDA device, or raises.
 """
 
 from __future__ import annotations
@@ -51,6 +54,12 @@ def _check(x, w1, b1, w2, b2):
 
 def fused_mlp(x, w1, b1, w2, b2):
     """x: (..., D) float32, D in WIDTHS; w1 (D, Hd); w2 (Hd, D)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        raise RuntimeError(
+            "fused_mlp is an inference kernel with no backward; run it under "
+            "torch.no_grad() or torch.inference_mode(), or train through "
+            "mlp(..., train=True), which takes the plain MLP")
     if all(t.device.type == "cpu" for t in (x, w1, b1, w2, b2)):
         return fused_mlp_plain(x, w1, b1, w2, b2)
     _check(x, w1, b1, w2, b2)

@@ -1,4 +1,5 @@
-"""CvT model (transformer_stm_tpu/models/cvt.py:32-137), inference.
+"""CvT model (transformer_stm_tpu/models/cvt.py:32-137), evaluation and
+training.
 
 Spec-driven pyramid: [ConvEmbed -> ConvTransformerBlock x depth] per stage,
 then
@@ -9,10 +10,13 @@ branch, and a final Dense(num_classes).
 
     model = init_cvt(spec, torch.Generator().manual_seed(0))
     out = cvt_forward(model, images, proc)        # (B, num_classes)
+    out = cvt_forward(model, images, proc, train=True, generator=gen)
 
 The module tree mirrors the JAX parameter tree: its parameters are the JAX
 ``params`` leaves and its buffers (the BatchNorm moving statistics) the JAX
 ``state`` leaves, under the same path names (train/checkpoint.py maps them).
+In training the forward updates those buffers in place, where the JAX
+function returns the new state.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ class _Stage(nn.Module):
         self.blocks = nn.ModuleList(
             ConvTransformerBlock(st.embed_dim, st.num_heads, st.kernel_size,
                                  st.strides, st.qkv_method, st.mlp_ratio,
-                                 st.with_cls_token, generator)
+                                 st.with_cls_token, st.dropout_rate,
+                                 generator)
             for _ in range(st.depth))
 
 
@@ -65,16 +70,19 @@ def init_cvt(spec: CvTSpec, generator: torch.Generator,
     return CvT(spec, generator).to(device)
 
 
-def cvt_forward(model: CvT, images, proc=None, *, impl: str = "auto"):
+def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
+                generator=None, impl: str = "auto"):
     """images: (B, H, W, C) float; proc: (B, proc_dim) or None ->
-    (B, num_classes)."""
+    (B, num_classes).  ``train=True`` normalises the dw_bn projections with
+    batch statistics (updating the moving ones) and applies each stage's
+    dropout, drawn from ``generator`` on the images' device."""
     spec = model.spec
     x = images
     cls_tokens = None
     for stage in model.stages:
         x = stage.embed(x)
         for block in stage.blocks:
-            x, cls = block(x, impl=impl)
+            x, cls = block(x, impl=impl, train=train, generator=generator)
             if cls is not None:
                 cls_tokens = cls
     if cls_tokens is not None:

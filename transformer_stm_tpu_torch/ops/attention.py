@@ -5,16 +5,19 @@
 ``_attention_core`` routes softmax(q k^T / sqrt(Dh)) v (:69): with
 ``impl="auto"`` a head whose score matrix has more than 300,000 entries, or
 a batch whose f32 scores would pass 1 GiB, goes to the ``attention_small``
-kernel (CvT stage 1: 1,024 x 1,024); the others (stages 2 and 3) go to
-plain PyTorch.  ``impl="plain"`` keeps every call in plain PyTorch.  The
-JAX router sends keys of 16,384 and more to its streaming flash kernel,
-which is not ported yet; ``attention_small`` streams K/V and takes them.
+kernel (CvT stage 1: 1,024 x 1,024), in training as in evaluation (the
+router does not look at the mode; the kernel has its own backward); the
+others (stages 2 and 3) go to plain PyTorch.  ``impl="plain"`` keeps every
+call in plain PyTorch.  The JAX router sends keys of 16,384 and more to its
+streaming flash kernel, which is not ported yet; ``attention_small``
+streams K/V and takes them.
 
 ``ConvAttention`` (:170-218) keeps the reference's quirks: the q
 projection is the identity when the method is 'avg'; a second set of Dense
 projections proj_q/k/v follows the conv projections; Keras MHA is called as
 (query, value, key), which is standard attention on (q, k, v); attention
-dropout is built but never applied.
+dropout is built but never applied; in training the output projection is
+followed by dropout (:217) and the dw_bn BatchNorms use batch statistics.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from torch import nn
 
 from ..kernels.attention_small import attention_small
-from .common import Dense, _param, glorot_uniform
+from .common import Dense, _param, dropout, glorot_uniform
 from .projection import Projection
 
 SMALL_MIN_ENTRIES = 300_000
@@ -97,9 +100,11 @@ def mha(m: MHA, query, key, value, *, impl: str = "auto"):
 class ConvAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, kernel_size: int,
                  strides: int = 1, qkv_method: str = "dw_bn",
-                 with_cls_token: bool = False, generator=None):
+                 with_cls_token: bool = False, proj_drop: float = 0.1,
+                 generator=None):
         super().__init__()
         self.strides = strides
+        self.proj_drop = proj_drop
         self.with_cls_token = with_cls_token
         q_method = "linear" if qkv_method == "avg" else qkv_method
         self.q_proj = Projection(dim, kernel_size, q_method, generator)
@@ -111,17 +116,19 @@ class ConvAttention(nn.Module):
         self.mha = MHA(dim, num_heads, generator)
         self.proj = Dense(dim, dim, generator)
 
-    def forward(self, x, height: int, width: int, impl: str = "auto"):
-        """x: (B, N, C) tokens, N = H*W [+1 cls in front] -> (B, N, C)."""
+    def forward(self, x, height: int, width: int, impl: str = "auto",
+                train: bool = False, generator=None):
+        """x: (B, N, C) tokens, N = H*W [+1 cls in front] -> (B, N, C).
+        ``generator`` draws the output dropout in training."""
         b, _, c = x.shape
         if self.with_cls_token:
             cls_tokens, grid = x[:, :1, :], x[:, 1:, :]
         else:
             grid = x
         grid = grid.reshape(b, height, width, c)
-        q = self.q_proj(grid, self.strides).reshape(b, -1, c)
-        k = self.k_proj(grid, self.strides).reshape(b, -1, c)
-        v = self.v_proj(grid, self.strides).reshape(b, -1, c)
+        q = self.q_proj(grid, self.strides, train).reshape(b, -1, c)
+        k = self.k_proj(grid, self.strides, train).reshape(b, -1, c)
+        v = self.v_proj(grid, self.strides, train).reshape(b, -1, c)
         if self.with_cls_token:
             q = torch.cat([cls_tokens, q], dim=1)
             k = torch.cat([cls_tokens, k], dim=1)
@@ -129,4 +136,5 @@ class ConvAttention(nn.Module):
         q, k, v = self.proj_q(q), self.proj_k(k), self.proj_v(v)
         # The reference calls attention(q, v, k) = Keras (query, value, key),
         # that is standard attention on (q, k, v).
-        return self.proj(mha(self.mha, q, k, v, impl=impl))
+        out = self.proj(mha(self.mha, q, k, v, impl=impl))
+        return dropout(out, self.proj_drop, train, generator)

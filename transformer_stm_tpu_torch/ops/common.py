@@ -1,7 +1,8 @@
 """Foundational ops with the numerics of transformer_stm_tpu/ops/common.py:
 TF-SAME convolutions in NHWC with HWIO kernels, dense, LayerNorm (eps
-1e-6), inference BatchNorm (eps 1e-3), SAME average pooling whose divisor
-leaves out the padding, and exact erf GELU.  Each parameterised op also has
+1e-6), BatchNorm (eps 1e-3, momentum 0.99; batch statistics in training),
+SAME average pooling whose divisor leaves out the padding, exact erf GELU
+and inverted dropout.  Each parameterised op also has
 a small ``nn.Module`` that holds its parameters under the JAX names, so a
 checkpoint's path-keyed leaves map one to one onto ``state_dict`` names.
 """
@@ -33,6 +34,8 @@ def glorot_uniform(shape, fan_in: int, fan_out: int,
 
 
 def _param(t):
+    """A parameter that records no gradient until training asks for one
+    (``train/loop.py`` turns ``requires_grad`` on)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -99,6 +102,26 @@ def batch_norm(x, gamma, beta, mean, var, eps: float = 1e-3):
     return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
 
 
+def batch_norm_train(x, gamma, beta, moving_mean, moving_var,
+                     momentum: float = 0.99, eps: float = 1e-3):
+    """Training BatchNorm over all axes but the last (ops/common.py:186-215):
+    normalises with the batch mean and the biased variance E[x^2] - mean^2
+    (in x's dtype; the JAX function casts to f32, the port's only compute
+    type) and updates ``moving_mean`` and ``moving_var`` in place, outside
+    autograd; the moving variance takes the unbiased n/(n-1) estimate, as
+    the Keras-2 fused BatchNorm the reference ran on does."""
+    axes = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=axes)
+    var = x.square().mean(dim=axes) - mean.square()
+    n = x.numel() // x.shape[-1]
+    bessel = n / max(n - 1, 1)
+    with torch.no_grad():
+        moving_mean.copy_(momentum * moving_mean + (1 - momentum) * mean)
+        moving_var.copy_(momentum * moving_var
+                         + (1 - momentum) * var * bessel)
+    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+
+
 def avg_pool_same(x, pool_size: int, stride: int):
     """Keras AveragePooling2D(padding='same') on NHWC: padded cells are left
     out of the divisor."""
@@ -113,6 +136,22 @@ def avg_pool_same(x, pool_size: int, stride: int):
 def gelu(x):
     """Exact (erf) GELU, the Keras default."""
     return x * 0.5 * (1.0 + torch.special.erf(x * 0.7071067811865476))
+
+
+def dropout(x, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None):
+    """Inverted dropout (Keras semantics, ops/common.py:270): each element
+    is kept with probability 1 - rate and scaled by 1 / (1 - rate).  The
+    draws come from ``generator``, which lies on x's device.  A no-op in
+    evaluation or at rate 0."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout: train=True with rate > 0 requires a "
+                         "generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 # ---------------------------------------------------------------------------
@@ -173,8 +212,9 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Keras BatchNormalization in inference: parameters gamma and beta,
-    moving statistics ``mean`` and ``var`` as buffers (the JAX state)."""
+    """Keras BatchNormalization: parameters gamma and beta, moving
+    statistics ``mean`` and ``var`` as buffers (the JAX state), updated
+    once per forward in training."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -183,5 +223,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train:
+            return batch_norm_train(x, self.gamma, self.beta, self.mean,
+                                    self.var)
         return batch_norm(x, self.gamma, self.beta, self.mean, self.var)

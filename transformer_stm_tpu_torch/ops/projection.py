@@ -26,10 +26,11 @@ class Projection(nn.Module):
             self.conv = DepthwiseConv2d(dim, kernel_size, generator)
             self.bn = BatchNorm(dim)
 
-    def forward(self, x, stride: int):
-        """x: (B, H, W, C) -> (B, H', W', C)."""
+    def forward(self, x, stride: int, train: bool = False):
+        """x: (B, H, W, C) -> (B, H', W', C); ``train`` normalises with the
+        batch statistics and updates the BatchNorm's moving ones."""
         if self.method == "dw_bn":
-            return self.bn(self.conv(x, stride))
+            return self.bn(self.conv(x, stride), train=train)
         if self.method == "avg":
             return avg_pool_same(x, self.kernel_size, stride)
         return x

@@ -1,21 +1,25 @@
 """Checkpoints in the JAX package's layout (transformer_stm_tpu/train/
-checkpoint.py:25-54), read without jax.
+checkpoint.py:25-97), read and written without jax, so that either package
+resumes the other's.
 
-A JAX checkpoint ``ckpt_{step:06d}.npz`` holds path-flattened leaves:
-``p/<path>`` for parameters, ``s/<path>`` for the BatchNorm state and
-``o/<path>`` for the optimizer, e.g. ``p/stages/0/blocks/0/mlp/fc1/kernel``.
-The port's ``CvT`` module names its parameters and buffers by the same
-paths with dots, so the mapping is a rename:
+A checkpoint ``ckpt_{step:06d}.npz`` holds path-flattened leaves:
+``p/<path>`` for parameters, ``s/<path>`` for the BatchNorm state and, when
+the json beside it says ``has_opt``, ``o/step``, ``o/mu/<path>`` and
+``o/nu/<path>`` for Adam, e.g. ``p/stages/0/blocks/0/mlp/fc1/kernel``.  The
+port's ``CvT`` module names its parameters and buffers by the same paths
+with dots, so the mapping is a rename:
 
-    params, state, step = load_checkpoint(path)
+    params, state, opt, step = load_checkpoint(path)
     model = from_jax_params(params, state, spec, device="cuda")
     params, state = to_jax_params(model)
+    save_checkpoint(ckpt_dir, model, adam_state, step)
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -23,6 +27,7 @@ import torch
 
 from ..config import CvTSpec
 from ..models.cvt import CvT
+from .optimizer import AdamState
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -61,21 +66,87 @@ def _unflatten(flat: Dict[str, np.ndarray]):
     return listify(root)
 
 
-def load_checkpoint(path: str) -> Tuple[dict, dict, Optional[int]]:
-    """Reads a JAX ``ckpt_*.npz`` -> (params tree, state tree, step); the
-    step comes from the ``.json`` beside it, None where there is none."""
+def save_checkpoint(ckpt_dir: str, model, opt: Optional[AdamState],
+                    step: int, metadata: Optional[Dict] = None) -> str:
+    """Writes ckpt_dir/ckpt_{step:06d}.npz and its .json as the JAX
+    package does (checkpoint.py:62-81): the npz through a temporary file
+    and an atomic replace, then {"step", "has_opt", **metadata}."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    params, state = to_jax_params(model)
+    flat = {"p/" + k: v for k, v in _flatten(params).items()}
+    flat.update({"s/" + k: v for k, v in _flatten(state).items()})
+    if opt is not None:
+        flat["o/step"] = np.asarray(opt.step, np.int32)
+        for name, moments in (("mu", opt.mu), ("nu", opt.nu)):
+            for k, t in moments.items():
+                flat[f"o/{name}/" + k.replace(".", "/")] = \
+                    t.detach().cpu().numpy()
+    path = os.path.join(ckpt_dir, f"ckpt_{step:06d}")
+    fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
+    with os.fdopen(fd, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path + ".npz")
+    meta = {"step": step, "has_opt": opt is not None}
+    meta.update(metadata or {})
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
+    return path + ".npz"
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The newest ckpt_*.npz of ckpt_dir, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    ckpts = sorted(f for f in os.listdir(ckpt_dir)
+                   if f.startswith("ckpt_") and f.endswith(".npz"))
+    return os.path.join(ckpt_dir, ckpts[-1]) if ckpts else None
+
+
+def load_checkpoint(path: str):
+    """Reads a ``ckpt_*.npz`` of either package -> (params tree, state
+    tree, opt, step).  ``opt`` is {"step", "mu", "nu"} in the JAX layout
+    when the .json beside it says ``has_opt``, else None; the step comes
+    from the .json, None where there is none (a bare npz)."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    params = _unflatten({k[2:]: v for k, v in flat.items()
-                         if k.startswith("p/")})
-    state = _unflatten({k[2:]: v for k, v in flat.items()
-                        if k.startswith("s/")})
+
+    def part(prefix):
+        n = len(prefix)
+        return {k[n:]: v for k, v in flat.items() if k.startswith(prefix)}
+
+    params, state = _unflatten(part("p/")), _unflatten(part("s/"))
     meta_path = path[:-4] + ".json"
-    step = None
+    meta = {}
     if os.path.exists(meta_path):
         with open(meta_path) as f:
-            step = json.load(f).get("step")
-    return params, state, step
+            meta = json.load(f)
+    opt = None
+    if meta.get("has_opt"):
+        opt = {"step": flat["o/step"], "mu": _unflatten(part("o/mu/")),
+               "nu": _unflatten(part("o/nu/"))}
+    return params, state, opt, meta.get("step")
+
+
+def adam_from_jax(opt_tree, model, device) -> AdamState:
+    """``load_checkpoint``'s opt -> an AdamState for ``model``'s
+    parameters, on ``device``; every moment must match a parameter."""
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    moments = {}
+    for name in ("mu", "nu"):
+        flat = {k.replace("/", "."): v
+                for k, v in _flatten(opt_tree[name]).items()}
+        if set(flat) != set(shapes):
+            raise KeyError(f"optimizer {name} leaves do not match the model: "
+                           f"missing {sorted(set(shapes) - set(flat))}, "
+                           f"unexpected {sorted(set(flat) - set(shapes))}")
+        for n, v in flat.items():
+            if tuple(v.shape) != shapes[n]:
+                raise ValueError(f"shape mismatch for {name} {n}: given "
+                                 f"{v.shape}, model {shapes[n]}")
+        moments[name] = {n: torch.from_numpy(np.array(flat[n], np.float32))
+                         .to(device) for n in shapes}
+    return AdamState(step=int(opt_tree["step"]), mu=moments["mu"],
+                     nu=moments["nu"])
 
 
 def load_into(module, np_params, np_state):

@@ -1,17 +1,18 @@
-"""Evaluation metrics and the predictions sheet
+"""Evaluation metrics, the training records and the predictions sheet
 (transformer_stm_tpu/train/metrics.py:26-90).
 
 The metrics match sklearn's r2_score / mean_squared_error /
-mean_absolute_error; ``write_predictions_metrics`` writes the reference's
-Predictions_Metrics_{freq}.xlsx schema: per-image Predictions / Actual /
-Errors(%) columns and, on the first data row, Train mounts / Test mounts /
-R2 Score / MSE / MAE.
+mean_absolute_error; ``RecordsWriter`` writes the per-epoch records
+(epoch / loss / mae / val_loss / val_mae / lr); ``write_predictions_metrics``
+writes the reference's Predictions_Metrics_{freq}.xlsx schema: per-image
+Predictions / Actual / Errors(%) columns and, on the first data row, Train
+mounts / Test mounts / R2 Score / MSE / MAE.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -38,6 +39,28 @@ def r2_score(y_true, y_pred) -> float:
     ss_res = np.sum((y_true - y_pred) ** 2)
     ss_tot = np.sum((y_true - y_true.mean()) ** 2)
     return float(1.0 - ss_res / ss_tot) if ss_tot > 0 else 0.0
+
+
+class RecordsWriter:
+    """Per-epoch training records, written as one sheet with the header
+    ``COLUMNS`` (reference: models/CvT(Par).py:492-494); epochs 1-based."""
+
+    COLUMNS = ["epoch", "loss", "mae", "val_loss", "val_mae", "lr"]
+
+    def __init__(self):
+        self.rows: List[List] = []
+
+    def log(self, epoch: int, loss: float, mae_v: float,
+            val_loss: Optional[float], val_mae: Optional[float],
+            lr: float) -> None:
+        self.rows.append([epoch + 1, float(loss), float(mae_v),
+                          None if val_loss is None else float(val_loss),
+                          None if val_mae is None else float(val_mae),
+                          float(lr)])
+
+    def write(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        write_xlsx(path, {"Sheet1": [self.COLUMNS] + self.rows})
 
 
 def write_predictions_metrics(path: str, freq: str, y_pred, y_true,
