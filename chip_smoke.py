@@ -13,7 +13,12 @@ Phases, each printed as it finishes:
    a yardstick (CUDA events, median of 10 runs after a warm-up): the
    attention_small forward with and without lse, its backward
    (attention_small_bwd, against the plain backward and f64 autograd; SDPA's
-   backward as the yardstick) and fused_mlp;
+   backward as the yardstick), fused_mlp, and the training MLP
+   fused_mlp_train forward and backward at rates 0.1 and 0 (against
+   fused_mlp_train_plain, which draws the same masks; the keep share of
+   both masks; two backward calls bit-equal; addmm+gelu+dropout+addmm+
+   dropout and its autograd backward as the yardstick); and attention_small
+   under torch.func.vmap and grad over 2 slots, bit-equal to a loop;
 3. evaluation path: the full-width dw_bn/cls CvT (random weights from a
    seed, round-tripped through the JAX checkpoint layout) evaluates 512
    synthetic 128x128 images with process parameters through
@@ -25,10 +30,20 @@ Phases, each printed as it finishes:
    validates on 128: 8 steps, with exact launch counts; 3 steps of
    ``make_train_step`` on one batch with dropout 0 through the kernels and
    through plain PyTorch agree; a checkpoint saved and loaded into a fresh
-   loop predicts bit for bit the same; ms per step on both paths.
+   loop predicts bit for bit the same; ms per step on both paths;
+5. multi-target path: ``MultiTargetTrainer`` trains the full-width CvT
+   (dropout 0.1, mlp_impl="pallas") as 2 slots of two targets over a
+   synthetic corpus of 2 groups x 5 pieces x 64 layers (label and process
+   sheets written with the port's xlsx writer; one target misses a label,
+   so the slots train on 512 and 448 rows), 5 steps per epoch of which one
+   is gated, 2 epochs with validation, with exact launch counts; the gated
+   step leaves every slot bit for bit as it was; ms per slot-step and the
+   device's busy share; a stacked checkpoint round trip predicts the same;
+   3 steps at dropout 0 through the kernels and through plain PyTorch agree.
 
 Any failure raises and the exit code is non-zero.  The line before the last
-is a JSON object with each kernel's numbers; the last line is
+is a JSON object with each kernel's numbers (``launches`` from phase 5,
+``launches_by_path`` from phases 3, 4 and 5); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing is read from or written to the
 repository except the kernels' build directory.
 """
@@ -54,13 +69,17 @@ import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from transformer_stm_tpu_torch.config import CvTSpec, TrainConfig  # noqa: E402
+from transformer_stm_tpu_torch.config import (  # noqa: E402
+    PROCESS_PARAMETERS, CvTSpec, DataConfig, ExperimentConfig, TrainConfig)
+from transformer_stm_tpu_torch.data.xlsx import write_xlsx  # noqa: E402
 from transformer_stm_tpu_torch.kernels import _build  # noqa: E402
 from transformer_stm_tpu_torch.kernels.attention_small import (  # noqa: E402
     attention_small, attention_small_bwd, attention_small_bwd_plain,
     attention_small_fwd, attention_small_plain)
 from transformer_stm_tpu_torch.kernels.fused_mlp import (  # noqa: E402
-    fused_mlp, fused_mlp_plain)
+    STREAM_HIDDEN, STREAM_OUT, TRAIN_BWD_ROWS, dropout_mask, fused_mlp,
+    fused_mlp_plain, fused_mlp_train, fused_mlp_train_bwd,
+    fused_mlp_train_bwd_plain, fused_mlp_train_fwd, fused_mlp_train_plain)
 from transformer_stm_tpu_torch.models.cvt import (  # noqa: E402
     cvt_forward, cvt_param_count, init_cvt)
 from transformer_stm_tpu_torch.ops.common import use_true_f32  # noqa: E402
@@ -72,6 +91,8 @@ from transformer_stm_tpu_torch.train.optimizer import adam_init  # noqa: E402
 from transformer_stm_tpu_torch.train.metrics import (  # noqa: E402
     HEADER, mae, mse, r2_score, read_predictions_metrics,
     write_predictions_metrics)
+from transformer_stm_tpu_torch.train.multi import (  # noqa: E402
+    MultiTargetTrainer)
 
 SEED = 0
 BATCH = 128
@@ -90,7 +111,11 @@ MLP_TOL = 1e-4    # max |kernel - plain| <= MLP_TOL * max |plain|
 PATH_TOL = 1e-3   # |kernel path - plain path| <= PATH_TOL * max(1, |plain|);
                   # per-step training losses within PATH_TOL relative
 TRAIN_STEPS = 3   # steps of the kernel path against the plain path
+DROPOUT = 0.1     # the flagship's rate
 EPOCHS = 2        # of N_IMAGES training images in batches of BATCH
+MULTI_TARGETS = ("50HZ_Bm", "50HZ_Hc")  # phase 5's slots
+MULTI_GROUPS, MULTI_LAYERS, MULTI_EPOCHS = 2, 64, 2
+MULTI_LOSS_TOL = 1e-4  # per-step losses, kernel path vs plain path
 
 
 def say(msg):
@@ -148,7 +173,8 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
-KERNELS = (attention_small, attention_small_bwd, fused_mlp)
+KERNELS = (attention_small, attention_small_bwd, fused_mlp, fused_mlp_train,
+           fused_mlp_train_bwd)
 
 
 def reset_launches():
@@ -356,7 +382,159 @@ def phase_kernels():
         plain_ms=sum(r["plain_ms"] for r in rows),
         bound_ms=sum(r["bound_ms"] for r in rows), bound_by="operations",
         library_ms=sum(r["library_ms"] for r in rows), shapes=rows))
+    results += phase_mlp_train(dev, gen)
+    phase_vmap(dev, gen)
     return results
+
+
+def mlp_train_library(x, w1, b1, w2, b2, rate):
+    """One PyTorch graph of the same function: addmm, gelu, dropout, addmm,
+    dropout (its own masks)."""
+    h = F.dropout(F.gelu(torch.addmm(b1, x, w1)), rate, training=True)
+    return F.dropout(torch.addmm(b2, h, w2), rate, training=True)
+
+
+def phase_mlp_train(dev, gen):
+    """fused_mlp_train forward and backward at the three stage shapes, at
+    rate 0.1 and 0, against fused_mlp_train_plain (the same masks) and its
+    float64 evaluation; the keep share of both masks at stage 1; two
+    backward calls bit-equal; times at rate 0.1."""
+    frows, brows, worst = [], [], {"fwd": 0.0, "bwd": 0.0}
+    names = ("y", "dx", "dW1", "db1", "dW2", "db2")
+    for stage, n, d in MLP_SHAPES:
+        hd = 4 * d
+        x = torch.randn(n, d, device=dev, generator=gen)
+        w1 = torch.randn(d, hd, device=dev, generator=gen) / d ** 0.5
+        b1 = 0.1 * torch.randn(hd, device=dev, generator=gen)
+        w2 = torch.randn(hd, d, device=dev, generator=gen) / hd ** 0.5
+        b2 = 0.1 * torch.randn(d, device=dev, generator=gen)
+        dy = torch.randn(n, d, device=dev, generator=gen)
+        seed = torch.randint(0, 2 ** 31 - 1, (2,), device=dev, generator=gen,
+                             dtype=torch.int32)
+        args = (x, w1, b1, w2, b2, seed)
+        errs = {}
+        for rate in (DROPOUT, 0.0):
+            got = (fused_mlp_train_fwd(*args, rate),
+                   *fused_mlp_train_bwd(*args, rate, dy))
+            again = fused_mlp_train_bwd(*args, rate, dy)
+            if not all(map(torch.equal, got[1:], again)):
+                raise AssertionError(f"fused_mlp_train_bwd {stage}: two "
+                                     "calls on the same inputs differ")
+            want = (fused_mlp_train_plain(*args, rate),
+                    *fused_mlp_train_bwd_plain(*args, rate, dy))
+            a64 = [t.double() for t in args[:5]] + [seed]
+            want64 = (fused_mlp_train_plain(*a64, rate),
+                      *fused_mlp_train_bwd_plain(*a64, rate, dy.double()))
+            torch.cuda.synchronize()
+            for name, g, w, w64 in zip(names, got, want, want64):
+                scale = w.abs().max().item()
+                e, e64 = ((g - w).abs().max().item(),
+                          (g.double() - w64).abs().max().item())
+                if not torch.isfinite(g).all() or max(e, e64) > \
+                        MLP_TOL * scale:
+                    raise AssertionError(
+                        f"fused_mlp_train {stage} rate {rate} {name}: max "
+                        f"|err| {e:.3e}, vs f64 {e64:.3e}, over {MLP_TOL} x "
+                        f"max {scale:.3e}")
+                errs[(rate, name)] = (e / scale, e64 / scale, e)
+            del got, again, want, want64, a64
+        if stage == "stage1":
+            shares = [(dropout_mask(seed, n, w, s, DROPOUT) > 0).double()
+                      .mean().item() for s, w in ((STREAM_HIDDEN, hd),
+                                                  (STREAM_OUT, d))]
+            if any(abs(sh - (1 - DROPOUT)) > 1e-3 for sh in shares):
+                raise AssertionError(f"keep shares {shares}, want "
+                                     f"{1 - DROPOUT} +- 1e-3")
+            say(f"[2] fused_mlp_train {stage} keep share m1 {shares[0]:.5f} "
+                f"m2 {shares[1]:.5f} at rate {DROPOUT}")
+        rel = max(v[0] for v in errs.values())
+        rel64 = max(v[1] for v in errs.values())
+
+        ms = time_ms(lambda: fused_mlp_train_fwd(*args, DROPOUT))
+        plain = time_ms(lambda: fused_mlp_train_plain(*args, DROPOUT))
+        lib = time_ms(lambda: mlp_train_library(x, w1, b1, w2, b2, DROPOUT))
+        b_ms, b_by = bound(4.0 * n * d * hd,
+                           4.0 * (2 * n * d + 2 * d * hd + hd + d) + 8)
+        frows.append(dict(stage=stage, shape=[n, d, hd], ms=ms,
+                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                          bound_by=b_by, max_rel_err=rel,
+                          max_rel_err_f64=rel64))
+        bms = time_ms(lambda: fused_mlp_train_bwd(*args, DROPOUT, dy))
+        bplain = time_ms(lambda: fused_mlp_train_bwd_plain(*args, DROPOUT,
+                                                           dy))
+        leaves = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2,
+                                                            b2)]
+        out = mlp_train_library(*leaves, DROPOUT)
+        blib = time_ms(lambda: torch.autograd.grad(out, leaves, dy,
+                                                   retain_graph=True))
+        del out, leaves
+        bb_ms, bb_by = bound(10.0 * n * d * hd,
+                             4.0 * (3 * n * d + 2 * (2 * d * hd + hd + d))
+                             + 8)
+        nb = -(-n // TRAIN_BWD_ROWS[d])
+        part_ms = 2e3 * 4.0 * nb * (2 * d * hd + hd + d) / PEAK_BYTES
+        brows.append(dict(stage=stage, shape=[n, d, hd], ms=bms,
+                          plain_ms=bplain, library_ms=blib, bound_ms=bb_ms,
+                          bound_by=bb_by, partials_ms_at_peak=part_ms,
+                          blocks=nb, max_rel_err=rel, max_rel_err_f64=rel64))
+        worst["fwd"] = max(worst["fwd"], *(errs[(r, "y")][2]
+                                           for r in (DROPOUT, 0.0)))
+        worst["bwd"] = max(worst["bwd"], *(v[2] for k, v in errs.items()
+                                           if k[1] != "y"))
+        say(f"[2] fused_mlp_train {stage} N{n} D{d} Hd{hd} (rates {DROPOUT} "
+            f"and 0; two backward calls bit-equal): max |err| / max |ref| "
+            f"{rel:.2e} (vs f64 {rel64:.2e})  forward kernel {ms:.3f} ms  "
+            f"plain {plain:.3f} ms  addmm+gelu+dropout+addmm+dropout "
+            f"{lib:.3f} ms  bound {b_ms:.3f} ms ({b_by});  backward kernel "
+            f"{bms:.3f} ms (partials {nb} blocks, {part_ms:.3f} ms of bytes "
+            f"at peak)  plain {bplain:.3f} ms  autograd of that graph "
+            f"{blib:.3f} ms  bound {bb_ms:.3f} ms ({bb_by})")
+        del x, w1, b1, w2, b2, dy, args
+    out = []
+    for name, rows, line, key in (
+            ("fused_mlp_train", frows, 170, "fwd"),
+            ("fused_mlp_train_bwd", brows, 189, "bwd")):
+        # per slot-step every stage reaches the kernel once: the sums
+        out.append(dict(
+            name=name, route="cuda",
+            source="transformer_stm_tpu_torch/csrc/fused_mlp_train.cu",
+            replaces=f"transformer_stm_tpu/kernels/fused_mlp.py:{line}",
+            max_abs_err=worst[key],
+            max_rel_err=max(r["max_rel_err"] for r in rows),
+            ms=sum(r["ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=sum(r["bound_ms"] for r in rows),
+            bound_by="operations",
+            library_ms=sum(r["library_ms"] for r in rows), shapes=rows))
+    return out
+
+
+def phase_vmap(dev, gen):
+    """AttentionSmall under torch.func: vmap over 2 slots of the forward
+    and of grad of a scalar loss equals a loop over the slots, bit for bit,
+    at stage-1 shapes."""
+    from torch.func import grad, vmap
+
+    _, b, s, h = ATTN_SHAPES[0]
+    q, k, v = (torch.randn(2, b, s, h, 64, device=dev, generator=gen)
+               for _ in range(3))
+    c = torch.randn(b, s, h, 64, device=dev, generator=gen)
+    o = vmap(attention_small)(q, k, v)
+    if not torch.equal(o, torch.stack([attention_small(q[i], k[i], v[i])
+                                       for i in range(2)])):
+        raise AssertionError("vmap of attention_small differs from a loop")
+
+    def loss(a, b_, c_):
+        return (attention_small(a, b_, c_) * c).sum()
+
+    gv = vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v)
+    gl = [grad(loss, argnums=(0, 1, 2))(q[i], k[i], v[i]) for i in range(2)]
+    if not all(torch.equal(gv[j], torch.stack([g[j] for g in gl]))
+               for j in range(3)):
+        raise AssertionError("vmap(grad) of attention_small differs from a "
+                             "loop")
+    say(f"[2] attention_small under torch.func: vmap over 2 slots of the "
+        f"forward and of grad, B{b} S{s} H{h}: bit-equal to a loop")
 
 
 def phase_main_path():
@@ -385,7 +563,8 @@ def phase_main_path():
     n_batches = N_IMAGES // BATCH
     say(f"[3] launches over {n_batches} batches: {launches}")
     want = {"attention_small": n_batches, "attention_small_bwd": 0,
-            "fused_mlp": 3 * n_batches}
+            "fused_mlp": 3 * n_batches, "fused_mlp_train": 0,
+            "fused_mlp_train_bwd": 0}
     if launches != want:
         raise AssertionError(f"evaluation path launches {launches}, want "
                              f"{want}")
@@ -457,7 +636,8 @@ def phase_training(kernels):
         say(f"[4] epoch {r[0]}: loss {r[1]:.4f} mae {r[2]:.4f} val_loss "
             f"{r[3]:.4f} val_mae {r[4]:.4f} lr {r[5]:.2e}")
     want = {"attention_small": steps + EPOCHS, "attention_small_bwd": steps,
-            "fused_mlp": 3 * EPOCHS}
+            "fused_mlp": 3 * EPOCHS, "fused_mlp_train": 0,
+            "fused_mlp_train_bwd": 0}
     if launches != want:
         raise AssertionError(f"training path launches {launches}, want "
                              f"{want}")
@@ -551,15 +731,198 @@ def phase_training(kernels):
     return launches
 
 
+def multi_fixture(root):
+    """2 groups x 5 pieces x 64 layers of 128x128 uint8 images, and label
+    and process sheets written with the port's xlsx writer; the second
+    target misses a label on a non-first piece (row 2), so its slot trains
+    on 448 rows and the first on 512."""
+    rng = np.random.default_rng(SEED + 2)
+    n_spec = MULTI_GROUPS * 5
+    corpus = rng.integers(0, 256, (n_spec, MULTI_LAYERS, 128, 128),
+                          dtype=np.uint8)
+    # a learnable label: the specimen's mean pixel plus a group term
+    base = corpus.mean(axis=(1, 2, 3)) / 255.0
+    rows = [["No."] + list(MULTI_TARGETS)]
+    for i in range(n_spec):
+        rows.append([i + 1, float(base[i] + i // 5),
+                     None if i == 2 else float(2 * base[i] + i // 5)])
+    labels = os.path.join(root, "labels.xlsx")
+    write_xlsx(labels, {"Sheet1": rows})
+    process = os.path.join(root, "process.xlsx")
+    write_xlsx(process, {"Sheet1": [list(PROCESS_PARAMETERS)] +
+                         rng.uniform(0.5, 3.0, (MULTI_GROUPS, 5)).tolist()})
+    data = DataConfig(data_root=os.path.join(root, "data"),
+                      excel_labels=labels, excel_process=process,
+                      group_end=MULTI_GROUPS, image_layers=MULTI_LAYERS,
+                      cache_dir=os.path.join(root, "cache"))
+    return data, corpus
+
+
+def multi_trainer(data, corpus, root, spec=CvTSpec(), seeds=(0, 1),
+                  **kw):
+    cfg = ExperimentConfig(model=spec, data=data,
+                           train=TrainConfig(batch_size=BATCH, seed=SEED),
+                           result_dir=os.path.join(root, "Result"))
+    targets = [(f, s, None) for f, s in zip(MULTI_TARGETS, seeds)]
+    return MultiTargetTrainer(cfg, targets, corpus=corpus, extra_steps=1,
+                              device="cuda", **kw)
+
+
+def slot_outputs(tr, images, proc):
+    with torch.inference_mode():
+        return [cvt_forward(m, images, proc, impl="plain").reshape(-1)
+                .cpu().numpy() for m in tr.models]
+
+
+def phase_multi(kernels):
+    """The multi-target trainer at full width through the kernels: 2 slots,
+    2 epochs with validation, one gated step per epoch."""
+    root = tempfile.mkdtemp()
+    data, corpus = multi_fixture(root)
+    tr = multi_trainer(data, corpus, root, mlp_impl="pallas")
+    steps, live_steps = tr.steps_per_epoch, -(-tr.n_train // BATCH)
+    say(f"[5] MultiTargetTrainer, flagship CvT at full width, dropout "
+        f"{DROPOUT}, batch {BATCH}, mlp_impl='pallas': slots "
+        f"{[t[0] for t in tr.targets]} with n_train {tr.n_train.tolist()} "
+        f"and n_val {tr.n_val.tolist()}, {steps} steps per epoch "
+        f"(live {live_steps.tolist()}), validation batch {tr.val_batch}")
+    if tr.n_train.tolist() != [512, 448] or steps != 5:
+        raise AssertionError("unexpected fixture sizes")
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.fit(MULTI_EPOCHS, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    slot_steps = MULTI_EPOCHS * int(live_steps.sum())
+    val_batches = MULTI_EPOCHS * len(tr.targets) * tr.n_val_steps
+    say(f"[5] fit: {MULTI_EPOCHS} epochs, {slot_steps} slot-steps in "
+        f"{dt:.2f} s = {1e3 * dt / MULTI_EPOCHS:.1f} ms per epoch (host "
+        f"clock, validation included); launches {launches}")
+    for t, recs in enumerate(tr.records):
+        for r in recs:
+            say(f"[5] slot {t} epoch {r[0]}: loss {r[1]:.4f} mae {r[2]:.4f} "
+                f"val_loss {r[3]:.4f} val_mae {r[4]:.4f} lr {r[5]:.2e}")
+    want = {"attention_small": slot_steps + val_batches,
+            "attention_small_bwd": slot_steps, "fused_mlp": 3 * val_batches,
+            "fused_mlp_train": 3 * slot_steps,
+            "fused_mlp_train_bwd": 3 * slot_steps}
+    if launches != want:
+        raise AssertionError(f"multi-target launches {launches}, want {want}")
+    if [o.step for o in tr.opts] != [MULTI_EPOCHS * int(n)
+                                     for n in live_steps] or \
+            not np.isfinite(np.asarray(tr.records, np.float64)).all():
+        raise AssertionError(f"Adam counts {[o.step for o in tr.opts]}, "
+                             f"records {tr.records}")
+
+    # The gated step (the last of each epoch) leaves every slot as it was.
+    plan = tr.epoch_plan(tr.epoch)
+    if plan[2][:, -1].any() or not plan[2][:, :-1].all():
+        raise AssertionError(f"live steps {plan[2]}")
+    before = [([p.clone() for p in m.parameters()],
+               [b.clone() for b in m.buffers()], o.step)
+              for m, o in zip(tr.models, tr.opts)]
+    acc = torch.zeros(len(tr.targets), 3, device="cuda")
+    reset_launches()
+    tr.train_step(tr.epoch, steps - 1, plan, acc)
+    for (ps, bs, st), m, o in zip(before, tr.models, tr.opts):
+        if o.step != st or not all(map(torch.equal, ps, m.parameters())) \
+                or not all(map(torch.equal, bs, m.buffers())) or \
+                any(read_launches().values()) or acc.abs().sum().item():
+            raise AssertionError("the gated step changed a slot")
+    say("[5] gated step: parameters, BatchNorm state and Adam counts "
+        f"unchanged bit for bit (Adam counts {[o.step for o in tr.opts]})")
+
+    # ms per slot-step (CUDA events) and the device's busy share.
+    acc = torch.zeros(len(tr.targets), 3, device="cuda")
+
+    def one_step():
+        tr.train_step(tr.epoch, 0, plan, acc)
+
+    step_ms = time_ms(one_step, reps=5, warmup=2) / len(tr.targets)
+    busy, top = device_ms(one_step)
+    busy_txt = "device time not measured (the profiler recorded none)"
+    if busy is not None:
+        busy /= len(tr.targets)
+        busy_txt = (f"device busy {busy:.2f} ms ({100 * busy / step_ms:.1f}%"
+                    "; profiler, 3 steps); largest per slot-step: "
+                    + ", ".join(f"{n} {ms / len(tr.targets):.3f}"
+                                for n, ms in top))
+    by_name = {k["name"]: k for k in kernels}
+    mlp_ms = by_name["fused_mlp_train"]["ms"] + \
+        by_name["fused_mlp_train_bwd"]["ms"]
+    say(f"[5] slot-step, batch {BATCH}: {step_ms:.2f} ms "
+        f"({1e3 * BATCH / step_ms:.1f} images/s per slot); {busy_txt}; "
+        f"fused_mlp_train forward + backward at the three stages "
+        f"{mlp_ms:.3f} ms = {100 * mlp_ms / step_ms:.1f}% of the slot-step")
+
+    # A stacked checkpoint loaded into a fresh trainer predicts the same.
+    rng = np.random.default_rng(SEED + 3)
+    vx = torch.from_numpy(rng.integers(0, 256, (BATCH, 128, 128, 1))
+                          .astype(np.float32) / 255).to("cuda")
+    vp = torch.from_numpy(rng.standard_normal((BATCH, 5))
+                          .astype(np.float32)).to("cuda")
+    ck = os.path.join(root, "ckpts")
+    tr.save(ck)
+    fresh = multi_trainer(data, corpus, root, seeds=(7, 8),
+                          mlp_impl="pallas")
+    if not fresh.load(ck) or fresh.epoch != tr.epoch or \
+            [o.step for o in fresh.opts] != [o.step for o in tr.opts] or \
+            not all(map(np.array_equal, slot_outputs(tr, vx, vp),
+                        slot_outputs(fresh, vx, vp))):
+        raise AssertionError("stacked checkpoint round trip changed the "
+                             "slots")
+    say(f"[5] stacked checkpoint saved and loaded into a fresh trainer: "
+        f"epoch {fresh.epoch}, Adam counts {[o.step for o in fresh.opts]}, "
+        "predictions equal")
+    del fresh
+
+    # The kernel path against the plain path: 3 steps at dropout 0.
+    spec0 = dataclasses.replace(CvTSpec(), stages=tuple(
+        dataclasses.replace(st, dropout_rate=0.0) for st in CvTSpec().stages))
+    losses, outs = {}, {}
+    for path, kw in (("kernel", dict(mlp_impl="pallas")),
+                     ("plain", dict(impl="plain", mlp_impl="xla"))):
+        t = multi_trainer(data, corpus, root, spec=spec0, **kw)
+        p0 = t.epoch_plan(0)
+        before = read_launches()
+        losses[path] = []
+        for s_ in range(TRAIN_STEPS):
+            acc = torch.zeros(len(t.targets), 3, device="cuda")
+            t.train_step(0, s_, p0, acc)
+            losses[path].append((acc[:, 0] / acc[:, 2]).tolist())
+        outs[path] = np.stack(slot_outputs(t, vx, vp))
+        if path == "plain" and read_launches() != before:
+            raise AssertionError("the plain multi-target path launched a "
+                                 "kernel")
+        del t
+    la, lp = np.asarray(losses["kernel"]), np.asarray(losses["plain"])
+    rel = np.abs(la - lp) / np.abs(lp)
+    diff = np.abs(outs["kernel"] - outs["plain"])
+    if (rel > MULTI_LOSS_TOL).any() or \
+            (diff > PATH_TOL * np.maximum(1.0, np.abs(outs["plain"]))).any():
+        raise AssertionError(f"multi-target kernel path vs plain path: "
+                             f"losses {la.tolist()} vs {lp.tolist()}, "
+                             f"outputs max |diff| {diff.max():.3e}")
+    say(f"[5] {TRAIN_STEPS} steps at dropout 0, kernel path vs plain path: "
+        f"losses per step and slot {la.tolist()} vs {lp.tolist()}, max rel "
+        f"diff {rel.max():.2e} (limit {MULTI_LOSS_TOL}); trained outputs max "
+        f"|diff| {diff.max():.3e} (limit {PATH_TOL} x max(1, |y|))")
+    return launches
+
+
 def main():
     phase_env()
     phase_build()
     kernels = phase_kernels()
-    eval_launches = phase_main_path()
-    train_launches = phase_training(kernels)
+    by_path = {"evaluation": phase_main_path(),
+               "single_target_training": phase_training(kernels),
+               "multi_target_training": phase_multi(kernels)}
     for k in kernels:
-        k["launches"] = train_launches[k["name"]]
-        k["launches_evaluation"] = eval_launches[k["name"]]
+        k["launches"] = by_path["multi_target_training"][k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -343,3 +343,29 @@ def test_bfloat16_compute_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TrainConfig(compute_dtype="bfloat16")
     assert TrainConfig().epochs == 1000 and TrainConfig().lr_decay == 0.8
+
+
+def test_attention_small_runs_under_torch_func_vmap_and_grad():
+    """torch.func.vmap over 3 slots, of the forward and of torch.func.grad
+    of a scalar loss, equals a Python loop over the slots (exactly: the
+    vmap rules fold the slot axis into the batch axis); an unmapped input
+    is broadcast."""
+    from torch.func import grad, vmap
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(3, 2, 17, 2, 64, generator=gen) for _ in range(3))
+    c = torch.randn(2, 17, 2, 64, generator=gen)
+    out = vmap(attention_small)(q, k, v)
+    assert torch.equal(out, torch.stack([attention_small(q[i], k[i], v[i])
+                                         for i in range(3)]))
+
+    def loss(a, b, d):
+        return (attention_small(a, b, d) * c).sum()
+
+    got = vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v)
+    want = [grad(loss, argnums=(0, 1, 2))(q[i], k[i], v[i])
+            for i in range(3)]
+    for j in range(3):
+        assert torch.equal(got[j], torch.stack([w[j] for w in want]))
+    one = vmap(attention_small, in_dims=(0, None, None))(q, k[0], v[0])
+    assert torch.equal(one[2], attention_small(q[2], k[0], v[0]))

@@ -1,13 +1,37 @@
-"""Model and training config: the port's own copy of the parts of
-transformer_stm_tpu/config.py that the port reads (``StageSpec``,
-``CvTSpec`` :36-90 and the single-target fields of ``TrainConfig``
-:143-169)."""
+"""Model, data, training and experiment config: the port's own copy of the
+parts of transformer_stm_tpu/config.py that the port reads (``FREQUENCIES``
+and ``PROCESS_PARAMETERS`` :18-33, ``StageSpec`` and ``CvTSpec`` :36-90,
+``DataConfig`` :125-139, the single-target fields of ``TrainConfig``
+:143-169 and ``ExperimentConfig`` :189-229).
+
+``DataConfig``'s default paths are relative (``reference/...``), where the
+JAX defaults are absolute; the mesh and the params-only FFN width are not
+ported, nor ``save_config``/``load_config`` (they come with the CLI)."""
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+# The 20 regression targets: 5 magnetic properties x 4 excitation
+# frequencies (reference: models/CvT(Par).py:22).
+FREQUENCIES: Tuple[str, ...] = tuple(
+    f"{hz}HZ_{prop}"
+    for hz in (50, 200, 400, 800)
+    for prop in ("Bm", "Hc", "μa", "Br", "Pcv")
+)
+
+# Process-parameter columns of Excel/Process_parameters.xlsx (reference:
+# models/CvT(Par).py:388): oxygen concentration, laser scan speed, laser
+# power, hatch spacing, energy density.
+PROCESS_PARAMETERS: Tuple[str, ...] = (
+    "氧濃度",
+    "雷射掃描速度",
+    "雷射功率",
+    "線間距",
+    "能量密度",
+)
 
 
 @dataclass(frozen=True)
@@ -82,3 +106,56 @@ class TrainConfig:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r} is not ported yet; "
                 "the port computes in float32")
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset ranges (reference: models/CvT(Par).py:30-42): 40 groups of
+    5 pieces, 200 layer images each, decoded to 128x128 gray; paths are
+    relative to the working directory."""
+
+    data_root: str = "reference/data"
+    excel_labels: str = "reference/Excel/Processed_Circle_test.xlsx"
+    excel_process: str = "reference/Excel/Process_parameters.xlsx"
+    group_start: int = 1
+    group_end: int = 40
+    piece_num_start: int = 1
+    piece_num_end: int = 5
+    image_layers: int = 200
+    image_height: int = 128
+    image_width: int = 128
+    cache_dir: str = "cache"  # decoded-image cache, shared across targets
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """Top-level config of an experiment: inputs, projection, cls token,
+    targets, model, data, training and the artifact root."""
+
+    inputs: str = "img+par"  # img | par | img+par
+    projection_method: str = "dw_bn"
+    cls_token: bool = True
+    frequencies: Tuple[str, ...] = FREQUENCIES
+    model: CvTSpec = field(default_factory=CvTSpec)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    result_dir: str = "Result"
+
+    @property
+    def variant_dir(self) -> str:
+        """Artifact sub-directory per input variant."""
+        return {
+            "img+par": "Images & Parameters",
+            "img": "Images",
+            "par": "Parameters",
+        }[self.inputs]
+
+    def weight_name(self, freq: str, time: Optional[int] = None) -> str:
+        """Checkpoint name, the reference's convention
+        cvt_model_weights_{freq}[_{time}]_{proj}_cls{bool}; "(many)"
+        repeat runs put the run index right after the target."""
+        suffix = f"_{time}" if time is not None else ""
+        if self.inputs == "par":
+            return f"Vit_model_weights_{freq}{suffix}"
+        return (f"cvt_model_weights_{freq}{suffix}_{self.projection_method}"
+                f"_cls{self.cls_token}")

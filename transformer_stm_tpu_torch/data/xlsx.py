@@ -1,11 +1,12 @@
 """Minimal dependency-free xlsx IO (stdlib zipfile + ElementTree).
 
 The port's own copy of transformer_stm_tpu/data/xlsx.py (``read_xlsx``
-:48, ``write_xlsx`` :203), so that the port imports nothing of the JAX
+:48, ``read_table`` :136, ``write_xlsx`` :203), so that the port imports nothing of the JAX
 package and needs no openpyxl:
 
 - ``read_xlsx(path)``  -> {sheet_name: list-of-rows}, numbers as float,
   shared strings and inline strings resolved, empty cells as None.
+- ``read_table(path)`` -> (columns, rows) of one sheet, like a dataframe.
 - ``write_xlsx(path, sheets)`` writes one or more sheets of rows (str /
   int / float / None), the Predictions_Metrics_{freq}.xlsx schema included.
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 import re
 import xml.etree.ElementTree as ET
 import zipfile
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 _NS = {"m": "http://schemas.openxmlformats.org/spreadsheetml/2006/main",
        "r": "http://schemas.openxmlformats.org/officeDocument/2006/relationships"}
@@ -126,6 +127,22 @@ def read_xlsx(path: str) -> Dict[str, List[List[Any]]]:
             sheets[name] = rows
         return sheets
 
+
+
+def read_table(path: str, sheet: Optional[str] = None,
+               header: bool = True):
+    """Read one sheet as (columns, rows) like a dataframe.  columns is None
+    when header=False."""
+    sheets = read_xlsx(path)
+    if sheet is None:
+        sheet = next(iter(sheets))
+    rows = sheets[sheet]
+    if not rows:
+        return ([], []) if header else (None, [])
+    if header:
+        cols = [str(c) if c is not None else "" for c in rows[0]]
+        return cols, rows[1:]
+    return None, rows
 
 # ---------------------------------------------------------------------------
 # Writer

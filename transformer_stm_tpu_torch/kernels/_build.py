@@ -43,6 +43,15 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # x, w1, b1, w2, b2, y, N, D, Hd, Dout, stream
     "launch_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, seed, y, N, D, Hd, Dout, keep threshold, keep
+    # scale, stream
+    "launch_fused_mlp_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, ctypes.c_uint32, ctypes.c_float, _P],
+    # x, dy, w1, b1, w2, seed, dx, dw1p, db1p, dw2p, db2p, N, D, Hd, Dout,
+    # rows per block, keep threshold, keep scale, stream
+    "launch_fused_mlp_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, ctypes.c_uint32,
+                                   ctypes.c_float, _P],
 }
 
 _lib = None

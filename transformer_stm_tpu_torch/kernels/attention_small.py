@@ -12,6 +12,9 @@ K/V where the TPU kernels held whole rows in VMEM.
 enabled and an input requires grad) it runs ``AttentionSmall``, whose
 forward also writes the per-row lse and saves q, k, v, o and lse for the
 backward kernels; otherwise it runs the lse-free forward and saves nothing.
+Each is an autograd Function in the ``setup_context`` form with a vmap rule
+that folds the mapped axis into the batch axis, so ``torch.func.vmap`` and
+``torch.func.grad`` run through the kernels.
 Tensors on the CPU take the plain versions below; tensors on a CUDA device
 launch the kernels, or raise.
 """
@@ -140,27 +143,98 @@ def attention_small_bwd(q, k, v, o, lse, g):
     return dq, dk, dv
 
 
+def _fold(info, in_dims, *tensors):
+    """A vmap rule's inputs with the mapped axis moved to the front (an
+    unmapped input is expanded) and folded into the batch axis, which every
+    kernel here treats row by row, so the fold is exact."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.expand(info.batch_size, *t.shape) if d is None else \
+            t.movedim(d, 0)
+        out.append(t.reshape(-1, *t.shape[2:]).contiguous())
+    return out
+
+
+def _unfold(n, tensors):
+    return tuple(t.reshape(n, -1, *t.shape[1:]) for t in tensors)
+
+
 class AttentionSmall(torch.autograd.Function):
-    """The forward kernel with lse; the backward kernel pair."""
+    """The forward kernel with lse; the backward through
+    ``AttentionSmallBwd``.  Both have a vmap rule, so ``torch.func.vmap``
+    and ``torch.func.grad`` batch them as ``jax.vmap`` batches the JAX
+    ``custom_vjp``."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = attention_small_fwd(q, k, v, with_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
-        return o
+    def forward(q, k, v):
+        return attention_small_fwd(q, k, v, with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, *output)
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return AttentionSmallBwd.apply(q, k, v, o, lse, g.contiguous())
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v):
+        o, lse = AttentionSmall.apply(*_fold(info, in_dims, q, k, v))
+        return _unfold(info.batch_size, (o, lse)), (0, 0)
+
+
+class AttentionSmallBwd(torch.autograd.Function):
+    """(dq, dk, dv) through the backward kernels, as a Function so that a
+    vmapped backward reaches the kernels with plain tensors."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, g):
+        return attention_small_bwd(q, k, v, o, lse, g)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("attention_small has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, *tensors):
+        grads = AttentionSmallBwd.apply(*_fold(info, in_dims, *tensors))
+        return _unfold(info.batch_size, grads), (0, 0, 0)
+
+
+class AttentionSmallEval(torch.autograd.Function):
+    """The lse-free forward kernel, outside autograd, with a vmap rule."""
+
+    @staticmethod
+    def forward(q, k, v):
+        return attention_small_fwd(q, k, v)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, o, lse = ctx.saved_tensors
-        return attention_small_bwd(q, k, v, o, lse, g.contiguous())
+        raise RuntimeError("AttentionSmallEval records no graph; attention_"
+                           "small runs AttentionSmall while autograd records")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v):
+        o = AttentionSmallEval.apply(*_fold(info, in_dims, q, k, v))
+        return _unfold(info.batch_size, (o,))[0], 0
 
 
 def attention_small(q, k, v):
     """q: (B, T, H, 64); k, v: (B, S, H, 64), float32 -> (B, T, H, 64)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        return AttentionSmall.apply(q, k, v)
-    return attention_small_fwd(q, k, v)[0]
+        return AttentionSmall.apply(q, k, v)[0]
+    return AttentionSmallEval.apply(q, k, v)
 
 
 # Kernel launches so far; a caller resets them to 0 to count a run.  The

@@ -1,27 +1,43 @@
-"""fused_mlp: GELU(x W1 + b1) W2 + b2 with the hidden activation on chip.
+"""The fused MLPs: GELU(x W1 + b1) W2 + b2 with the hidden activation on
+chip, for evaluation and, with dropout, for training.
 
-Port of the Pallas TPU kernel ``fused_mlp``
+``fused_mlp`` ports the Pallas TPU kernel ``fused_mlp``
 (transformer_stm_tpu/kernels/fused_mlp.py:62; body ``_mlp_kernel`` :52),
-the inference MLP of every CvT block.  The CUDA kernel is
-``csrc/fused_mlp.cu``.  The training kernels of that module
-(``make_fused_mlp_train`` :291) are not ported yet; training takes the
-plain MLP (``ops/blocks.py``), as the JAX single-target trainer does.
+the inference MLP of every CvT block; its CUDA kernel is
+``csrc/fused_mlp.cu``.  It has no backward: it raises while autograd
+records (grad enabled and an input requires grad) rather than return a
+result cut off from the graph.
 
-``fused_mlp`` has no backward: it raises while autograd records (grad
-enabled and an input requires grad) rather than return a result cut off
-from the graph.  Otherwise it takes the plain version for tensors on the
-CPU and launches the kernel for tensors on a CUDA device, or raises.
+``fused_mlp_train`` ports ``make_fused_mlp_train`` (:291), the training
+MLP y = Drop2(Drop1(GELU(x W1 + b1)) W2 + b2) with both masks drawn inside
+the kernels: the forward ``_mlp_train_fwd_kernel`` (:170) and the backward
+``_mlp_train_bwd_kernel`` (:189) are ``csrc/fused_mlp_train.cu``.  It is the
+autograd Function ``FusedMLPTrain``, which saves x, the weights and the
+seed, never the hidden activation; the backward recomputes it and writes
+per-block weight and bias partials that are summed here over the block
+axis.  A mask element is a pure function of the (2,) int32 seed and the
+element's global index (``dropout_mask``), so the masks do not depend on
+the block size and forward and backward agree; parity with JAX holds in
+distribution only, as for the TPU kernel, whose bits came from the TPU's
+own generator.
+
+Every wrapper takes the plain version for tensors on the CPU and launches
+its kernel for tensors on a CUDA device, or raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.common import dense, gelu
 from ._build import library
 
-WIDTHS = (64, 128, 256)  # the CvT stage widths the kernel is built for
+WIDTHS = (64, 128, 256)  # the CvT stage widths the kernels are built for
 HIDDEN_CHUNK = 64
+# Rows per block of the training backward, by width (csrc/fused_mlp_train.cu):
+# the weight and bias partials hold ceil(N / rows) blocks.
+TRAIN_BWD_ROWS = {64: 128, 128: 128, 256: 64}
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2):
@@ -30,22 +46,24 @@ def fused_mlp_plain(x, w1, b1, w2, b2):
     return dense(gelu(dense(x, w1, b1)), w2, b2)
 
 
-def _check(x, w1, b1, w2, b2):
-    tensors = (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2))
+def _check(x, w1, b1, w2, b2, what="fused_mlp", **more):
+    tensors = (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2),
+               *more.items())
     for name, t in tensors:
         if t.device != x.device or t.device.type != "cuda":
-            raise ValueError(f"fused_mlp: {name} must lie on the CUDA device "
+            raise ValueError(f"{what}: {name} must lie on the CUDA device "
                              f"of x, got {t.device} and {x.device}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"fused_mlp: {name} must be contiguous float32, "
+        want = torch.int32 if name == "seed" else torch.float32
+        if t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {want}, "
                              f"got {t.dtype}")
     d = x.shape[-1]
     hd = w1.shape[-1] if w1.dim() == 2 else -1
     if d not in WIDTHS:
-        raise ValueError(f"fused_mlp: width {d} not in {WIDTHS}")
+        raise ValueError(f"{what}: width {d} not in {WIDTHS}")
     if w1.shape != (d, hd) or hd % HIDDEN_CHUNK or b1.shape != (hd,) or \
             w2.shape != (hd, d) or b2.shape != (d,):
-        raise ValueError("fused_mlp: weight shapes do not match: x "
+        raise ValueError(f"{what}: weight shapes do not match: x "
                          f"{tuple(x.shape)} w1 {tuple(w1.shape)} b1 "
                          f"{tuple(b1.shape)} w2 {tuple(w2.shape)} b2 "
                          f"{tuple(b2.shape)}; the hidden width must be a "
@@ -78,3 +96,197 @@ def fused_mlp(x, w1, b1, w2, b2):
 
 # Kernel launches so far; a caller resets it to 0 to count a run.
 fused_mlp.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training MLP with in-kernel dropout
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+STREAM_HIDDEN, STREAM_OUT = 1, 2  # counter word 1 of m1 and of m2
+
+
+def keep_threshold(rate: float) -> int:
+    """A unit is kept iff its uint32 word is >= this, compared unsigned
+    (the formula of ``_keep_mask``, fused_mlp.py:155)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def keep_scale(rate: float) -> float:
+    """1 / (1 - rate) in float32, the multiplier of a kept unit."""
+    return float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) 32-bit words of a * m for int64 tensors a in [0, 2^32) and a
+    32-bit constant m, without leaving int64: m is split into 16-bit
+    halves so that no partial product passes 2^49."""
+    p1, p2 = a * (m & 0xFFFF), a * (m >> 16)
+    mid = p1 + ((p2 & 0xFFFF) << 16)
+    return (p2 >> 16) + (mid >> 32), mid & _M32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox-4x32-10 (Salmon et al., SC'11) on int64 tensors holding
+    32-bit words: the counter (c0, c1, c2, c3) under the key (k0, k1) ->
+    four words, as ``philox4x32_10`` of csrc/fused_mlp_train.cu."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _M32
+            k1 = (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_mask(seed, rows: int, width: int, stream: int, rate: float):
+    """The (rows, width) float32 multipliers, 0 or ``keep_scale(rate)``, of
+    one dropout mask, on the seed's device.  Element e = row * width + col
+    takes word e & 3 of Philox-4x32-10 keyed on the seed's two words at the
+    counter (lo32(e >> 2), stream, hi32(e >> 2), 0), and is kept iff that
+    word >= ``keep_threshold(rate)``.  width must be a multiple of 4."""
+    if rate == 0.0:
+        return torch.ones(rows, width, device=seed.device)
+    g = torch.arange(rows * width // 4, device=seed.device, dtype=torch.int64)
+    k = seed.to(torch.int64) & _M32
+    words = torch.stack(philox4x32_10(g & _M32, stream, g >> 32, 0,
+                                      k[0], k[1]), dim=-1)
+    keep = words.reshape(rows, width) >= keep_threshold(rate)
+    return keep.to(torch.float32) * keep_scale(rate)
+
+
+def _gelu_grad(a):
+    """d/da [a Phi(a)] = Phi(a) + a phi(a), exact erf form."""
+    return (0.5 * (1.0 + torch.special.erf(a * 0.7071067811865476))
+            + a * torch.exp(-0.5 * a * a) * 0.3989422804014327)
+
+
+def fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate: float):
+    """The forward kernel's arithmetic in PyTorch, with the same masks:
+    (GELU(x W1 + b1) m1) W2 + b2, times m2.  x: (..., D); seed: (2,)
+    int32."""
+    d, hd = w1.shape
+    n = x.numel() // d
+    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate).to(x.dtype)
+    m2 = dropout_mask(seed, n, w2.shape[1], STREAM_OUT, rate).to(x.dtype)
+    h = gelu(dense(x.reshape(n, d), w1, b1)) * m1
+    return (dense(h, w2, b2) * m2).reshape(*x.shape[:-1], w2.shape[1])
+
+
+def fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate: float, dy):
+    """The backward kernel's arithmetic in PyTorch: a, h and both masks
+    recomputed; g = dy m2, dh = (g W2^T) m1, da = dh GELU'(a);
+    -> (dx, dW1 = x^T da, db1 = sum da, dW2 = h^T g, db2 = sum g)."""
+    d, hd = w1.shape
+    n = x.numel() // d
+    xf = x.reshape(n, d)
+    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate).to(x.dtype)
+    m2 = dropout_mask(seed, n, w2.shape[1], STREAM_OUT, rate).to(x.dtype)
+    a = dense(xf, w1, b1)
+    h = gelu(a) * m1
+    g = dy.reshape(n, -1) * m2
+    da = (g @ w2.T) * m1 * _gelu_grad(a)
+    return ((da @ w1.T).reshape(x.shape), xf.T @ da, da.sum(0), h.T @ g,
+            g.sum(0))
+
+
+def _train_check(x, w1, b1, w2, b2, seed, **more):
+    _check(x, w1, b1, w2, b2, "fused_mlp_train", seed=seed, **more)
+    if seed.shape != (2,):
+        raise ValueError(f"fused_mlp_train: seed must have shape (2,), got "
+                         f"{tuple(seed.shape)}")
+
+
+def _on_cpu(*tensors):
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
+    """y (..., D) outside autograd: the plain version on the CPU, else the
+    forward kernel."""
+    if _on_cpu(x, w1, b1, w2, b2, seed):
+        return fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate)
+    _train_check(x, w1, b1, w2, b2, seed)
+    d, hd = w1.shape
+    y = torch.empty_like(x)
+    rc = library().launch_fused_mlp_train_fwd(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), seed.data_ptr(), y.data_ptr(), x.numel() // d, d, hd,
+        d, keep_threshold(rate), keep_scale(rate),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"launch_fused_mlp_train_fwd failed: CUDA error "
+                           f"{rc}")
+    fused_mlp_train.launches += 1
+    return y
+
+
+def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
+    """(dx, dW1, db1, dW2, db2) for the output gradient dy (contiguous):
+    the plain version on the CPU, else the backward kernel, whose per-block
+    partials are summed here over the block axis in a fixed order (the JAX
+    package sums its partials outside the kernel too, :437-441)."""
+    if _on_cpu(x, w1, b1, w2, b2, seed, dy):
+        return fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate, dy)
+    _train_check(x, w1, b1, w2, b2, seed, dy=dy)
+    if dy.shape != x.shape:
+        raise ValueError(f"fused_mlp_train_bwd: dy {tuple(dy.shape)} does "
+                         f"not match x {tuple(x.shape)}")
+    d, hd = w1.shape
+    n = x.numel() // d
+    rows = TRAIN_BWD_ROWS[d]
+    nb = -(-n // rows)
+    dx = torch.empty_like(x)
+    dw1p = x.new_empty((nb, d, hd))
+    db1p = x.new_empty((nb, hd))
+    dw2p = x.new_empty((nb, hd, d))
+    db2p = x.new_empty((nb, d))
+    rc = library().launch_fused_mlp_train_bwd(
+        x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), seed.data_ptr(), dx.data_ptr(), dw1p.data_ptr(),
+        db1p.data_ptr(), dw2p.data_ptr(), db2p.data_ptr(), n, d, hd, d, rows,
+        keep_threshold(rate), keep_scale(rate),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"launch_fused_mlp_train_bwd failed: CUDA error "
+                           f"{rc}")
+    fused_mlp_train_bwd.launches += 1
+    return dx, dw1p.sum(0), db1p.sum(0), dw2p.sum(0), db2p.sum(0)
+
+
+class FusedMLPTrain(torch.autograd.Function):
+    """The training MLP: the forward kernel, and the backward kernel from
+    the saved x, weights and seed (the hidden activation is recomputed)."""
+
+    @staticmethod
+    def forward(x, w1, b1, w2, b2, seed, rate):
+        return fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        *tensors, rate = inputs
+        ctx.save_for_backward(*tensors)
+        ctx.rate = rate
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2, b2, seed = ctx.saved_tensors
+        grads = fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, ctx.rate,
+                                    dy.contiguous())
+        return (*grads, None, None)
+
+
+def fused_mlp_train(x, w1, b1, w2, b2, seed, rate: float):
+    """x: (..., D) float32, D in WIDTHS; w1 (D, Hd); w2 (Hd, D); seed (2,)
+    int32 on x's device (0 <= rate < 1) -> (..., D), differentiable in x and
+    the weights."""
+    return FusedMLPTrain.apply(x, w1, b1, w2, b2, seed, rate)
+
+
+# Kernel launches so far; a caller resets them to 0 to count a run.  The
+# backward counts each call of its kernel.
+fused_mlp_train.launches = 0
+fused_mlp_train_bwd.launches = 0

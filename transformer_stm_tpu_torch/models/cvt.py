@@ -71,18 +71,30 @@ def init_cvt(spec: CvTSpec, generator: torch.Generator,
 
 
 def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
-                generator=None, impl: str = "auto"):
+                generator=None, impl: str = "auto", mlp_impl=None,
+                remat: bool = False):
     """images: (B, H, W, C) float; proc: (B, proc_dim) or None ->
     (B, num_classes).  ``train=True`` normalises the dw_bn projections with
     batch statistics (updating the moving ones) and applies each stage's
-    dropout, drawn from ``generator`` on the images' device."""
+    dropout, drawn from ``generator`` on the images' device;
+    ``mlp_impl="pallas"`` trains the MLPs through the fused training kernel
+    (``ops/blocks.mlp``).
+
+    ``remat`` is accepted and changes nothing.  JAX rematerialises each
+    block (``jax.checkpoint``, models/cvt.py:107-108) to fit many slots'
+    activations in TPU memory; ``torch.utils.checkpoint`` would re-run the
+    block in the backward, updating the BatchNorm moving statistics in place
+    a second time and drawing new dropout from the generator, which changes
+    the numbers.  One card holds the activations of a slot-step."""
+    del remat
     spec = model.spec
     x = images
     cls_tokens = None
     for stage in model.stages:
         x = stage.embed(x)
         for block in stage.blocks:
-            x, cls = block(x, impl=impl, train=train, generator=generator)
+            x, cls = block(x, impl=impl, train=train, generator=generator,
+                           mlp_impl=mlp_impl)
             if cls is not None:
                 cls_tokens = cls
     if cls_tokens is not None:

@@ -13,6 +13,17 @@ with dots, so the mapping is a rename:
     model = from_jax_params(params, state, spec, device="cuda")
     params, state = to_jax_params(model)
     save_checkpoint(ckpt_dir, model, adam_state, step)
+
+The multi-target trainer's checkpoints are stacked (train/multi.py:395-420
+of the JAX package): every ``p/``, ``s/`` and ``o/`` leaf carries a leading
+slot axis T and ``o/step`` is (T,), one Adam count per slot.
+``save_stacked_checkpoint`` writes one from per-slot models, and
+``take_slot`` cuts slot i out of ``load_checkpoint``'s trees:
+
+    save_stacked_checkpoint(ckpt_dir, models, opts, step, metadata)
+    params, state, opt, step = load_checkpoint(path)
+    load_into(model_i, take_slot(params, i), take_slot(state, i))
+    opt_i = adam_from_jax(take_slot(opt, i), model_i, device)
 """
 
 from __future__ import annotations
@@ -20,7 +31,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,12 +77,8 @@ def _unflatten(flat: Dict[str, np.ndarray]):
     return listify(root)
 
 
-def save_checkpoint(ckpt_dir: str, model, opt: Optional[AdamState],
-                    step: int, metadata: Optional[Dict] = None) -> str:
-    """Writes ckpt_dir/ckpt_{step:06d}.npz and its .json as the JAX
-    package does (checkpoint.py:62-81): the npz through a temporary file
-    and an atomic replace, then {"step", "has_opt", **metadata}."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def _leaves(model, opt: Optional[AdamState]) -> Dict[str, np.ndarray]:
+    """The checkpoint leaves of one model and its Adam state."""
     params, state = to_jax_params(model)
     flat = {"p/" + k: v for k, v in _flatten(params).items()}
     flat.update({"s/" + k: v for k, v in _flatten(state).items()})
@@ -81,16 +88,54 @@ def save_checkpoint(ckpt_dir: str, model, opt: Optional[AdamState],
             for k, t in moments.items():
                 flat[f"o/{name}/" + k.replace(".", "/")] = \
                     t.detach().cpu().numpy()
+    return flat
+
+
+def _write(ckpt_dir: str, flat, step: int, has_opt: bool,
+           metadata: Optional[Dict]) -> str:
+    """ckpt_dir/ckpt_{step:06d}.npz through a temporary file and an atomic
+    replace, then its .json {"step", "has_opt", **metadata}
+    (checkpoint.py:62-81)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"ckpt_{step:06d}")
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     with os.fdopen(fd, "wb") as f:
         np.savez(f, **flat)
     os.replace(tmp, path + ".npz")
-    meta = {"step": step, "has_opt": opt is not None}
+    meta = {"step": step, "has_opt": has_opt}
     meta.update(metadata or {})
     with open(path + ".json", "w") as f:
         json.dump(meta, f)
     return path + ".npz"
+
+
+def save_checkpoint(ckpt_dir: str, model, opt: Optional[AdamState],
+                    step: int, metadata: Optional[Dict] = None) -> str:
+    """Writes ckpt_dir/ckpt_{step:06d}.npz and its .json as the JAX
+    package does."""
+    return _write(ckpt_dir, _leaves(model, opt), step, opt is not None,
+                  metadata)
+
+
+def save_stacked_checkpoint(ckpt_dir: str, models: Sequence,
+                            opts: Optional[Sequence[AdamState]], step: int,
+                            metadata: Optional[Dict] = None) -> str:
+    """One checkpoint of T slots: each leaf of the per-slot models (and
+    Adam states) stacked along a new leading axis, ``o/step`` (T,) int32."""
+    flats = [_leaves(m, o) for m, o in
+             zip(models, opts if opts is not None else [None] * len(models))]
+    flat = {k: np.stack([f[k] for f in flats]) for k in flats[0]}
+    return _write(ckpt_dir, flat, step, opts is not None, metadata)
+
+
+def take_slot(tree, i: int):
+    """Slot i of a stacked tree (``load_checkpoint``'s params, state or
+    opt of a stacked checkpoint): every leaf indexed on its leading axis."""
+    if isinstance(tree, dict):
+        return {k: take_slot(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [take_slot(v, i) for v in tree]
+    return np.asarray(tree)[i]
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

@@ -59,12 +59,13 @@ def _masked_mse_mae(pred, y, mask):
     return se / n, ae / n, se, ae
 
 
-def make_train_step(cfg: TrainConfig, impl: str = "auto"):
+def make_train_step(cfg: TrainConfig, impl: str = "auto", mlp_impl=None):
     """Returns step(model, opt, batch, generator, lr) -> metrics, which
     updates the model's parameters, BatchNorm statistics and ``opt`` in
     place.  batch = (images float, proc or None, labels, mask); metrics
     holds device scalars loss, mae, se, ae, n.  ``generator`` draws the
-    dropout (it may be None when every rate is 0)."""
+    dropout (it may be None when every rate is 0); ``mlp_impl="pallas"``
+    trains the MLPs through the fused training kernel."""
 
     def step(model: CvT, opt: AdamState, batch, generator, lr: float):
         images, proc, labels, mask = batch
@@ -72,7 +73,8 @@ def make_train_step(cfg: TrainConfig, impl: str = "auto"):
         params = list(model.parameters())
         with torch.enable_grad():
             out = cvt_forward(model, images, proc, train=True,
-                              generator=generator, impl=impl)
+                              generator=generator, impl=impl,
+                              mlp_impl=mlp_impl)
             loss, mae_v, se, ae = _masked_mse_mae(out, labels, mask)
             grads = torch.autograd.grad(loss, params)
         adam_update(grads, opt, params, lr, weight_decay=cfg.weight_decay)

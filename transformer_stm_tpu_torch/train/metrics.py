@@ -81,7 +81,9 @@ def write_predictions_metrics(path: str, freq: str, y_pred, y_true,
 
 
 def read_predictions_metrics(path: str) -> Dict:
-    """Parses a Predictions_Metrics xlsx back into arrays and the summary."""
+    """Parses a Predictions_Metrics xlsx back into arrays and the summary;
+    rows whose Predictions or Actual cell is empty are dropped, as the JAX
+    reader drops them (train/metrics.py:100-103)."""
     sheets = read_xlsx(path)
     name = next(iter(sheets))
     header, data = sheets[name][0], sheets[name][1:]
@@ -89,8 +91,10 @@ def read_predictions_metrics(path: str) -> Dict:
     first = data[0]
     return {
         "sheet": name, "header": header,
-        "predictions": np.array([r[col["Predictions"]] for r in data]),
-        "actual": np.array([r[col["Actual"]] for r in data]),
+        "predictions": np.array([r[col["Predictions"]] for r in data
+                                 if r[col["Predictions"]] is not None]),
+        "actual": np.array([r[col["Actual"]] for r in data
+                            if r[col["Actual"]] is not None]),
         "train_num": first[col["Train mounts"]],
         "test_num": first[col["Test mounts"]],
         "r2": first[col["R2 Score"]],
