@@ -17,8 +17,16 @@ Phases, each printed as it finishes:
    fused_mlp_train forward and backward at rates 0.1 and 0 (against
    fused_mlp_train_plain, which draws the same masks; the keep share of
    both masks; two backward calls bit-equal; addmm+gelu+dropout+addmm+
-   dropout and its autograd backward as the yardstick); and attention_small
+   dropout and its autograd backward as the yardstick); attention_small
    under torch.func.vmap and grad over 2 slots, bit-equal to a loop;
+   flash_attention forward (with and without lse) and backward at T 300,
+   S 257 for Dh 16, 33, 64, 128 and 256 and at the 512px stage-1 shape
+   (B 8, S 16,384, H 1, Dh 64; float64 on 2 images), within 1e-5 of the
+   largest entry of the plain version and of float64, two backward calls
+   bit-equal, and timed at the main path's B 128 beside its plain version
+   and SDPA (memory-efficient backend) and its backward; attention_small at
+   the 512px stages 2 and 3 (S 4,096 H 2; S 1,025 H 4) the same way, timed
+   at B 8 beside plain and SDPA and at B 128 beside SDPA;
 3. evaluation path: the full-width dw_bn/cls CvT (random weights from a
    seed, round-tripped through the JAX checkpoint layout) evaluates 512
    synthetic 128x128 images with process parameters through
@@ -39,13 +47,25 @@ Phases, each printed as it finishes:
    is gated, 2 epochs with validation, with exact launch counts; the gated
    step leaves every slot bit for bit as it was; ms per slot-step and the
    device's busy share; a stacked checkpoint round trip predicts the same;
-   3 steps at dropout 0 through the kernels and through plain PyTorch agree.
+   3 steps at dropout 0 through the kernels and through plain PyTorch agree;
+6. the command line at 512px: a synthetic corpus of 2 groups x 5 pieces x
+   32 layers of 512x512 images written into the decode cache, label and
+   process sheets, and a config JSON with ``cvt_highres_spec(512)``, batch
+   128, 2 epochs and a checkpoint every epoch; ``cli.main(["train", ...])``
+   and ``cli.main(["test", ...])`` with exact launch counts, the records and
+   metrics sheets read back, and a second ``train --epochs 3`` that resumes
+   from the epoch-2 checkpoint; ms per training step and per evaluation
+   batch of 128 at 512px with the device's busy share and peak memory; the
+   kernel path against the plain path on 4 images (outputs, and losses over
+   2 training steps at dropout 0).
 
 Any failure raises and the exit code is non-zero.  The line before the last
-is a JSON object with each kernel's numbers (``launches`` from phase 5,
-``launches_by_path`` from phases 3, 4 and 5); the last line is
+is a JSON object with each kernel's numbers (``launches`` from phase 6, or
+phase 5 for the training MLP, which only the multi-target trainer runs;
+``launches_by_path`` from phases 3 to 6); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing is read from or written to the
-repository except the kernels' build directory.
+repository except the kernels' build directory; phase 6 works in a
+temporary directory.
 """
 
 import sys
@@ -67,15 +87,22 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from transformer_stm_tpu_torch import cli  # noqa: E402
 from transformer_stm_tpu_torch.config import (  # noqa: E402
-    PROCESS_PARAMETERS, CvTSpec, DataConfig, ExperimentConfig, TrainConfig)
+    PROCESS_PARAMETERS, CvTSpec, DataConfig, ExperimentConfig, TrainConfig,
+    cvt_highres_spec, save_config)
+from transformer_stm_tpu_torch.data.images import _cache_paths  # noqa: E402
 from transformer_stm_tpu_torch.data.xlsx import write_xlsx  # noqa: E402
 from transformer_stm_tpu_torch.kernels import _build  # noqa: E402
 from transformer_stm_tpu_torch.kernels.attention_small import (  # noqa: E402
     attention_small, attention_small_bwd, attention_small_bwd_plain,
     attention_small_fwd, attention_small_plain)
+from transformer_stm_tpu_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_plain)
 from transformer_stm_tpu_torch.kernels.fused_mlp import (  # noqa: E402
     STREAM_HIDDEN, STREAM_OUT, TRAIN_BWD_ROWS, dropout_mask, fused_mlp,
     fused_mlp_plain, fused_mlp_train, fused_mlp_train_bwd,
@@ -84,7 +111,8 @@ from transformer_stm_tpu_torch.models.cvt import (  # noqa: E402
     cvt_forward, cvt_param_count, init_cvt)
 from transformer_stm_tpu_torch.ops.common import use_true_f32  # noqa: E402
 from transformer_stm_tpu_torch.train.checkpoint import (  # noqa: E402
-    from_jax_params, save_checkpoint, to_jax_params)
+    from_jax_params, latest_checkpoint, load_checkpoint, save_checkpoint,
+    to_jax_params)
 from transformer_stm_tpu_torch.train.loop import (  # noqa: E402
     TrainLoop, make_train_step)
 from transformer_stm_tpu_torch.train.optimizer import adam_init  # noqa: E402
@@ -116,6 +144,19 @@ EPOCHS = 2        # of N_IMAGES training images in batches of BATCH
 MULTI_TARGETS = ("50HZ_Bm", "50HZ_Hc")  # phase 5's slots
 MULTI_GROUPS, MULTI_LAYERS, MULTI_EPOCHS = 2, 64, 2
 MULTI_LOSS_TOL = 1e-4  # per-step losses, kernel path vs plain path
+# The 512px CvT (cvt_highres_spec(512)): stage 1 (B, S = T, H) goes to
+# flash_attention, stages 2 and 3 to attention_small; Dh 64 everywhere.
+FLASH_SHAPE = (BATCH, 16384, 1)
+SMALL_512_SHAPES = [("stage2", BATCH, 4096, 2), ("stage3", BATCH, 1025, 4)]
+CHECK_BATCH = 8       # kernel against plain at the 512px shapes
+CHECK_BATCH_F64 = 2   # and against float64
+ODD_SHAPE = (2, 300, 257, 2)  # B, T, S, H: ragged tiles on both sides
+ODD_DH = (16, 33, 64, 128, 256)
+FLASH_TOL = 1e-5  # max |kernel - ref| <= FLASH_TOL * max |ref|
+CLI_TARGET = "50HZ_Bm"
+CLI_GROUPS, CLI_LAYERS = 2, 32  # 256 train and 64 validation images
+CLI_EPOCHS = 2
+PATH_IMAGES = 4   # kernel path against plain path at 512px
 
 
 def say(msg):
@@ -174,7 +215,7 @@ def bound(flops, nbytes):
 
 
 KERNELS = (attention_small, attention_small_bwd, fused_mlp, fused_mlp_train,
-           fused_mlp_train_bwd)
+           fused_mlp_train_bwd, flash_attention, flash_attention_bwd)
 
 
 def reset_launches():
@@ -187,7 +228,7 @@ def read_launches():
 
 
 def phase_env():
-    faulthandler.dump_traceback_later(600, exit=True)
+    faulthandler.dump_traceback_later(1100, exit=True)
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; "
                            "torch.cuda.is_available() is False")
@@ -384,6 +425,8 @@ def phase_kernels():
         library_ms=sum(r["library_ms"] for r in rows), shapes=rows))
     results += phase_mlp_train(dev, gen)
     phase_vmap(dev, gen)
+    results += phase_flash(dev, gen)
+    phase_small_512(dev, gen, results)
     return results
 
 
@@ -537,6 +580,231 @@ def phase_vmap(dev, gen):
         f"forward and of grad, B{b} S{s} H{h}: bit-equal to a loop")
 
 
+def rel_err(got, ref):
+    """max |got - ref| over max |ref|, in float64."""
+    return ((got.double() - ref.double()).abs().max() /
+            ref.double().abs().max()).item()
+
+
+def check_rel(what, got, ref, tol=FLASH_TOL):
+    e = rel_err(got, ref)
+    if not torch.isfinite(got).all() or e > tol:
+        raise AssertionError(f"{what}: max |err| / max |ref| {e:.3e} over "
+                             f"{tol}")
+    return e
+
+
+def sdpa(q, k, v):
+    """One PyTorch call of the same function: scaled_dot_product_attention
+    on its memory-efficient backend, the one that takes f32 at these
+    lengths (it fails here rather than fall back to a backend that would
+    hold the (T, S) scores)."""
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+
+def attn_inputs(gen, b, t, s, h, dh, dev="cuda"):
+    return [torch.randn(b, n, h, dh, device=dev, generator=gen)
+            for n in (t, s, s, t)]
+
+
+def flash_checks(what, q, k, v, g, f64_batch):
+    """flash_attention forward with and without lse and backward against
+    the plain versions in f32 and, on the first f64_batch images, in
+    float64; two backward calls bit-equal.  Returns (forward error, backward
+    error) relative to the largest entry, the worst of f32 and f64."""
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    o_inf, none = flash_attention_fwd(q, k, v)
+    d = flash_attention_bwd(q, k, v, o, lse, g)
+    if none is not None or not all(
+            map(torch.equal, d, flash_attention_bwd(q, k, v, o, lse, g))):
+        raise AssertionError(f"flash_attention_bwd {what}: two calls on the "
+                             "same inputs differ")
+    po, plse = flash_attention_plain(q, k, v, with_lse=True)
+    pd = flash_attention_bwd_plain(q, k, v, o, lse, g)
+    efwd = max(check_rel(f"flash_attention {what} o", o, po),
+               check_rel(f"flash_attention {what} o without lse", o_inf, po),
+               check_rel(f"flash_attention {what} lse", lse, plse))
+    ebwd = max(check_rel(f"flash_attention_bwd {what} {n}", x, y)
+               for n, x, y in zip(("dq", "dk", "dv"), d, pd))
+    del po, plse, pd
+    n = f64_batch
+    q64, k64, v64, g64 = (x[:n].double() for x in (q, k, v, g))
+    po, plse = flash_attention_plain(q64, k64, v64, with_lse=True)
+    pd = flash_attention_bwd_plain(q64, k64, v64, po, plse, g64)
+    efwd = max(efwd, check_rel(f"flash_attention {what} o (f64)", o[:n], po),
+               check_rel(f"flash_attention {what} lse (f64)", lse[:n], plse))
+    ebwd = max(ebwd, *(check_rel(f"flash_attention_bwd {what} {nm} (f64)",
+                                 x[:n], y)
+                       for nm, x, y in zip(("dq", "dk", "dv"), d, pd)))
+    return efwd, ebwd
+
+
+def attn_bounds(b, t, s, h, dh):
+    """(forward, backward) least times: 4 and 10 units of B*H*T*S*Dh flops;
+    q, k, v, o (and lse) read or written once forward, q, k, v, o, dO, lse
+    read and dq, dk, dv written backward."""
+    fwd = bound(4.0 * b * h * t * s * dh,
+                4.0 * (2 * b * t * h * dh + 2 * b * s * h * dh + b * h * t))
+    bwd = bound(10.0 * b * h * t * s * dh,
+                4.0 * (6 * b * t * h * dh + 3 * b * s * h * dh + b * h * t))
+    return fwd, bwd
+
+
+def lib_bwd(q, k, v, g):
+    """A closure that times SDPA's backward on a graph built once."""
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = sdpa(*leaves)
+    gt = g.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True)
+
+
+def phase_flash(dev, gen):
+    """flash_attention at odd shapes for every chunk count of Dh, at the
+    512px stage-1 shape against plain (batch CHECK_BATCH, float64 on
+    CHECK_BATCH_F64 images), and alone at the main path's batch with its
+    plain version and SDPA timed on the same inputs."""
+    worst_f = worst_b = 0.0
+    for dh in ODD_DH:
+        b, t, s, h = ODD_SHAPE
+        ef, eb = flash_checks(f"B{b} T{t} S{s} H{h} Dh{dh}",
+                              *attn_inputs(gen, b, t, s, h, dh), f64_batch=b)
+        worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
+        say(f"[2] flash_attention B{b} T{t} S{s} H{h} Dh{dh}: forward (with "
+            f"and without lse) max|err|/max|ref| {ef:.2e}, backward {eb:.2e} "
+            "(f32 and f64; two backward calls bit-equal)")
+    _, s, h = FLASH_SHAPE
+    ef, eb = flash_checks(f"B{CHECK_BATCH} S{s} H{h} Dh64",
+                          *attn_inputs(gen, CHECK_BATCH, s, s, h, 64),
+                          f64_batch=CHECK_BATCH_F64)
+    worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
+    say(f"[2] flash_attention B{CHECK_BATCH} S{s} H{h} Dh64: forward max|err|"
+        f"/max|ref| {ef:.2e}, backward {eb:.2e} (f32; f64 on "
+        f"{CHECK_BATCH_F64} images)")
+
+    b = FLASH_SHAPE[0]
+    q, k, v, g = attn_inputs(gen, b, s, s, h, 64)
+    o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    ms_inf = time_ms(lambda: flash_attention(q, k, v))
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, with_lse=True))
+    plain = time_ms(lambda: flash_attention_plain(q, k, v, with_lse=True),
+                    reps=3, warmup=1)
+    lib = time_ms(lambda: sdpa(q, k, v))
+    bms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, g))
+    bplain = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, g),
+                     reps=3, warmup=1)
+    blib = time_ms(lib_bwd(q, k, v, g))
+    (f_ms, f_by), (b_ms, b_by) = attn_bounds(b, s, s, h, 64)
+    say(f"[2] flash_attention B{b} S{s} H{h} Dh64 (the main path's shape): "
+        f"forward {ms_inf:.2f} ms, with lse {ms:.2f} ms  plain {plain:.2f} "
+        f"ms  sdpa {lib:.2f} ms  bound {f_ms:.2f} ms ({f_by});  backward "
+        f"{bms:.2f} ms  plain {bplain:.2f} ms  sdpa backward {blib:.2f} ms  "
+        f"bound {b_ms:.2f} ms ({b_by})")
+    del q, k, v, g, o, lse
+    shape = [b, s, s, h, 64]
+    common = dict(route="cuda",
+                  replaces="transformer_stm_tpu/kernels/flash_attention.py:48",
+                  source="transformer_stm_tpu_torch/csrc/flash_attention.cu")
+    return [
+        dict(name="flash_attention", **common, max_abs_err=worst_f,
+             err_is="max |err| / max |ref|, f32 and f64", ms=ms,
+             ms_inference=ms_inf, plain_ms=plain, library_ms=lib,
+             bound_ms=f_ms, bound_by=f_by, shape=shape),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="transformer_stm_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="transformer_stm_tpu/kernels/flash_attention.py:185",
+             also_replaces=[f"transformer_stm_tpu/kernels/flash_attention.py:"
+                            f"{n}" for n in (221, 388, 429)],
+             max_abs_err=worst_b,
+             err_is="max |err| / max |ref|, f32 and f64", ms=bms,
+             plain_ms=bplain, library_ms=blib, bound_ms=b_ms, bound_by=b_by,
+             shape=shape)]
+
+
+def phase_small_512(dev, gen, results):
+    """attention_small forward (with and without lse) and backward at the
+    512px stages 2 and 3, against plain at CHECK_BATCH images (float64 on
+    CHECK_BATCH_F64), the kernel, plain and SDPA timed there, and the
+    kernel alone at the main path's batch.  The rows join the kernels'
+    ``shapes``."""
+    by_name = {r["name"]: r for r in results}
+    for stage, b, s, h in SMALL_512_SHAPES:
+        q, k, v, g = attn_inputs(gen, CHECK_BATCH, s, s, h, 64)
+        o, lse = attention_small_fwd(q, k, v, with_lse=True)
+        o_inf = attention_small(q, k, v)
+        d = attention_small_bwd(q, k, v, o, lse, g)
+        if not all(map(torch.equal, d,
+                       attention_small_bwd(q, k, v, o, lse, g))):
+            raise AssertionError(f"attention_small_bwd 512px {stage}: two "
+                                 "calls on the same inputs differ")
+        po, plse = attention_small_plain(q, k, v, with_lse=True)
+        pd = attention_small_bwd_plain(q, k, v, o, lse, g)
+        n = CHECK_BATCH_F64
+        q64, k64, v64, g64 = (x[:n].double() for x in (q, k, v, g))
+        po64, plse64 = attention_small_plain(q64, k64, v64, with_lse=True)
+        pd64 = attention_small_bwd_plain(q64, k64, v64, po64, plse64, g64)
+        what = f"attention_small 512px {stage} B{CHECK_BATCH} S{s} H{h}"
+        ef = max(check_rel(f"{what} o", o, po),
+                 check_rel(f"{what} o without lse", o_inf, po),
+                 check_rel(f"{what} lse", lse, plse),
+                 check_rel(f"{what} o (f64)", o[:n], po64),
+                 check_rel(f"{what} lse (f64)", lse[:n], plse64))
+        eb = max(*(check_rel(f"{what} backward {nm}", x, y)
+                   for nm, x, y in zip("qkv", d, pd)),
+                 *(check_rel(f"{what} backward {nm} (f64)", x[:n], y)
+                   for nm, x, y in zip("qkv", d, pd64)))
+        del po, plse, pd, po64, plse64, pd64, q64, k64, v64, g64
+        rows = {}
+        for tag, bb in (("check", CHECK_BATCH), ("main", b)):
+            if bb != CHECK_BATCH:
+                q, k, v, g = attn_inputs(gen, bb, s, s, h, 64)
+                o, lse = attention_small_fwd(q, k, v, with_lse=True)
+            (f_ms, f_by), (b_ms, b_by) = attn_bounds(bb, s, s, h, 64)
+            r = dict(ms=time_ms(lambda: attention_small_fwd(
+                         q, k, v, with_lse=True)),
+                     ms_inference=time_ms(lambda: attention_small(q, k, v)),
+                     library_ms=time_ms(lambda: sdpa(q, k, v)),
+                     bound_ms=f_ms, bound_by=f_by,
+                     bwd_ms=time_ms(lambda: attention_small_bwd(
+                         q, k, v, o, lse, g)),
+                     bwd_library_ms=time_ms(lib_bwd(q, k, v, g)),
+                     bwd_bound_ms=b_ms, bwd_bound_by=b_by)
+            if tag == "check":  # the plain versions hold (T, S) scores
+                r["plain_ms"] = time_ms(lambda: attention_small_plain(
+                    q, k, v, with_lse=True))
+                r["bwd_plain_ms"] = time_ms(lambda: attention_small_bwd_plain(
+                    q, k, v, o, lse, g))
+            rows[bb] = r
+        del q, k, v, g, o, lse
+        for name, key, err in (("attention_small", "", ef),
+                               ("attention_small_bwd", "bwd_", eb)):
+            for bb, r in rows.items():
+                row = dict(stage=f"512px {stage}", shape=[bb, s, h, 64],
+                           ms=r[key + "ms"],
+                           plain_ms=r.get(key + "plain_ms"),
+                           library_ms=r[key + "library_ms"],
+                           bound_ms=r[key + "bound_ms"],
+                           bound_by=r[key + "bound_by"],
+                           max_rel_err=err)
+                if not key:
+                    row["ms_inference"] = r["ms_inference"]
+                by_name[name]["shapes"].append(row)
+        c, m = rows[CHECK_BATCH], rows[b]
+        say(f"[2] attention_small 512px {stage} S{s} H{h}: forward max|err|/"
+            f"max|ref| {ef:.2e}, backward {eb:.2e} (B{CHECK_BATCH} f32, "
+            f"B{CHECK_BATCH_F64} f64; two backward calls bit-equal); "
+            f"B{CHECK_BATCH}: forward {c['ms_inference']:.3f} ms, with lse "
+            f"{c['ms']:.3f}  plain {c['plain_ms']:.3f}  sdpa "
+            f"{c['library_ms']:.3f}  bound {c['bound_ms']:.3f}; backward "
+            f"{c['bwd_ms']:.3f}  plain {c['bwd_plain_ms']:.3f}  sdpa "
+            f"{c['bwd_library_ms']:.3f}  bound {c['bwd_bound_ms']:.3f}; "
+            f"B{b}: forward {m['ms_inference']:.2f} ms, with lse "
+            f"{m['ms']:.2f}  sdpa {m['library_ms']:.2f}  bound "
+            f"{m['bound_ms']:.2f}; backward {m['bwd_ms']:.2f}  sdpa "
+            f"{m['bwd_library_ms']:.2f}  bound {m['bwd_bound_ms']:.2f}")
+
+
 def phase_main_path():
     spec = CvTSpec()  # flagship: dw_bn projections, cls token in stage 3
     model = init_cvt(spec, generator=torch.Generator().manual_seed(SEED),
@@ -564,7 +832,8 @@ def phase_main_path():
     say(f"[3] launches over {n_batches} batches: {launches}")
     want = {"attention_small": n_batches, "attention_small_bwd": 0,
             "fused_mlp": 3 * n_batches, "fused_mlp_train": 0,
-            "fused_mlp_train_bwd": 0}
+            "fused_mlp_train_bwd": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"evaluation path launches {launches}, want "
                              f"{want}")
@@ -637,7 +906,8 @@ def phase_training(kernels):
             f"{r[3]:.4f} val_mae {r[4]:.4f} lr {r[5]:.2e}")
     want = {"attention_small": steps + EPOCHS, "attention_small_bwd": steps,
             "fused_mlp": 3 * EPOCHS, "fused_mlp_train": 0,
-            "fused_mlp_train_bwd": 0}
+            "fused_mlp_train_bwd": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"training path launches {launches}, want "
                              f"{want}")
@@ -808,7 +1078,8 @@ def phase_multi(kernels):
     want = {"attention_small": slot_steps + val_batches,
             "attention_small_bwd": slot_steps, "fused_mlp": 3 * val_batches,
             "fused_mlp_train": 3 * slot_steps,
-            "fused_mlp_train_bwd": 3 * slot_steps}
+            "fused_mlp_train_bwd": 3 * slot_steps, "flash_attention": 0,
+            "flash_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"multi-target launches {launches}, want {want}")
     if [o.step for o in tr.opts] != [MULTI_EPOCHS * int(n)
@@ -913,17 +1184,231 @@ def phase_multi(kernels):
     return launches
 
 
+def cli_fixture(root):
+    """CLI_GROUPS x 5 pieces x CLI_LAYERS synthetic 512x512 images, written
+    straight into the decode cache in the shared layout (so that no JPEG
+    decoder, cv2, is needed), with label and process sheets written by the
+    port's xlsx writer.  The first piece of each group validates, so
+    4 * CLI_GROUPS * CLI_LAYERS images train."""
+    rng = np.random.default_rng(SEED + 4)
+    n_spec = CLI_GROUPS * 5
+    data = DataConfig(data_root=os.path.join(root, "data"),
+                      excel_labels=os.path.join(root, "labels.xlsx"),
+                      excel_process=os.path.join(root, "process.xlsx"),
+                      group_end=CLI_GROUPS, image_layers=CLI_LAYERS,
+                      image_height=512, image_width=512,
+                      cache_dir=os.path.join(root, "cache"))
+    os.makedirs(data.cache_dir)
+    npy, meta = _cache_paths(data)
+    corpus = np.lib.format.open_memmap(
+        npy, mode="w+", dtype=np.uint8, shape=(n_spec, CLI_LAYERS, 512, 512))
+    corpus[:] = rng.integers(0, 256, corpus.shape, dtype=np.uint8)
+    base = corpus.mean(axis=(1, 2, 3)) / 255.0  # a learnable label
+    corpus.flush()
+    del corpus
+    with open(meta, "w") as f:
+        json.dump({"decoded": list(range(n_spec))}, f)
+    write_xlsx(data.excel_labels, {"Sheet1": [["No.", CLI_TARGET]] + [
+        [i + 1, float(1.0 + base[i] + i // 5)] for i in range(n_spec)]})
+    write_xlsx(data.excel_process, {"Sheet1": [list(PROCESS_PARAMETERS)] +
+                                    rng.uniform(0.5, 3.0, (CLI_GROUPS, 5))
+                                    .tolist()})
+    return data
+
+
+def cli_launches(argv):
+    """cli.main(argv) with every count set to 0 just before it; the counts
+    just after, and the seconds it took (host clock)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    return read_launches(), time.perf_counter() - t0
+
+
+def phase_cli():
+    """The 512px CvT trained and tested through the command line, as a user
+    runs it, with exact launch counts and a resume; then its step and
+    evaluation times and memory, and the kernel path against the plain
+    path at 512px."""
+    from transformer_stm_tpu_torch.data.xlsx import read_table
+    from transformer_stm_tpu_torch.harness import _paths
+
+    root = tempfile.mkdtemp()
+    data = cli_fixture(root)
+    spec = cvt_highres_spec(512)
+    cfg = ExperimentConfig(
+        frequencies=(CLI_TARGET,), model=spec, data=data,
+        train=TrainConfig(batch_size=BATCH, epochs=CLI_EPOCHS, seed=SEED,
+                          checkpoint_every=1),
+        result_dir=os.path.join(root, "Result"))
+    cfg_path = os.path.join(root, "config_512.json")
+    save_config(cfg, cfg_path)
+    n_train, n_val = 4 * CLI_GROUPS * CLI_LAYERS, CLI_GROUPS * CLI_LAYERS
+    steps, val_batches = -(-n_train // BATCH), -(-n_val // BATCH)
+    say(f"[6] CLI, CvT at 512px, dropout {DROPOUT}, batch {BATCH}: "
+        f"{n_train} train and {n_val} validation images, {steps} steps per "
+        "epoch")
+
+    torch.cuda.reset_peak_memory_stats()
+    train, dt = cli_launches(["train", "--config", cfg_path])
+    test, dt_test = cli_launches(["test", "--config", cfg_path])
+    peak_cli = torch.cuda.max_memory_allocated()
+    n_steps = CLI_EPOCHS * steps
+    evals = CLI_EPOCHS * val_batches
+    want_train = {"attention_small": 2 * (n_steps + evals),
+                  "attention_small_bwd": 2 * n_steps,
+                  "fused_mlp": 3 * evals, "fused_mlp_train": 0,
+                  "fused_mlp_train_bwd": 0,
+                  "flash_attention": n_steps + evals,
+                  "flash_attention_bwd": n_steps}
+    want_test = {"attention_small": 2 * val_batches, "attention_small_bwd": 0,
+                 "fused_mlp": 3 * val_batches, "fused_mlp_train": 0,
+                 "fused_mlp_train_bwd": 0, "flash_attention": val_batches,
+                 "flash_attention_bwd": 0}
+    say(f"[6] train: {CLI_EPOCHS} epochs in {dt:.2f} s, launches {train}; "
+        f"test in {dt_test:.2f} s, launches {test} (host clock; peak device "
+        f"memory {peak_cli / 2**30:.2f} GiB)")
+    if train != want_train or test != want_test:
+        raise AssertionError(f"CLI launches: train {train}, want "
+                             f"{want_train}; test {test}, want {want_test}")
+    paths = _paths(cfg, CLI_TARGET)
+    _, records = read_table(paths["records"])
+    sheet = read_predictions_metrics(paths["metrics"])
+    if [r[0] for r in records] != list(range(1, CLI_EPOCHS + 1)) or \
+            not np.isfinite(np.asarray([r[1:] for r in records],
+                                       np.float64)).all():
+        raise AssertionError(f"records sheet: {records}")
+    if sheet["header"] != HEADER or len(sheet["predictions"]) != n_val or \
+            not np.isfinite(sheet["predictions"]).all() or \
+            not np.isfinite(sheet["r2"]):
+        raise AssertionError(f"metrics sheet: {len(sheet['predictions'])} "
+                             f"rows, r2 {sheet['r2']}")
+    say(f"[6] records {records}; metrics sheet: {n_val} rows, R2 "
+        f"{sheet['r2']:.4f} MSE {sheet['mse']:.4f} MAE {sheet['mae']:.4f}")
+
+    # A second train with --epochs 3 resumes from the epoch-2 checkpoint.
+    ckpts = paths["weights"] + ".ckpts"
+    resumed, _ = cli_launches(["train", "--config", cfg_path, "--epochs",
+                               str(CLI_EPOCHS + 1)])
+    _, records = read_table(paths["records"])
+    final = latest_checkpoint(paths["weights"])
+    if [r[0] for r in records] != [CLI_EPOCHS + 1] or \
+            load_checkpoint(final)[3] != CLI_EPOCHS + 1 or \
+            resumed["flash_attention_bwd"] != steps or \
+            not latest_checkpoint(ckpts).endswith(
+                f"ckpt_{CLI_EPOCHS + 1:06d}.npz"):
+        raise AssertionError(f"resume: records {records}, final {final}, "
+                             f"launches {resumed}")
+    say(f"[6] train --epochs {CLI_EPOCHS + 1} resumed from the epoch-"
+        f"{CLI_EPOCHS} checkpoint: one epoch, records {records}, final "
+        f"checkpoint {os.path.basename(final)}")
+
+    # ms per training step and per evaluation batch at 512px, peak memory.
+    dev = torch.device("cuda")
+    corpus = np.load(_cache_paths(data)[0], mmap_mode="r")
+    x = torch.from_numpy(np.array(
+        corpus[:BATCH // CLI_LAYERS].reshape(BATCH, 512, 512, 1))).to(dev)
+    x = x.float() / 255.0
+    rng = np.random.default_rng(SEED + 5)
+    p = torch.from_numpy(rng.standard_normal((BATCH, 5))
+                         .astype(np.float32)).to(dev)
+    batch = (x, p, x.mean(dim=(1, 2, 3)), torch.ones(BATCH, device=dev))
+    loop = TrainLoop(spec, cfg.train, device="cuda")
+    step = make_train_step(cfg.train)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def one_step():
+        step(loop.model, loop.opt, batch, gen, cfg.train.learning_rate)
+
+    def one_eval():
+        with torch.inference_mode():
+            cvt_forward(loop.model, x, p)
+
+    out = {}
+    for name, fn in (("train step", one_step), ("evaluation", one_eval)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(fn, reps=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        busy, top = device_ms(fn, calls=2)
+        out[name] = (ms, busy, peak)
+        busy_txt = ("device time not measured (the profiler recorded none)"
+                    if busy is None else
+                    f"device busy {busy:.1f} ms ({100 * busy / ms:.1f}%; "
+                    "profiler, 2 calls); largest: " + ", ".join(
+                        f"{n} {t:.2f}" for n, t in top))
+        say(f"[6] 512px {name}, batch {BATCH}: {ms:.1f} ms "
+            f"({1e3 * BATCH / ms:.1f} images/s; CUDA events, median of 5); "
+            f"peak device memory {peak / 2**30:.2f} GiB; {busy_txt}")
+    del loop, batch
+
+    # The kernel path against the plain path on PATH_IMAGES images: the
+    # evaluation outputs, and 2 training steps at dropout 0.
+    spec0 = dataclasses.replace(spec, stages=tuple(
+        dataclasses.replace(st, dropout_rate=0.0) for st in spec.stages))
+    params, state = to_jax_params(init_cvt(
+        spec0, torch.Generator().manual_seed(SEED), device="cuda"))
+    xs, ps = x[:PATH_IMAGES].contiguous(), p[:PATH_IMAGES].contiguous()
+    small = (xs, ps, xs.mean(dim=(1, 2, 3)) + ps[:, 0],
+             torch.ones(PATH_IMAGES, device=dev))
+    evals, losses = {}, {}
+    for impl in ("auto", "plain"):
+        before = read_launches()
+        model = from_jax_params(params, state, spec0, device="cuda")
+        with torch.inference_mode():
+            evals[impl] = cvt_forward(model, xs, ps, impl=impl).reshape(
+                -1).cpu().numpy()
+        opt = adam_init(model)
+        step = make_train_step(cfg.train, impl=impl)
+        losses[impl] = np.asarray([
+            step(model, opt, small, None, cfg.train.learning_rate)["loss"]
+            .item() for _ in range(2)])
+        after = read_launches()
+        if impl == "plain" and after != before:
+            raise AssertionError("the plain 512px path launched a kernel")
+        if impl == "auto" and (after["flash_attention"] - before[
+                "flash_attention"] != 3 or after["flash_attention_bwd"] -
+                before["flash_attention_bwd"] != 2):
+            raise AssertionError("the 512px kernel path missed flash")
+        del model, opt
+        torch.cuda.empty_cache()
+    diff = np.abs(evals["auto"] - evals["plain"])
+    rel = np.abs(losses["auto"] - losses["plain"]) / np.abs(losses["plain"])
+    if (diff > PATH_TOL * np.maximum(1.0, np.abs(evals["plain"]))).any() or \
+            (rel > PATH_TOL).any():
+        raise AssertionError(f"512px kernel path vs plain path: outputs max "
+                             f"|diff| {diff.max():.3e}, losses "
+                             f"{losses['auto']} vs {losses['plain']}")
+    say(f"[6] 512px kernel path vs plain path on {PATH_IMAGES} images: "
+        f"outputs max |diff| {diff.max():.3e} (|y| up to "
+        f"{np.abs(evals['plain']).max():.3f}); 2 training steps at dropout 0, "
+        f"losses {losses['auto'].tolist()} vs {losses['plain'].tolist()}, "
+        f"max rel diff {rel.max():.2e} (limit {PATH_TOL})")
+    total = {k: train[k] + test[k] for k in train}
+    return total, out
+
+
 def main():
-    phase_env()
+    card = phase_env()
     phase_build()
     kernels = phase_kernels()
     by_path = {"evaluation": phase_main_path(),
                "single_target_training": phase_training(kernels),
                "multi_target_training": phase_multi(kernels)}
+    by_path["cli_512px"], _ = phase_cli()
     for k in kernels:
-        k["launches"] = by_path["multi_target_training"][k["name"]]
+        # the launches of the path each kernel belongs to: the 512px CLI run
+        # for all but the training MLP, which only the multi-target trainer
+        # runs
+        main_path = "multi_target_training" if k["name"].startswith(
+            "fused_mlp_train") else "cli_512px"
+        k["launches"] = by_path[main_path][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
     faulthandler.cancel_dump_traceback_later()
+    say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

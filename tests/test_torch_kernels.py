@@ -122,6 +122,8 @@ def test_sources_are_plain_cuda():
     srcs = _build.sources()
     assert [s.name for s in srcs] == ["attention_small.cu",
                                       "attention_small_bwd.cu",
+                                      "flash_attention.cu",
+                                      "flash_attention_bwd.cu",
                                       "fused_mlp.cu", "fused_mlp_train.cu"]
     for src in srcs:
         text = src.read_text()
@@ -132,7 +134,7 @@ def test_sources_are_plain_cuda():
 
 def test_build_commands_compile_each_source_for_sm90a(tmp_path):
     compiles, link = _build.commands("nvcc", _build.sources(), tmp_path)
-    assert len(compiles) == 4
+    assert len(compiles) == 6
     for cmd in compiles + [link]:
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     for cmd, src in zip(compiles, _build.sources()):
@@ -162,6 +164,8 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
         assert argtypes[-1] is ctypes.c_void_p  # the stream
         n_ptr = {"launch_attention_small": 5,
                  "launch_attention_small_bwd": 9,
+                 "launch_flash_attention": 5,
+                 "launch_flash_attention_bwd": 9,
                  "launch_fused_mlp": 6,
                  "launch_fused_mlp_train_fwd": 7,
                  "launch_fused_mlp_train_bwd": 11}[name]

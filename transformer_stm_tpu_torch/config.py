@@ -1,18 +1,27 @@
 """Model, data, training and experiment config: the port's own copy of the
 parts of transformer_stm_tpu/config.py that the port reads (``FREQUENCIES``
 and ``PROCESS_PARAMETERS`` :18-33, ``StageSpec`` and ``CvTSpec`` :36-90,
-``DataConfig`` :125-139, the single-target fields of ``TrainConfig``
-:143-169 and ``ExperimentConfig`` :189-229).
+``cvt_highres_spec`` :116, ``DataConfig`` :125-139, the single-target
+fields of ``TrainConfig`` :143-169, ``ExperimentConfig`` :189-229 and the
+JSON files of ``save_config``/``load_config`` :232-278).
 
 ``DataConfig``'s default paths are relative (``reference/...``), where the
-JAX defaults are absolute; the mesh and the params-only FFN width are not
-ported, nor ``save_config``/``load_config`` (they come with the CLI)."""
+JAX defaults are absolute.  A JSON written by either package loads in the
+other.  Fields of the JAX config that the port does not have are read from
+a JAX-written file and handled one by one (``JAX_ONLY``): ``mesh`` (the
+pjit device mesh) and ``train.prng_impl`` (the jax PRNG) mean nothing to
+one card and PyTorch and are ignored, but a mesh other than the default
+raises; ``ffn_hidden`` (the params-only FFN), ``train.loss`` and
+``train.label_smoothing`` (the ViT trainer's) raise "not ported yet" when
+they differ from the JAX defaults, as ``compute_dtype`` does.  Any other
+key the port does not know raises: nothing is dropped silently."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 # The 20 regression targets: 5 magnetic properties x 4 excitation
 # frequencies (reference: models/CvT(Par).py:22).
@@ -82,6 +91,13 @@ class CvTSpec:
         return dataclasses.replace(self, stages=stages)
 
 
+def cvt_highres_spec(size: int = 384) -> CvTSpec:
+    """The same CvT pyramid at 384 or 512px (BASELINE.json config 5): stage
+    1 holds 96x96 = 9,216 or 128x128 = 16,384 tokens; at 512px the router
+    sends them to the flash attention kernel."""
+    return CvTSpec(image_height=size, image_width=size)
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (reference: models/CvT(Par).py:44-50,
@@ -100,6 +116,7 @@ class TrainConfig:
     weight_decay: float = 0.0
     compute_dtype: str = "float32"
     checkpoint_every: int = 0  # epochs between mid-run checkpoints; 0 = off
+    repeats: int = 1  # "(many)" repeat runs of every target (harness.run)
 
     def __post_init__(self):
         if self.compute_dtype != "float32":
@@ -159,3 +176,75 @@ class ExperimentConfig:
             return f"Vit_model_weights_{freq}{suffix}"
         return (f"cvt_model_weights_{freq}{suffix}_{self.projection_method}"
                 f"_cls{self.cls_token}")
+
+
+# Fields of the JAX config that the port does not have, keyed by (owning
+# class, field name): the JAX default, and whether a value other than it
+# raises ("not ported yet") or the field means nothing here (None: ignored
+# whatever its value).
+JAX_ONLY = {
+    (ExperimentConfig, "mesh"): {"data": -1, "model": 1},
+    (ExperimentConfig, "ffn_hidden"): 256,
+    (TrainConfig, "loss"): "mse",
+    (TrainConfig, "label_smoothing"): 0.0,
+    (TrainConfig, "prng_impl"): None,
+}
+
+# nested-dataclass fields, keyed by (owning class, field name)
+_NESTED = {
+    (CvTSpec, "stages"): ("tuple", StageSpec),
+    (ExperimentConfig, "model"): ("one", CvTSpec),
+    (ExperimentConfig, "data"): ("one", DataConfig),
+    (ExperimentConfig, "train"): ("one", TrainConfig),
+}
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {k: _to_jsonable(v) for k, v in dataclasses.asdict(obj).items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_jsonable(v) for v in obj]
+    return obj
+
+
+def _from_dict(cls, d):
+    names = {f.name for f in dataclasses.fields(cls)}
+    for key, value in d.items():
+        if key in names:
+            continue
+        if (cls, key) not in JAX_ONLY:
+            raise ValueError(f"unknown config key {cls.__name__}.{key}")
+        default = JAX_ONLY[(cls, key)]
+        if key == "mesh" and value != default:
+            raise ValueError(f"mesh={value!r}: the port runs on one card; "
+                             "only the default mesh loads")
+        if default is not None and value != default:
+            raise NotImplementedError(
+                f"{cls.__name__}.{key}={value!r} is not ported yet (the "
+                f"port runs the JAX default {default!r})")
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        nested = _NESTED.get((cls, f.name))
+        if nested is not None:
+            kind, sub = nested
+            v = (tuple(_from_dict(sub, s) for s in v) if kind == "tuple"
+                 else _from_dict(sub, v))
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def save_config(cfg: ExperimentConfig, path: str) -> None:
+    """The config as JSON, in the JAX package's layout."""
+    with open(path, "w") as f:
+        json.dump(_to_jsonable(cfg), f, indent=2, ensure_ascii=False)
+
+
+def load_config(path: str) -> ExperimentConfig:
+    """A config JSON written by either package."""
+    with open(path) as f:
+        return _from_dict(ExperimentConfig, json.load(f))

@@ -4,9 +4,9 @@ The sources hold plain CUDA C++ with ``extern "C"`` launchers and include no
 PyTorch header, so each one compiles in seconds.  Every source is compiled
 by its own ``nvcc -c`` process, all started together, and the objects are
 linked into ``_build/libtstm_torch_kernels.so`` for ``sm_90a`` (Hopper).
-A sha256 of the sources and flags is kept in a ``.stamp`` file beside the
-library (as ``transformer_stm_tpu/data/native.py`` does for the C++
-preprocessor): the library is rebuilt only when the digest differs.
+A sha256 of the sources, the headers beside them (``*.cuh``) and the flags
+is kept in a ``.stamp`` file beside the library (as
+``transformer_stm_tpu/data/native.py`` does for the C++ preprocessor): the library is rebuilt only when the digest differs.
 
 Nothing is built when this module is imported; ``library()`` builds at first
 use, so that the CPU tests can import every kernel module without nvcc.
@@ -41,6 +41,13 @@ SIGNATURES = {
     # q, k, v, dO, lse, delta, dq, dk, dv, B, T, S, H, Dh, scale, stream
     "launch_attention_small_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # q, k, v, o, lse (or null), B, T, S, H, Dh, scale, vec, stream
+    "launch_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _I, _P],
+    # q, k, v, dO, lse, delta, dq, dk, dv, B, T, S, H, Dh, scale, vec, stream
+    "launch_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                                   _P],
     # x, w1, b1, w2, b2, y, N, D, Hd, Dout, stream
     "launch_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w1, b1, w2, b2, seed, y, N, D, Hd, Dout, keep threshold, keep
@@ -65,9 +72,14 @@ def sources():
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def headers():
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def _digest(srcs) -> str:
+    """sha256 of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for src in srcs:
+    for src in [*srcs, *headers()]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

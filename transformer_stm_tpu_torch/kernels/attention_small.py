@@ -11,10 +11,11 @@ K/V where the TPU kernels held whole rows in VMEM.
 ``attention_small(q, k, v)`` is differentiable: when autograd records (grad
 enabled and an input requires grad) it runs ``AttentionSmall``, whose
 forward also writes the per-row lse and saves q, k, v, o and lse for the
-backward kernels; otherwise it runs the lse-free forward and saves nothing.
-Each is an autograd Function in the ``setup_context`` form with a vmap rule
-that folds the mapped axis into the batch axis, so ``torch.func.vmap`` and
-``torch.func.grad`` run through the kernels.
+backward kernels (``AttentionSmallBwd``); otherwise it runs the lse-free
+forward (``AttentionSmallEval``) and saves nothing.  ``autograd_functions``
+makes the three, with vmap rules that fold the mapped axis into the batch
+axis, so ``torch.func.vmap`` and ``torch.func.grad`` run through the
+kernels; ``flash_attention`` uses it too.
 Tensors on the CPU take the plain versions below; tensors on a CUDA device
 launch the kernels, or raise.
 """
@@ -22,6 +23,7 @@ launch the kernels, or raise.
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 
@@ -159,82 +161,85 @@ def _unfold(n, tensors):
     return tuple(t.reshape(n, -1, *t.shape[1:]) for t in tensors)
 
 
-class AttentionSmall(torch.autograd.Function):
-    """The forward kernel with lse; the backward through
-    ``AttentionSmallBwd``.  Both have a vmap rule, so ``torch.func.vmap``
-    and ``torch.func.grad`` batch them as ``jax.vmap`` batches the JAX
+def autograd_functions(fwd, bwd, name: str, cls_name: str):
+    """The three autograd Functions around an attention kernel pair:
+    ``fwd(q, k, v, with_lse) -> (o, lse or None)`` and
+    ``bwd(q, k, v, o, lse, g) -> (dq, dk, dv)``.
+
+    - ``{cls_name}``, training: the forward with lse, saving q, k, v, o and
+      lse; its backward runs the second Function;
+    - ``{cls_name}Bwd``, the backward, as a Function so that a vmapped
+      backward reaches the kernels with plain tensors;
+    - ``{cls_name}Eval``, evaluation: the lse-free forward, outside
+      autograd.
+
+    Each is in the ``setup_context`` form with a vmap rule that folds the
+    mapped axis into the batch axis, so ``torch.func.vmap`` and
+    ``torch.func.grad`` batch them as ``jax.vmap`` batches the JAX
     ``custom_vjp``."""
 
-    @staticmethod
-    def forward(q, k, v):
-        return attention_small_fwd(q, k, v, with_lse=True)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
+    def train_setup(ctx, inputs, output):
         ctx.save_for_backward(*inputs, *output)
         ctx.mark_non_differentiable(output[1])
 
-    @staticmethod
-    def backward(ctx, g, _g_lse):
+    def train_backward(ctx, g, _g_lse):
         q, k, v, o, lse = ctx.saved_tensors
-        return AttentionSmallBwd.apply(q, k, v, o, lse, g.contiguous())
+        return Bwd.apply(q, k, v, o, lse, g.contiguous())
 
-    @staticmethod
-    def vmap(info, in_dims, q, k, v):
-        o, lse = AttentionSmall.apply(*_fold(info, in_dims, q, k, v))
+    def train_vmap(info, in_dims, q, k, v):
+        o, lse = Train.apply(*_fold(info, in_dims, q, k, v))
         return _unfold(info.batch_size, (o, lse)), (0, 0)
 
+    def bwd_backward(ctx, *grads):
+        raise NotImplementedError(f"{name} has no second derivative")
 
-class AttentionSmallBwd(torch.autograd.Function):
-    """(dq, dk, dv) through the backward kernels, as a Function so that a
-    vmapped backward reaches the kernels with plain tensors."""
-
-    @staticmethod
-    def forward(q, k, v, o, lse, g):
-        return attention_small_bwd(q, k, v, o, lse, g)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("attention_small has no second derivative")
-
-    @staticmethod
-    def vmap(info, in_dims, *tensors):
-        grads = AttentionSmallBwd.apply(*_fold(info, in_dims, *tensors))
+    def bwd_vmap(info, in_dims, *tensors):
+        grads = Bwd.apply(*_fold(info, in_dims, *tensors))
         return _unfold(info.batch_size, grads), (0, 0, 0)
 
+    def eval_backward(ctx, g):
+        raise RuntimeError(f"{cls_name}Eval records no graph; {name} runs "
+                           f"{cls_name} while autograd records")
 
-class AttentionSmallEval(torch.autograd.Function):
-    """The lse-free forward kernel, outside autograd, with a vmap rule."""
-
-    @staticmethod
-    def forward(q, k, v):
-        return attention_small_fwd(q, k, v)[0]
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def backward(ctx, g):
-        raise RuntimeError("AttentionSmallEval records no graph; attention_"
-                           "small runs AttentionSmall while autograd records")
-
-    @staticmethod
-    def vmap(info, in_dims, q, k, v):
-        o = AttentionSmallEval.apply(*_fold(info, in_dims, q, k, v))
+    def eval_vmap(info, in_dims, q, k, v):
+        o = Eval.apply(*_fold(info, in_dims, q, k, v))
         return _unfold(info.batch_size, (o,))[0], 0
+
+    def function(suffix, **methods):
+        body = {k: staticmethod(f) for k, f in methods.items()}
+        body["setup_context"] = body.get(
+            "setup_context", staticmethod(lambda ctx, inputs, output: None))
+        # new_class runs autograd's metaclass, which names the grad_fn
+        # class after this one ("AttentionSmallBackward")
+        return types.new_class(cls_name + suffix, (torch.autograd.Function,),
+                               exec_body=lambda ns: ns.update(body))
+
+    Train = function("", forward=lambda q, k, v: fwd(q, k, v, with_lse=True),
+                     setup_context=train_setup, backward=train_backward,
+                     vmap=train_vmap)
+    Bwd = function("Bwd", forward=bwd, backward=bwd_backward, vmap=bwd_vmap)
+    Eval = function("Eval", forward=lambda q, k, v: fwd(q, k, v)[0],
+                    backward=eval_backward, vmap=eval_vmap)
+    return Train, Bwd, Eval
+
+
+def apply(train, evaluate, q, k, v):
+    """``train`` (with lse, saving for the backward) while autograd records,
+    that is grad is enabled and an input requires grad; else ``evaluate``."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return train.apply(q, k, v)[0]
+    return evaluate.apply(q, k, v)
+
+
+AttentionSmall, AttentionSmallBwd, AttentionSmallEval = autograd_functions(
+    attention_small_fwd, attention_small_bwd, "attention_small",
+    "AttentionSmall")
 
 
 def attention_small(q, k, v):
     """q: (B, T, H, 64); k, v: (B, S, H, 64), float32 -> (B, T, H, 64)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        return AttentionSmall.apply(q, k, v)[0]
-    return AttentionSmallEval.apply(q, k, v)
+    return apply(AttentionSmall, AttentionSmallEval, q, k, v)
 
 
 # Kernel launches so far; a caller resets them to 0 to count a run.  The

@@ -2,15 +2,16 @@
 (transformer_stm_tpu/ops/attention.py).
 
 ``mha`` keeps the numerics of keras.layers.MultiHeadAttention (:126-143).
-``_attention_core`` routes softmax(q k^T / sqrt(Dh)) v (:69): with
-``impl="auto"`` a head whose score matrix has more than 300,000 entries, or
-a batch whose f32 scores would pass 1 GiB, goes to the ``attention_small``
-kernel (CvT stage 1: 1,024 x 1,024), in training as in evaluation (the
-router does not look at the mode; the kernel has its own backward); the
-others (stages 2 and 3) go to plain PyTorch.  ``impl="plain"`` keeps every
-call in plain PyTorch.  The JAX router sends keys of 16,384 and more to its
-streaming flash kernel, which is not ported yet; ``attention_small``
-streams K/V and takes them.
+``_attention_core`` routes softmax(q k^T / sqrt(Dh)) v as the JAX router
+does on the TPU (:69-112): with ``impl="auto"`` a head whose score matrix
+has more than 300,000 entries, or a batch whose f32 scores would pass
+1 GiB, goes to a kernel, and the others go to plain PyTorch.  The kernel is
+``flash_attention`` when there are ``FLASH_MIN_KEYS`` (16,384) keys or
+more (the 512px CvT's stage 1), else ``attention_small`` (the 128px CvT's
+stage 1, the 512px CvT's stages 2 and 3).  The router does not look at the
+mode: each kernel has its own backward.  ``impl="small"`` and
+``impl="flash"`` (or ``"pallas"``, the JAX name for flash) force a kernel;
+``impl="plain"``, the JAX ``"xla"``, keeps every call in plain PyTorch.
 
 ``ConvAttention`` (:170-218) keeps the reference's quirks: the q
 projection is the identity when the method is 'avg'; a second set of Dense
@@ -28,11 +29,13 @@ import torch
 from torch import nn
 
 from ..kernels.attention_small import attention_small
+from ..kernels.flash_attention import flash_attention
 from .common import Dense, _param, dropout, glorot_uniform
 from .projection import Projection
 
 SMALL_MIN_ENTRIES = 300_000
-IMPLS = ("auto", "plain")
+FLASH_MIN_KEYS = 16_384
+IMPLS = ("auto", "plain", "small", "flash", "pallas")
 
 
 def _attention_plain(q, k, v):
@@ -51,7 +54,13 @@ def _attention_core(q, k, v, *, impl: str = "auto"):
         entries = q.shape[1] * k.shape[1]
         score_bytes = 4 * q.shape[0] * q.shape[2] * entries
         if entries > SMALL_MIN_ENTRIES or score_bytes > (1 << 30):
-            return attention_small(q, k, v)
+            impl = "flash" if k.shape[1] >= FLASH_MIN_KEYS else "small"
+        else:
+            impl = "plain"
+    if impl in ("flash", "pallas"):
+        return flash_attention(q, k, v)
+    if impl == "small":
+        return attention_small(q, k, v)
     return _attention_plain(q, k, v)
 
 

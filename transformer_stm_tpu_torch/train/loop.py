@@ -234,10 +234,17 @@ class TrainLoop:
             self.opt = adam_from_jax(opt, self.model, self.device)
         self.epoch = int(step) if step is not None else self.epoch
 
-    def predict(self, images, proc, batch_size: Optional[int] = None):
+    def predict(self, images, proc, batch_size: Optional[int] = None,
+                exact: bool = False):
         """images: (N, H, W, C) uint8 or float; proc: (N, P) or None ->
         np.float32 (N,).  The last batch is padded to one shape with row 0,
-        as the JAX loop pads it, and the pad rows dropped."""
+        as the JAX loop pads it, and the pad rows dropped.
+
+        ``exact`` is the JAX keyword (harness.py:275) that makes the TPU
+        evaluate in true f32 for the metrics sheet; it changes nothing
+        here: on a CUDA device the loop already computes in true f32
+        (``use_true_f32``), and on the CPU PyTorch does."""
+        del exact
         bs = batch_size or self.cfg.batch_size
         n = len(images)
         outs = []
