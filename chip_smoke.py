@@ -57,12 +57,32 @@ Phases, each printed as it finishes:
    from the epoch-2 checkpoint; ms per training step and per evaluation
    batch of 128 at 512px with the device's busy share and peak memory; the
    kernel path against the plain path on 4 images (outputs, and losses over
-   2 training steps at dropout 0).
+   2 training steps at dropout 0);
+7. ViT-S/16 inference at 224px (``VIT_PRESETS["ViT-S/16"]``, 197 tokens
+   folded into t_pad 200): the four fused-layer kernels
+   (``vit_layer_infer``, ``attn_layer_infer``, ``ln_mlp_infer``,
+   ``vit_layer_infer_int8``) against their plain versions at ViT-S (B 8),
+   ViT-Ti and ViT-B widths (B 2) and at B 3 with 17 tokens padded to 24, in
+   f32 (within 1e-5 of the largest entry) and bf16 (within two bf16 ulps of
+   it; int8 within 1e-2 of it), fused_mlp at D 192/384/768 and
+   attention_small on bf16; each timed at ViT-S, B 192, bf16, beside its
+   plain version, nn.TransformerEncoderLayer (the yardstick of the whole
+   layer) and its bound; then the whole forward with weights from seed 0
+   in bf16: the routes ``impl="auto"`` (fused2), ``"fused"`` and
+   ``"fused2_int8"`` at B 192, f32 ``"auto"`` (fused_mlp) at B 64 and the
+   on-device preprocessing front end (raw uint8 345x340x3 ->
+   ``preprocess_images_device`` -> 1-channel ViT-S) with exact launch
+   counts, the kernel routes against ``"plain"`` at B 8 (bf16 within 5e-2
+   of max(1, |logits|); int8 against f32 within 3% of the logit scale and
+   correlation above 0.999; f32 auto within 1e-3), images/s (CUDA
+   events, median of 5) and peak memory of each route at B 192, 384 and
+   768, and the device's busy share in a B 192 auto forward.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON object with each kernel's numbers (``launches`` from phase 6, or
-phase 5 for the training MLP, which only the multi-target trainer runs;
-``launches_by_path`` from phases 3 to 6); the last line is
+phase 5 for the training MLP, which only the multi-target trainer runs, or
+phase 7 for the fused-layer kernels; ``launches_by_path`` from phases 3 to
+7); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing is read from or written to the
 repository except the kernels' build directory; phase 6 works in a
 temporary directory.
@@ -74,6 +94,7 @@ sys.dont_write_bytecode = True  # write nothing into the checkout
 
 import faulthandler  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
 import statistics  # noqa: E402
@@ -103,12 +124,24 @@ from transformer_stm_tpu_torch.kernels.attention_small import (  # noqa: E402
 from transformer_stm_tpu_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_plain)
+from transformer_stm_tpu_torch.kernels.fused_layer import (  # noqa: E402
+    attn_layer_infer, attn_layer_infer_plain, ln_mlp_infer,
+    ln_mlp_infer_plain, vit_layer_infer, vit_layer_infer_int8,
+    vit_layer_infer_int8_plain, vit_layer_infer_plain)
 from transformer_stm_tpu_torch.kernels.fused_mlp import (  # noqa: E402
     STREAM_HIDDEN, STREAM_OUT, TRAIN_BWD_ROWS, dropout_mask, fused_mlp,
     fused_mlp_plain, fused_mlp_train, fused_mlp_train_bwd,
     fused_mlp_train_bwd_plain, fused_mlp_train_fwd, fused_mlp_train_plain)
 from transformer_stm_tpu_torch.models.cvt import (  # noqa: E402
     cvt_forward, cvt_param_count, init_cvt)
+from transformer_stm_tpu_torch.models.vit import (  # noqa: E402
+    init_vit, vit_forward)
+from transformer_stm_tpu_torch.config import VIT_PRESETS  # noqa: E402
+from transformer_stm_tpu_torch.data.images import (  # noqa: E402
+    preprocess_images_device)
+from transformer_stm_tpu_torch.ops.attention import MHA  # noqa: E402
+from transformer_stm_tpu_torch.ops.blocks import MLP  # noqa: E402
+from transformer_stm_tpu_torch.ops.common import LayerNorm  # noqa: E402
 from transformer_stm_tpu_torch.ops.common import use_true_f32  # noqa: E402
 from transformer_stm_tpu_torch.train.checkpoint import (  # noqa: E402
     from_jax_params, latest_checkpoint, load_checkpoint, save_checkpoint,
@@ -215,7 +248,9 @@ def bound(flops, nbytes):
 
 
 KERNELS = (attention_small, attention_small_bwd, fused_mlp, fused_mlp_train,
-           fused_mlp_train_bwd, flash_attention, flash_attention_bwd)
+           fused_mlp_train_bwd, flash_attention, flash_attention_bwd,
+           attn_layer_infer, ln_mlp_infer, vit_layer_infer,
+           vit_layer_infer_int8)
 
 
 def reset_launches():
@@ -225,6 +260,10 @@ def reset_launches():
 
 def read_launches():
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def zero_launches():
+    return {k.__name__: 0 for k in KERNELS}
 
 
 def phase_env():
@@ -830,7 +869,7 @@ def phase_main_path():
     launches = read_launches()
     n_batches = N_IMAGES // BATCH
     say(f"[3] launches over {n_batches} batches: {launches}")
-    want = {"attention_small": n_batches, "attention_small_bwd": 0,
+    want = {**zero_launches(), "attention_small": n_batches, "attention_small_bwd": 0,
             "fused_mlp": 3 * n_batches, "fused_mlp_train": 0,
             "fused_mlp_train_bwd": 0, "flash_attention": 0,
             "flash_attention_bwd": 0}
@@ -904,7 +943,7 @@ def phase_training(kernels):
     for r in rows:
         say(f"[4] epoch {r[0]}: loss {r[1]:.4f} mae {r[2]:.4f} val_loss "
             f"{r[3]:.4f} val_mae {r[4]:.4f} lr {r[5]:.2e}")
-    want = {"attention_small": steps + EPOCHS, "attention_small_bwd": steps,
+    want = {**zero_launches(), "attention_small": steps + EPOCHS, "attention_small_bwd": steps,
             "fused_mlp": 3 * EPOCHS, "fused_mlp_train": 0,
             "fused_mlp_train_bwd": 0, "flash_attention": 0,
             "flash_attention_bwd": 0}
@@ -1075,7 +1114,7 @@ def phase_multi(kernels):
         for r in recs:
             say(f"[5] slot {t} epoch {r[0]}: loss {r[1]:.4f} mae {r[2]:.4f} "
                 f"val_loss {r[3]:.4f} val_mae {r[4]:.4f} lr {r[5]:.2e}")
-    want = {"attention_small": slot_steps + val_batches,
+    want = {**zero_launches(), "attention_small": slot_steps + val_batches,
             "attention_small_bwd": slot_steps, "fused_mlp": 3 * val_batches,
             "fused_mlp_train": 3 * slot_steps,
             "fused_mlp_train_bwd": 3 * slot_steps, "flash_attention": 0,
@@ -1257,13 +1296,13 @@ def phase_cli():
     peak_cli = torch.cuda.max_memory_allocated()
     n_steps = CLI_EPOCHS * steps
     evals = CLI_EPOCHS * val_batches
-    want_train = {"attention_small": 2 * (n_steps + evals),
+    want_train = {**zero_launches(), "attention_small": 2 * (n_steps + evals),
                   "attention_small_bwd": 2 * n_steps,
                   "fused_mlp": 3 * evals, "fused_mlp_train": 0,
                   "fused_mlp_train_bwd": 0,
                   "flash_attention": n_steps + evals,
                   "flash_attention_bwd": n_steps}
-    want_test = {"attention_small": 2 * val_batches, "attention_small_bwd": 0,
+    want_test = {**zero_launches(), "attention_small": 2 * val_batches, "attention_small_bwd": 0,
                  "fused_mlp": 3 * val_batches, "fused_mlp_train": 0,
                  "fused_mlp_train_bwd": 0, "flash_attention": val_batches,
                  "flash_attention_bwd": 0}
@@ -1391,6 +1430,430 @@ def phase_cli():
     return total, out
 
 
+# Phase 7, ViT-S/16 at 224px (VIT_PRESETS["ViT-S/16"]: E 384, depth 12, H 6,
+# Dh 64, hidden 1536; 197 tokens folded into t_pad 200), weights from SEED.
+VIT_SPEC = "ViT-S/16"
+VIT_BATCHES = (192, 384, 768)  # whole-forward images/s in bf16
+VIT_TIME_B = 192               # per-kernel timings and the main path
+VIT_CHECK_B = 8                # kernel routes against the plain route
+VIT_F32_B = 64                 # the f32 auto route against f32 plain
+# (name, E, H, B, t_real, t_pad) of the kernel checks
+VIT_LAYER_SHAPES = [("ViT-S", 384, 6, VIT_CHECK_B, 197, 200),
+                    ("ViT-Ti", 192, 3, 2, 197, 200),
+                    ("ViT-B", 768, 12, 2, 197, 200),
+                    ("ViT-S 64px", 384, 6, 3, 17, 24)]
+VIT_F32_TOL = 1e-5    # f32 kernel vs plain: max |err| <= tol * max |plain|
+VIT_BF16_ULPS = 2     # bf16: max |err| <= 2 bf16 ulps of max |plain|
+VIT_INT8_TOL = 1e-2   # int8 kernel vs its plain version: tol * max |plain|
+# bf16 kernel routes vs the bf16 plain route, logits: tol * max(1, |plain|)
+# (the bar of tests/test_fused_layer.py:26-27); int8 against float: max
+# |err| under 3% of the logit scale, correlation above 0.999 (:66-81)
+VIT_ROUTE_TOL = 5e-2
+VIT_INT8_REL, VIT_INT8_CORR = 0.03, 0.999
+# NVIDIA H100 SXM data sheet, dense tensor-core rates
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+VIT_KERNELS = ("attn_layer_infer", "ln_mlp_infer", "vit_layer_infer",
+               "vit_layer_infer_int8")
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def vit_layer(e, h, seed, dtype, dev="cuda"):
+    """(LayerNorm, MHA, LayerNorm, MLP) of one ViT layer at width e, every
+    parameter random from ``seed`` (kernels N(0, 1/fan_in), biases and LN
+    betas N(0, 0.01), gammas 1 + N(0, 0.01)), on ``dev`` in ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+    mods = (LayerNorm(e), MHA(e, h), LayerNorm(e), MLP(e, 4 * e))
+    with torch.no_grad():
+        for m in mods:
+            for name, p in m.named_parameters():
+                r = torch.randn(p.shape, generator=g)
+                if name.endswith("kernel"):
+                    fan = p.shape[0] * (p.shape[1] if name.startswith("out")
+                                        else 1)
+                    p.copy_(r / math.sqrt(fan))
+                else:
+                    p.copy_(0.1 * r + (1.0 if name == "gamma" else 0.0))
+    return [m.to(dev, dtype) for m in mods]
+
+
+def layer_bounds(n, e, hd, hidden, t_pad, itemsize):
+    """(flops of rows 9, 10, 11, int8 ops of row 12's projections, bytes of
+    x in, y out and the weights) of one layer on n folded rows."""
+    proj = 2.0 * n * e * 4 * hd
+    core = 4.0 * n * t_pad * hd
+    mlp = 4.0 * n * e * hidden
+    weights = (4 * e * hd + 2 * e * hidden) * itemsize
+    return proj + core, mlp, proj + core + mlp, proj + mlp, \
+        2.0 * n * e * itemsize + weights
+
+
+def library_layer(mods, dtype):
+    """nn.TransformerEncoderLayer with the same weights: the yardstick of
+    vit_layer_infer (never called by the port)."""
+    n1, attn, n2, mlp = mods
+    e, h, dh = attn.query.kernel.shape
+    lib = torch.nn.TransformerEncoderLayer(
+        e, h, 4 * e, dropout=0.0, activation="gelu", layer_norm_eps=1e-6,
+        batch_first=True, norm_first=True)
+    with torch.no_grad():
+        sa = lib.self_attn
+        sa.in_proj_weight.copy_(torch.cat(
+            [getattr(attn, k).kernel.reshape(e, h * dh).T
+             for k in ("query", "key", "value")]))
+        sa.in_proj_bias.copy_(torch.cat(
+            [getattr(attn, k).bias.reshape(-1)
+             for k in ("query", "key", "value")]))
+        sa.out_proj.weight.copy_(attn.out.kernel.reshape(h * dh, e).T)
+        sa.out_proj.bias.copy_(attn.out.bias)
+        lib.linear1.weight.copy_(mlp.fc1.kernel.T)
+        lib.linear1.bias.copy_(mlp.fc1.bias)
+        lib.linear2.weight.copy_(mlp.fc2.kernel.T)
+        lib.linear2.bias.copy_(mlp.fc2.bias)
+        for ln, ours in ((lib.norm1, n1), (lib.norm2, n2)):
+            ln.weight.copy_(ours.gamma)
+            ln.bias.copy_(ours.beta)
+    return lib.to("cuda", dtype).eval()
+
+
+def vit_kernel_checks():
+    """Rows 9-12 and fused_mlp at the ViT widths against their plain
+    versions on the same inputs; returns the largest error of each, as
+    {name: (max |err|, max |err| / max |plain|)} over the cases."""
+    worst = dict.fromkeys(VIT_KERNELS + ("fused_mlp",), (0.0, 0.0))
+
+    def note(name, err, scale):
+        worst[name] = (max(worst[name][0], err),
+                       max(worst[name][1], err / scale))
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for name, e, h, b, t, tp in VIT_LAYER_SHAPES:
+        x32 = torch.randn(b, tp, e, device="cuda", generator=gen)
+        x32[:, t:] = 0.0
+        x32 = x32.reshape(b * tp, e)
+        for dt in (torch.float32, torch.bfloat16):
+            n1, attn, n2, mlp = vit_layer(e, h, SEED, dt)
+            x = x32.to(dt)
+            layer = dict(t_pad=tp, t_real=t)
+            cases = (
+                ("vit_layer_infer", lambda: vit_layer_infer(
+                    x, n1, attn, n2, mlp, **layer), lambda:
+                    vit_layer_infer_plain(x, n1, attn, n2, mlp, **layer)),
+                ("attn_layer_infer", lambda: attn_layer_infer(
+                    x, n1, attn, **layer), lambda: attn_layer_infer_plain(
+                    x, n1, attn, **layer)),
+                ("ln_mlp_infer", lambda: ln_mlp_infer(x, n2, mlp),
+                 lambda: ln_mlp_infer_plain(x, n2, mlp)),
+                ("vit_layer_infer_int8", lambda: vit_layer_infer_int8(
+                    x, n1, attn, n2, mlp, **layer), lambda:
+                    vit_layer_infer_int8_plain(x, n1, attn, n2, mlp,
+                                               **layer)))
+            errs = []
+            for kname, kernel, plain in cases:
+                with torch.inference_mode():
+                    got, want = kernel().float(), plain().float()
+                torch.cuda.synchronize()
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                if kname == "vit_layer_infer_int8":
+                    tol = VIT_INT8_TOL * scale
+                elif dt == torch.float32:
+                    tol = VIT_F32_TOL * scale
+                else:
+                    tol = VIT_BF16_ULPS * bf16_ulp(scale)
+                if not torch.isfinite(got).all() or err > tol:
+                    raise AssertionError(
+                        f"{kname} {name} B{b} T{t}/{tp} {dt}: max |err| "
+                        f"{err:.3e} over {tol:.3e} (max |y| {scale:.3f})")
+                note(kname, err, scale)
+                errs.append(f"{kname} {err:.2e}")
+            say(f"[7] {name} E{e} H{h} B{b} T{t}/{tp} {str(dt)[6:]}: max "
+                f"|kernel - plain| {'; '.join(errs)} (max |y| about "
+                f"{scale:.2f})")
+        with torch.inference_mode():
+            n1, attn, n2, mlp = vit_layer(e, h, SEED, torch.float32)
+            w = (mlp.fc1.kernel, mlp.fc1.bias, mlp.fc2.kernel, mlp.fc2.bias)
+            got, want = fused_mlp(x32, *w), fused_mlp_plain(x32, *w)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not torch.isfinite(got).all() or err > VIT_F32_TOL * scale:
+            raise AssertionError(f"fused_mlp {name} D{e}: max |err| "
+                                 f"{err:.3e} over {VIT_F32_TOL} x {scale:.3f}")
+        note("fused_mlp", err, scale)
+        say(f"[7] fused_mlp {name} N{b * tp} D{e} Hd{4 * e} f32: max |err| "
+            f"{err:.2e} (max |y| {scale:.2f})")
+
+    # attention_small takes bf16 q, k, v (run in f32, the output rounded)
+    q, k, v = (torch.randn(VIT_CHECK_B, 197, 6, 64, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    with torch.inference_mode():
+        o = attention_small(q, k, v)
+        want = attention_small_plain(q.float(), k.float(), v.float()).to(
+            torch.bfloat16).float()
+    scale = want.abs().max().item()
+    err = (o.float() - want).abs().max().item()
+    if o.dtype != torch.bfloat16 or err > VIT_BF16_ULPS * bf16_ulp(scale):
+        raise AssertionError(f"attention_small bf16: max |err| {err:.3e}")
+    say(f"[7] attention_small bf16 B{VIT_CHECK_B} T197 H6: max |err| "
+        f"{err:.2e} (max |o| {scale:.2f}, limit {VIT_BF16_ULPS} ulps)")
+    return worst
+
+
+def vit_kernel_times(worst, card):
+    """Each kernel at the main path's shape (ViT-S, B 192, bf16; fused_mlp
+    in f32, the f32 auto route's type), beside its plain version, one
+    PyTorch call where there is one, and its bound."""
+    e, h, hidden, t, tp = 384, 6, 1536, 197, 200
+    b = VIT_TIME_B
+    n = b * tp
+    bt = torch.bfloat16
+    mods = vit_layer(e, h, SEED, bt)
+    n1, attn, n2, mlp = mods
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    x = torch.randn(b, tp, e, device="cuda", generator=gen)
+    x[:, t:] = 0.0
+    x = x.reshape(n, e).to(bt)
+    layer = dict(t_pad=tp, t_real=t)
+    f_attn, f_mlp, f_layer, ops_int8, nbytes = layer_bounds(n, e, e, hidden,
+                                                            tp, 2)
+    f_core = 4.0 * n * tp * e
+    lib = library_layer(mods, bt)
+    xl = x.reshape(b, tp, e)[:, :t].contiguous()
+    rows = []
+    for name, kernel, plain, flops, lib_fn, line in (
+            ("attn_layer_infer",
+             lambda: attn_layer_infer(x, n1, attn, **layer),
+             lambda: attn_layer_infer_plain(x, n1, attn, **layer),
+             f_attn / PEAK_BF16_FLOPS, None, 62),
+            ("ln_mlp_infer", lambda: ln_mlp_infer(x, n2, mlp),
+             lambda: ln_mlp_infer_plain(x, n2, mlp),
+             f_mlp / PEAK_BF16_FLOPS, None, 590),
+            ("vit_layer_infer",
+             lambda: vit_layer_infer(x, n1, attn, n2, mlp, **layer),
+             lambda: vit_layer_infer_plain(x, n1, attn, n2, mlp, **layer),
+             f_layer / PEAK_BF16_FLOPS, lambda: lib(xl), 279),
+            ("vit_layer_infer_int8",
+             lambda: vit_layer_infer_int8(x, n1, attn, n2, mlp, **layer),
+             lambda: vit_layer_infer_int8_plain(x, n1, attn, n2, mlp,
+                                                **layer),
+             ops_int8 / PEAK_INT8_OPS + f_core / PEAK_BF16_FLOPS, None,
+             440)):
+        with torch.inference_mode():
+            ms = time_ms(kernel)
+            plain_ms = time_ms(plain)
+            lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+        t_ops, t_bytes = 1e3 * flops, 1e3 * nbytes / PEAK_BYTES
+        b_ms = max(t_ops, t_bytes)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="transformer_stm_tpu_torch/csrc/fused_layer.cu",
+            replaces=f"transformer_stm_tpu/kernels/fused_layer.py:{line}",
+            max_abs_err=worst[name][0], max_rel_err=worst[name][1], ms=ms,
+            plain_ms=plain_ms,
+            bound_ms=b_ms,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=lib_ms,
+            shape=dict(batch=b, rows=n, t_real=t, t_pad=tp, width=e, heads=h,
+                       hidden=hidden, dtype="bfloat16")))
+        lib_txt = (f"  TransformerEncoderLayer {lib_ms:.3f} ms"
+                   if lib_ms is not None else "  no single PyTorch call")
+        say(f"[7] {name} ViT-S B{b} bf16: kernel {ms:.3f} ms  plain "
+            f"{plain_ms:.3f} ms{lib_txt}  bound {b_ms:.3f} ms "
+            f"({rows[-1]['bound_by']}; {card})")
+    # the whole layer in f32 (true f32, FMA products) beside its f32 bound
+    m32 = vit_layer(e, h, SEED, torch.float32)
+    x32 = x.float()
+    with torch.inference_mode():
+        ms32 = time_ms(lambda: vit_layer_infer(x32, *m32, **layer))
+        plain32 = time_ms(lambda: vit_layer_infer_plain(x32, *m32, **layer))
+    b32, by32 = bound(f_layer, nbytes * 2)
+    rows[2].update(f32_ms=ms32, f32_plain_ms=plain32, f32_bound_ms=b32)
+    say(f"[7] vit_layer_infer ViT-S B{b} f32: kernel {ms32:.3f} ms  plain "
+        f"{plain32:.3f} ms  bound {b32:.3f} ms ({by32}; {card})")
+    del m32, x32
+
+    # the library layer computes the same function: a loose check that the
+    # weights were carried over (bf16 rounds at other places there)
+    with torch.inference_mode():
+        ours = vit_layer_infer_plain(x, n1, attn, n2, mlp, **layer).float()
+        theirs = lib(xl).float()
+    ours = ours.reshape(b, tp, e)[:, :t]
+    err = (ours - theirs).abs().max().item() / ours.abs().max().item()
+    if err > VIT_ROUTE_TOL:
+        raise AssertionError(f"TransformerEncoderLayer differs from the "
+                             f"plain layer by {err:.3e} of the scale")
+    say(f"[7] TransformerEncoderLayer vs vit_layer_infer_plain: max |diff| "
+        f"{err:.2e} of the largest entry (bf16)")
+
+    n1, attn, n2, mlp = vit_layer(e, h, SEED, torch.float32)
+    xf = x.float().reshape(b, tp, e)[:, :t].reshape(b * t, e)
+    w = (mlp.fc1.kernel, mlp.fc1.bias, mlp.fc2.kernel, mlp.fc2.bias)
+    with torch.inference_mode():
+        ms = time_ms(lambda: fused_mlp(xf, *w))
+        plain_ms = time_ms(lambda: fused_mlp_plain(xf, *w))
+        lib_ms = time_ms(lambda: torch.addmm(
+            w[3], F.gelu(torch.addmm(w[1], xf, w[0])), w[2]))
+    nf = b * t
+    b_ms, b_by = bound(4.0 * nf * e * hidden,
+                       4.0 * (2 * nf * e + 2 * e * hidden + hidden + e))
+    say(f"[7] fused_mlp ViT-S N{nf} D{e} Hd{hidden} f32: kernel {ms:.3f} ms  "
+        f"plain {plain_ms:.3f} ms  addmm+gelu+addmm {lib_ms:.3f} ms  bound "
+        f"{b_ms:.3f} ms ({b_by})")
+    vit_mlp = dict(stage="vit_s_d384", shape=[nf, e, hidden], ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, max_abs_err=worst["fused_mlp"][0],
+                   max_rel_err=worst["fused_mlp"][1])
+    return rows, vit_mlp
+
+
+def phase_vit(kernels, card):
+    """ViT-S/16 inference at 224px: the kernels against their plain
+    versions and timed, then the whole forward through vit_forward's routes
+    with exact launch counts, agreement with the plain route, images/s and
+    peak memory, and the on-device preprocessing front end."""
+    worst = vit_kernel_checks()
+    rows, vit_mlp = vit_kernel_times(worst, card)
+    for k in kernels:
+        if k["name"] == "fused_mlp":
+            k["vit_shapes"] = [vit_mlp]
+
+    spec = VIT_PRESETS[VIT_SPEC]
+    model32 = init_vit(spec, torch.Generator().manual_seed(SEED),
+                       device="cuda")
+    model = init_vit(spec, torch.Generator().manual_seed(SEED),
+                     device="cuda").to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    imgs32 = torch.rand(max(VIT_BATCHES), spec.image_size, spec.image_size,
+                        spec.num_channels, device="cuda", generator=gen)
+    imgs = imgs32.to(torch.bfloat16)
+    spec1 = dataclasses.replace(spec, num_channels=1)
+    model1 = init_vit(spec1, torch.Generator().manual_seed(SEED),
+                      device="cuda").to(torch.bfloat16)
+    raw = torch.randint(0, 256, (VIT_TIME_B, 345, 340, 3), device="cuda",
+                        dtype=torch.uint8, generator=gen)
+
+    def front_end():
+        x = preprocess_images_device(raw, spec.image_size, spec.image_size,
+                                     dtype=torch.bfloat16)
+        return vit_forward(model1, x)
+
+    # The main path, counted: every route once at its batch.
+    b = VIT_TIME_B
+    d = spec.depth
+    routes = (
+        ("auto bf16", lambda: vit_forward(model, imgs[:b]),
+         {"vit_layer_infer": d}),
+        ("fused", lambda: vit_forward(model, imgs[:b], impl="fused"),
+         {"attn_layer_infer": d, "ln_mlp_infer": d}),
+        ("fused2_int8", lambda: vit_forward(model, imgs[:b],
+                                            impl="fused2_int8"),
+         {"vit_layer_infer_int8": d}),
+        ("auto f32", lambda: vit_forward(model32, imgs32[:VIT_F32_B]),
+         {"fused_mlp": d}),
+        ("preprocess + auto bf16", front_end, {"vit_layer_infer": d}))
+    outs = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.inference_mode():
+        for name, fn, want in routes:
+            before = read_launches()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            got = {k: n - before[k] for k, n in read_launches().items()
+                   if n != before[k]}
+            if got != want:
+                raise AssertionError(f"ViT route {name}: launches {got}, "
+                                     f"want {want}")
+            y = outs[name]
+            if y.shape[1] != spec.num_classes or \
+                    not torch.isfinite(y.float()).all():
+                raise AssertionError(f"ViT route {name}: {tuple(y.shape)}, "
+                                     "finite "
+                                     f"{torch.isfinite(y.float()).all()}")
+    launches = read_launches()
+    say(f"[7] ViT-S/16 main path (auto bf16, fused and fused2_int8 at B{b}, "
+        f"auto f32 at B{VIT_F32_B}, preprocessing + auto at B{b}): "
+        f"launches {launches}")
+
+    # Agreement with the plain route.
+    c = VIT_CHECK_B
+    with torch.inference_mode():
+        plain = vit_forward(model, imgs[:c], impl="plain").float()
+        plain32 = vit_forward(model32, imgs32[:c], impl="plain")
+        lim = VIT_ROUTE_TOL * max(1.0, plain.abs().max().item())
+        for impl in ("auto", "fused"):
+            diff = (vit_forward(model, imgs[:c], impl=impl).float()
+                    - plain).abs().max().item()
+            if diff > lim:
+                raise AssertionError(f"ViT-S {impl} vs plain (bf16, B{c}): "
+                                     f"max |diff| {diff:.3e} over {lim:.3e}")
+            say(f"[7] ViT-S {impl} vs plain, bf16, B{c}: max |diff| "
+                f"{diff:.3e} (limit {lim:.3e}; |logits| up to "
+                f"{plain.abs().max().item():.3f})")
+        q8 = vit_forward(model, imgs[:c], impl="fused2_int8").float()
+        rel = ((q8 - plain32).abs().max() / plain32.abs().max()).item()
+        corr = np.corrcoef(q8.cpu().numpy().ravel(),
+                           plain32.cpu().numpy().ravel())[0, 1]
+        if rel >= VIT_INT8_REL or corr <= VIT_INT8_CORR:
+            raise AssertionError(f"ViT-S fused2_int8 vs f32 plain: "
+                                 f"{rel:.3e} of the scale, corr {corr:.6f}")
+        say(f"[7] ViT-S fused2_int8 (bf16) vs f32 plain, B{c}: max |diff| "
+            f"{rel:.3e} of the logit scale (limit {VIT_INT8_REL}), "
+            f"correlation {corr:.6f} (limit {VIT_INT8_CORR})")
+        ref32 = vit_forward(model32, imgs32[:VIT_F32_B], impl="plain")
+        diff = (outs["auto f32"] - ref32).abs()
+        lim32 = PATH_TOL * ref32.abs().clamp_min(1.0)
+        if (diff > lim32).any():
+            raise AssertionError(f"ViT-S f32 auto vs plain: max |diff| "
+                                 f"{diff.max().item():.3e}")
+        say(f"[7] ViT-S f32 auto (fused_mlp) vs f32 plain, B{VIT_F32_B}: "
+            f"max |diff| {diff.max().item():.3e} (limit {PATH_TOL} x "
+            "max(1, |y|))")
+
+    # images/s and peak memory of each route at each batch
+    thru = {}
+    with torch.inference_mode():
+        for bb in VIT_BATCHES:
+            x = imgs[:bb]
+            for impl in ("auto", "fused", "fused2_int8", "plain"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = time_ms(lambda: vit_forward(model, x, impl=impl),
+                             reps=5, warmup=1)
+                peak = torch.cuda.max_memory_allocated()
+                thru[(bb, impl)] = (ms, 1e3 * bb / ms, peak)
+                say(f"[7] ViT-S/16 224px bf16 B{bb} {impl}: {ms:.2f} ms, "
+                    f"{1e3 * bb / ms:.1f} images/s (CUDA events, median of "
+                    f"5), peak {peak / 2**30:.2f} GiB; {card}")
+        # where a B 192 forward's device time goes (torch.profiler)
+        busy, top = device_ms(lambda: vit_forward(model, imgs[:b]), calls=2)
+        ms_fwd = thru[(b, "auto")][0]
+        say(f"[7] ViT-S/16 auto B{b}: " + (
+            "device time not measured (the profiler recorded none)"
+            if busy is None else
+            f"device busy {busy:.2f} ms of a {ms_fwd:.2f} ms forward "
+            f"({100 * busy / ms_fwd:.1f}%; profiler, 2 calls); largest: "
+            + ", ".join(f"{n} {t:.2f}" for n, t in top)))
+        ms_pre = time_ms(lambda: preprocess_images_device(
+            raw, spec.image_size, spec.image_size, dtype=torch.bfloat16),
+            reps=5, warmup=1)
+        ms_all = time_ms(front_end, reps=5, warmup=1)
+    say(f"[7] raw uint8 B{b} 345x340x3 -> preprocess_images_device -> "
+        f"1-channel ViT-S/16 auto bf16: {ms_all:.2f} ms, "
+        f"{1e3 * b / ms_all:.1f} images/s (preprocessing alone "
+        f"{ms_pre:.3f} ms); {card}")
+    for r in rows:
+        r["vit_images_per_s"] = {f"B{bb} {impl}": round(v[1], 1)
+                                 for (bb, impl), v in thru.items()}
+    return launches, rows
+
+
 def main():
     card = phase_env()
     phase_build()
@@ -1399,12 +1862,15 @@ def main():
                "single_target_training": phase_training(kernels),
                "multi_target_training": phase_multi(kernels)}
     by_path["cli_512px"], _ = phase_cli()
+    by_path["vit_inference"], vit_kernels = phase_vit(kernels, card)
+    kernels += vit_kernels
     for k in kernels:
-        # the launches of the path each kernel belongs to: the 512px CLI run
-        # for all but the training MLP, which only the multi-target trainer
-        # runs
-        main_path = "multi_target_training" if k["name"].startswith(
-            "fused_mlp_train") else "cli_512px"
+        # the launches of the path each kernel belongs to: the ViT path for
+        # the fused-layer kernels, the multi-target trainer for the training
+        # MLP, the 512px CLI run for the rest
+        main_path = ("vit_inference" if k["name"] in VIT_KERNELS else
+                     "multi_target_training" if k["name"].startswith(
+                         "fused_mlp_train") else "cli_512px")
         k["launches"] = by_path[main_path][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
     faulthandler.cancel_dump_traceback_later()

@@ -303,7 +303,9 @@ def test_new_modules_import_without_jax_or_matplotlib():
             "import transformer_stm_tpu_torch.cli, "
             "transformer_stm_tpu_torch.harness, "
             "transformer_stm_tpu_torch.tools.plots, "
-            "transformer_stm_tpu_torch.kernels.flash_attention\n"
+            "transformer_stm_tpu_torch.kernels.flash_attention, "
+            "transformer_stm_tpu_torch.kernels.fused_layer, "
+            "transformer_stm_tpu_torch.models.vit\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('transformer_stm_tpu', 'matplotlib')]\n"
             "assert not bad, bad\n")

@@ -124,7 +124,8 @@ def test_sources_are_plain_cuda():
                                       "attention_small_bwd.cu",
                                       "flash_attention.cu",
                                       "flash_attention_bwd.cu",
-                                      "fused_mlp.cu", "fused_mlp_train.cu"]
+                                      "fused_layer.cu", "fused_mlp.cu",
+                                      "fused_mlp_train.cu"]
     for src in srcs:
         text = src.read_text()
         assert "torch/" not in text and "ATen" not in text
@@ -134,7 +135,7 @@ def test_sources_are_plain_cuda():
 
 def test_build_commands_compile_each_source_for_sm90a(tmp_path):
     compiles, link = _build.commands("nvcc", _build.sources(), tmp_path)
-    assert len(compiles) == 6
+    assert len(compiles) == 7
     for cmd in compiles + [link]:
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     for cmd, src in zip(compiles, _build.sources()):
@@ -168,5 +169,13 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
                  "launch_flash_attention_bwd": 9,
                  "launch_fused_mlp": 6,
                  "launch_fused_mlp_train_fwd": 7,
-                 "launch_fused_mlp_train_bwd": 11}[name]
-        assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr
+                 "launch_fused_mlp_train_bwd": 11,
+                 "launch_fused_layer": 19}[name]
+        assert argtypes.count(ctypes.c_void_p) == n_ptr + 1
+        if name == "launch_fused_layer":
+            # mode and dtype, then x, y and the workspace; slots and bytes
+            # per slot; then the 16 weight, scale and bias pointers
+            assert argtypes[2:5] == [ctypes.c_void_p] * 3
+            assert argtypes[7:23] == [ctypes.c_void_p] * 16
+        else:
+            assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr

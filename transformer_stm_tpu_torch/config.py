@@ -1,7 +1,8 @@
 """Model, data, training and experiment config: the port's own copy of the
 parts of transformer_stm_tpu/config.py that the port reads (``FREQUENCIES``
 and ``PROCESS_PARAMETERS`` :18-33, ``StageSpec`` and ``CvTSpec`` :36-90,
-``cvt_highres_spec`` :116, ``DataConfig`` :125-139, the single-target
+``ViTSpec`` and ``VIT_PRESETS`` :93-113, ``cvt_highres_spec`` :116,
+``DataConfig`` :125-139, the single-target
 fields of ``TrainConfig`` :143-169, ``ExperimentConfig`` :189-229 and the
 JSON files of ``save_config``/``load_config`` :232-278).
 
@@ -89,6 +90,32 @@ class CvTSpec:
                                 with_cls_token=(cls_token and i == n - 1))
             for i, s in enumerate(self.stages))
         return dataclasses.replace(self, stages=stages)
+
+
+@dataclass(frozen=True)
+class ViTSpec:
+    """Plain ViT classifier (BASELINE.json configs 1-3): patchify, a
+    pre-norm encoder of ``depth`` layers at width ``embed_dim`` with
+    ``num_heads`` heads and an MLP of ``mlp_ratio`` x the width, an LN head
+    on the cls token."""
+
+    patch_size: int = 16
+    embed_dim: int = 192
+    depth: int = 12
+    num_heads: int = 3
+    mlp_ratio: int = 4
+    image_size: int = 224
+    num_channels: int = 3
+    num_classes: int = 1000
+    dropout_rate: float = 0.0
+    drop_path_rate: float = 0.0
+
+
+VIT_PRESETS = {
+    "ViT-Ti/16": ViTSpec(embed_dim=192, depth=12, num_heads=3),
+    "ViT-S/16": ViTSpec(embed_dim=384, depth=12, num_heads=6),
+    "ViT-B/16": ViTSpec(embed_dim=768, depth=12, num_heads=12),
+}
 
 
 def cvt_highres_spec(size: int = 384) -> CvTSpec:

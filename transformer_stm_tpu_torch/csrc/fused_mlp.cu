@@ -18,9 +18,18 @@
 // the column operands as conflict-free consecutive words.  Shared memory:
 // 177 KB at D 256, above the 48 KB default, so the launcher opts in.
 //
+// The ViT widths 192, 384 and 768 (the f32 ViT's MLPs) take
+// `fused_mlp_fwd_wide`: the same two phases, with fewer rows a block and a
+// smaller hidden chunk as D grows, so that the x tile and both weight chunks
+// fit the 227 KB a block may use (158 KB at D 384, 161 KB at D 768) and the
+// rows x D accumulators stay at 48 registers a thread (32 rows at D 384, 16
+// at D 768).  Its phase A gives each thread whole dot products over D, with
+// neighbouring lanes on neighbouring rows.
+//
 // Layout: x (N, D), w1 (D, Hd), b1 (Hd), w2 (Hd, D), b2 (D), y (N, D), all
-// contiguous; D is 64, 128 or 256 (the CvT stage widths) and Hd a multiple
-// of 64.  Rows past N are zero-filled and not stored.
+// contiguous; D is 64, 128 or 256 (the CvT stage widths) or 192, 384 or 768
+// (the ViT widths) and Hd a multiple of 64.  Rows past N are zero-filled and
+// not stored.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -136,6 +145,122 @@ fused_mlp_fwd(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
+// rows a warp RW (rows a block 8 RW), hidden units a chunk BHW
+template <int D, int RW, int BHW>
+constexpr size_t wide_smem_bytes() {
+  return sizeof(float) *
+         (size_t)(D * (8 * RW + 4) + 2 * D * BHW + BHW * (8 * RW + 4));
+}
+
+template <int D, int RW, int BHW>
+__global__ void __launch_bounds__(THREADS)
+fused_mlp_fwd_wide(const float* __restrict__ x, const float* __restrict__ w1,
+                   const float* __restrict__ b1, const float* __restrict__ w2,
+                   const float* __restrict__ b2, float* __restrict__ y, int N,
+                   int Hd) {
+  constexpr int BMW = 8 * RW;       // rows per block
+  constexpr int PADW = BMW + 4;     // row length of the transposed tiles
+  constexpr int NC = D / 32;        // output columns per lane
+  constexpr int PER = BMW * BHW / THREADS;  // phase-A outputs per thread
+  static_assert(PER >= 1 && BMW * BHW % THREADS == 0, "phase A mapping");
+  extern __shared__ __align__(16) float smem[];
+  float* xt = smem;               // [D][PADW]   x tile, transposed
+  float* w1s = xt + D * PADW;     // [D][BHW]    W1[:, chunk]
+  float* w2s = w1s + D * BHW;     // [BHW][D]    W2[chunk, :]
+  float* ht = w2s + BHW * D;      // [BHW][PADW] GELU(hidden chunk), transposed
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int r0 = (tid / 32) * RW;
+  const long row0 = (long)blockIdx.x * BMW;
+
+  for (int idx = tid; idx < BMW * D; idx += THREADS) {
+    const int r = idx / D;
+    const int c = idx % D;
+    xt[c * PADW + r] = row0 + r < N ? x[(row0 + r) * D + c] : 0.f;
+  }
+
+  float acc[RW][NC];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
+
+  for (int h0 = 0; h0 < Hd; h0 += BHW) {
+    __syncthreads();  // x tile written; the previous chunk fully consumed
+    for (int idx = tid; idx < D * BHW / 4; idx += THREADS) {
+      const int r = idx / (BHW / 4);
+      const int c4 = idx % (BHW / 4);
+      reinterpret_cast<float4*>(w1s)[idx] =
+          *reinterpret_cast<const float4*>(w1 + (long)r * Hd + h0 + 4 * c4);
+    }
+    const float4* w2src = reinterpret_cast<const float4*>(w2 + (long)h0 * D);
+    for (int idx = tid; idx < BHW * D / 4; idx += THREADS) {
+      reinterpret_cast<float4*>(w2s)[idx] = w2src[idx];
+    }
+    __syncthreads();
+
+    // Phase A: output o = tid + THREADS i is row o % BMW, unit o / BMW.
+    float ha[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) ha[i] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; ++kk) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int o = tid + THREADS * i;
+        ha[i] = fmaf(xt[kk * PADW + o % BMW], w1s[kk * BHW + o / BMW], ha[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int o = tid + THREADS * i;
+      ht[(o / BMW) * PADW + o % BMW] = gelu_erf(ha[i] + b1[h0 + o / BMW]);
+    }
+    __syncthreads();
+
+    // Phase B: acc[r][i] += sum_j ht[j][r0 + r] * W2[h0 + j][lane + 32 i].
+#pragma unroll 4
+    for (int j = 0; j < BHW; ++j) {
+      float hv[RW];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) hv[r] = ht[j * PADW + r0 + r];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const float w = w2s[j * D + lane + 32 * i];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) acc[r][i] = fmaf(hv[r], w, acc[r][i]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const long row = row0 + r0 + r;
+    if (row < N) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = lane + 32 * i;
+        y[row * D + c] = acc[r][i] + b2[c];
+      }
+    }
+  }
+}
+
+template <int D, int RW, int BHW>
+int launch_wide(const float* x, const float* w1, const float* b1, const float* w2,
+                const float* b2, float* y, int N, int Hd, cudaStream_t stream) {
+  constexpr size_t smem = wide_smem_bytes<D, RW, BHW>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_fwd_wide<D, RW, BHW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((N + 8 * RW - 1) / (8 * RW));
+  fused_mlp_fwd_wide<D, RW, BHW><<<grid, THREADS, smem, stream>>>(x, w1, b1, w2, b2,
+                                                                  y, N, Hd);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_width(const float* x, const float* w1, const float* b1, const float* w2,
                  const float* b2, float* y, int N, int Hd, cudaStream_t stream) {
@@ -159,6 +284,9 @@ extern "C" int launch_fused_mlp(const float* x, const float* w1, const float* b1
     case 64: return launch_width<64>(x, w1, b1, w2, b2, y, N, Hd, stream);
     case 128: return launch_width<128>(x, w1, b1, w2, b2, y, N, Hd, stream);
     case 256: return launch_width<256>(x, w1, b1, w2, b2, y, N, Hd, stream);
+    case 192: return launch_wide<192, 4, 64>(x, w1, b1, w2, b2, y, N, Hd, stream);
+    case 384: return launch_wide<384, 4, 32>(x, w1, b1, w2, b2, y, N, Hd, stream);
+    case 768: return launch_wide<768, 2, 16>(x, w1, b1, w2, b2, y, N, Hd, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,9 +6,10 @@ cv2.resize to (W, H) INTER_LINEAR and BGR2GRAY, and /255
 into a uint8 memmap cache (specimen-major, resized and grayscaled) with a
 .json of the specimens decoded so far, shared by every target; when the
 cache covers the wanted specimens it decodes nothing.  The /255 runs on the
-device (``normalize_images``).  The JAX package's native C++ loader and
-its on-device preprocessing are not ported yet: ``decode_specimen`` takes
-the cv2 path, imported when it runs.
+device (``normalize_images``).  The JAX package's native C++ loader is not
+ported yet: ``decode_specimen`` takes the cv2 path, imported when it runs.
+``preprocess_images_device`` resizes, greys and normalises raw RGB on the
+device.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import DataConfig
 from .labels import LabelTable, ProcessTable, build_target_arrays
@@ -121,3 +123,29 @@ def normalize_images(x):
     if x.dtype == torch.uint8:
         return x.to(torch.float32) / 255.0
     return x
+
+
+# BT.601 weights of R, G and B, as cv2's BGR2GRAY applies them
+GREY_WEIGHTS = (0.299, 0.587, 0.114)
+
+
+def preprocess_images_device(rgb, out_h: int, out_w: int, dtype=None,
+                             antialias: bool = False):
+    """Raw RGB (B, H0, W0, 3), uint8 or float, on any device -> resized,
+    BT.601-greyed, /255 (B, out_h, out_w, 1) float32 or ``dtype``, on the
+    same device (images.py:146): bilinear with half-pixel centres and no
+    antialias (``F.interpolate(align_corners=False)``), the 2x2-tap resize
+    that ``jax.image.resize(method="linear", antialias=False)`` and cv2's
+    INTER_LINEAR compute.  ``antialias=True`` (the JAX package's box-filtered
+    downscale) is not ported yet."""
+    if antialias:
+        raise NotImplementedError("preprocess_images_device(antialias=True) "
+                                  "is not ported yet")
+    x = rgb.float().permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                      align_corners=False, antialias=False)
+    w = torch.tensor(GREY_WEIGHTS, device=x.device)
+    grey = torch.einsum("bchw,c->bhw", x, w) / 255.0
+    if dtype is not None:
+        grey = grey.to(dtype)
+    return grey[..., None]

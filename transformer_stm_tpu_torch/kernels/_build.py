@@ -50,6 +50,12 @@ SIGNATURES = {
                                    _P],
     # x, w1, b1, w2, b2, y, N, D, Hd, Dout, stream
     "launch_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # mode, dtype, x, y, workspace, slots, bytes per slot, g1, be1, wqkv,
+    # sqkv, bqkv, wo, so, bo, g2, be2, w1, s1, b1, w2, s2, b2, rows, rows per
+    # segment, t_real, E, H, hidden, eps, stream
+    "launch_fused_layer": [_I, _I, _P, _P, _P, _I, ctypes.c_longlong,
+                           *[_P] * 16, ctypes.c_longlong, _I, _I, _I, _I,
+                           _I, ctypes.c_float, _P],
     # x, w1, b1, w2, b2, seed, y, N, D, Hd, Dout, keep threshold, keep
     # scale, stream
     "launch_fused_mlp_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -225,7 +225,15 @@ def autograd_functions(fwd, bwd, name: str, cls_name: str):
 
 def apply(train, evaluate, q, k, v):
     """``train`` (with lse, saving for the backward) while autograd records,
-    that is grad is enabled and an input requires grad; else ``evaluate``."""
+    that is grad is enabled and an input requires grad; else ``evaluate``.
+    bfloat16 q, k and v run the float32 kernels: they are converted to
+    float32 here and the output is converted back."""
+    if q.dtype == torch.bfloat16:
+        if not k.dtype == v.dtype == torch.bfloat16:
+            raise ValueError(f"q, k and v must share a type, got {q.dtype}, "
+                             f"{k.dtype}, {v.dtype}")
+        return apply(train, evaluate, q.float(), k.float(),
+                     v.float()).to(q.dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         return train.apply(q, k, v)[0]
@@ -238,7 +246,13 @@ AttentionSmall, AttentionSmallBwd, AttentionSmallEval = autograd_functions(
 
 
 def attention_small(q, k, v):
-    """q: (B, T, H, 64); k, v: (B, S, H, 64), float32 -> (B, T, H, 64)."""
+    """q: (B, T, H, 64); k, v: (B, S, H, 64), float32 or bfloat16 ->
+    (B, T, H, 64) in their type.
+
+    In bfloat16 the kernel runs on the float32 values and only the output
+    is rounded.  The JAX kernel rounds p to bfloat16 before p v
+    (kernels/flash_attention.py:695); the port keeps p in float32, a
+    difference of under one bfloat16 ulp of the output."""
     return apply(AttentionSmall, AttentionSmallEval, q, k, v)
 
 

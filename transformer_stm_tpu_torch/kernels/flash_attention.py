@@ -176,8 +176,9 @@ FlashAttention, FlashAttentionBwd, FlashAttentionEval = autograd_functions(
 
 
 def flash_attention(q, k, v):
-    """q: (B, T, H, Dh); k, v: (B, S, H, Dh), float32, Dh 1 to 256 ->
-    (B, T, H, Dh)."""
+    """q: (B, T, H, Dh); k, v: (B, S, H, Dh), float32 or bfloat16 (run in
+    float32, as ``attention_small`` runs it), Dh 1 to 256 -> (B, T, H, Dh)
+    in their type."""
     return apply(FlashAttention, FlashAttentionEval, q, k, v)
 
 

@@ -34,6 +34,7 @@ from ..ops.common import dense, gelu
 from ._build import library
 
 WIDTHS = (64, 128, 256)  # the CvT stage widths the kernels are built for
+VIT_WIDTHS = (192, 384, 768)  # and the ViT widths of the inference kernel
 HIDDEN_CHUNK = 64
 # Rows per block of the training backward, by width (csrc/fused_mlp_train.cu):
 # the weight and bias partials hold ceil(N / rows) blocks.
@@ -46,7 +47,7 @@ def fused_mlp_plain(x, w1, b1, w2, b2):
     return dense(gelu(dense(x, w1, b1)), w2, b2)
 
 
-def _check(x, w1, b1, w2, b2, what="fused_mlp", **more):
+def _check(x, w1, b1, w2, b2, what="fused_mlp", widths=WIDTHS, **more):
     tensors = (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2),
                *more.items())
     for name, t in tensors:
@@ -59,8 +60,8 @@ def _check(x, w1, b1, w2, b2, what="fused_mlp", **more):
                              f"got {t.dtype}")
     d = x.shape[-1]
     hd = w1.shape[-1] if w1.dim() == 2 else -1
-    if d not in WIDTHS:
-        raise ValueError(f"{what}: width {d} not in {WIDTHS}")
+    if d not in widths:
+        raise ValueError(f"{what}: width {d} not in {widths}")
     if w1.shape != (d, hd) or hd % HIDDEN_CHUNK or b1.shape != (hd,) or \
             w2.shape != (hd, d) or b2.shape != (d,):
         raise ValueError(f"{what}: weight shapes do not match: x "
@@ -71,16 +72,24 @@ def _check(x, w1, b1, w2, b2, what="fused_mlp", **more):
 
 
 def fused_mlp(x, w1, b1, w2, b2):
-    """x: (..., D) float32, D in WIDTHS; w1 (D, Hd); w2 (Hd, D)."""
+    """x: (..., D), D in WIDTHS or VIT_WIDTHS; w1 (D, Hd); w2 (Hd, D).
+
+    The kernel computes in float32.  A bfloat16 x, or bfloat16 weights, are
+    converted to float32 here and the result is returned in x's type, as
+    the TPU kernel casts x and the weights to float32 and writes in x's
+    type (kernels/fused_mlp.py:52-59)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
         raise RuntimeError(
             "fused_mlp is an inference kernel with no backward; run it under "
             "torch.no_grad() or torch.inference_mode(), or train through "
             "mlp(..., train=True), which takes the plain MLP")
+    if any(t.dtype != torch.float32 for t in (x, w1, b1, w2, b2)):
+        y = fused_mlp(*(t.float().contiguous() for t in (x, w1, b1, w2, b2)))
+        return y.to(x.dtype)
     if all(t.device.type == "cpu" for t in (x, w1, b1, w2, b2)):
         return fused_mlp_plain(x, w1, b1, w2, b2)
-    _check(x, w1, b1, w2, b2)
+    _check(x, w1, b1, w2, b2, widths=WIDTHS + VIT_WIDTHS)
     d, hd = w1.shape
     n = x.numel() // d
     y = torch.empty_like(x)

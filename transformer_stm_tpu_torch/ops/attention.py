@@ -1,7 +1,8 @@
 """Multi-head attention and the CvT ConvAttention
 (transformer_stm_tpu/ops/attention.py).
 
-``mha`` keeps the numerics of keras.layers.MultiHeadAttention (:126-143).
+``mha`` keeps the numerics of keras.layers.MultiHeadAttention (:126-143),
+in float32 and, with the JAX rounding points, in bfloat16.
 ``_attention_core`` routes softmax(q k^T / sqrt(Dh)) v as the JAX router
 does on the TPU (:69-112): with ``impl="auto"`` a head whose score matrix
 has more than 300,000 entries, or a batch whose f32 scores would pass
@@ -30,7 +31,7 @@ from torch import nn
 
 from ..kernels.attention_small import attention_small
 from ..kernels.flash_attention import flash_attention
-from .common import Dense, _param, dropout, glorot_uniform
+from .common import Dense, _param, dense, dropout, glorot_uniform
 from .projection import Projection
 
 SMALL_MIN_ENTRIES = 300_000
@@ -39,11 +40,17 @@ IMPLS = ("auto", "plain", "small", "flash", "pallas")
 
 
 def _attention_plain(q, k, v):
-    """softmax(q k^T / sqrt(Dh)) v in PyTorch, as the JAX einsum path."""
+    """softmax(q k^T / sqrt(Dh)) v in PyTorch, as the JAX einsum path
+    (:116-124): in bfloat16 the scale is cast to q's type, the scores and
+    the softmax are float32, the probabilities are cast to q's type, and
+    the output is q's type."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bthd,bshd->bhts", q * scale, k)
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhts,bshd->bthd", probs, v)
+    if q.dtype != torch.float32:
+        scale = torch.tensor(scale).to(q.dtype).item()
+    scores = torch.einsum("bthd,bshd->bhts", (q * scale).float(), k.float())
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs.float(),
+                        v.float()).to(q.dtype)
 
 
 def _attention_core(q, k, v, *, impl: str = "auto"):
@@ -93,7 +100,7 @@ def mha(m: MHA, query, key, value, *, impl: str = "auto"):
     """(B, T, E) x (B, S, E) x (B, S, E) -> (B, T, E), Keras numerics."""
     def proj_in(p, x):
         e, h, dh = p.kernel.shape
-        y = torch.matmul(x, p.kernel.reshape(e, h * dh)) + p.bias.reshape(-1)
+        y = dense(x, p.kernel.reshape(e, h * dh), p.bias.reshape(-1))
         return y.reshape(x.shape[0], x.shape[1], h, dh)
 
     q = proj_in(m.query, query)
@@ -101,9 +108,8 @@ def mha(m: MHA, query, key, value, *, impl: str = "auto"):
     v = proj_in(m.value, value)
     o = _attention_core(q, k, v, impl=impl)
     h, dh, e = m.out.kernel.shape
-    out = torch.matmul(o.reshape(o.shape[0], o.shape[1], h * dh),
-                       m.out.kernel.reshape(h * dh, e))
-    return out + m.out.bias
+    return dense(o.reshape(o.shape[0], o.shape[1], h * dh),
+                 m.out.kernel.reshape(h * dh, e), m.out.bias)
 
 
 class ConvAttention(nn.Module):

@@ -2,7 +2,11 @@
 TF-SAME convolutions in NHWC with HWIO kernels, dense, LayerNorm (eps
 1e-6), BatchNorm (eps 1e-3, momentum 0.99; batch statistics in training),
 SAME average pooling whose divisor leaves out the padding, exact erf GELU
-and inverted dropout.  Each parameterised op also has
+and inverted dropout.  In bfloat16 they keep the JAX package's rounding
+points: ``dense`` casts its kernel and bias to x's type, ``layer_norm``
+takes its statistics in float32 and casts the result back, and ``gelu``
+evaluates the Abramowitz-Stegun rational erf in float32 (:245-267).  Each
+parameterised op also has
 a small ``nn.Module`` that holds its parameters under the JAX names, so a
 checkpoint's path-keyed leaves map one to one onto ``state_dict`` names.
 """
@@ -81,9 +85,9 @@ def depthwise_conv2d(x, kernel, bias=None, stride: int = 1,
 
 
 def dense(x, kernel, bias=None):
-    """y = x @ W + b on the last axis."""
-    y = torch.matmul(x, kernel)
-    return y + bias if bias is not None else y
+    """y = x @ W + b on the last axis, W and b cast to x's type (:149)."""
+    y = torch.matmul(x, kernel.to(x.dtype))
+    return y + bias.to(x.dtype) if bias is not None else y
 
 
 # ---------------------------------------------------------------------------
@@ -91,10 +95,13 @@ def dense(x, kernel, bias=None):
 # ---------------------------------------------------------------------------
 
 def layer_norm(x, gamma, beta, eps: float = 1e-6):
-    """LayerNorm over the last axis with the biased variance."""
-    mean = x.mean(dim=-1, keepdim=True)
-    var = (x - mean).square().mean(dim=-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+    """LayerNorm over the last axis with the biased variance; statistics
+    and affine in float32, the result in x's type (:166)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+    return y.to(x.dtype)
 
 
 def batch_norm(x, gamma, beta, mean, var, eps: float = 1e-3):
@@ -134,8 +141,24 @@ def avg_pool_same(x, pool_size: int, stride: int):
 
 
 def gelu(x):
-    """Exact (erf) GELU, the Keras default."""
+    """Exact (erf) GELU, the Keras default.  bfloat16 input takes the
+    Abramowitz-Stegun rational erf in float32, as the JAX function does
+    (:245), and is cast back."""
+    if x.dtype == torch.bfloat16:
+        xf = x.float()
+        return (xf * 0.5 * (1.0 + erf_rational(xf * 0.7071067811865476))
+                ).to(x.dtype)
     return x * 0.5 * (1.0 + torch.special.erf(x * 0.7071067811865476))
+
+
+def erf_rational(x):
+    """Abramowitz-Stegun 7.1.26 rational erf, |error| <= 1.5e-7 (:260)."""
+    a1, a2, a3 = 0.254829592, -0.284496736, 1.421413741
+    a4, a5, p = -1.453152027, 1.061405429, 0.3275911
+    ax = x.abs()
+    t = 1.0 / (1.0 + p * ax)
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
 
 
 def dropout(x, rate: float, train: bool,

@@ -14,6 +14,13 @@ with dots, so the mapping is a rename:
     params, state = to_jax_params(model)
     save_checkpoint(ckpt_dir, model, adam_state, step)
 
+A ViT's parameter tree (``init_vit`` of the JAX package: ``patch_embed``,
+``pos_embed``, ``cls_token``, the ``blocks`` list, ``head_norm``, ``head``;
+no state) maps the same way onto the port's ``ViT``:
+
+    model = vit_from_jax_params(params, spec, device="cuda")
+    params = vit_to_jax_params(model)
+
 The multi-target trainer's checkpoints are stacked (train/multi.py:395-420
 of the JAX package): every ``p/``, ``s/`` and ``o/`` leaf carries a leading
 slot axis T and ``o/step`` is (T,), one Adam count per slot.
@@ -36,8 +43,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import CvTSpec
+from ..config import CvTSpec, ViTSpec
 from ..models.cvt import CvT
+from ..models.vit import ViT
 from .optimizer import AdamState
 
 
@@ -234,3 +242,17 @@ def to_jax_params(model) -> Tuple[dict, dict]:
         return _unflatten({k.replace(".", "/"): v.detach().cpu().numpy()
                            for k, v in named})
     return tree(model.named_parameters()), tree(model.named_buffers())
+
+
+def vit_from_jax_params(np_params, spec: ViTSpec, device="cuda") -> ViT:
+    """A JAX ViT parameter tree of numpy arrays (float32 or bfloat16) -> a
+    float32 ``ViT`` on ``device``; every leaf must match by name and
+    shape."""
+    return load_into(ViT(spec), np_params, {}).to(device)
+
+
+def vit_to_jax_params(model: ViT) -> dict:
+    """The inverse of ``vit_from_jax_params``: the parameter tree as float32
+    numpy arrays in the JAX layout, whatever the model's type."""
+    return _unflatten({k.replace(".", "/"): v.detach().float().cpu().numpy()
+                       for k, v in model.named_parameters()})
