@@ -125,9 +125,9 @@ from transformer_stm_tpu_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_plain)
 from transformer_stm_tpu_torch.kernels.fused_layer import (  # noqa: E402
-    attn_layer_infer, attn_layer_infer_plain, ln_mlp_infer,
-    ln_mlp_infer_plain, vit_layer_infer, vit_layer_infer_int8,
-    vit_layer_infer_int8_plain, vit_layer_infer_plain)
+    MODE_ATTN, MODE_MLP, MODE_Q8, attn_layer_infer, attn_layer_infer_plain,
+    ln_mlp_infer, ln_mlp_infer_plain, pack_weights, vit_layer_infer,
+    vit_layer_infer_int8, vit_layer_infer_int8_plain, vit_layer_infer_plain)
 from transformer_stm_tpu_torch.kernels.fused_mlp import (  # noqa: E402
     STREAM_HIDDEN, STREAM_OUT, TRAIN_BWD_ROWS, dropout_mask, fused_mlp,
     fused_mlp_plain, fused_mlp_train, fused_mlp_train_bwd,
@@ -285,15 +285,16 @@ def phase_env():
 
 def kernel_name(mangled):
     """The last name of a mangled nested name, with its integer template
-    argument: '_ZN<n>_GLOBAL__N_<...><n>bwd_dqEPKf...' -> 'bwd_dq',
-    '..13fused_mlp_fwdILi256EEEv..' -> 'fused_mlp_fwd<256>'."""
+    arguments: '_ZN<n>_GLOBAL__N_<...><n>bwd_dqEPKf...' -> 'bwd_dq',
+    '..13fused_mlp_fwdILi256ELi4ELi64EEEv..' -> 'fused_mlp_fwd<256,4,64>'."""
     name, i = mangled, 3 if mangled.startswith("_ZN") else 2
     while (m := re.match(r"\d+", mangled[i:])):
         n = int(m.group())
         name = mangled[i + m.end():i + m.end() + n]
         i += m.end() + n
-    t = re.match(r"ILi(\d+)E", mangled[i:])
-    return f"{name}<{t.group(1)}>" if t else name
+    t = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    return (f"{name}<{','.join(re.findall(r'Li(-?\d+)E', t.group(1)))}>"
+            if t else name)
 
 
 def phase_build():
@@ -1437,11 +1438,15 @@ VIT_BATCHES = (192, 384, 768)  # whole-forward images/s in bf16
 VIT_TIME_B = 192               # per-kernel timings and the main path
 VIT_CHECK_B = 8                # kernel routes against the plain route
 VIT_F32_B = 64                 # the f32 auto route against f32 plain
-# (name, E, H, B, t_real, t_pad) of the kernel checks
+# (name, E, H, B, t_real, t_pad) of the kernel checks; the main path's
+# batches make a block walk several images (or 128-row segments) through
+# one workspace slot, where B 8 gives each its own
 VIT_LAYER_SHAPES = [("ViT-S", 384, 6, VIT_CHECK_B, 197, 200),
                     ("ViT-Ti", 192, 3, 2, 197, 200),
                     ("ViT-B", 768, 12, 2, 197, 200),
-                    ("ViT-S 64px", 384, 6, 3, 17, 24)]
+                    ("ViT-S 64px", 384, 6, 3, 17, 24),
+                    ("ViT-S", 384, 6, VIT_TIME_B, 197, 200),
+                    ("ViT-S", 384, 6, max(VIT_BATCHES), 197, 200)]
 VIT_F32_TOL = 1e-5    # f32 kernel vs plain: max |err| <= tol * max |plain|
 VIT_BF16_ULPS = 2     # bf16: max |err| <= 2 bf16 ulps of max |plain|
 VIT_INT8_TOL = 1e-2   # int8 kernel vs its plain version: tol * max |plain|
@@ -1626,26 +1631,34 @@ def vit_kernel_times(worst, card):
     lib = library_layer(mods, bt)
     xl = x.reshape(b, tp, e)[:, :t].contiguous()
     rows = []
-    for name, kernel, plain, flops, lib_fn, line in (
+    both = MODE_ATTN | MODE_MLP
+    for name, kernel, plain, flops, lib_fn, line, (mode, *mods_of) in (
             ("attn_layer_infer",
              lambda: attn_layer_infer(x, n1, attn, **layer),
              lambda: attn_layer_infer_plain(x, n1, attn, **layer),
-             f_attn / PEAK_BF16_FLOPS, None, 62),
+             f_attn / PEAK_BF16_FLOPS, None, 62,
+             (MODE_ATTN, n1, attn, None, None)),
             ("ln_mlp_infer", lambda: ln_mlp_infer(x, n2, mlp),
              lambda: ln_mlp_infer_plain(x, n2, mlp),
-             f_mlp / PEAK_BF16_FLOPS, None, 590),
+             f_mlp / PEAK_BF16_FLOPS, None, 590,
+             (MODE_MLP, None, None, n2, mlp)),
             ("vit_layer_infer",
              lambda: vit_layer_infer(x, n1, attn, n2, mlp, **layer),
              lambda: vit_layer_infer_plain(x, n1, attn, n2, mlp, **layer),
-             f_layer / PEAK_BF16_FLOPS, lambda: lib(xl), 279),
+             f_layer / PEAK_BF16_FLOPS, lambda: lib(xl), 279,
+             (both, *mods)),
             ("vit_layer_infer_int8",
              lambda: vit_layer_infer_int8(x, n1, attn, n2, mlp, **layer),
              lambda: vit_layer_infer_int8_plain(x, n1, attn, n2, mlp,
                                                 **layer),
              ops_int8 / PEAK_INT8_OPS + f_core / PEAK_BF16_FLOPS, None,
-             440)):
+             440, (both | MODE_Q8, *mods))):
         with torch.inference_mode():
             ms = time_ms(kernel)
+            # the wrapper's share of ms: packing (and for int8 quantising)
+            # the weights, which every launch redoes
+            pack_ms = time_ms(lambda: pack_weights(mode, bt, x.device,
+                                                   *mods_of))
             plain_ms = time_ms(plain)
             lib_ms = time_ms(lib_fn) if lib_fn is not None else None
         t_ops, t_bytes = 1e3 * flops, 1e3 * nbytes / PEAK_BYTES
@@ -1655,7 +1668,7 @@ def vit_kernel_times(worst, card):
             source="transformer_stm_tpu_torch/csrc/fused_layer.cu",
             replaces=f"transformer_stm_tpu/kernels/fused_layer.py:{line}",
             max_abs_err=worst[name][0], max_rel_err=worst[name][1], ms=ms,
-            plain_ms=plain_ms,
+            pack_ms=pack_ms, plain_ms=plain_ms,
             bound_ms=b_ms,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=lib_ms,
@@ -1663,7 +1676,8 @@ def vit_kernel_times(worst, card):
                        hidden=hidden, dtype="bfloat16")))
         lib_txt = (f"  TransformerEncoderLayer {lib_ms:.3f} ms"
                    if lib_ms is not None else "  no single PyTorch call")
-        say(f"[7] {name} ViT-S B{b} bf16: kernel {ms:.3f} ms  plain "
+        say(f"[7] {name} ViT-S B{b} bf16: kernel {ms:.3f} ms (its weight "
+            f"packing alone {pack_ms:.3f} ms)  plain "
             f"{plain_ms:.3f} ms{lib_txt}  bound {b_ms:.3f} ms "
             f"({rows[-1]['bound_by']}; {card})")
     # the whole layer in f32 (true f32, FMA products) beside its f32 bound

@@ -217,24 +217,23 @@ def test_fits_at_the_cuda_limits():
     """The attention phase holds K and V of a head and a 32-row score tile:
     in f32 (itemsize 4) t_pad 344 fits 227 KB and 352 does not, in bf16
     464 fits and 472 does not; Dh must be 64 and the widths multiples of
-    64.  Both routes get the same answer."""
+    64."""
     limit = fused_layer.SMEM_LIMIT
     assert fused_layer.attention_smem_bytes(344, 4) <= limit
     assert fused_layer.attention_smem_bytes(352, 4) > limit
     assert fused_layer.attention_smem_bytes(464, 2) <= limit
     assert fused_layer.attention_smem_bytes(472, 2) > limit
-    for merged in (False, True):
-        assert fused_layer_fits(200, 384, 6, 64, 1536, 2, merged=merged)
-        assert fused_layer_fits(200, 768, 12, 64, 3072, 4, merged=merged)
-        assert fused_layer_fits(344, 192, 3, 64, 768, 4, merged=merged)
-        assert fused_layer_fits(464, 384, 6, 64, 1536, 2, merged=merged)
-        assert fused_layer_fits(24, 384, 6, 64, 1536, 2, merged=merged)
-        assert not fused_layer_fits(352, 384, 6, 64, 1536, 4, merged=merged)
-        assert not fused_layer_fits(472, 384, 6, 64, 1536, 2, merged=merged)
-        assert not fused_layer_fits(1032, 384, 6, 64, 1536, 2, merged=merged)
-        assert not fused_layer_fits(200, 384, 12, 32, 1536, 2, merged=merged)
-        assert not fused_layer_fits(200, 400, 6, 64, 1600, 2, merged=merged)
-        assert not fused_layer_fits(197, 384, 6, 64, 1536, 2, merged=merged)
+    assert fused_layer_fits(200, 384, 6, 64, 1536, 2)
+    assert fused_layer_fits(200, 768, 12, 64, 3072, 4)
+    assert fused_layer_fits(344, 192, 3, 64, 768, 4)
+    assert fused_layer_fits(464, 384, 6, 64, 1536, 2)
+    assert fused_layer_fits(24, 384, 6, 64, 1536, 2)
+    assert not fused_layer_fits(352, 384, 6, 64, 1536, 4)
+    assert not fused_layer_fits(472, 384, 6, 64, 1536, 2)
+    assert not fused_layer_fits(1032, 384, 6, 64, 1536, 2)
+    assert not fused_layer_fits(200, 384, 12, 32, 1536, 2)
+    assert not fused_layer_fits(200, 400, 6, 64, 1600, 2)
+    assert not fused_layer_fits(197, 384, 6, 64, 1536, 2)
 
 
 def _meta_layer(e=384, h=6):

@@ -208,7 +208,7 @@ def test_auto_bf16_falls_back_when_the_kernels_do_not_fit(monkeypatch):
     (t_pad, e, heads, dh, hidden, itemsize), kw = calls[0]
     assert (t_pad, e, heads, dh, hidden, itemsize) == (24, 384, 6, 64, 1536,
                                                        2)
-    assert kw == {"merged": True}
+    assert kw == {}
     assert routes == ["small", "small"]  # both layers, no fused forward
 
 

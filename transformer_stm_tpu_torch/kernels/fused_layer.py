@@ -71,14 +71,13 @@ def attention_smem_bytes(t_pad: int, itemsize: int = 2) -> int:
 
 
 def fused_layer_fits(t_pad: int, e: int, heads: int, dh: int, hidden: int,
-                     itemsize: int = 2, merged: bool = False) -> bool:
+                     itemsize: int = 2) -> bool:
     """True iff the CUDA fused-layer kernels take these model dims in x's
     type (``itemsize`` 4 for float32, 2 for bfloat16): Dh 64; E, H * Dh and
     the hidden width multiples of 64; t_pad a multiple of 8 whose attention
     phase fits a block's shared memory (t_pad <= 344 in float32, <= 464 in
-    bfloat16).  ``merged`` does not change the answer here (both routes
-    share the attention phase); it keeps the JAX signature."""
-    del merged
+    bfloat16).  Unlike JAX's, the answer is the same for the merged layer
+    and the pair: both share the attention phase."""
     return (dh == HEAD_DIM and e % TILE == 0 and (heads * dh) % TILE == 0
             and hidden % TILE == 0 and t_pad % 8 == 0
             and attention_smem_bytes(t_pad, itemsize) <= SMEM_LIMIT)
@@ -283,10 +282,35 @@ def _no_grad(what, x, *modules):
                            "torch.inference_mode()")
 
 
+def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
+    """The 16 weight operands of ``launch_fused_layer`` in its order,
+    contiguous on ``device``: (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2,
+    s2, b2, g1, be1, g2, be2), products in ``dtype`` (int8 with their
+    column scales in ``MODE_Q8``), a one-element placeholder for each
+    operand ``mode`` does not read.  Every launch packs them anew (and
+    quantises them anew for int8); packing once per model belongs with the
+    work that makes the kernels fast."""
+    null = torch.zeros(1, device=device)
+    if mode & MODE_Q8:
+        (wqkv, sqkv), bqkv, (wo, so), bo, (w1, s1), b1, (w2, s2), b2 = \
+            _int8_weights(attn, mlp)
+    else:
+        sqkv = so = s1 = s2 = null
+        wqkv, bqkv, wo, bo = (_attn_weights(attn, dtype) if attn is not None
+                              else (null,) * 4)
+        w1, b1, w2, b2 = (_mlp_weights(mlp, dtype) if mlp is not None
+                          else (null,) * 4)
+    g1, be1 = _norm(norm1) if norm1 is not None else (null, null)
+    g2, be2 = _norm(norm2) if norm2 is not None else (null, null)
+    return [t.to(device).contiguous() for t in (
+        wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1, g2,
+        be2)]
+
+
 def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
     """Checks the shapes against the CUDA design, then the device, packs the
-    weights, allocates the output and the workspace and launches
-    ``launch_fused_layer`` in ``mode``."""
+    weights (``pack_weights``), allocates the output and the workspace and
+    launches ``launch_fused_layer`` in ``mode``."""
     n, e = x.shape
     heads = attn.query.bias.shape[0] if attn is not None else 1
     hd = heads * HEAD_DIM
@@ -315,22 +339,8 @@ def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
                          f"bfloat16 tensor on a CUDA device, got {x.dtype} "
                          f"on {x.device}")
     dev = x.device
-    null = torch.zeros(1, device=dev)
-    if mode & MODE_Q8:
-        (wqkv, sqkv), bqkv, (wo, so), bo, (w1, s1), b1, (w2, s2), b2 = \
-            _int8_weights(attn, mlp)
-    else:
-        sqkv = so = s1 = s2 = null
-        wqkv, bqkv, wo, bo = (_attn_weights(attn, x.dtype) if attn is not None
-                              else (null,) * 4)
-        w1, b1, w2, b2 = (_mlp_weights(mlp, x.dtype) if mlp is not None
-                          else (null,) * 4)
-    g1, be1 = _norm(norm1) if norm1 is not None else (null, null)
-    g2, be2 = _norm(norm2) if norm2 is not None else (null, null)
-    tensors = [wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1,
-               g2, be2]
     wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1, g2, be2 = (
-        t.to(dev).contiguous() for t in tensors)
+        pack_weights(mode, x.dtype, dev, norm1, attn, norm2, mlp))
     nseg = -(-n // seg)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     slots = min(nseg, SLOTS_PER_SM * sms)

@@ -111,8 +111,7 @@ def _route_auto(spec: ViTSpec, images) -> str:
         if not fused_layer.fused_layer_fits(
                 -(-t // 8) * 8, spec.embed_dim, spec.num_heads,
                 spec.embed_dim // spec.num_heads,
-                spec.embed_dim * spec.mlp_ratio, 2,
-                merged=(impl == "fused2")):
+                spec.embed_dim * spec.mlp_ratio, 2):
             impl = "small"
     return impl
 
