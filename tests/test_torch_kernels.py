@@ -125,7 +125,8 @@ def test_sources_are_plain_cuda():
                                       "flash_attention.cu",
                                       "flash_attention_bwd.cu",
                                       "fused_layer.cu", "fused_mlp.cu",
-                                      "fused_mlp_train.cu"]
+                                      "fused_mlp_train.cu",
+                                      "vit_layer_sm90.cu"]
     for src in srcs:
         text = src.read_text()
         assert "torch/" not in text and "ATen" not in text
@@ -135,7 +136,7 @@ def test_sources_are_plain_cuda():
 
 def test_build_commands_compile_each_source_for_sm90a(tmp_path):
     compiles, link = _build.commands("nvcc", _build.sources(), tmp_path)
-    assert len(compiles) == 7
+    assert len(compiles) == 8
     for cmd in compiles + [link]:
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     for cmd, src in zip(compiles, _build.sources()):
@@ -161,7 +162,16 @@ def test_digest_follows_the_sources(tmp_path):
 
 def test_ctypes_signatures_pass_pointers_as_void_p():
     import ctypes
+    # the bf16 layer's host helpers take no stream: the weight maps'
+    # buffer and four weights; three out-pointers of the kernel's info
+    helpers = {"vit_layer_sm90_weight_maps": 5, "vit_layer_sm90_info": 3}
+    for name, n_ptr in helpers.items():
+        argtypes = _build.SIGNATURES[name]
+        assert argtypes.count(ctypes.c_void_p) == n_ptr
+        assert ctypes.c_int in argtypes
     for name, argtypes in _build.SIGNATURES.items():
+        if name in helpers:
+            continue
         assert argtypes[-1] is ctypes.c_void_p  # the stream
         n_ptr = {"launch_attention_small": 5,
                  "launch_attention_small_bwd": 9,
@@ -170,12 +180,18 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
                  "launch_fused_mlp": 6,
                  "launch_fused_mlp_train_fwd": 7,
                  "launch_fused_mlp_train_bwd": 11,
-                 "launch_fused_layer": 19}[name]
+                 "launch_fused_layer": 19,
+                 "launch_vit_layer_sm90": 12}[name]
         assert argtypes.count(ctypes.c_void_p) == n_ptr + 1
         if name == "launch_fused_layer":
             # mode and dtype, then x, y and the workspace; slots and bytes
             # per slot; then the 16 weight, scale and bias pointers
             assert argtypes[2:5] == [ctypes.c_void_p] * 3
             assert argtypes[7:23] == [ctypes.c_void_p] * 16
+        elif name == "launch_vit_layer_sm90":
+            # mode, then x, y and the workspace; its bytes and the slots;
+            # the maps and the 8 LN and bias pointers
+            assert argtypes[1:4] == [ctypes.c_void_p] * 3
+            assert argtypes[6:15] == [ctypes.c_void_p] * 9
         else:
             assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr

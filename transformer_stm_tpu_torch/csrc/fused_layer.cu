@@ -1,4 +1,5 @@
-// Fused ViT-layer inference on folded (B * t_pad, E) token rows, f32 or bf16:
+// Fused ViT-layer inference on folded (B * t_pad, E) token rows, in f32, and
+// the int8 layer in f32 or bf16:
 //
 //   mode ATTN        y = x + OutProj(MHA(LN1 x))           attn_layer_infer
 //   mode MLP         y = x + MLP(LN2 x)                     ln_mlp_infer
@@ -7,9 +8,10 @@
 //
 // Replaces the Pallas TPU kernels of transformer_stm_tpu/kernels/fused_layer.py:
 // `_attn_layer_kernel` :62 (`attn_layer_infer` :200), `_ln_mlp_kernel` :590
-// (`ln_mlp_infer` :602), `_layer_kernel` :279 (`vit_layer_infer` :335) and
-// `_layer_kernel_int8` :440 with `_quant_rows` :410 and `_qdot` :430
-// (`vit_layer_infer_int8` :509).
+// (`ln_mlp_infer` :602), `_layer_kernel` :279 (`vit_layer_infer` :335) in
+// float32, and `_layer_kernel_int8` :440 with `_quant_rows` :410 and `_qdot`
+// :430 (`vit_layer_infer_int8` :509).  The first three in bfloat16 are
+// csrc/vit_layer_sm90.cu (wgmma and TMA).
 //
 // Bound: operations.  At ViT-S (E 384, H 6, Dh 64, hidden 1536, t_pad 200) a
 // layer does 0.77 GFLOP an image against 0.3 MB of x in and y out, far above
@@ -20,25 +22,20 @@
 // turn, separated by __syncthreads(): LN1; the packed q/k/v projection; the
 // attention of one head at a time with that head's K and V for the image in
 // shared memory, query tiles of 32 rows and a whole-row softmax; the out
-// projection plus the residual; LN2; the MLP as two products.  In bf16 and
-// int8 the products run on the tensor cores (wmma, 64x128 tiles, operands
-// staged with cp.async in two stages) and so does the bf16 attention (K and V
-// in bf16, 104 KB at t_pad 200, so two blocks fit an SM); in f32 they are FMA
-// tiles (true f32: 4x4 outputs a thread) and the attention holds K^T and V in
-// f32 (136 KB, one block an SM).
+// projection plus the residual; LN2; the MLP as two products.  In f32 the
+// products are FMA tiles (true f32: 4x4 outputs a thread) and the attention
+// holds K^T and V in f32 (136 KB, one block an SM); in int8 the products run
+// on the tensor cores (wmma 16x16x16 int8 -> int32, 64x128 tiles, operands
+// staged with cp.async in two stages) and a bf16 layer's attention too (K
+// and V in bf16, 104 KB at t_pad 200, so two blocks fit an SM).
 // The per-image intermediates (xn, q/k/v, the attention output, z in f32,
 // zn, the MLP hidden) go through a workspace in device memory, one slot per
 // resident block, which the wrapper allocates; a block walks the images
-// blockIdx.x, blockIdx.x + gridDim.x, ...  That workspace round trip is what
-// a later version removes, for example with a thread-block cluster whose
-// distributed shared memory holds an image; so is the one-image-a-block
-// grid, which leaves SMs idle when B is not a multiple of the resident
-// blocks (192 images on 132 SMs).
+// blockIdx.x, blockIdx.x + gridDim.x, ...
 //
-// Rounding points are the JAX kernels': at bf16, xn and zn before each
-// product, q/k/v, p before p v (l sums the unrounded p), the per-head output
-// before the out projection, and the MLP hidden after GELU are rounded to
-// bf16; products accumulate in f32; scores, softmax, l and z stay f32 (the
+// Rounding points are the JAX kernels': q/k/v, p before p v (l sums the
+// unrounded p) and the per-head output are rounded to x's type; products
+// accumulate in f32 (int32 for int8); scores, softmax, l and z stay f32 (the
 // merged modes keep z f32 in the workspace; mode ATTN writes it out in x's
 // type).  At f32 every value is f32 and every product is true f32.  GELU is
 // the Abramowitz-Stegun form of `_gelu_exact` (kernels/fused_mlp.py:33-49).
@@ -50,7 +47,7 @@
 //
 // Limits (fused_layer.py states them for the router): Dh 64; E, H * Dh and
 // the hidden width multiples of 64; t_pad a multiple of 8 whose attention
-// phase fits 227 KB (t_pad <= 344 in f32, <= 464 in bf16).
+// phase fits 227 KB (t_pad <= 344 in f32, <= 464 for the bf16 int8 layer).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -178,32 +175,29 @@ constexpr int MM = 64, MN = 128, MK = 64;  // tensor-core product tile
 constexpr int STAGES = 2;                  // A and B tiles in flight
 constexpr int WLD = 36;                    // row length of a warp's f32 scratch
 
-// shared memory of gemm_mma: STAGES stages of A and B tiles, which the
+// shared memory of gemm_mma: STAGES stages of int8 A and B tiles, which the
 // warps' epilogue scratch reuses once the last stage is consumed
-template <typename TE>
-constexpr size_t mma_smem_bytes() {
-  return STAGES * (size_t)(MM * MK + MK * MN) * sizeof(TE) > (THREADS / 32) * 32 * WLD * 4
-             ? STAGES * (size_t)(MM * MK + MK * MN) * sizeof(TE)
-             : (THREADS / 32) * 32 * WLD * 4;
-}
+constexpr size_t MMA_SMEM = STAGES * (size_t)(MM * MK + MK * MN) > (THREADS / 32) * 32 * WLD * 4
+                                ? STAGES * (size_t)(MM * MK + MK * MN)
+                                : (THREADS / 32) * 32 * WLD * 4;
 
-// The bf16 and int8 products on the tensor cores (wmma 16x16x16: bf16 x bf16
-// -> f32, int8 x int8 -> int32, the rounding points of the JAX kernels):
-// 64x128 output tiles, warp w owns the 32x32 piece at rows 32 (w / 4),
-// columns 32 (w % 4) (2x2 accumulator fragments).  The A and B tiles of depth
-// 64 are staged in shared memory with cp.async, STAGES deep so that the
-// next tile loads while the tensor cores work on this one (four stages
-// measured no faster than two on the H100), in chunks of 16 columns,
+// The int8 products on the tensor cores (wmma 16x16x16 int8 x int8 ->
+// int32, the rounding points of the JAX kernel): 64x128 output tiles, warp w
+// owns the 32x32 piece at rows 32 (w / 4), columns 32 (w % 4) (2x2
+// accumulator fragments).  The A and B tiles of depth 64 are staged in
+// shared memory with cp.async, STAGES deep so that the next tile loads while
+// the tensor cores work on this one, in chunks of 16 columns,
 // [chunk][row][16], so that every fragment starts 32-byte aligned.
 // A warp's sums go through its own scratch (over the stage buffers) to the
 // epilogue, one row at a time across the lanes (coalesced stores).  Columns
 // past N (N % 128 == 64) and rows past `rows` are zero-filled, and a warp
 // whose whole piece lies past them skips its products.
-template <typename TE, class Epi>
-__device__ void gemm_mma(const TE* __restrict__ A, long lda, int rows, const TE* __restrict__ B,
-                         long ldb, int K, int N, char* smem, Epi epi) {
-  typedef typename std::conditional<std::is_same<TE, bf16>::value, float, int>::type Acc;
-  constexpr int VEC = 16 / sizeof(TE);  // elements per 16-byte copy
+template <class Epi>
+__device__ void gemm_mma(const int8_t* __restrict__ A, long lda, int rows,
+                         const int8_t* __restrict__ B, long ldb, int K, int N, char* smem, Epi epi) {
+  typedef int8_t TE;
+  typedef int Acc;
+  constexpr int VEC = 16;  // elements per 16-byte copy
   constexpr int A_EL = MM * MK, B_EL = MK * MN;
   TE* As = reinterpret_cast<TE*>(smem);  // [STAGES][MK / 16][MM][16]
   TE* Bs = As + STAGES * A_EL;           // [STAGES][MN / 16][MK][16]
@@ -294,9 +288,9 @@ __device__ void gemm_mma(const TE* __restrict__ A, long lda, int rows, const TE*
 }
 
 // C = A B over `rows` rows: A (rows, K) row-major with row stride lda, B (K, N)
-// row-major with row stride ldb; K and N multiples of 64, and for bf16 and
-// int8 the strides multiples of 16 bytes.  For each output (r, c) with
-// r < rows calls epi(r, c, acc): acc is f32, or int32 for int8 operands.
+// row-major with row stride ldb; K and N multiples of 64, and for int8 the
+// strides multiples of 16 bytes.  For each output (r, c) with r < rows calls
+// epi(r, c, acc): acc is f32, or int32 for int8 operands.
 template <typename T, class Epi>
 __device__ void gemm(const T* __restrict__ A, long lda, int rows, const T* __restrict__ B,
                      long ldb, int K, int N, float* smem, Epi epi) {
@@ -705,8 +699,7 @@ int launch(const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
   const Layout L = layout(a.seg, a.E, HD, a.hidden, (int)sizeof(T), MODE & MODE_Q8);
   if (L.total != ws_bytes) return (int)cudaErrorInvalidValue;
   constexpr bool BF = std::is_same<T, bf16>::value;
-  size_t smem = (MODE & MODE_Q8) ? mma_smem_bytes<int8_t>()
-                                 : (BF ? mma_smem_bytes<bf16>() : FMA_SMEM);
+  size_t smem = (MODE & MODE_Q8) ? MMA_SMEM : FMA_SMEM;
   if (MODE & MODE_ATTN) {
     const size_t att = attention_smem_bytes(a.seg, BF);
     if (att > smem) smem = att;
@@ -731,14 +724,15 @@ int launch(const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_mode(int mode, const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
+// f32: every mode; bf16: the int8 layer only (vit_layer_sm90.cu has the rest)
+int launch_f32(int mode, const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
   switch (mode) {
-    case MODE_ATTN: return launch<T, MODE_ATTN>(a, slots, ws_bytes, stream);
-    case MODE_MLP: return launch<T, MODE_MLP>(a, slots, ws_bytes, stream);
-    case MODE_ATTN | MODE_MLP: return launch<T, MODE_ATTN | MODE_MLP>(a, slots, ws_bytes, stream);
+    case MODE_ATTN: return launch<float, MODE_ATTN>(a, slots, ws_bytes, stream);
+    case MODE_MLP: return launch<float, MODE_MLP>(a, slots, ws_bytes, stream);
+    case MODE_ATTN | MODE_MLP:
+      return launch<float, MODE_ATTN | MODE_MLP>(a, slots, ws_bytes, stream);
     case MODE_ATTN | MODE_MLP | MODE_Q8:
-      return launch<T, MODE_ATTN | MODE_MLP | MODE_Q8>(a, slots, ws_bytes, stream);
+      return launch<float, MODE_ATTN | MODE_MLP | MODE_Q8>(a, slots, ws_bytes, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -747,10 +741,10 @@ int launch_mode(int mode, const Args& a, int slots, size_t ws_bytes, cudaStream_
 
 // One launch of the fused layer in `mode` (1 ATTN, 2 MLP, 3 ATTN|MLP, 7 with
 // int8) on `n_rows` rows of x, in segments of `seg` rows (an image of t_pad
-// rows for the attention modes), dtype 0 f32 or 1 bf16.  Weights: wqkv (E,
-// 3 HD) = [Wq / sqrt(Dh) | Wk | Wv], wo (HD, E), w1 (E, hidden), w2 (hidden,
-// E) in x's type, or int8 with per-column scales s* in mode 7; biases and LN
-// parameters f32.  ws holds `slots` slots of `ws_bytes` each.  Returns a
+// rows for the attention modes), dtype 0 f32 or 1 bf16 (mode 7 only).
+// Weights: wqkv (E, 3 HD) = [Wq / sqrt(Dh) | Wk | Wv], wo (HD, E), w1 (E,
+// hidden), w2 (hidden, E) in x's type, or int8 with per-column scales s* in
+// mode 7; biases and LN parameters f32.  ws holds `slots` slots of `ws_bytes` each.  Returns a
 // cudaError_t as int: 0 when the launch was accepted.
 extern "C" int launch_fused_layer(int mode, int dtype, const void* x, void* y, void* ws,
                                   int slots, long long ws_bytes, const float* g1,
@@ -766,7 +760,8 @@ extern "C" int launch_fused_layer(int mode, int dtype, const void* x, void* y, v
     return (int)cudaErrorInvalidValue;
   Args a{x, y, static_cast<char*>(ws), g1, be1, wqkv, sqkv, bqkv, wo, so, bo, g2, be2,
          w1, s1, b1, w2, s2, b2, (long)n_rows, seg, t_real, E, H, hidden, eps};
-  if (dtype == 0) return launch_mode<float>(mode, a, slots, (size_t)ws_bytes, stream);
-  if (dtype == 1) return launch_mode<bf16>(mode, a, slots, (size_t)ws_bytes, stream);
+  if (dtype == 0) return launch_f32(mode, a, slots, (size_t)ws_bytes, stream);
+  if (dtype == 1 && mode == (MODE_ATTN | MODE_MLP | MODE_Q8))
+    return launch<bf16, MODE_ATTN | MODE_MLP | MODE_Q8>(a, slots, (size_t)ws_bytes, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -56,6 +56,16 @@ SIGNATURES = {
     "launch_fused_layer": [_I, _I, _P, _P, _P, _I, ctypes.c_longlong,
                            *[_P] * 16, ctypes.c_longlong, _I, _I, _I, _I,
                            _I, ctypes.c_float, _P],
+    # mode, t_pad, registers (out), shared memory bytes (out), blocks per SM
+    # (out)
+    "vit_layer_sm90_info": [_I, _I, _P, _P, _P],
+    # maps (host, 4 x 128 bytes), wqkv^T, wo^T, w1^T, w2^T, E, H, hidden
+    "vit_layer_sm90_weight_maps": [_P, _P, _P, _P, _P, _I, _I, _I],
+    # mode, x, y, workspace, its bytes, slots, maps, g1, be1, bqkv, bo, g2,
+    # be2, b1, b2, rows, t_pad, t_real, E, H, hidden, eps, stream
+    "launch_vit_layer_sm90": [_I, _P, _P, _P, ctypes.c_longlong, _I, _P,
+                              *[_P] * 8, ctypes.c_longlong, _I, _I, _I, _I,
+                              _I, ctypes.c_float, _P],
     # x, w1, b1, w2, b2, seed, y, N, D, Hd, Dout, keep threshold, keep
     # scale, stream
     "launch_fused_mlp_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -1,7 +1,8 @@
 """Fused ViT-layer inference kernels, each beside its plain PyTorch version.
 
 Ports of the Pallas TPU kernels of transformer_stm_tpu/kernels/fused_layer.py
-(see ``csrc/fused_layer.cu``, which holds all four):
+(``csrc/vit_layer_sm90.cu`` holds the first three in bfloat16, on wgmma and
+TMA; ``csrc/fused_layer.cu`` holds them in float32 and the int8 layer):
 
 - ``attn_layer_infer`` (:200, ``_attn_layer_kernel`` :62):
   y = x + OutProj(MHA(LN1 x));
@@ -16,7 +17,10 @@ Tokens are folded: x is (B * t_pad, E), t_pad a multiple of 8, keys at or
 past t_real are masked and padded query rows carry junk.  x is float32 or
 bfloat16; the weights are taken from the port's modules (``LayerNorm``,
 ``MHA``, ``MLP``) and cast to x's type (int8 for the int8 kernel), q's
-pre-scaled by 1/sqrt(Dh), as the JAX wrappers pack them.
+pre-scaled by 1/sqrt(Dh), as the JAX wrappers pack them.  They are packed
+once per model (``packed_weights``): the packed tensors, and for bfloat16
+their TMA descriptors, are cached on the layer's modules until a parameter
+changes; ``pack_weights.packings`` counts the packings.
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device launch
 the kernel, or raise: for shapes outside the CUDA design, for a token count
@@ -27,6 +31,7 @@ while autograd records (the kernels have no backward).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -36,8 +41,16 @@ from ._build import library
 
 HEAD_DIM = 64        # the attention phase's head dim
 TILE = 64            # E, H * Dh and the hidden width are multiples of this
-QUERY_TILE = 32      # query rows of an attention tile
+QUERY_TILE = 32      # query rows of an attention tile (f32 and int8 kernels)
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
+# csrc/vit_layer_sm90.cu: a ring of 3 stages of 56 KB and a 16 KB hidden
+# chunk, or Q, K and V of one head in 64-row tiles of 8 KB, beside 2 KB of
+# barriers and alignment
+SM90_GEMM_BYTES = 3 * 57_344 + 16_384
+SM90_TILE_BYTES = 8_192
+SM90_EXTRA_BYTES = 2_048
+SM90_ROWS = 64       # rows of a tile of the bf16 layer
+TMA_MAP_BYTES = 128  # one CUtensorMap
 MLP_SEGMENT = 128    # rows a block takes at a time in ln_mlp_infer
 SLOTS_PER_SM = 2     # workspace slots a launch may use, per SM
 NEG_INF = -1e30
@@ -47,40 +60,49 @@ MODE_ATTN, MODE_MLP, MODE_Q8 = 1, 2, 4
 class FusedLayerSharedMemoryError(ValueError):
     """Raised when a fused layer kernel's attention phase needs more shared
     memory than one block may use on the card (``SMEM_LIMIT``, 227 KB on
-    Hopper): K and V of one head for a whole image plus a 32-row score tile,
-    ``attention_smem_bytes``, which passes the limit past t_pad 344 in
-    float32 and past t_pad 464 in bfloat16.  ``fused_layer_fits`` predicts
-    it; callers route to the composable impl='small' path instead."""
+    Hopper), ``attention_smem_bytes``: past t_pad 344 in float32, past
+    t_pad 576 in bfloat16 and past t_pad 464 for the int8 layer.
+    ``fused_layer_fits`` predicts it; callers route to the composable
+    impl='small' path instead."""
 
 
-def attention_smem_bytes(t_pad: int, itemsize: int = 2) -> int:
-    """Shared memory of the attention phase (``attention_smem_bytes`` of
-    csrc/fused_layer.cu): in float32, K^T and V of one head, a score tile
-    and a query tile of ``QUERY_TILE`` rows and their row sums, all f32; in
-    bfloat16, K, V (rows padded to a multiple of 16) and the query tile in
+def attention_smem_bytes(t_pad: int, itemsize: int = 2,
+                         int8: bool = False) -> int:
+    """Shared memory a block of the kernel that runs the attention at t_pad
+    needs.  float32 (``attention_smem_bytes`` of csrc/fused_layer.cu): K^T
+    and V of one head, a score tile and a query tile of ``QUERY_TILE`` rows
+    and their row sums, all f32.  The int8 layer on bfloat16 (the same
+    function): K, V (rows padded to a multiple of 16) and the query tile in
     bf16 with rows of ``HEAD_DIM`` + 8, the probabilities in bf16, the
-    scores (which then hold the output tile, ``HEAD_DIM`` wide) and row
-    sums in f32."""
+    scores (which then hold the output tile, ``HEAD_DIM`` wide) and row sums
+    in f32.  bfloat16 (``smem_bytes`` of csrc/vit_layer_sm90.cu): the larger
+    of the product ring with its hidden chunk and Q, K and V of one head in
+    64-row tiles, beside the barriers."""
     qt = QUERY_TILE
     if itemsize == 4:
         return 4 * (2 * HEAD_DIM * t_pad + qt * t_pad + HEAD_DIM * qt + qt)
-    t16 = -(-t_pad // 16) * 16
-    row = HEAD_DIM + 8
-    return (2 * (2 * t16 * row + qt * row + qt * (t16 + 8))
-            + 4 * (qt * (max(t16, HEAD_DIM) + 4) + qt))
+    if int8:
+        t16 = -(-t_pad // 16) * 16
+        row = HEAD_DIM + 8
+        return (2 * (2 * t16 * row + qt * row + qt * (t16 + 8))
+                + 4 * (qt * (max(t16, HEAD_DIM) + 4) + qt))
+    tiles = -(-t_pad // SM90_ROWS)
+    return SM90_EXTRA_BYTES + max(SM90_GEMM_BYTES,
+                                  3 * tiles * SM90_TILE_BYTES)
 
 
 def fused_layer_fits(t_pad: int, e: int, heads: int, dh: int, hidden: int,
-                     itemsize: int = 2) -> bool:
+                     itemsize: int = 2, int8: bool = False) -> bool:
     """True iff the CUDA fused-layer kernels take these model dims in x's
-    type (``itemsize`` 4 for float32, 2 for bfloat16): Dh 64; E, H * Dh and
-    the hidden width multiples of 64; t_pad a multiple of 8 whose attention
-    phase fits a block's shared memory (t_pad <= 344 in float32, <= 464 in
-    bfloat16).  Unlike JAX's, the answer is the same for the merged layer
-    and the pair: both share the attention phase."""
+    type (``itemsize`` 4 for float32, 2 for bfloat16; ``int8`` for the int8
+    layer): Dh 64; E, H * Dh and the hidden width multiples of 64; t_pad a
+    multiple of 8 whose attention fits a block's shared memory (t_pad <= 344
+    in float32, <= 576 in bfloat16, <= 464 for the int8 layer).  Unlike
+    JAX's, the answer is the same for the merged layer and the pair: both
+    share the attention."""
     return (dh == HEAD_DIM and e % TILE == 0 and (heads * dh) % TILE == 0
             and hidden % TILE == 0 and t_pad % 8 == 0
-            and attention_smem_bytes(t_pad, itemsize) <= SMEM_LIMIT)
+            and attention_smem_bytes(t_pad, itemsize, int8) <= SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------
@@ -282,14 +304,44 @@ def _no_grad(what, x, *modules):
                            "torch.inference_mode()")
 
 
+def _sm90(mode, dtype):
+    """True where csrc/vit_layer_sm90.cu runs the launch: bfloat16, not
+    int8."""
+    return dtype == torch.bfloat16 and not mode & MODE_Q8
+
+
+def sm90_workspace_bytes(mode: int, n: int, t_pad: int, e: int, hd: int,
+                         slots: int) -> int:
+    """Bytes of the workspace of csrc/vit_layer_sm90.cu (``layout`` there):
+    the item counter and the per-tile and per-image counters, q|k|v and the
+    attention output of every row in the attention modes, each block's bf16
+    slot (xn, then zn) and in the merged mode its f32 slot (z); each region
+    rounded up to 1 KB."""
+    def a(b):
+        return -(-b // 1024) * 1024
+    attn = bool(mode & MODE_ATTN)
+    tiles = -(-n // SM90_ROWS)
+    images = n // t_pad if attn else 0
+    total = a(4 * (1 + tiles + images)) + a(slots * SM90_ROWS * e * 2)
+    if attn:
+        total += a(n * 3 * hd * 2) + a(n * hd * 2)
+    if mode == MODE_ATTN | MODE_MLP:
+        total += a(slots * SM90_ROWS * e * 4)
+    return total
+
+
 def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
-    """The 16 weight operands of ``launch_fused_layer`` in its order,
-    contiguous on ``device``: (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2,
-    s2, b2, g1, be1, g2, be2), products in ``dtype`` (int8 with their
-    column scales in ``MODE_Q8``), a one-element placeholder for each
-    operand ``mode`` does not read.  Every launch packs them anew (and
-    quantises them anew for int8); packing once per model belongs with the
-    work that makes the kernels fast."""
+    """The weight operands of one launch in the kernel's order, contiguous
+    on ``device``, with a one-element placeholder for each operand ``mode``
+    does not read; adds one to ``pack_weights.packings``.
+
+    bfloat16 (csrc/vit_layer_sm90.cu): (wqkv^T (3 HD, E), wo^T (E, HD),
+    w1^T (hidden, E), w2^T (E, hidden) in bf16, every product's operands
+    K-major; g1, be1, bqkv, bo, g2, be2, b1, b2 in f32).  Otherwise the 16
+    operands of ``launch_fused_layer``: (wqkv, sqkv, bqkv, wo, so, bo, w1,
+    s1, b1, w2, s2, b2, g1, be1, g2, be2), products in ``dtype``, or int8
+    with their column scales in ``MODE_Q8``."""
+    pack_weights.packings += 1
     null = torch.zeros(1, device=device)
     if mode & MODE_Q8:
         (wqkv, sqkv), bqkv, (wo, so), bo, (w1, s1), b1, (w2, s2), b2 = \
@@ -302,30 +354,66 @@ def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
                           else (null,) * 4)
     g1, be1 = _norm(norm1) if norm1 is not None else (null, null)
     g2, be2 = _norm(norm2) if norm2 is not None else (null, null)
-    return [t.to(device).contiguous() for t in (
-        wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1, g2,
-        be2)]
+    if _sm90(mode, dtype):
+        t = [w.t() if w is not null else w for w in (wqkv, wo, w1, w2)]
+        ops = (*t, g1, be1, bqkv, bo, g2, be2, b1, b2)
+    else:
+        ops = (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1,
+               g2, be2)
+    return [t.to(device).contiguous() for t in ops]
 
 
-def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
-    """Checks the shapes against the CUDA design, then the device, packs the
-    weights (``pack_weights``), allocates the output and the workspace and
-    launches ``launch_fused_layer`` in ``mode``."""
+pack_weights.packings = 0  # a caller resets it to 0 to count a run
+
+
+def _version(t):
+    """t's version counter (bumped by every in-place update); inference
+    tensors keep none."""
+    return -1 if t.is_inference() else t._version
+
+
+def packed_weights(mode, dtype, device, norm1, attn, norm2, mlp):
+    """``pack_weights`` once per model: the cache entry of the layer for
+    (mode, dtype, device), kept on its attention module (or its MLP), a
+    dict with the packed operands under "ops" and, once a bfloat16 launch
+    has built them, their TMA descriptors under "maps".  The entry holds
+    while every parameter of the modules keeps its identity, version
+    counter, storage, dtype and device: an in-place update,
+    ``load_state_dict`` or ``.to()`` repacks at the next call."""
+    owner = attn if attn is not None else mlp
+    cache = owner.__dict__.setdefault("_fused_layer_packs", {})
+    key = tuple((id(p), _version(p), p.data_ptr(), p.dtype, p.device)
+                for m in (norm1, attn, norm2, mlp) if m is not None
+                for p in m.parameters())
+    where = (mode, dtype, torch.device(device))
+    entry = cache.get(where)
+    if entry is None or entry["key"] != key:
+        entry = {"key": key, "maps": None,
+                 "ops": pack_weights(mode, dtype, device, norm1, attn, norm2,
+                                     mlp)}
+        cache[where] = entry
+    return entry
+
+
+def _check(what, mode, x, seg, t_real, attn, mlp):
+    """Checks the shapes against the CUDA design, then the device; returns
+    (heads, hidden)."""
     n, e = x.shape
     heads = attn.query.bias.shape[0] if attn is not None else 1
     hd = heads * HEAD_DIM
     hidden = mlp.fc1.kernel.shape[1] if mlp is not None else TILE
     dh = attn.query.bias.shape[1] if attn is not None else HEAD_DIM
     it = x.element_size()
+    int8 = bool(mode & MODE_Q8)
     if not fused_layer_fits(seg if mode & MODE_ATTN else 8, e, heads, dh,
-                            hidden, it):
+                            hidden, it, int8):
         if dh == HEAD_DIM and e % TILE == 0 and hd % TILE == 0 and \
                 hidden % TILE == 0 and seg % 8 == 0:
             raise FusedLayerSharedMemoryError(
-                f"{what}: t_pad={seg} needs {attention_smem_bytes(seg, it)} "
-                f"bytes of shared memory for its attention phase, over the "
-                f"{SMEM_LIMIT} a block may use; use the composable "
-                "impl='small' path")
+                f"{what}: t_pad={seg} needs "
+                f"{attention_smem_bytes(seg, it, int8)} bytes of shared "
+                f"memory for its attention, over the {SMEM_LIMIT} a block "
+                "may use; use the composable impl='small' path")
         raise ValueError(f"{what}: E={e} heads={heads} Dh={dh} "
                          f"hidden={hidden} t_pad={seg} are outside the CUDA "
                          "design (Dh 64; E, H*Dh and hidden multiples of 64; "
@@ -338,14 +426,27 @@ def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
         raise ValueError(f"{what}: x must be a contiguous float32 or "
                          f"bfloat16 tensor on a CUDA device, got {x.dtype} "
                          f"on {x.device}")
+    return heads, hidden
+
+
+def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
+    """Checks the shapes and the device, takes the packed weights
+    (``packed_weights``), allocates the output and the workspace and
+    launches ``launch_vit_layer_sm90`` (bfloat16) or ``launch_fused_layer``
+    in ``mode``."""
+    heads, hidden = _check(what, mode, x, seg, t_real, attn, mlp)
+    if _sm90(mode, x.dtype):
+        return _launch_sm90(what, mode, x, seg, t_real, norm1, attn, norm2,
+                            mlp, eps, heads, hidden)
+    n, e = x.shape
     dev = x.device
     wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1, g2, be2 = (
-        pack_weights(mode, x.dtype, dev, norm1, attn, norm2, mlp))
+        packed_weights(mode, x.dtype, dev, norm1, attn, norm2, mlp)["ops"])
     nseg = -(-n // seg)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     slots = min(nseg, SLOTS_PER_SM * sms)
-    ws_bytes = workspace_bytes(seg, e, hd, hidden, x.element_size(),
-                               bool(mode & MODE_Q8))
+    ws_bytes = workspace_bytes(seg, e, heads * HEAD_DIM, hidden,
+                               x.element_size(), bool(mode & MODE_Q8))
     ws = torch.empty(slots * ws_bytes, dtype=torch.uint8, device=dev)
     y = torch.empty_like(x)
     rc = library().launch_fused_layer(
@@ -358,6 +459,45 @@ def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch_fused_layer ({what}) failed: CUDA error "
+                           f"{rc}")
+    return y
+
+
+def _launch_sm90(what, mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps,
+                 heads, hidden):
+    """One launch of csrc/vit_layer_sm90.cu; builds the weights' TMA
+    descriptors into the cache entry at its first launch."""
+    n, e = x.shape
+    dev = x.device
+    lib = library()
+    entry = packed_weights(mode, x.dtype, dev, norm1, attn, norm2, mlp)
+    wqkv, wo, w1, w2, g1, be1, bqkv, bo, g2, be2, b1, b2 = entry["ops"]
+    if entry["maps"] is None:
+        maps = ctypes.create_string_buffer(4 * TMA_MAP_BYTES)
+        a, m = attn is not None, mlp is not None
+        rc = lib.vit_layer_sm90_weight_maps(
+            ctypes.addressof(maps), wqkv.data_ptr() if a else None,
+            wo.data_ptr() if a else None, w1.data_ptr() if m else None,
+            w2.data_ptr() if m else None, e, heads, hidden)
+        if rc != 0:
+            raise RuntimeError(f"vit_layer_sm90_weight_maps ({what}) failed: "
+                               f"error {rc}")
+        entry["maps"] = maps.raw  # bytes, so that the modules still pickle
+    if not mode & MODE_ATTN:
+        t_pad, t_real = SM90_ROWS, 1
+    slots = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws = torch.empty(sm90_workspace_bytes(mode, n, t_pad, e,
+                                          heads * HEAD_DIM, slots),
+                     dtype=torch.uint8, device=dev)
+    y = torch.empty_like(x)
+    rc = lib.launch_vit_layer_sm90(
+        mode, x.data_ptr(), y.data_ptr(), ws.data_ptr(), ws.numel(), slots,
+        entry["maps"], g1.data_ptr(), be1.data_ptr(),
+        bqkv.data_ptr(), bo.data_ptr(), g2.data_ptr(), be2.data_ptr(),
+        b1.data_ptr(), b2.data_ptr(), n, t_pad, t_real, e, heads, hidden, eps,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"launch_vit_layer_sm90 ({what}) failed: error "
                            f"{rc}")
     return y
 
