@@ -1,12 +1,18 @@
 """The fused ViT-layer kernels' weights, packed once per model.
 
-``packed_weights`` caches what ``pack_weights`` returns on the layer's
-modules, per (mode, dtype, device), and ``pack_weights.packings`` counts the
-packings.  On the CPU (and on ``meta`` tensors, which stand in for the card):
+``packed_weights`` caches what ``pack_weights`` returns per layer and
+(mode, dtype, device), beside the modules, and ``pack_weights.packings``
+counts the packings.  On the CPU (and on ``meta`` tensors, which stand in
+for the card):
 
 - a second call returns the same packed tensors and packs nothing;
 - an in-place update of any parameter, ``load_state_dict`` and a change of
   dtype or device repack, and the new operands follow the new weights;
+- entries for a dtype or device the modules have left are dropped, entries
+  of another launch kind of the same layer are kept;
+- modules made under ``torch.inference_mode()`` are packed at every call,
+  so an in-place update there is followed too;
+- the modules deep-copy and pickle without the cache;
 - the int8 layer's per-column quantisation through the cache equals
   ``quant_cols`` bit for bit;
 - the bf16 layer (csrc/vit_layer_sm90.cu) takes every product's weights
@@ -17,7 +23,11 @@ The CUDA kernels run only on the card, where ``python3 chip_smoke.py``
 (phase 7) checks that a second ViT forward packs nothing.
 """
 
+import copy
+import gc
 import math
+import pickle
+import weakref
 
 import numpy as np
 import pytest
@@ -180,3 +190,71 @@ def test_bf16_layer_workspace_and_shared_memory():
     assert only_mlp == -(-4 * (1 + tiles) // 1024) * 1024 + slots * 64 * e * 2
     assert fused_layer.attention_smem_bytes(200) == 2048 + 3 * 57344 + 16384
     assert fused_layer.attention_smem_bytes(200) <= fused_layer.SMEM_LIMIT
+
+
+def test_entries_the_modules_left_are_dropped():
+    mods = layer()
+    owner = mods[1]
+    packed_weights(BOTH, torch.float32, "cpu", *mods)
+    packed_weights(MODE_ATTN, torch.float32, "cpu", *used(MODE_ATTN, mods))
+    packed_weights(BOTH, torch.float32, "meta", *mods)
+    assert set(fused_layer._PACKS[owner]) == {
+        (BOTH, torch.float32, torch.device("cpu")),
+        (MODE_ATTN, torch.float32, torch.device("cpu")),
+        (BOTH, torch.float32, torch.device("meta"))}
+    # another launch kind of the same layer does not evict them
+    start = pack_weights.packings
+    for mode in (BOTH, MODE_ATTN, BOTH):
+        packed_weights(mode, torch.float32, "cpu", *used(mode, mods))
+    assert pack_weights.packings == start
+    # the modules move: every entry of their old state goes at the next miss
+    moved = [m.to(torch.bfloat16) for m in mods]
+    packed_weights(BOTH, torch.bfloat16, "cpu", *moved)
+    assert set(fused_layer._PACKS[owner]) == {
+        (BOTH, torch.bfloat16, torch.device("cpu"))}
+    # an update of the MLP alone keeps the attention's entry
+    packed_weights(MODE_ATTN, torch.bfloat16, "cpu", *used(MODE_ATTN, moved))
+    with torch.no_grad():
+        moved[3].fc1.bias.add_(1.0)
+    packed_weights(BOTH, torch.bfloat16, "meta", *moved)
+    assert set(fused_layer._PACKS[owner]) == {
+        (MODE_ATTN, torch.bfloat16, torch.device("cpu")),
+        (BOTH, torch.bfloat16, torch.device("meta"))}
+
+
+@pytest.mark.parametrize("mode,dtype", KINDS, ids=KIND_IDS)
+def test_inference_tensors_are_packed_every_call(mode, dtype):
+    with torch.inference_mode():
+        mods = used(mode, [m.to(dtype) for m in layer(dtype=dtype)])
+        assert all(p.is_inference() for m in mods if m is not None
+                   for p in m.parameters())
+        start = pack_weights.packings
+        old = packed_weights(mode, dtype, "cpu", *mods)["ops"]
+        target = mods[1] if mods[1] is not None else mods[3]
+        next(target.parameters()).mul_(2.0)
+        new = packed_weights(mode, dtype, "cpu", *mods)["ops"]
+    assert pack_weights.packings == start + 2
+    assert not equal(new, old)
+    assert equal(new, pack_weights(mode, dtype, "cpu", *mods))
+    assert (mods[1] if mods[1] is not None else mods[3]) not in \
+        fused_layer._PACKS
+
+
+def test_modules_copy_and_pickle_without_the_cache():
+    mods = layer(dtype=torch.bfloat16)
+    packed_weights(BOTH, torch.bfloat16, "cpu", *mods)
+    attn = mods[1]
+    assert attn in fused_layer._PACKS
+    assert not any("pack" in k for k in vars(attn))
+    twin = copy.deepcopy(attn)
+    assert twin not in fused_layer._PACKS
+    loaded = pickle.loads(pickle.dumps(attn))
+    assert loaded not in fused_layer._PACKS
+    # the copy packs its own entry; the cache does not keep a module alive
+    start = pack_weights.packings
+    packed_weights(BOTH, torch.bfloat16, "cpu", mods[0], twin, *mods[2:])
+    assert pack_weights.packings == start + 1
+    gone = weakref.ref(twin)
+    del twin
+    gc.collect()
+    assert gone() is None

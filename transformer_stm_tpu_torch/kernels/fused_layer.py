@@ -19,8 +19,8 @@ bfloat16; the weights are taken from the port's modules (``LayerNorm``,
 ``MHA``, ``MLP``) and cast to x's type (int8 for the int8 kernel), q's
 pre-scaled by 1/sqrt(Dh), as the JAX wrappers pack them.  They are packed
 once per model (``packed_weights``): the packed tensors, and for bfloat16
-their TMA descriptors, are cached on the layer's modules until a parameter
-changes; ``pack_weights.packings`` counts the packings.
+their TMA descriptors, are cached per layer until a parameter changes;
+``pack_weights.packings`` counts the packings.
 
 Tensors on the CPU take the plain versions; tensors on a CUDA device launch
 the kernel, or raise: for shapes outside the CUDA design, for a token count
@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 
 import torch
 
@@ -365,33 +366,74 @@ def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
 
 pack_weights.packings = 0  # a caller resets it to 0 to count a run
 
+# The layer's attention module (or its MLP) -> {(mode, dtype, device):
+# entry}.  Held beside the modules, not on them, so that a module pickles
+# and deep-copies without packed tensors or device addresses.
+_PACKS = weakref.WeakKeyDictionary()
 
-def _version(t):
-    """t's version counter (bumped by every in-place update); inference
-    tensors keep none."""
-    return -1 if t.is_inference() else t._version
+
+def _params(m, out):
+    """Appends m's parameters and its submodules' to out, in the order of
+    ``m.parameters()`` (a fraction of its cost, which a launch pays)."""
+    out.extend(p for p in m._parameters.values() if p is not None)
+    for c in m._modules.values():
+        if c is not None:
+            _params(c, out)
+    return out
+
+
+def _state(mods):
+    """The identity, version counter, storage, dtype and device of every
+    parameter of mods (None entries skipped); None if one is an inference
+    tensor, whose in-place updates leave no version behind."""
+    key = []
+    for m in mods:
+        if m is not None:
+            for p in _params(m, []):
+                if p.is_inference():
+                    return None
+                key.append((id(p), p._version, p.data_ptr(), p.dtype,
+                            p.device))
+    return tuple(key)
+
+
+def _current(entry):
+    """True while the modules an entry was packed from live and match its
+    key."""
+    mods = tuple(r() if r is not None else None for r in entry["mods"])
+    return (all(m is not None for m, r in zip(mods, entry["mods"])
+                if r is not None) and _state(mods) == entry["key"])
 
 
 def packed_weights(mode, dtype, device, norm1, attn, norm2, mlp):
     """``pack_weights`` once per model: the cache entry of the layer for
-    (mode, dtype, device), kept on its attention module (or its MLP), a
-    dict with the packed operands under "ops" and, once a bfloat16 launch
-    has built them, their TMA descriptors under "maps".  The entry holds
-    while every parameter of the modules keeps its identity, version
-    counter, storage, dtype and device: an in-place update,
-    ``load_state_dict`` or ``.to()`` repacks at the next call."""
+    (mode, dtype, device), a dict with the packed operands under "ops" and,
+    once a bfloat16 launch has built them, their TMA descriptors under
+    "maps".  The entry holds while every parameter of the modules keeps its
+    identity, version counter, storage, dtype and device: an in-place
+    update, ``load_state_dict`` or ``.to()`` repacks at the next call, which
+    also drops the layer's entries that no longer match their modules (a
+    dtype or device the model has left).  Modules with an inference tensor
+    among their parameters (made under ``torch.inference_mode()``) are
+    packed at every call: nothing would show their in-place updates."""
+    mods = (norm1, attn, norm2, mlp)
     owner = attn if attn is not None else mlp
-    cache = owner.__dict__.setdefault("_fused_layer_packs", {})
-    key = tuple((id(p), _version(p), p.data_ptr(), p.dtype, p.device)
-                for m in (norm1, attn, norm2, mlp) if m is not None
-                for p in m.parameters())
+    key = _state(mods)
     where = (mode, dtype, torch.device(device))
+    cache = _PACKS.get(owner, {})
     entry = cache.get(where)
-    if entry is None or entry["key"] != key:
-        entry = {"key": key, "maps": None,
-                 "ops": pack_weights(mode, dtype, device, norm1, attn, norm2,
-                                     mlp)}
-        cache[where] = entry
+    if key is not None and entry is not None and entry["key"] == key:
+        return entry
+    entry = {"key": key, "maps": None,
+             "mods": tuple(weakref.ref(m) if m is not None else None
+                           for m in mods),
+             "ops": pack_weights(mode, dtype, device, *mods)}
+    if key is None:
+        _PACKS.pop(owner, None)
+        return entry
+    kept = {w: e for w, e in cache.items() if w != where and _current(e)}
+    kept[where] = entry
+    _PACKS[owner] = kept
     return entry
 
 

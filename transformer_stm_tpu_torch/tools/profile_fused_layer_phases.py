@@ -1,22 +1,19 @@
 """Where the bf16 fused ViT layer spends its time, phase by phase, on the card.
 
-    python3 scripts/profile_fused_layer_phases.py [--root DIR] [--batch B]
+    python3 -m transformer_stm_tpu_torch.tools.profile_fused_layer_phases \
+        [--batch B]
 
-Builds a copy of the layer's CUDA source with `clock64()` spans inserted at
-fixed lines (the committed source stays as it is), loads it in place of the
-kernel library, and runs ``vit_layer_infer`` at ViT-S/16 widths (E 384, H 6,
-hidden 1536, 197 tokens padded to 200) in bfloat16 at batch B (192).  One
-thread of each block (thread 0: the block of the one-block-an-image kernel
-of ``csrc/fused_layer.cu``, a consumer of ``csrc/vit_layer_sm90.cu``) adds
-the cycles since its previous mark to the phase that the mark closes.  The
-table gives each phase's share of the summed cycles and that share of the
-uninstrumented kernel's time (CUDA events around 10 back-to-back calls,
-median of 5).
-
-``--root`` takes another checkout of the repository (for example the parent
-commit, unpacked with ``git archive``): the script profiles the kernel that
-checkout holds.  The spans are those of either source, picked by which file
-the checkout has; a line they anchor on that is missing raises.
+Builds a copy of ``csrc/vit_layer_sm90.cu`` with `clock64()` spans inserted
+at fixed lines (the committed source stays as it is), loads it in place of
+the kernel library, and runs ``vit_layer_infer`` at ViT-S/16 widths (E 384,
+H 6, hidden 1536, 197 tokens padded to 200) in bfloat16 at batch B (192).
+Thread 0 of each block (a consumer) adds the cycles since its previous mark
+to the phase that the mark closes.  The table gives each phase's share of
+the summed cycles and that share of the uninstrumented kernel's time (CUDA
+events around 10 back-to-back calls, median of 5).  The spans anchor on
+whole lines of the source (``ANCHORS``); a line that is missing raises, and
+tests/test_torch_profile_phases.py checks them against the source on the
+CPU.
 """
 
 import argparse
@@ -24,7 +21,6 @@ import ctypes
 import math
 import statistics
 import subprocess
-import sys
 import tempfile
 from pathlib import Path
 
@@ -63,7 +59,8 @@ INIT = "if (threadIdx.x == 0) prof_last = clock64();"
 
 # (line anchor, its occurrence (0 the first), "before" or "after", code):
 # a mark PROF(k) closes phase k.
-SM90 = ("vit_layer_sm90.cu", [
+SOURCE = "vit_layer_sm90.cu"
+ANCHORS = [
     ("  Ring ring{0, 0, 0, 0};", 0, "after", INIT),
     ("    if (threadIdx.x == 0) sm.item[it & 1] = atomicAdd(p.flags, 1);", 0,
      "before", "PROF(0);"),
@@ -95,7 +92,9 @@ SM90 = ("vit_layer_sm90.cu", [
      "stage_a, stage_b);", 0, "after", "PROF(15);"),
     ("    mma_loop<NW>(acc, E / KT, sm.full, sm.empty, stage, phase, stage_a, "
      "stage_b);", 0, "after", "PROF(16);"),
-], ["C: y epilogue (end of the previous item)", "wait for the block",
+]
+# the phase each PROF(k) closes, by k
+PHASES = ["C: y epilogue (end of the previous item)", "wait for the block",
     "A: LN1", "A: q|k|v epilogue", "B: wait for q|k|v (deps + TMA)",
     "B: attention", "C: z, LN2 from registers", "C: LN2 (from the slot)",
     "C: the first chunk's fc1", "C: h fence + barrier",
@@ -103,27 +102,11 @@ SM90 = ("vit_layer_sm90.cu", [
     "C: wait for the other warpgroup", "C: GELU",
     "C: wait for the heads (deps + TMA of o)", "C: h into shared memory",
     "C: out projection products", "A: q|k|v products",
-    "C: the last chunk's fc2 (to the drain)"])
+    "C: the last chunk's fc2 (to the drain)"]
 
-OLD = ("fused_layer.cu", [
-    ("  const long nseg = (a.n_rows + a.seg - 1) / a.seg;", 0, "after", INIT),
-    ("    const long base = sg * a.seg;", 0, "before", "PROF(6);"),
-    ("        layer_norm_rows(x, rows, E, a.g1, a.be1, a.eps, xn);", 0,
-     "after", "PROF(0);"),
-    ("      if constexpr (std::is_same<T, bf16>::value)", 0, "before",
-     "PROF(1);"),
-    ("        gemm(o, HD, rows, wo, E, HD, E, smem, [&](int r, int c, "
-     "float acc) {", 0, "before", "PROF(2);"),
-    ("        if constexpr (ATTN)", 0, "before", "PROF(3);"),
-    ("        gemm(xn, E, rows, w1, HID, E, HID, smem, [&](int r, int c, "
-     "float acc) {", 0, "before", "PROF(4);"),
-    ("        gemm(hid, HID, rows, w2, E, HID, E, smem, [&](int r, int c, "
-     "float acc) {", 0, "before", "PROF(5);"),
-], ["LN1", "q|k|v product", "attention", "out projection + residual", "LN2",
-    "fc1 + GELU", "fc2 + residual"])
-
-
-def patch(text, anchors):
+def patch(text, anchors=ANCHORS):
+    """text with the spans' prelude, each anchor's code before or after
+    its line and the counters' readers at the end."""
     lines = text.split("\n")
     out = [PRELUDE]
     edits = {}
@@ -140,15 +123,7 @@ def patch(text, anchors):
         for where, code in edits.get(i, []):
             if where == "after":
                 out.append(code)
-    # the old kernel's last segment closes at the end of its loop
-    text = "\n".join(out)
-    if "PROF(6);\n    const long base" in text:
-        marker = "\n}\n\ntemplate <typename T, int MODE>\nint launch("
-        if marker not in text:
-            raise ValueError("end of the old kernel not found")
-        text = text.replace(marker, "\n  PROF(6);\n}\n\ntemplate <typename T, "
-                            "int MODE>\nint launch(", 1)
-    return text + EPILOGUE
+    return "\n".join(out) + EPILOGUE
 
 
 def time_ms(fn, calls=10, reps=5, warmup=2):
@@ -174,11 +149,8 @@ def time_ms(fn, calls=10, reps=5, warmup=2):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=".")
     ap.add_argument("--batch", type=int, default=192)
     args = ap.parse_args()
-    root = Path(args.root).resolve()
-    sys.path.insert(0, str(root))
     import torch
 
     from transformer_stm_tpu_torch.kernels import _build, fused_layer
@@ -186,9 +158,8 @@ def main():
     from transformer_stm_tpu_torch.ops.blocks import MLP
     from transformer_stm_tpu_torch.ops.common import LayerNorm
 
-    src_dir = root / "transformer_stm_tpu_torch" / "csrc"
-    fname, anchors, names = SM90 if (src_dir / SM90[0]).exists() else OLD
-    text = patch((src_dir / fname).read_text(), anchors)
+    src_dir = Path(__file__).resolve().parents[1] / "csrc"
+    text = patch((src_dir / SOURCE).read_text())
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -218,9 +189,9 @@ def main():
         return fused_layer.vit_layer_infer(x, *mods, t_pad=tp, t_real=t)
 
     with torch.inference_mode():
-        plain_ms = time_ms(run)  # the committed kernel of that checkout
+        plain_ms = time_ms(run)  # the committed kernel
         with tempfile.TemporaryDirectory() as tmp:
-            src = Path(tmp) / fname
+            src = Path(tmp) / SOURCE
             src.write_text(text)
             for hdr in src_dir.glob("*.cuh"):
                 (Path(tmp) / hdr.name).write_bytes(hdr.read_bytes())
@@ -243,13 +214,13 @@ def main():
     buf = (ctypes.c_ulonglong * 64)()
     if lib.prof_read(buf) != 0:
         raise RuntimeError("prof_read failed")
-    cycles = [buf[i] / reps for i in range(len(names))]
+    cycles = [buf[i] / reps for i in range(len(PHASES))]
     total = sum(cycles)
-    print(f"{fname} at ViT-S, B {b}, bf16 ({b * tp} folded rows); {card}")
+    print(f"{SOURCE} at ViT-S, B {b}, bf16 ({b * tp} folded rows); {card}")
     print(f"kernel {plain_ms:.3f} ms uninstrumented, {prof_ms:.3f} ms with "
           "the spans (CUDA events, 10 calls back to back, median of 5)")
     print(f"{'phase':44s} {'share':>7s} {'ms':>8s} {'marks':>8s}")
-    for i, name in enumerate(names):
+    for i, name in enumerate(PHASES):
         share = cycles[i] / total if total else math.nan
         print(f"{name:44s} {100 * share:6.1f}% {share * plain_ms:8.3f} "
               f"{buf[32 + i] // reps:8d}")
