@@ -6,11 +6,18 @@ Phases, each printed as it finishes:
 
 0. watchdog and environment: true f32 on the card, versions, the card's
    name and power limit;
-1. build: the CUDA kernels of ``transformer_stm_tpu_torch/csrc`` with nvcc;
+1. build: the CUDA kernels of ``transformer_stm_tpu_torch/csrc`` with nvcc,
+   each kernel's registers and spills, and the registers, shared memory
+   and blocks an SM of the 3xTF32 kernels (``fused_mlp`` at every width,
+   both flash backward kernels);
 2. kernels: each kernel against its plain PyTorch version at the CvT stage
    shapes (in float32, and in float64 as a check that shares no rounding),
    with its time, the plain version's time and one PyTorch call's time as
-   a yardstick (CUDA events, median of 10 runs after a warm-up): the
+   a yardstick (CUDA events, median of 10 runs after a warm-up), beside its
+   bound in f32 FMA (``bound_ms``) and on the tensor cores in 3xTF32
+   (``bound_tc_ms``: 3 x flops at 495 TFLOP/s, or the bytes at 3.35 TB/s
+   where longer), and for fused_mlp the one-off packing of its weights
+   (``pack_ms``): the
    attention_small forward with and without lse, its backward
    (attention_small_bwd, against the plain backward and f64 autograd; SDPA's
    backward as the yardstick), fused_mlp, and the training MLP
@@ -138,7 +145,8 @@ from transformer_stm_tpu_torch.kernels.fused_layer import (  # noqa: E402
 from transformer_stm_tpu_torch.kernels.fused_mlp import (  # noqa: E402
     STREAM_HIDDEN, STREAM_OUT, TRAIN_BWD_ROWS, dropout_mask, fused_mlp,
     fused_mlp_plain, fused_mlp_train, fused_mlp_train_bwd,
-    fused_mlp_train_bwd_plain, fused_mlp_train_fwd, fused_mlp_train_plain)
+    fused_mlp_train_bwd_plain, fused_mlp_train_fwd, fused_mlp_train_plain,
+    pack_mlp_weights, VIT_WIDTHS, WIDTHS)
 from transformer_stm_tpu_torch.models.cvt import (  # noqa: E402
     cvt_forward, cvt_param_count, init_cvt)
 from transformer_stm_tpu_torch.models.vit import (  # noqa: E402
@@ -168,6 +176,7 @@ N_IMAGES = 512
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 rate.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32_FLOPS = 495e12
 # (stage, B, T = S, H) with Dh 64, and (stage, N rows, D) with Hd = 4D: the
 # shapes one batch of 128 gives the kernels on the main path.
 ATTN_SHAPES = [("stage1", BATCH, 1024, 1), ("stage2", BATCH, 256, 2),
@@ -293,6 +302,13 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
+def bound_tc(flops, nbytes):
+    """Least time in ms of the same f32 work on the tensor cores: f32-
+    accurate products as three TF32 products (3xTF32, csrc/tf32x3.cuh),
+    3 x flops at 495 TFLOP/s, or the bytes at 3.35 TB/s where longer."""
+    return 1e3 * max(3.0 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES)
+
+
 KERNELS = (attention_small, attention_small_bwd, fused_mlp, fused_mlp_train,
            fused_mlp_train_bwd, flash_attention, flash_attention_bwd,
            attn_layer_infer, ln_mlp_infer, vit_layer_infer,
@@ -332,14 +348,14 @@ def phase_env():
 def kernel_name(mangled):
     """The last name of a mangled nested name, with its integer template
     arguments: '_ZN<n>_GLOBAL__N_<...><n>bwd_dqEPKf...' -> 'bwd_dq',
-    '..13fused_mlp_fwdILi256ELi4ELi64EEEv..' -> 'fused_mlp_fwd<256,4,64>'."""
+    '..16fused_mlp_tf32x3ILi64ELb1EEEv..' -> 'fused_mlp_tf32x3<64,1>'."""
     name, i = mangled, 3 if mangled.startswith("_ZN") else 2
     while (m := re.match(r"\d+", mangled[i:])):
         n = int(m.group())
         name = mangled[i + m.end():i + m.end() + n]
         i += m.end() + n
-    t = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
-    return (f"{name}<{','.join(re.findall(r'Li(-?\d+)E', t.group(1)))}>"
+    t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
+    return (f"{name}<{','.join(re.findall(r'L[ib](-?\d+)E', t.group(1)))}>"
             if t else name)
 
 
@@ -359,6 +375,22 @@ def phase_build():
                 f"{spill}")
     say(f"[1] kernels built with nvcc in {dt:.1f} s "
         f"(nvcc {_build.build_seconds} s)")
+    # the 3xTF32 kernels (csrc/tf32x3.cuh): registers a thread, dynamic
+    # shared memory and blocks an SM, from the runtime (spills: above)
+    lib = _build.library()
+    for name, fn, arg in (
+            *((f"fused_mlp_tf32x3 D{d}", lib.fused_mlp_info, d)
+              for d in WIDTHS + VIT_WIDTHS),
+            ("flash_bwd_tf32x3 dk/dv", lib.flash_attention_bwd_info, 0),
+            ("flash_bwd_tf32x3 dq", lib.flash_attention_bwd_info, 1)):
+        regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        rc = fn(arg, ctypes.byref(regs), ctypes.byref(smem),
+                ctypes.byref(blocks))
+        if rc != 0 or blocks.value < 1:
+            raise RuntimeError(f"{name}: info error {rc}, {blocks.value} "
+                               "blocks an SM")
+        say(f"[1] {name}: {regs.value} registers, {smem.value} bytes of "
+            f"shared memory, {blocks.value} block(s) an SM")
 
 
 def phase_kernels():
@@ -391,11 +423,12 @@ def phase_kernels():
         plain = time_ms(lambda: attention_small_plain(q, k, v,
                                                       with_lse=True))
         lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        b_ms, b_by = bound(4.0 * b * h * s * s * 64,
-                           4.0 * (4 * b * s * h * 64 + b * h * s))
+        work = (4.0 * b * h * s * s * 64, 4.0 * (4 * b * s * h * 64 + b * h * s))
+        b_ms, b_by = bound(*work)
         rows.append(dict(stage=stage, shape=[b, s, h, 64], ms=ms,
                          ms_inference=ms_inf, plain_ms=plain,
                          library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                         bound_tc_ms=bound_tc(*work),
                          max_abs_err=max(err, err_lse),
                          max_abs_err_f64=err64))
         worst = max(worst, err, err_lse)
@@ -434,11 +467,12 @@ def phase_kernels():
         lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
                                                   retain_graph=True))
         del out
-        b_ms, b_by = bound(10.0 * b * h * s * s * 64,
-                           4.0 * (8 * b * s * h * 64 + b * h * s))
+        work = (10.0 * b * h * s * s * 64, 4.0 * (8 * b * s * h * 64 + b * h * s))
+        b_ms, b_by = bound(*work)
         brows.append(dict(stage=stage, shape=[b, s, h, 64], ms=ms,
                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                          bound_by=b_by, max_abs_err=max(errs),
+                          bound_by=b_by, bound_tc_ms=bound_tc(*work),
+                          max_abs_err=max(errs),
                           max_abs_err_f64=max(errs64)))
         bworst = max(bworst, max(errs))
         say(f"[2] attention_small_bwd {stage} B{b} S{s} H{h} (two calls "
@@ -461,6 +495,7 @@ def phase_kernels():
                      f"{replaces}",
             max_abs_err=w, ms=s1["ms"], plain_ms=s1["plain_ms"],
             bound_ms=s1["bound_ms"], bound_by=s1["bound_by"],
+            bound_tc_ms=s1["bound_tc_ms"],
             library_ms=s1["library_ms"], shapes=rs))
     results[-1]["also_replaces"] = \
         "transformer_stm_tpu/kernels/flash_attention.py:791"
@@ -485,20 +520,24 @@ def phase_kernels():
                                  f"vs f64 {err64:.3e}, over {MLP_TOL} x "
                                  f"max|y| {scale:.3e}")
         ms = time_ms(lambda: fused_mlp(x, w1, b1, w2, b2))
+        pack = time_ms(lambda: pack_mlp_weights(w1, w2))
         plain = time_ms(lambda: fused_mlp_plain(x, w1, b1, w2, b2))
         lib = time_ms(lambda: torch.addmm(
             b2, F.gelu(torch.addmm(b1, x, w1)), w2))
-        b_ms, b_by = bound(4.0 * n * d * hd,
-                           4.0 * (2 * n * d + 2 * d * hd + hd + d))
+        work = (4.0 * n * d * hd, 4.0 * (2 * n * d + 2 * d * hd + hd + d))
+        b_ms, b_by = bound(*work)
         rows.append(dict(stage=stage, shape=[n, d, hd], ms=ms,
-                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=err,
+                         pack_ms=pack, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_tc_ms=bound_tc(*work), max_abs_err=err,
                          max_abs_err_f64=err64))
         worst = max(worst, err)
         say(f"[2] fused_mlp {stage} N{n} D{d} Hd{hd}: max|err| {err:.2e} "
             f"(vs f64 {err64:.2e}; max|y| {scale:.2f})  kernel {ms:.3f} ms"
-            f"  plain {plain:.3f} ms  addmm+gelu+addmm {lib:.3f} ms  bound "
-            f"{b_ms:.3f} ms ({b_by})")
+            f" (packing the weights, once per model, {pack:.3f} ms)  plain "
+            f"{plain:.3f} ms  addmm+gelu+addmm {lib:.3f} ms  bound "
+            f"{b_ms:.3f} ms ({b_by}), on the tensor cores "
+            f"{rows[-1]['bound_tc_ms']:.3f} ms")
     # On the main path every stage reaches the kernel: per batch, the sum.
     results.append(dict(
         name="fused_mlp", route="cuda",
@@ -508,6 +547,8 @@ def phase_kernels():
         ms=sum(r["ms"] for r in rows),
         plain_ms=sum(r["plain_ms"] for r in rows),
         bound_ms=sum(r["bound_ms"] for r in rows), bound_by="operations",
+        bound_tc_ms=sum(r["bound_tc_ms"] for r in rows),
+        pack_ms=sum(r["pack_ms"] for r in rows),
         library_ms=sum(r["library_ms"] for r in rows), shapes=rows))
     results += phase_mlp_train(dev, gen)
     phase_vmap(dev, gen)
@@ -582,11 +623,12 @@ def phase_mlp_train(dev, gen):
         ms = time_ms(lambda: fused_mlp_train_fwd(*args, DROPOUT))
         plain = time_ms(lambda: fused_mlp_train_plain(*args, DROPOUT))
         lib = time_ms(lambda: mlp_train_library(x, w1, b1, w2, b2, DROPOUT))
-        b_ms, b_by = bound(4.0 * n * d * hd,
-                           4.0 * (2 * n * d + 2 * d * hd + hd + d) + 8)
+        work = (4.0 * n * d * hd, 4.0 * (2 * n * d + 2 * d * hd + hd + d) + 8)
+        b_ms, b_by = bound(*work)
         frows.append(dict(stage=stage, shape=[n, d, hd], ms=ms,
                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                          bound_by=b_by, max_rel_err=rel,
+                          bound_by=b_by, bound_tc_ms=bound_tc(*work),
+                          max_rel_err=rel,
                           max_rel_err_f64=rel64))
         bms = time_ms(lambda: fused_mlp_train_bwd(*args, DROPOUT, dy))
         bplain = time_ms(lambda: fused_mlp_train_bwd_plain(*args, DROPOUT,
@@ -597,14 +639,15 @@ def phase_mlp_train(dev, gen):
         blib = time_ms(lambda: torch.autograd.grad(out, leaves, dy,
                                                    retain_graph=True))
         del out, leaves
-        bb_ms, bb_by = bound(10.0 * n * d * hd,
-                             4.0 * (3 * n * d + 2 * (2 * d * hd + hd + d))
-                             + 8)
+        bwork = (10.0 * n * d * hd,
+                 4.0 * (3 * n * d + 2 * (2 * d * hd + hd + d)) + 8)
+        bb_ms, bb_by = bound(*bwork)
         nb = -(-n // TRAIN_BWD_ROWS[d])
         part_ms = 2e3 * 4.0 * nb * (2 * d * hd + hd + d) / PEAK_BYTES
         brows.append(dict(stage=stage, shape=[n, d, hd], ms=bms,
                           plain_ms=bplain, library_ms=blib, bound_ms=bb_ms,
-                          bound_by=bb_by, partials_ms_at_peak=part_ms,
+                          bound_by=bb_by, bound_tc_ms=bound_tc(*bwork),
+                          partials_ms_at_peak=part_ms,
                           blocks=nb, max_rel_err=rel, max_rel_err_f64=rel64))
         worst["fwd"] = max(worst["fwd"], *(errs[(r, "y")][2]
                                            for r in (DROPOUT, 0.0)))
@@ -634,6 +677,7 @@ def phase_mlp_train(dev, gen):
             plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by="operations",
+            bound_tc_ms=sum(r["bound_tc_ms"] for r in rows),
             library_ms=sum(r["library_ms"] for r in rows), shapes=rows))
     return out
 
@@ -727,15 +771,24 @@ def flash_checks(what, q, k, v, g, f64_batch):
     return efwd, ebwd
 
 
+def attn_work(b, t, s, h, dh):
+    """(forward, backward) work as (flops, bytes): 4 and 10 units of
+    B*H*T*S*Dh flops; q, k, v, o (and lse) read or written once forward,
+    q, k, v, o, dO, lse read and dq, dk, dv written backward."""
+    return ((4.0 * b * h * t * s * dh,
+             4.0 * (2 * b * t * h * dh + 2 * b * s * h * dh + b * h * t)),
+            (10.0 * b * h * t * s * dh,
+             4.0 * (6 * b * t * h * dh + 3 * b * s * h * dh + b * h * t)))
+
+
 def attn_bounds(b, t, s, h, dh):
-    """(forward, backward) least times: 4 and 10 units of B*H*T*S*Dh flops;
-    q, k, v, o (and lse) read or written once forward, q, k, v, o, dO, lse
-    read and dq, dk, dv written backward."""
-    fwd = bound(4.0 * b * h * t * s * dh,
-                4.0 * (2 * b * t * h * dh + 2 * b * s * h * dh + b * h * t))
-    bwd = bound(10.0 * b * h * t * s * dh,
-                4.0 * (6 * b * t * h * dh + 3 * b * s * h * dh + b * h * t))
-    return fwd, bwd
+    """(forward, backward) least times in f32 FMA, each (ms, bound by)."""
+    return tuple(bound(*w) for w in attn_work(b, t, s, h, dh))
+
+
+def attn_bounds_tc(b, t, s, h, dh):
+    """(forward, backward) least times on the tensor cores in 3xTF32."""
+    return tuple(bound_tc(*w) for w in attn_work(b, t, s, h, dh))
 
 
 def lib_bwd(q, k, v, g):
@@ -782,11 +835,13 @@ def phase_flash(dev, gen):
                      reps=3, warmup=1)
     blib = time_ms(lib_bwd(q, k, v, g))
     (f_ms, f_by), (b_ms, b_by) = attn_bounds(b, s, s, h, 64)
+    f_tc, b_tc = attn_bounds_tc(b, s, s, h, 64)
     say(f"[2] flash_attention B{b} S{s} H{h} Dh64 (the main path's shape): "
         f"forward {ms_inf:.2f} ms, with lse {ms:.2f} ms  plain {plain:.2f} "
-        f"ms  sdpa {lib:.2f} ms  bound {f_ms:.2f} ms ({f_by});  backward "
-        f"{bms:.2f} ms  plain {bplain:.2f} ms  sdpa backward {blib:.2f} ms  "
-        f"bound {b_ms:.2f} ms ({b_by})")
+        f"ms  sdpa {lib:.2f} ms  bound {f_ms:.2f} ms ({f_by}), on the "
+        f"tensor cores {f_tc:.2f} ms;  backward {bms:.2f} ms  plain "
+        f"{bplain:.2f} ms  sdpa backward {blib:.2f} ms  bound {b_ms:.2f} ms "
+        f"({b_by}), on the tensor cores {b_tc:.2f} ms")
     del q, k, v, g, o, lse
     shape = [b, s, s, h, 64]
     common = dict(route="cuda",
@@ -796,7 +851,7 @@ def phase_flash(dev, gen):
         dict(name="flash_attention", **common, max_abs_err=worst_f,
              err_is="max |err| / max |ref|, f32 and f64", ms=ms,
              ms_inference=ms_inf, plain_ms=plain, library_ms=lib,
-             bound_ms=f_ms, bound_by=f_by, shape=shape),
+             bound_ms=f_ms, bound_by=f_by, bound_tc_ms=f_tc, shape=shape),
         dict(name="flash_attention_bwd", route="cuda",
              source="transformer_stm_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="transformer_stm_tpu/kernels/flash_attention.py:185",
@@ -805,7 +860,7 @@ def phase_flash(dev, gen):
              max_abs_err=worst_b,
              err_is="max |err| / max |ref|, f32 and f64", ms=bms,
              plain_ms=bplain, library_ms=blib, bound_ms=b_ms, bound_by=b_by,
-             shape=shape)]
+             bound_tc_ms=b_tc, shape=shape)]
 
 
 def phase_small_512(dev, gen, results):
@@ -847,15 +902,17 @@ def phase_small_512(dev, gen, results):
                 q, k, v, g = attn_inputs(gen, bb, s, s, h, 64)
                 o, lse = attention_small_fwd(q, k, v, with_lse=True)
             (f_ms, f_by), (b_ms, b_by) = attn_bounds(bb, s, s, h, 64)
+            f_tc, b_tc = attn_bounds_tc(bb, s, s, h, 64)
             r = dict(ms=time_ms(lambda: attention_small_fwd(
                          q, k, v, with_lse=True)),
                      ms_inference=time_ms(lambda: attention_small(q, k, v)),
                      library_ms=time_ms(lambda: sdpa(q, k, v)),
-                     bound_ms=f_ms, bound_by=f_by,
+                     bound_ms=f_ms, bound_by=f_by, bound_tc_ms=f_tc,
                      bwd_ms=time_ms(lambda: attention_small_bwd(
                          q, k, v, o, lse, g)),
                      bwd_library_ms=time_ms(lib_bwd(q, k, v, g)),
-                     bwd_bound_ms=b_ms, bwd_bound_by=b_by)
+                     bwd_bound_ms=b_ms, bwd_bound_by=b_by,
+                     bwd_bound_tc_ms=b_tc)
             if tag == "check":  # the plain versions hold (T, S) scores
                 r["plain_ms"] = time_ms(lambda: attention_small_plain(
                     q, k, v, with_lse=True))
@@ -872,6 +929,7 @@ def phase_small_512(dev, gen, results):
                            library_ms=r[key + "library_ms"],
                            bound_ms=r[key + "bound_ms"],
                            bound_by=r[key + "bound_by"],
+                           bound_tc_ms=r[key + "bound_tc_ms"],
                            max_rel_err=err)
                 if not key:
                     row["ms_inference"] = r["ms_inference"]
@@ -1764,9 +1822,12 @@ def vit_kernel_times(worst, card):
         ms32 = time_ms(lambda: vit_layer_infer(x32, *m32, **layer))
         plain32 = time_ms(lambda: vit_layer_infer_plain(x32, *m32, **layer))
     b32, by32 = bound(f_layer, nbytes * 2)
-    rows[2].update(f32_ms=ms32, f32_plain_ms=plain32, f32_bound_ms=b32)
+    tc32 = bound_tc(f_layer, nbytes * 2)
+    rows[2].update(f32_ms=ms32, f32_plain_ms=plain32, f32_bound_ms=b32,
+                   f32_bound_tc_ms=tc32)
     say(f"[7] vit_layer_infer ViT-S B{b} f32: kernel {ms32:.3f} ms  plain "
-        f"{plain32:.3f} ms  bound {b32:.3f} ms ({by32}; {card})")
+        f"{plain32:.3f} ms  bound {b32:.3f} ms ({by32}), on the tensor cores "
+        f"{tc32:.3f} ms ({card})")
     del m32, x32
 
     # the library layer computes the same function: a loose check that the
@@ -1787,18 +1848,23 @@ def vit_kernel_times(worst, card):
     w = (mlp.fc1.kernel, mlp.fc1.bias, mlp.fc2.kernel, mlp.fc2.bias)
     with torch.inference_mode():
         ms = time_ms(lambda: fused_mlp(xf, *w))
+        pack_ms = time_ms(lambda: pack_mlp_weights(w[0], w[2]))
         plain_ms = time_ms(lambda: fused_mlp_plain(xf, *w))
         lib_ms = time_ms(lambda: torch.addmm(
             w[3], F.gelu(torch.addmm(w[1], xf, w[0])), w[2]))
     nf = b * t
-    b_ms, b_by = bound(4.0 * nf * e * hidden,
-                       4.0 * (2 * nf * e + 2 * e * hidden + hidden + e))
-    say(f"[7] fused_mlp ViT-S N{nf} D{e} Hd{hidden} f32: kernel {ms:.3f} ms  "
-        f"plain {plain_ms:.3f} ms  addmm+gelu+addmm {lib_ms:.3f} ms  bound "
-        f"{b_ms:.3f} ms ({b_by})")
+    work = (4.0 * nf * e * hidden,
+            4.0 * (2 * nf * e + 2 * e * hidden + hidden + e))
+    b_ms, b_by = bound(*work)
+    tc_ms = bound_tc(*work)
+    say(f"[7] fused_mlp ViT-S N{nf} D{e} Hd{hidden} f32: kernel {ms:.3f} ms "
+        f"(packing the weights, once per model, {pack_ms:.3f} ms)  plain "
+        f"{plain_ms:.3f} ms  addmm+gelu+addmm {lib_ms:.3f} ms  bound "
+        f"{b_ms:.3f} ms ({b_by}), on the tensor cores {tc_ms:.3f} ms")
     vit_mlp = dict(stage="vit_s_d384", shape=[nf, e, hidden], ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by, max_abs_err=worst["fused_mlp"][0],
+                   pack_ms=pack_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, bound_tc_ms=tc_ms,
+                   max_abs_err=worst["fused_mlp"][0],
                    max_rel_err=worst["fused_mlp"][1])
     return rows, vit_mlp
 

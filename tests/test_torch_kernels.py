@@ -164,7 +164,8 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
     import ctypes
     # the bf16 layer's host helpers take no stream: the weight maps'
     # buffer and four weights; three out-pointers of the kernel's info
-    helpers = {"vit_layer_sm90_weight_maps": 5, "vit_layer_sm90_info": 3}
+    helpers = {"vit_layer_sm90_weight_maps": 5, "vit_layer_sm90_info": 3,
+               "fused_mlp_info": 3, "flash_attention_bwd_info": 3}
     for name, n_ptr in helpers.items():
         argtypes = _build.SIGNATURES[name]
         assert argtypes.count(ctypes.c_void_p) == n_ptr

@@ -1,5 +1,6 @@
 // flash_attention backward: dq, dk, dv of o = softmax(q k^T * scale) v in
-// f32, for any head dim from 1 to 256 and any lengths.
+// f32 on Hopper's tensor cores in 3xTF32 (csrc/tf32x3.cuh), for any head dim
+// from 1 to 256 and any lengths.
 //
 // Replaces both Pallas TPU backward pairs of `flash_attention`
 // (transformer_stm_tpu/kernels/flash_attention.py:175): `_bwd_pallas` :296
@@ -7,324 +8,457 @@
 // whole other side resident in VMEM), and `_bwd_pallas_streaming` :469 with
 // `_stream_bwd_dq_kernel` :388 and `_stream_bwd_dkv_kernel` :429 (both sides
 // blocked, picked by `_bwd` :601 once residency passes 12 MiB, as at 512px).
-// The two differ only in what stays in VMEM; a Hopper block has no such
-// budget to fit, so one design serves both.  With p = exp(q.k * scale -
-// lse), dp = dO.v and delta = rowsum(dO * o) (one torch reduction before
-// the launch, as the JAX package computes it outside its kernels, :284):
+// The two differ only in what stays in VMEM; one design serves both.  With
+// p = exp(q.k * scale - lse), dp = dO.v and delta = rowsum(dO * o) (one torch
+// reduction before the launch, as the JAX package computes it outside its
+// kernels, :284):
 //
-//   dq = scale * sum_s p (dp - delta) k     (kernel `flash_bwd_dq`, one block
-//                                            per 64 query rows, K/V streamed)
-//   dk = scale * sum_t p (dp - delta) q     (kernel `flash_bwd_dkv`, one block
-//   dv =         sum_t p dO                  per 64 key rows, Q/dO streamed)
+//   dq = scale * sum_s p (dp - delta) k     (kernel DQ: a block per 64 query
+//                                            rows, K and V streamed)
+//   dk = scale * sum_t p (dp - delta) q     (kernel DKV: a block per 64 key
+//   dv =         sum_t p dO                  rows, Q and dO streamed)
 //
-// Both kernels rebuild p from the forward's saved lse.  Every output row is
-// owned by exactly one block and written once: no atomics, and two calls
-// give the same bits.
+// Every output row is owned by exactly one block and written once: no
+// atomics, and two calls give the same bits.
 //
-// Bound: operations.  The least work is five products of 2*B*H*T*S*Dh flops;
+// Bound: operations.  The least work is five products of 2 B H T S Dh flops;
 // at the 512px CvT's stage 1 (B 128, T = S = 16,384, H 1, Dh 64) that is
-// 22.0 TFLOP, 328 ms at the 67 TFLOP/s of f32 FMA.  The split recomputes
-// q k^T and dO v^T in both kernels, as the JAX split does: 14 units of work
-// where 10 are needed, for no atomics.
+// 22.0 TFLOP: 328 ms at the 67 TFLOP/s of f32 FMA, 133 ms as three TF32
+// products at 495 TFLOP/s.  The split recomputes q k^T and dO v^T in both
+// kernels, as the JAX split does (seven products where five are needed,
+// 187 ms in 3xTF32), so that no atomics are used.
 //
-// Design: `attention_small_bwd.cu`'s 64 x 64 tiles (flash_tiles.cuh), with
-// Dh cut into 64-column chunks: the scores and dp sum over the chunks of
-// both sides, and each output chunk has its own 4 x 4 accumulators (dq: 16
-// per chunk; dk and dv: 32).  Shared memory is six 64 x 68 tiles (104,448
-// bytes) whatever Dh is.  With one chunk (Dh <= 64) the owned side stays
-// resident and two blocks fit an SM; with more, both sides' chunks reload
-// per streamed tile and one block (up to 255 registers) runs per SM.
+// Design.  One kernel body serves both: a block holds 64 rows of its own
+// side R (DKV: k and v; DQ: q and dO) and streams the other side S in tiles
+// of 64 rows (DKV: q and dO; DQ: k and v), for one 64-column chunk `co` of
+// the head dim it writes (blockIdx.z; one chunk for Dh <= 64).
 //
-// Masking: keys past S and query rows past T load zeros, get p = 0, and
-// store nothing; columns past Dh load zeros and store nothing.
+// - One producer warp loads by TMA (4-d maps over (Dh, H, rows, B), so rows
+//   past the sequence are zero-filled, never the next batch's): R once when
+//   Dh <= 64, else R's chunk c with every chunk of every S tile.
+// - One consumer warpgroup splits what arrives in shared memory into big and
+//   small tiles (R in place), and writes S's chunk co transposed, split, in
+//   the k-order of `kpos`: the B operands of the products over S's rows,
+//   which .tf32 wgmma takes only K-major.  The wrapper makes no transposed
+//   copy (that would be 3 x 537 MB at 512px); the transposes cost shared
+//   memory bandwidth in the split pass instead.
+// - Scores X = R1 S1^T and Y = R2 S2^T (DKV: k q^T and v dO^T; DQ: q k^T and
+//   dO v^T) accumulate over the chunks on wgmma, both operands from shared
+//   memory.  p = 2^(X scale log2 e - lse log2 e), masked past the sequence,
+//   and ds = p (Y - delta) run in registers.
+// - DKV: dv += p dO and dk += ds q; DQ: dq += ds k: p and ds are the
+//   register A operands, split in registers, and B is S's transposed chunk.
+//   The accumulators stay in registers until the epilogue scales and stores
+//   them.
+// - Each chunk's scores and each tile's dk, dv and dq products go into
+//   fresh accumulators that f32 adds fold into the running ones: the tensor
+//   cores truncate as they accumulate, and over 16,384 keys (6,144 wgmma
+//   into one accumulator) that bias would pass the 1e-5 tolerance.
 //
-// Layout: q, dO, dq (B, T, H, Dh); k, v, dk, dv (B, S, H, Dh); lse and
-// delta (B, H, T); all contiguous f32.
+// Shared memory (DKV, Dh <= 64): R big/small 64 KB, S big/small 64 KB, S^T
+// big/small 64 KB, one raw S stage 32 KB: 224 KB, one block an SM.  DQ
+// needs one transposed operand, 192 KB.  Dh past 64 reloads R with each
+// chunk and recomputes the scores for each output chunk: slower, but Dh 64
+// is the main path.
+//
+// Layout: q, dO, dq (B, T, H, Dh); k, v, dk, dv (B, S, H, Dh); lse and delta
+// (B, H, T); all contiguous f32, 16-byte aligned, with Dh a multiple of 8 and
+// at least 32 (the wrapper zero-pads q, k, v and dO; scale stays 1/sqrt of
+// the true head dim).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include "flash_tiles.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-using namespace flash;
+using namespace tf32x3;
 
-constexpr int SMEM = 6 * BUF * (int)sizeof(float);  // 104,448 bytes
+constexpr int TILE = 64;                  // rows of a tile; columns of a Dh chunk
+constexpr int MAX_DH = 256;
+constexpr int CONSUMERS = 128;            // one consumer warpgroup
+constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
+constexpr int TILE_BYTES = TILE * TILE * 4;  // 64 x 64 f32, two atoms, 16 KB
+constexpr int HEAD_BYTES = 1024;
+constexpr int ALIGN = 1024;
+constexpr int BAR_SPLIT = 1;              // named barrier of the consumers
+constexpr float LOG2E = 1.44269504088896341f;
+enum { DKV = 0, DQ = 1 };
 
-// dq for 64 query rows of one (batch, head); K and V stream through in
-// 64-key tiles.
-template <int NC>
-__global__ void __launch_bounds__(THREADS, NC == 1 ? 2 : 1)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ g,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dq, int T, int S, int H, int dh, float scale,
-             bool vec) {
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;          // [d][query]
-  float* gt = qt + BUF;      // [d][query]   dO
-  float* kt = gt + BUF;      // [d][key]
-  float* kn = kt + BUF;      // [key][d]
-  float* vt = kn + BUF;      // [d][key]
-  float* dst = vt + BUF;     // [key][query] dS
+// operands: R1, R2 the block's rows; S1, S2 the streamed rows
+struct Params {
+  CUtensorMap r1, r2, s1, s2;  // (Dh, H, rows, B), box 32 x 1 x 64 x 1
+  const float* lse;
+  const float* delta;
+  float* out1;  // DKV: dk, DQ: dq
+  float* out2;  // DKV: dv
+  int T, H, Dh, LR, LS, nc;
+  float scale;
+};
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int t0 = blockIdx.x * TILE;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const long tok = (long)H * dh;
-  const float* qbase = q + (long)b * T * tok + (long)h * dh;
-  const float* gbase = g + (long)b * T * tok + (long)h * dh;
-  const float* kbase = k + (long)b * S * tok + (long)h * dh;
-  const float* vbase = v + (long)b * S * tok + (long)h * dh;
+// byte offsets of the shared regions: R big and small (two tensors each),
+// S big and small, S's chunk transposed big and small (NT tensors), the raw
+// S stage
+template <int KIND>
+struct Layout {
+  static constexpr int NT = KIND == DKV ? 2 : 1;
+  static constexpr int R_BIG = 0, R_SMALL = 2 * TILE_BYTES;
+  static constexpr int S_BIG = 4 * TILE_BYTES, S_SMALL = 6 * TILE_BYTES;
+  static constexpr int T_BIG = 8 * TILE_BYTES, T_SMALL = T_BIG + NT * TILE_BYTES;
+  static constexpr int RAW = T_SMALL + NT * TILE_BYTES;
+  static constexpr int BYTES = RAW + 2 * TILE_BYTES;
+  static constexpr int SMEM = ALIGN + HEAD_BYTES + BYTES;
+};
 
-  float row_lse[4], row_delta[4];
-  bool row_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + 4 * ty + i;
-    row_ok[i] = t < T;
-    row_lse[i] = row_ok[i] ? lse[(long)bh * T + t] : 0.f;
-    row_delta[i] = row_ok[i] ? delta[(long)bh * T + t] : 0.f;
-  }
-  float acc[NC][4][4];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) zero(acc[c]);
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  if (NC == 1) {
-    load_transposed(qt, qbase, t0, T, tok, 0, dh, vec);
-    load_transposed(gt, gbase, t0, T, tok, 0, dh, vec);
-  }
-  for (int s0 = 0; s0 < S; s0 += TILE) {
-    float sc[4][4], dp[4][4];
-    zero(sc);
-    zero(dp);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      __syncthreads();  // every thread is done with the previous tiles
-      if (NC > 1) {
-        load_transposed(qt, qbase, t0, T, tok, TILE * c, dh, vec);
-        load_transposed(gt, gbase, t0, T, tok, TILE * c, dh, vec);
+// both 32-column halves of a 64 x 64 chunk of rows row0.. of one head
+__device__ __forceinline__ void load_chunk(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int c, int h, int row0, int b) {
+  tma_4d(dst, map, bar, c, h, row0, b);
+  tma_4d(dst + TILE_BYTES / 2, map, bar, c + 32, h, row0, b);
+}
+
+template <int KIND>
+__device__ void producer(const Params& p, uint8_t* sm, uint64_t* full, uint64_t* empty, int b,
+                         int h, int r0) {
+  using L = Layout<KIND>;
+  if (threadIdx.x % 32 != 0) return;
+  uint32_t phase = 0;
+  for (int s0 = 0; s0 < p.LS; s0 += TILE) {
+    for (int c = 0; c < p.nc; ++c) {
+      const bool load_r = p.nc > 1 || s0 == 0;
+      mbar_wait(empty, phase ^ 1);
+      mbar_expect_tx(full, (load_r ? 4 : 2) * TILE_BYTES);
+      if (load_r) {
+        load_chunk(sm + L::R_BIG, &p.r1, full, TILE * c, h, r0, b);
+        load_chunk(sm + L::R_BIG + TILE_BYTES, &p.r2, full, TILE * c, h, r0, b);
       }
-      load_transposed(kt, kbase, s0, S, tok, TILE * c, dh, vec);
-      load_transposed(vt, vbase, s0, S, tok, TILE * c, dh, vec);
-      if (NC == 1) load_rows(kn, kbase, s0, S, tok, 0, dh, vec);
-      __syncthreads();
-      tile_product(sc, qt, kt, ty, tx);  // q . k
-      tile_product(dp, gt, vt, ty, tx);  // dO . v
-    }
-    // dst was last read before this tile's first barrier.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool key_ok = s0 + tx + 16 * j < S;
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = key_ok && row_ok[i]
-            ? expf(sc[i][j] * scale - row_lse[i]) : 0.f;
-        ds[i] = p * (dp[i][j] - row_delta[i]);
-      }
-      *reinterpret_cast<float4*>(dst + (tx + 16 * j) * LD + 4 * ty) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    if (NC == 1) {
-      __syncthreads();
-      tile_product(acc[0], dst, kn, ty, tx);  // dS k
-    } else {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        __syncthreads();  // dst is written; the previous chunk of kn is read
-        load_rows(kn, kbase, s0, S, tok, TILE * c, dh, vec);
-        __syncthreads();
-        tile_product(acc[c], dst, kn, ty, tx);
-      }
+      load_chunk(sm + L::RAW, &p.s1, full, TILE * c, h, s0, b);
+      load_chunk(sm + L::RAW + TILE_BYTES, &p.s2, full, TILE * c, h, s0, b);
+      phase ^= 1;
     }
   }
+}
 
+// in place: big over the raw tile, small at the same offset of `small`
+__device__ __forceinline__ void split_tile(uint8_t* raw, uint8_t* small, int tid) {
+#pragma unroll 4
+  for (int i = tid; i < TILE_BYTES / 16; i += CONSUMERS) {
+    float4 v = reinterpret_cast<float4*>(raw)[i];
+    float4 s;
+    split(v.x, v.x, s.x);
+    split(v.y, v.y, s.y);
+    split(v.z, v.z, s.z);
+    split(v.w, v.w, s.w);
+    reinterpret_cast<float4*>(raw)[i] = v;
+    reinterpret_cast<float4*>(small)[i] = s;
+  }
+}
+
+// the raw S tile (rows x chunk columns) into big and small at the same
+// offsets and, with `transpose`, into the transposed tiles (chunk column x
+// kpos(row)).  A thread takes one row and every other float4 of it, so
+// that a warp's transposed stores hit 32 banks.
+__device__ __forceinline__ void split_s(const uint8_t* raw, uint8_t* big, uint8_t* small,
+                                        uint8_t* tbig, uint8_t* tsmall, bool transpose, int tid) {
+  const int row = tid % TILE;
+  const int kp = kpos(row);
+#pragma unroll 4
+  for (int q = tid / TILE; q < TILE / 4; q += CONSUMERS / TILE) {
+    const uint32_t off = sw_off(row, 4 * q, TILE);
+    const float4 v = *reinterpret_cast<const float4*>(raw + off);
+    float4 vb, vs;
+    split(v.x, vb.x, vs.x);
+    split(v.y, vb.y, vs.y);
+    split(v.z, vb.z, vs.z);
+    split(v.w, vb.w, vs.w);
+    *reinterpret_cast<float4*>(big + off) = vb;
+    *reinterpret_cast<float4*>(small + off) = vs;
+    if (transpose) {
+      const float b4[4] = {vb.x, vb.y, vb.z, vb.w}, s4[4] = {vs.x, vs.y, vs.z, vs.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!row_ok[i]) continue;
-    float* out = dq + ((long)b * T + t0 + 4 * ty + i) * tok + (long)h * dh;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = TILE * c + tx + 16 * j;
-        if (d < dh) out[d] = acc[c][i][j] * scale;
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t toff = sw_off(4 * q + e, kp, TILE);
+        *reinterpret_cast<float*>(tbig + toff) = b4[e];
+        *reinterpret_cast<float*>(tsmall + toff) = s4[e];
       }
     }
   }
 }
 
-// dk and dv for 64 key rows of one (batch, head); Q, dO, lse and delta
-// stream through in 64-query tiles.
-template <int NC>
-__global__ void __launch_bounds__(THREADS, NC == 1 ? 2 : 1)
-flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ g,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dk, float* __restrict__ dv, int T, int S,
-              int H, int dh, float scale, bool vec) {
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;          // [d][key]
-  float* vt = kt + BUF;      // [d][key]
-  float* qt = vt + BUF;      // [d][query], then p as [query][key]
-  float* gt = qt + BUF;      // [d][query] dO, then dS as [query][key]
-  float* qn = gt + BUF;      // [query][d]
-  float* gn = qn + BUF;      // [query][d] dO
-  float* ps = qt;
-  float* dss = gt;
+template <int KIND>
+__device__ void consumer(const Params& p, uint8_t* sm, uint64_t* full, uint64_t* empty, int b,
+                         int h, int r0, int co) {
+  using L = Layout<KIND>;
+  const int tid = threadIdx.x;
+  const int wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ra = 16 * wi + g;  // the thread's first accumulator row
+  const long bh = (long)b * p.H + h;
+  const float sl = p.scale * LOG2E;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int s0 = blockIdx.x * TILE;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const long tok = (long)H * dh;
-  const float* qbase = q + (long)b * T * tok + (long)h * dh;
-  const float* gbase = g + (long)b * T * tok + (long)h * dh;
-  const float* kbase = k + (long)b * S * tok + (long)h * dh;
-  const float* vbase = v + (long)b * S * tok + (long)h * dh;
-
-  float acc_k[NC][4][4], acc_v[NC][4][4];
+  // DQ: the rows' lse (log2 e folded in) and delta, once
+  float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+  if (KIND == DQ) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    zero(acc_k[c]);
-    zero(acc_v[c]);
-  }
-
-  if (NC == 1) {
-    load_transposed(kt, kbase, s0, S, tok, 0, dh, vec);
-    load_transposed(vt, vbase, s0, S, tok, 0, dh, vec);
-  }
-  for (int t0 = 0; t0 < T; t0 += TILE) {
-    float col_lse[4], col_delta[4];
-    bool col_ok[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = t0 + tx + 16 * j;
-      col_ok[j] = t < T;
-      col_lse[j] = col_ok[j] ? lse[(long)bh * T + t] : 0.f;
-      col_delta[j] = col_ok[j] ? delta[(long)bh * T + t] : 0.f;
-    }
-    float sc[4][4], dp[4][4];
-    zero(sc);
-    zero(dp);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      __syncthreads();  // every thread is done with the previous tiles
-      if (NC > 1) {
-        load_transposed(kt, kbase, s0, S, tok, TILE * c, dh, vec);
-        load_transposed(vt, vbase, s0, S, tok, TILE * c, dh, vec);
-      }
-      load_transposed(qt, qbase, t0, T, tok, TILE * c, dh, vec);
-      load_transposed(gt, gbase, t0, T, tok, TILE * c, dh, vec);
-      if (NC == 1) {
-        load_rows(qn, qbase, t0, T, tok, 0, dh, vec);
-        load_rows(gn, gbase, t0, T, tok, 0, dh, vec);
-      }
-      __syncthreads();
-      tile_product(sc, kt, qt, ty, tx);  // k . q
-      tile_product(dp, vt, gt, ty, tx);  // v . dO
-    }
-    __syncthreads();  // qt and gt are read; p and dS take their place
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = col_ok[j] && s0 + 4 * ty + i < S
-            ? expf(sc[i][j] * scale - col_lse[j]) : 0.f;
-        ds[i] = p[i] * (dp[i][j] - col_delta[j]);
-      }
-      const int at = (tx + 16 * j) * LD + 4 * ty;
-      *reinterpret_cast<float4*>(ps + at) = make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(dss + at) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    if (NC == 1) {
-      __syncthreads();
-      tile_product(acc_v[0], ps, gn, ty, tx);   // p^T dO
-      tile_product(acc_k[0], dss, qn, ty, tx);  // dS^T q
-    } else {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        __syncthreads();  // p and dS are written; the last chunk is read
-        load_rows(qn, qbase, t0, T, tok, TILE * c, dh, vec);
-        load_rows(gn, gbase, t0, T, tok, TILE * c, dh, vec);
-        __syncthreads();
-        tile_product(acc_v[c], ps, gn, ty, tx);
-        tile_product(acc_k[c], dss, qn, ty, tx);
+    for (int i = 0; i < 2; ++i) {
+      const int q = r0 + ra + 8 * i;
+      if (q < p.T) {
+        row_lse[i] = p.lse[bh * p.T + q] * LOG2E;
+        row_delta[i] = p.delta[bh * p.T + q];
       }
     }
   }
 
+  float acc1[TILE / 2], acc2[TILE / 2];  // DKV: dk, dv; DQ: dq (acc2 unused)
+  zero(acc1);
+  zero(acc2);
+  uint32_t phase = 0;
+  for (int s0 = 0; s0 < p.LS; s0 += TILE) {
+    // DKV: the columns' lse and delta (queries s0 + 8 j + 2 t + e)
+    float col_lse[TILE / 4], col_delta[TILE / 4];
+    if (KIND == DKV) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = s0 + 4 * ty + i;
-    if (s >= S) continue;
-    const long at = ((long)b * S + s) * tok + (long)h * dh;
+      for (int j = 0; j < TILE / 8; ++j) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = TILE * c + tx + 16 * j;
-        if (d < dh) {
-          dk[at + d] = acc_k[c][i][j] * scale;
-          dv[at + d] = acc_v[c][i][j];
+        for (int e = 0; e < 2; ++e) {
+          const int q = s0 + 8 * j + 2 * t + e;
+          const bool ok = q < p.T;
+          col_lse[2 * j + e] = ok ? p.lse[bh * p.T + q] * LOG2E : 0.f;
+          col_delta[2 * j + e] = ok ? p.delta[bh * p.T + q] : 0.f;
         }
       }
     }
+    float x[TILE / 2], y[TILE / 2];  // scores: R1 S1^T and R2 S2^T
+    zero(x);
+    zero(y);
+    for (int c = 0; c < p.nc; ++c) {
+      const bool load_r = p.nc > 1 || s0 == 0;
+      mbar_wait(full, phase);
+      phase ^= 1;
+      if (load_r) {
+        split_tile(sm + L::R_BIG, sm + L::R_SMALL, tid);
+        split_tile(sm + L::R_BIG + TILE_BYTES, sm + L::R_SMALL + TILE_BYTES, tid);
+      }
+      const bool tr = c == co;
+      split_s(sm + L::RAW, sm + L::S_BIG, sm + L::S_SMALL, sm + L::T_BIG, sm + L::T_SMALL, tr,
+              tid);
+      split_s(sm + L::RAW + TILE_BYTES, sm + L::S_BIG + TILE_BYTES, sm + L::S_SMALL + TILE_BYTES,
+              sm + L::T_BIG + TILE_BYTES, sm + L::T_SMALL + TILE_BYTES, tr && KIND == DKV, tid);
+      fence_proxy_shared();
+      bar_sync(BAR_SPLIT, CONSUMERS);
+      // with one chunk R stays and the raw stage is free once split
+      if (p.nc == 1 && tid == 0) mbar_arrive(empty);
+
+      // the chunk's scores in fresh accumulators, added into x and y
+      const uint64_t rb = desc_sw128(sm + L::R_BIG), rs = desc_sw128(sm + L::R_SMALL);
+      const uint64_t sb = desc_sw128(sm + L::S_BIG), ss = desc_sw128(sm + L::S_SMALL);
+      constexpr int AT = TILE_BYTES >> 4;  // the second tensor, in descriptor units
+      float xc[TILE / 2], yc[TILE / 2];
+      zero(xc);
+      zero(yc);
+      wg_fence();
+      // x's and y's chains interleave, every small term of both first
+#pragma unroll
+      for (int kk = 0; kk < TILE / 8; ++kk) {
+        mma3_ss_small<TILE, 1>(xc, desc_k(rb, kk, TILE), desc_k(rs, kk, TILE), TILE,
+                                  desc_k(sb, kk, TILE), desc_k(ss, kk, TILE), TILE);
+        mma3_ss_small<TILE, 1>(yc, desc_k(rb + AT, kk, TILE), desc_k(rs + AT, kk, TILE), TILE,
+                                  desc_k(sb + AT, kk, TILE), desc_k(ss + AT, kk, TILE), TILE);
+      }
+#pragma unroll
+      for (int kk = 0; kk < TILE / 8; ++kk) {
+        mma3_ss_big<TILE, 1>(xc, desc_k(rb, kk, TILE), TILE, desc_k(sb, kk, TILE), TILE);
+        mma3_ss_big<TILE, 1>(yc, desc_k(rb + AT, kk, TILE), TILE, desc_k(sb + AT, kk, TILE),
+                                TILE);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(xc);
+      fence_acc(yc);
+      if (p.nc > 1) {
+        bar_sync(BAR_SPLIT, CONSUMERS);  // every warp's products are done
+        if (tid == 0) mbar_arrive(empty);
+      }
+#pragma unroll
+      for (int i = 0; i < TILE / 2; ++i) {
+        x[i] += xc[i];
+        y[i] += yc[i];
+      }
+    }
+
+    // p and ds in place of x and y
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, col = s0 + 8 * j + 2 * t + (e & 1);
+        const float lse2 = KIND == DKV ? col_lse[2 * j + (e & 1)] : row_lse[e >> 1];
+        const float dl = KIND == DKV ? col_delta[2 * j + (e & 1)] : row_delta[e >> 1];
+        const float pv = col < p.LS ? exp2_approx(x[i] * sl - lse2) : 0.f;
+        x[i] = pv;
+        y[i] = pv * (y[i] - dl);
+      }
+    }
+
+    // DKV: dv += p dO_co, dk += ds q_co; DQ: dq += ds k_co
+    float part[TILE / 2];
+    uint32_t ab[TILE / 8][4], as[TILE / 8][4];
+    if (KIND == DKV) {
+#pragma unroll
+      for (int kk = 0; kk < TILE / 8; ++kk) acc_as_a(x, kk, ab[kk], as[kk]);
+      fence_frag(ab);
+      fence_frag(as);
+      zero(part);
+      wg_fence();
+      mma3_rs<TILE, TILE / 8>(part, ab, as, desc_sw128(sm + L::T_BIG + TILE_BYTES),
+                              desc_sw128(sm + L::T_SMALL + TILE_BYTES), TILE);
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(part);
+#pragma unroll
+      for (int i = 0; i < TILE / 2; ++i) acc2[i] += part[i];
+    }
+#pragma unroll
+    for (int kk = 0; kk < TILE / 8; ++kk) acc_as_a(y, kk, ab[kk], as[kk]);
+    fence_frag(ab);
+    fence_frag(as);
+    zero(part);
+    wg_fence();
+    mma3_rs<TILE, TILE / 8>(part, ab, as, desc_sw128(sm + L::T_BIG), desc_sw128(sm + L::T_SMALL),
+                            TILE);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(part);
+#pragma unroll
+    for (int i = 0; i < TILE / 2; ++i) acc1[i] += part[i];
+  }
+
+  // the epilogue: rows past LR and columns past Dh are not stored
+  const long tok = (long)p.H * p.Dh;
+#pragma unroll
+  for (int j = 0; j < TILE / 8; ++j) {
+    const int col = TILE * co + 8 * j + 2 * t;
+    if (col >= p.Dh) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + ra + 8 * half;
+      if (row >= p.LR) continue;
+      const long at = ((long)b * p.LR + row) * tok + (long)h * p.Dh + col;
+      const int i = 4 * j + 2 * half;
+      *reinterpret_cast<float2*>(p.out1 + at) =
+          make_float2(acc1[i] * p.scale, acc1[i + 1] * p.scale);
+      if (KIND == DKV)
+        *reinterpret_cast<float2*>(p.out2 + at) = make_float2(acc2[i], acc2[i + 1]);
+    }
   }
 }
 
-template <int NC>
-int launch(const float* q, const float* k, const float* v, const float* g,
-           const float* lse, const float* delta, float* dq, float* dk,
-           float* dv, int B, int T, int S, int H, int dh, float scale,
-           bool vec, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+// blockIdx.x: 64 rows of R; blockIdx.y: batch * H + head; blockIdx.z: the
+// output chunk of the head dim
+template <int KIND>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_tf32x3(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty = full + 1;
+  uint8_t* sm = base + HEAD_BYTES;
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(empty, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, r0 = blockIdx.x * TILE;
+  if (warpgroup() == 1)
+    producer<KIND>(p, sm, full, empty, b, h, r0);
+  else
+    consumer<KIND>(p, sm, full, empty, b, h, r0, blockIdx.z);
+}
+
+const void* kernel_of(int kind) {
+  return kind == DKV ? (const void*)flash_bwd_tf32x3<DKV> : (const void*)flash_bwd_tf32x3<DQ>;
+}
+
+int smem_of(int kind) { return kind == DKV ? Layout<DKV>::SMEM : Layout<DQ>::SMEM; }
+
+// a map of one of q, k, v, dO: (Dh, H, rows, B)
+int encode_qkv(CUtensorMap* map, const float* ptr, int B, int L, int H, int Dh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Dh * 4, (cuuint64_t)H * Dh * 4,
+                                 (cuuint64_t)L * H * Dh * 4};
+  const cuuint32_t box[4] = {32, 1, TILE, 1};
+  return encode_f32(map, ptr, 4, dims, strides, box);
+}
+
+template <int KIND>
+int launch(Params& P, int B, int H, cudaStream_t stream) {
+  const int smem = Layout<KIND>::SMEM;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_tf32x3<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      flash_bwd_dkv<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q((T + TILE - 1) / TILE, B * H);
-  flash_bwd_dq<NC><<<grid_q, THREADS, SMEM, stream>>>(
-      q, k, v, g, lse, delta, dq, T, S, H, dh, scale, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_k((S + TILE - 1) / TILE, B * H);
-  flash_bwd_dkv<NC><<<grid_k, THREADS, SMEM, stream>>>(
-      q, k, v, g, lse, delta, dk, dv, T, S, H, dh, scale, vec);
+  const dim3 grid((unsigned)((P.LR + TILE - 1) / TILE), (unsigned)(B * H), (unsigned)P.nc);
+  flash_bwd_tf32x3<KIND><<<grid, THREADS, smem, stream>>>(P);
   return (int)cudaGetLastError();
 }
 
+bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// Returns a cudaError_t as int: 0 when both launches were accepted.  `vec`
-// != 0 promises Dh % 4 == 0 and 16-byte aligned q, k, v and dO.
-extern "C" int launch_flash_attention_bwd(
-    const float* q, const float* k, const float* v, const float* g,
-    const float* lse, const float* delta, float* dq, float* dk, float* dv,
-    int B, int T, int S, int H, int Dh, float scale, int vec,
-    cudaStream_t stream) {
-  if (Dh < 1 || Dh > MAX_DH || B <= 0 || T <= 0 || S <= 0 || H <= 0 ||
-      (long)B * H > 65535 || (vec && Dh % 4 != 0)) {
+// kind 0 (dk, dv) or 1 (dq): its registers a thread, its dynamic shared
+// memory and the blocks an SM holds.  Returns a cudaError_t as int.
+extern "C" int flash_attention_bwd_info(int kind, int* regs, int* smem, int* blocks) {
+  if (kind != DKV && kind != DQ) return (int)cudaErrorInvalidValue;
+  const void* fn = kernel_of(kind);
+  *smem = smem_of(kind);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, THREADS, *smem);
+  *regs = attr.numRegs;
+  return (int)err;
+}
+
+// Returns a cudaError_t as int (or 1000 + a CUresult from encoding a tensor
+// map): 0 when both launches were accepted.  Dh is the stored (padded) head
+// dim, a multiple of 8 from 32 to 256; `vec` != 0 promises 16-byte aligned
+// q, k, v and dO (the kernels take nothing else).
+extern "C" int launch_flash_attention_bwd(const float* q, const float* k, const float* v,
+                                          const float* g, const float* lse, const float* delta,
+                                          float* dq, float* dk, float* dv, int B, int T, int S,
+                                          int H, int Dh, float scale, int vec,
+                                          cudaStream_t stream) {
+  if (Dh < 32 || Dh > MAX_DH || Dh % 8 != 0 || B <= 0 || T <= 0 || S <= 0 || H <= 0 ||
+      (long)B * H > 65535 || !vec || !aligned(q) || !aligned(k) || !aligned(v) || !aligned(g))
     return (int)cudaErrorInvalidValue;
-  }
-  switch ((Dh + TILE - 1) / TILE) {
-    case 1: return launch<1>(q, k, v, g, lse, delta, dq, dk, dv, B, T, S, H,
-                             Dh, scale, vec, stream);
-    case 2: return launch<2>(q, k, v, g, lse, delta, dq, dk, dv, B, T, S, H,
-                             Dh, scale, vec, stream);
-    case 3: return launch<3>(q, k, v, g, lse, delta, dq, dk, dv, B, T, S, H,
-                             Dh, scale, vec, stream);
-    default: return launch<4>(q, k, v, g, lse, delta, dq, dk, dv, B, T, S, H,
-                              Dh, scale, vec, stream);
-  }
+  Params P;
+  memset(&P, 0, sizeof(P));
+  P.lse = lse, P.delta = delta, P.T = T, P.H = H, P.Dh = Dh, P.scale = scale;
+  P.nc = (Dh + TILE - 1) / TILE;
+  CUtensorMap mq, mk, mv, mg;
+  int rc = encode_qkv(&mq, q, B, T, H, Dh);
+  if (rc == 0) rc = encode_qkv(&mk, k, B, S, H, Dh);
+  if (rc == 0) rc = encode_qkv(&mv, v, B, S, H, Dh);
+  if (rc == 0) rc = encode_qkv(&mg, g, B, T, H, Dh);
+  if (rc != 0) return rc;
+  // dq: R = (q, dO), S = (k, v)
+  P.r1 = mq, P.r2 = mg, P.s1 = mk, P.s2 = mv;
+  P.out1 = dq, P.out2 = nullptr, P.LR = T, P.LS = S;
+  rc = launch<DQ>(P, B, H, stream);
+  if (rc != 0) return rc;
+  // dk, dv: R = (k, v), S = (q, dO)
+  P.r1 = mk, P.r2 = mv, P.s1 = mq, P.s2 = mg;
+  P.out1 = dk, P.out2 = dv, P.LR = S, P.LS = T;
+  return launch<DKV>(P, B, H, stream);
 }

@@ -1,233 +1,422 @@
 // fused_mlp inference: y = GELU(x W1 + b1) W2 + b2 in f32, with the hidden
-// activation kept on chip.
+// activation kept on chip, on Hopper's tensor cores in 3xTF32
+// (csrc/tf32x3.cuh).
 //
 // Replaces the Pallas TPU kernel `_mlp_kernel`
 // (transformer_stm_tpu/kernels/fused_mlp.py:52, launched by `fused_mlp` :62).
 // GELU is the exact erf form through `erff`; the TPU kernel's rational erf
 // (fused_mlp.py:33) only stood in for an erf that Mosaic lacked.
 //
-// Bound: operations.  4*N*D*Hd flops of f32 FMA against x, W1, W2 and y;
-// at CvT stage 1 (N 131,072, D 64, Hd 256) that is 8.6 GFLOP against 67 MB.
-// The TPU kernel keeps all of W1 and W2 and a whole row block of the hidden
-// activation in VMEM.  Here a block owns BM = 8 RW rows and walks the hidden
-// width in chunks of BH units: it computes GELU(x W1[:, chunk] + b1[chunk])
-// into shared memory and adds chunk @ W2[chunk, :] into register
-// accumulators, so the (N, Hd) activation never reaches device memory.
-// Warp w owns rows RW w .. RW w + RW - 1 in both phases.  In phase A lane l
-// takes the units l % U, l % U + U, ... of the chunk (U = min(BH, 32)) on
-// rows l / U, l / U + 32 / U, ... of its warp's; in phase B it takes output
-// columns l, l + 32, ....  Row operands are warp-wide broadcasts from
-// transposed tiles (float4s where a lane's rows are consecutive and four
-// or more), column operands conflict-free consecutive words.
+// Bound: operations.  4 N D Hd flops; at ViT-S width (N 37,824, D 384, Hd
+// 1536) that is 89.2 GFLOP: 1.332 ms at the 67 TFLOP/s of f32 FMA, 0.540 ms
+// as three TF32 products at 495 TFLOP/s, against 58 MB of x and y (0.018 ms
+// at 3.35 TB/s).  At each CvT stage (N D Hd = 2^31) 0.128 ms and 0.052 ms.
 //
-// (RW, BH) per width: the x tile and both weight chunks must fit the 227 KB
-// a block may use, and RW x D / 32 accumulators a thread at most 48
-// registers.  CvT widths 64, 128, 256 and ViT-Ti's 192: (4, 64), 177 KB at
-// D 256, above the 48 KB default, so the launcher opts in.  ViT-S's 384:
-// (4, 32), 158 KB.  ViT-B's 768: (2, 16), 161 KB.
+// Design.  A block of two consumer warpgroups owns a 64-row tile of x (and,
+// at D 768, one of two column halves of y) and walks the hidden width in
+// chunks of 128 units, 64 for each warpgroup:
 //
-// Layout: x (N, D), w1 (D, Hd), b1 (Hd), w2 (Hd, D), b2 (D), y (N, D), all
-// contiguous; D is 64, 128, 192, 256, 384 or 768 and Hd a multiple of 64.
-// Rows past N are zero-filled and not stored.
+// - TMA loads run through a ring of three 48 KB stages with full/empty
+//   mbarriers, issued by one consumer thread up to two stages ahead, never
+//   waiting for a slot it does not need yet.  (A producer warp would make a
+//   third warpgroup, which caps every thread at 168 registers: ptxas does
+//   not widen the allocation for setmaxnreg, and y alone takes 96 at D 384.)
+//   An fc1 stage holds a 32-column slab of the x tile (f32 as stored) and
+//   the same slab of the chunk's 128 rows of W1^T, big and small; an fc2
+//   stage the 32-unit slab of W2^T for one warpgroup, big and small.  The
+//   wrapper packs W1^T and W2^T as (2, rows, cols) big/small pairs, K-major,
+//   as .tf32 wgmma needs them, once per pair of weights.
+// - fc1: x is the register A operand, split into big and small in
+//   registers as it is read from the stage (x's split for a whole tile
+//   would take 192 KB of shared memory at D 384, beside the ring), W1^T the
+//   B operand; GELU (+ b1) runs on the accumulators.
+// - fc2, split K (D <= 128): each warpgroup multiplies its own 64 hidden
+//   units, straight from its registers as the A operand (W2^T's rows come
+//   in the matching `kpos` order), into all D columns of y; the two partial
+//   sums meet in shared memory once, at the end of the tile.
+// - fc2, split columns (D >= 192): the warpgroups trade their halves of the
+//   chunk, split, through a 64 x 128 shared tile between two barriers, and
+//   each multiplies the whole chunk into its D / 2 columns (192 of a half at
+//   D 768; there fc1 runs once for each half, 1.5x that width's flops).
+// - y accumulates in registers across the chunks; b2 is added in the
+//   epilogue.  Each stage's products go into a fresh accumulator that f32
+//   adds fold into the running one (csrc/tf32x3.cuh: the tensor cores
+//   truncate as they accumulate; over Hd 1536 that bias reached 2e-5 of
+//   max |y|).  Every wgmma is as wide in N as its tile: narrower ones,
+//   tried on the H100, cost nearly as much each.
+//
+// Every TMA box past N rows or Hd units is zero-filled; b1 past Hd reads as
+// 0, so a ragged last chunk adds GELU(0) = 0.  Rows past N are not stored.
+//
+// Layout: x (N, D), b1 (Hd), b2 (D), y (N, D), f32 contiguous; w1 the packed
+// W1^T, (2, Hd, D): big then small; w2 the packed W2^T, (2, D, Hd), its
+// columns in kpos order at D 64 and 128.  D is 64, 128, 192, 256, 384 or
+// 768; Hd a multiple of 64; x, w1 and w2 16-byte aligned.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int HD_STEP = 64;   // Hd must be a multiple of this
+using namespace tf32x3;
 
-// RW rows a warp (BM a block), BH hidden units a chunk
-template <int D, int RW, int BH>
-struct Tiling {
-  static constexpr int BM = 8 * RW;        // rows per block
-  static constexpr int PAD = BM + 4;       // row length of transposed tiles
-  static constexpr int U = BH < 32 ? BH : 32;  // lanes across a row's units
-  static constexpr int RL = RW * U / 32;   // phase-A rows of a lane
-  static constexpr int UL = BH / U;        // phase-A units of a lane
-  static constexpr int NC = D / 32;        // phase-B output columns of a lane
-  static constexpr size_t smem =
-      sizeof(float) * (size_t)(D * PAD + 2 * D * BH + BH * PAD);
-  static_assert((RW * U) % 32 == 0 && BH % U == 0 && HD_STEP % BH == 0 &&
-                    D % 32 == 0,
-                "tiling");
+constexpr int ROWS = 64;                    // rows of a tile: one wgmma M
+constexpr int KS = 32;                      // floats of a slab row (128 bytes)
+constexpr int HW = 64;                      // hidden units of a warpgroup in a chunk
+constexpr int HC = 2 * HW;                  // hidden chunk
+constexpr int THREADS = 256;                // two consumer warpgroups
+constexpr int NSTAGE = 3;
+constexpr int STAGE_BYTES = 48 * 1024;      // an fc1 stage; an fc2 stage of up to 192 columns
+constexpr int X_BYTES = ROWS * KS * 4;      // an x slab, 8 KB
+constexpr int W1_BYTES = HC * KS * 4;       // a W1^T slab (big or small), 16 KB
+constexpr int H_BYTES = ROWS * HC * 4;      // the hidden chunk (big or small), 32 KB
+constexpr int HEAD_BYTES = 1024;            // mbarriers
+constexpr int ALIGN = 1024;                 // of the swizzled tiles
+constexpr int SMEM = ALIGN + HEAD_BYTES + NSTAGE * STAGE_BYTES + 2 * H_BYTES;
+constexpr int SPLIT_K_MAX_D = 128;          // widths that split fc2's K between warpgroups
+constexpr int BAR_H_FREE = 1, BAR_H_READY = 2;  // named barriers (0: __syncthreads)
+static_assert(X_BYTES + 2 * W1_BYTES <= STAGE_BYTES, "an fc1 stage");
+
+struct Params {
+  CUtensorMap m_x;   // x, (N, D), box 32 x 64
+  CUtensorMap m_w1;  // packed W1^T, (2, Hd, D), box 32 x 128 x 1
+  CUtensorMap m_w2;  // packed W2^T, (2, D, Hd), box 32 x NW x 1
+  const float* b1;
+  const float* b2;
+  float* y;
+  int N, D, Hd;
 };
 
-// v[i] = p[S * i]: float4 or float2 loads where S is 1 and N allows (the
-// callers' offsets are then multiples of the vector width).
-template <int N, int S>
-__device__ __forceinline__ void load_rows(const float* p, float (&v)[N]) {
-  if constexpr (S == 1 && N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + i);
-      v[i] = t.x; v[i + 1] = t.y; v[i + 2] = t.z; v[i + 3] = t.w;
-    }
-  } else if constexpr (S == 1 && N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(p + i);
-      v[i] = t.x; v[i + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = p[S * i];
-  }
-}
-
-template <int N, int S>
-__device__ __forceinline__ void store_rows(float* p, const float (&v)[N]) {
-  if constexpr (S == 1 && N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4)
-      *reinterpret_cast<float4*>(p + i) =
-          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-  } else if constexpr (S == 1 && N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 2)
-      *reinterpret_cast<float2*>(p + i) = make_float2(v[i], v[i + 1]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) p[S * i] = v[i];
-  }
-}
+// The two ways a tile's warpgroups share the work, by the output columns NW
+// a warpgroup accumulates:
+// - split K (SK, D <= 128): each warpgroup runs fc2 on its own 64 hidden
+//   units, from its registers, into all NW = D columns; the two partial y
+//   are summed once, at the end of the tile.
+// - split columns (D >= 192): each warpgroup runs fc2 on the whole chunk,
+//   exchanged through shared memory, into its NW = D / 2 columns (192 of a
+//   column half at D 768).
+// FC2 is a chunk's fc2 stages: one for each 32-unit slab and warpgroup.
+template <int NW, bool SK>
+struct Plan {
+  static constexpr int FC2 = SK ? 2 * (HW / KS) : 2 * (HC / KS);
+  static_assert(2 * NW * KS * 4 <= STAGE_BYTES, "an fc2 stage");
+};
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-template <int D, int RW, int BH>
-__global__ void __launch_bounds__(THREADS)
-fused_mlp_fwd(const float* __restrict__ x, const float* __restrict__ w1,
-              const float* __restrict__ b1, const float* __restrict__ w2,
-              const float* __restrict__ b2, float* __restrict__ y, int N, int Hd) {
-  using T = Tiling<D, RW, BH>;
-  constexpr int BM = T::BM, PAD = T::PAD, U = T::U, RL = T::RL, UL = T::UL,
-                NC = T::NC;
-  extern __shared__ __align__(16) float smem[];
-  float* xt = smem;              // [D][PAD]   x tile, transposed
-  float* w1s = xt + D * PAD;     // [D][BH]    W1[:, chunk]
-  float* w2s = w1s + D * BH;     // [BH][D]    W2[chunk, :]
-  float* ht = w2s + BH * D;      // [BH][PAD]  GELU(hidden chunk), transposed
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int r0 = (tid / 32) * RW;  // the warp's first row
-  const int ra = r0 + lane / U;    // the lane's first phase-A row
-  const int ua = lane % U;         // the lane's first phase-A unit
-  const long row0 = (long)blockIdx.x * BM;
-
-  for (int idx = tid; idx < BM * D; idx += THREADS) {
-    const int r = idx / D;
-    const int c = idx % D;
-    xt[c * PAD + r] = row0 + r < N ? x[(row0 + r) * D + c] : 0.f;
-  }
-
-  float acc[RW][NC];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
-
-  for (int h0 = 0; h0 < Hd; h0 += BH) {
-    __syncthreads();  // x tile written; the previous chunk fully consumed
-    for (int idx = tid; idx < D * BH / 4; idx += THREADS) {
-      const int r = idx / (BH / 4);
-      const int c4 = idx % (BH / 4);
-      reinterpret_cast<float4*>(w1s)[idx] =
-          *reinterpret_cast<const float4*>(w1 + (long)r * Hd + h0 + 4 * c4);
-    }
-    const float4* w2src = reinterpret_cast<const float4*>(w2 + (long)h0 * D);
-    for (int idx = tid; idx < BH * D / 4; idx += THREADS) {
-      reinterpret_cast<float4*>(w2s)[idx] = w2src[idx];
-    }
-    __syncthreads();
-
-    // Phase A: ha[k][j] = x[ra + (32 / U) k] . W1[:, h0 + ua + U j].
-    float ha[RL][UL];
-#pragma unroll
-    for (int k = 0; k < RL; ++k)
-#pragma unroll
-      for (int j = 0; j < UL; ++j) ha[k][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < D; ++kk) {
-      float xv[RL];
-      load_rows<RL, 32 / U>(xt + kk * PAD + ra, xv);
-#pragma unroll
-      for (int j = 0; j < UL; ++j) {
-        const float w = w1s[kk * BH + ua + U * j];
-#pragma unroll
-        for (int k = 0; k < RL; ++k) ha[k][j] = fmaf(xv[k], w, ha[k][j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < UL; ++j) {
-      const int col = ua + U * j;
-      const float bias = b1[h0 + col];
-      float g[RL];
-#pragma unroll
-      for (int k = 0; k < RL; ++k) g[k] = gelu_erf(ha[k][j] + bias);
-      store_rows<RL, 32 / U>(ht + col * PAD + ra, g);
-    }
-    __syncthreads();
-
-    // Phase B: acc[r][i] += sum_j ht[j][r0 + r] * W2[h0 + j][lane + 32 i].
-#pragma unroll 4
-    for (int j = 0; j < BH; ++j) {
-      float hv[RW];
-      load_rows<RW, 1>(ht + j * PAD + r0, hv);
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const float w = w2s[j * D + lane + 32 * i];
-#pragma unroll
-        for (int r = 0; r < RW; ++r) acc[r][i] = fmaf(hv[r], w, acc[r][i]);
-      }
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  uint8_t* stages;
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ uint8_t* at() const { return stages + stage * STAGE_BYTES; }
+  __device__ void next() {
+    if (++stage == NSTAGE) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+};
 
+// The loads of stage u into the ring's next slot once both warpgroups have
+// released it.  Without `wait` it issues nothing and returns false while
+// the slot is still in use.  A chunk's stages: one fc1 stage for each
+// 32-column slab of x (the slab and both warpgroups' W1^T rows), then fc2
+// stage f for warpgroup f % 2 and 32-unit slab f / 2 of the chunk (split K:
+// of that warpgroup's half).
+template <int NW, bool SK>
+__device__ __forceinline__ bool issue(const Params& p, Ring& r, int u, int row0, int col0,
+                                      bool wait) {
+  if (wait)
+    mbar_wait(&r.empty[r.stage], r.phase ^ 1);
+  else if (!mbar_test(&r.empty[r.stage], r.phase ^ 1))
+    return false;
+  const int n1 = p.D / KS, per = n1 + Plan<NW, SK>::FC2, j = u % per;
+  const int h0 = u / per * HC;
+  uint8_t* s = r.at();
+  uint64_t* bar = &r.full[r.stage];
+  if (j < n1) {
+    mbar_expect_tx(bar, X_BYTES + 2 * W1_BYTES);
+    tma_3d(s, &p.m_x, bar, KS * j, row0, 0);
+    tma_3d(s + X_BYTES, &p.m_w1, bar, KS * j, h0, 0);
+    tma_3d(s + X_BYTES + W1_BYTES, &p.m_w1, bar, KS * j, h0, 1);
+  } else {
+    const int f = j - n1, w = f % 2;
+    const int k0 = h0 + KS * (f / 2) + (SK ? HW * w : 0), n0 = col0 + (SK ? 0 : NW * w);
+    mbar_expect_tx(bar, 2 * NW * KS * 4);
+    tma_3d(s, &p.m_w2, bar, k0, n0, 0);
+    tma_3d(s + NW * KS * 4, &p.m_w2, bar, k0, n0, 1);
+  }
+  r.next();
+  return true;
+}
+
+// Both warpgroups walk every stage (waiting for it to arrive and releasing
+// it), so that neither can run a ring ahead of the other.  Thread 0 also
+// fills the ring: before it waits for a stage it issues every stage up to
+// NSTAGE - 1 ahead whose slot is free, and waits for a slot only when the
+// stage it needs next is not issued yet.  Products go into a fresh
+// accumulator for each stage, added into the running one with f32 adds
+// (csrc/tf32x3.cuh: the tensor cores truncate as they accumulate).
+template <int NW, bool SK>
+__device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf, int row0,
+                                         int col0) {
+  const int w = warpgroup();
+  const int tid = threadIdx.x % 128;
+  const int wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ra = 16 * wi + g;        // the thread's first accumulator row
+  uint8_t* hbig = hbuf;
+  uint8_t* hsmall = hbuf + H_BYTES;
+  const int total = (p.Hd + HC - 1) / HC * (p.D / KS + Plan<NW, SK>::FC2);
+  Ring loads = r;  // thread 0's view of the ring as the one who fills it
+  int issued = 0, u = 0;
+  auto fill = [&]() {
+    if (threadIdx.x == 0) {
+      const int ahead = min(total, u + NSTAGE);
+      while (issued < ahead && issue<NW, SK>(p, loads, issued, row0, col0, issued == u))
+        ++issued;
+    }
+    __syncwarp();
+  };
+  auto release = [&]() {
+    if (lane == 0) mbar_arrive(&r.empty[r.stage]);
+    r.next();
+    ++u;
+  };
+
+  float y[NW / 2], part[NW / 2];
+  zero(y);
+  for (int h0 = 0; h0 < p.Hd; h0 += HC) {
+    // fc1: this warpgroup's 64 hidden units of the chunk
+    float acc[HW / 2], part1[HW / 2];
+    zero(acc);
+    for (int k0 = 0; k0 < p.D; k0 += KS) {
+      fill();
+      mbar_wait(&r.full[r.stage], r.phase);
+      const uint8_t* s = r.at();
+      uint32_t ab[4][4], as[4][4];
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const long row = row0 + r0 + r;
-    if (row < N) {
+      for (int kk = 0; kk < 4; ++kk) {
+        const int c = 8 * kk + t;
+        const float a[4] = {*reinterpret_cast<const float*>(s + sw_off(ra, c, ROWS)),
+                            *reinterpret_cast<const float*>(s + sw_off(ra + 8, c, ROWS)),
+                            *reinterpret_cast<const float*>(s + sw_off(ra, c + 4, ROWS)),
+                            *reinterpret_cast<const float*>(s + sw_off(ra + 8, c + 4, ROWS))};
 #pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const int c = lane + 32 * i;
-        y[row * D + c] = acc[r][i] + b2[c];
+        for (int e = 0; e < 4; ++e) split(a[e], ab[kk][e], as[kk][e]);
       }
+      fence_frag(ab);
+      fence_frag(as);
+      zero(part1);
+      wg_fence();
+      mma3_rs<HW, 4>(part1, ab, as, desc_sw128(s + X_BYTES + w * HW * 128),
+                        desc_sw128(s + X_BYTES + W1_BYTES + w * HW * 128), HC);
+      wg_commit();
+      fill();
+      wg_wait<0>();
+      fence_acc(part1);
+      release();
+#pragma unroll
+      for (int i = 0; i < HW / 2; ++i) acc[i] += part1[i];
+    }
+
+    // GELU(acc + b1): in place (split K), or split into this warpgroup's
+    // half of the shared chunk
+    if (!SK) bar_sync(BAR_H_FREE, THREADS);  // both warpgroups are done with the last chunk
+#pragma unroll
+    for (int j = 0; j < HW / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = ra + 8 * (e >> 1);
+        const int col = w * HW + 8 * j + 2 * t + (e & 1);
+        const int unit = h0 + col;
+        const float v = gelu_erf(acc[4 * j + e] + (unit < p.Hd ? p.b1[unit] : 0.f));
+        if (SK) {
+          acc[4 * j + e] = v;
+        } else {
+          float big, small;
+          split(v, big, small);
+          const uint32_t off = sw_off(row, col, ROWS);
+          *reinterpret_cast<float*>(hbig + off) = big;
+          *reinterpret_cast<float*>(hsmall + off) = small;
+        }
+      }
+    }
+    if (!SK) {
+      fence_proxy_shared();
+      bar_sync(BAR_H_READY, THREADS);
+    }
+
+    // fc2 into this warpgroup's NW output columns
+    for (int f = 0; f < Plan<NW, SK>::FC2; ++f) {
+      fill();
+      mbar_wait(&r.full[r.stage], r.phase);
+      if (f % 2 == w) {
+        const uint8_t* s = r.at();
+        const int slab = f / 2;
+        const uint64_t bb = desc_sw128(s), bs = desc_sw128(s + NW * KS * 4);
+        if (SK) {
+          // A: k-steps 4 slab .. 4 slab + 3 of h in registers, in the kpos
+          // order the wrapper packs W2^T's rows in at these widths
+          uint32_t hb[4][4], hs[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) acc_as_a(acc, 4 * slab + kk, hb[kk], hs[kk]);
+          fence_frag(hb);
+          fence_frag(hs);
+          zero(part);
+          wg_fence();
+          mma3_rs<NW, 4>(part, hb, hs, bb, bs, NW);
+        } else {
+          zero(part);
+          wg_fence();
+          mma3_ss<NW, 4>(part, desc_sw128(hbig + slab * ROWS * 128),
+                            desc_sw128(hsmall + slab * ROWS * 128), ROWS, bb, bs, NW);
+        }
+        wg_commit();
+        fill();
+        wg_wait<0>();
+        fence_acc(part);
+        release();
+#pragma unroll
+        for (int i = 0; i < NW / 2; ++i) y[i] += part[i];
+      } else {
+        release();
+      }
+    }
+  }
+
+  if (SK) {
+    // the two partial sums meet in shared memory (the chunk's buffer, unused
+    // with split K): row-major 64 x D floats each, then y = sum + b2
+    float* sum = reinterpret_cast<float*>(hbuf);
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sum[w * ROWS * NW + (ra + 8 * (e >> 1)) * NW + 8 * j + 2 * t + (e & 1)] = y[4 * j + e];
+    __syncthreads();
+    for (int i = threadIdx.x; i < ROWS * NW; i += THREADS) {
+      const long row = (long)row0 + i / NW;
+      if (row < p.N) p.y[row * p.D + i % NW] = sum[i] + sum[ROWS * NW + i] + p.b2[i % NW];
+    }
+    return;
+  }
+
+  // y + b2, rows past N not stored
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = col0 + w * NW + 8 * j + 2 * t;
+    const float2 bias = *reinterpret_cast<const float2*>(p.b2 + col);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long row = (long)row0 + ra + 8 * half;
+      if (row < p.N)
+        *reinterpret_cast<float2*>(p.y + row * p.D + col) =
+            make_float2(y[4 * j + 2 * half] + bias.x, y[4 * j + 2 * half + 1] + bias.y);
     }
   }
 }
 
-template <int D, int RW, int BH>
-int launch_width(const float* x, const float* w1, const float* b1, const float* w2,
-                 const float* b2, float* y, int N, int Hd, cudaStream_t stream) {
-  using T = Tiling<D, RW, BH>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd<D, RW, BH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((N + T::BM - 1) / T::BM);
-  fused_mlp_fwd<D, RW, BH><<<grid, THREADS, T::smem, stream>>>(x, w1, b1, w2, b2,
-                                                               y, N, Hd);
-  return (int)cudaGetLastError();
+// blockIdx.x: the 64-row tile; blockIdx.y: the column half at D 768
+template <int NW, bool SK>
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_tf32x3(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
+  Ring r;
+  r.full = reinterpret_cast<uint64_t*>(base);
+  r.empty = r.full + NSTAGE;
+  r.stages = base + HEAD_BYTES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], THREADS / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  mlp_tile<NW, SK>(p, r, r.stages + NSTAGE * STAGE_BYTES, blockIdx.x * ROWS,
+                   blockIdx.y * (SK ? NW : 2 * NW));
+}
+
+// the output columns a warpgroup accumulates at width D (Plan)
+int columns(int D) { return D <= SPLIT_K_MAX_D ? D : D == 768 ? 192 : D / 2; }
+
+const void* kernel_of(int D) {
+  switch (D) {
+    case 64: return (const void*)fused_mlp_tf32x3<64, true>;
+    case 128: return (const void*)fused_mlp_tf32x3<128, true>;
+    case 192: return (const void*)fused_mlp_tf32x3<96, false>;
+    case 256: return (const void*)fused_mlp_tf32x3<128, false>;
+    default: return (const void*)fused_mlp_tf32x3<192, false>;
+  }
+}
+
+bool width_ok(int D) {
+  return D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 768;
 }
 
 }  // namespace
 
-// Returns a cudaError_t as int: 0 when the launch was accepted.
+// The kernel of width D: its registers a thread, its dynamic shared memory
+// and the blocks an SM holds.  Returns a cudaError_t as int.
+extern "C" int fused_mlp_info(int D, int* regs, int* smem, int* blocks) {
+  if (!width_ok(D)) return (int)cudaErrorInvalidValue;
+  const void* fn = kernel_of(D);
+  *smem = SMEM;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, THREADS, SMEM);
+  *regs = attr.numRegs;
+  return (int)err;
+}
+
+// Returns a cudaError_t as int (or 1000 + a CUresult from encoding a tensor
+// map): 0 when the launch was accepted.
 extern "C" int launch_fused_mlp(const float* x, const float* w1, const float* b1,
-                                const float* w2, const float* b2, float* y, int N,
-                                int D, int Hd, int Dout, cudaStream_t stream) {
-  if (N <= 0 || Dout != D || Hd <= 0 || Hd % HD_STEP != 0)
+                                const float* w2, const float* b2, float* y, int N, int D, int Hd,
+                                int Dout, cudaStream_t stream) {
+  if (N <= 0 || Dout != D || !width_ok(D) || Hd <= 0 || Hd % 64 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w1) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w2) % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  const int DN = columns(D);
+  Params P;
+  memset(&P, 0, sizeof(P));
+  P.b1 = b1, P.b2 = b2, P.y = y, P.N = N, P.D = D, P.Hd = Hd;
+  const cuuint64_t xd[3] = {(cuuint64_t)D, (cuuint64_t)N, 1};
+  const cuuint64_t xs[2] = {(cuuint64_t)D * 4, (cuuint64_t)N * D * 4};
+  const cuuint32_t xb[3] = {KS, ROWS, 1};
+  const cuuint64_t w1d[3] = {(cuuint64_t)D, (cuuint64_t)Hd, 2};
+  const cuuint64_t w1s[2] = {(cuuint64_t)D * 4, (cuuint64_t)Hd * D * 4};
+  const cuuint32_t w1b[3] = {KS, HC, 1};
+  const cuuint64_t w2d[3] = {(cuuint64_t)Hd, (cuuint64_t)D, 2};
+  const cuuint64_t w2s[2] = {(cuuint64_t)Hd * 4, (cuuint64_t)D * Hd * 4};
+  const cuuint32_t w2b[3] = {KS, (cuuint32_t)DN, 1};
+  int rc = encode_f32(&P.m_x, x, 3, xd, xs, xb);
+  if (rc == 0) rc = encode_f32(&P.m_w1, w1, 3, w1d, w1s, w1b);
+  if (rc == 0) rc = encode_f32(&P.m_w2, w2, 3, w2d, w2s, w2b);
+  if (rc != 0) return rc;
+  const void* fn = kernel_of(D);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((N + ROWS - 1) / ROWS), D == 768 ? 2 : 1);
   switch (D) {
-    case 64: return launch_width<64, 4, 64>(x, w1, b1, w2, b2, y, N, Hd, stream);
-    case 128: return launch_width<128, 4, 64>(x, w1, b1, w2, b2, y, N, Hd, stream);
-    case 192: return launch_width<192, 4, 64>(x, w1, b1, w2, b2, y, N, Hd, stream);
-    case 256: return launch_width<256, 4, 64>(x, w1, b1, w2, b2, y, N, Hd, stream);
-    case 384: return launch_width<384, 4, 32>(x, w1, b1, w2, b2, y, N, Hd, stream);
-    case 768: return launch_width<768, 2, 16>(x, w1, b1, w2, b2, y, N, Hd, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case 64: fused_mlp_tf32x3<64, true><<<grid, THREADS, SMEM, stream>>>(P); break;
+    case 128: fused_mlp_tf32x3<128, true><<<grid, THREADS, SMEM, stream>>>(P); break;
+    case 192: fused_mlp_tf32x3<96, false><<<grid, THREADS, SMEM, stream>>>(P); break;
+    case 256: fused_mlp_tf32x3<128, false><<<grid, THREADS, SMEM, stream>>>(P); break;
+    default: fused_mlp_tf32x3<192, false><<<grid, THREADS, SMEM, stream>>>(P); break;
   }
+  return (int)cudaGetLastError();
 }

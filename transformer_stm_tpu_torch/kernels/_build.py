@@ -48,8 +48,12 @@ SIGNATURES = {
     "launch_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, ctypes.c_float, _I,
                                    _P],
-    # x, w1, b1, w2, b2, y, N, D, Hd, Dout, stream
+    # x, packed w1, b1, packed w2, b2, y, N, D, Hd, Dout, stream
     "launch_fused_mlp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # D, registers (out), shared memory bytes (out), blocks per SM (out)
+    "fused_mlp_info": [_I, _P, _P, _P],
+    # kind (0 dk/dv, 1 dq), registers, shared memory bytes, blocks per SM
+    "flash_attention_bwd_info": [_I, _P, _P, _P],
     # mode, dtype, x, y, workspace, slots, bytes per slot, g1, be1, wqkv,
     # sqkv, bqkv, wo, so, bo, g2, be2, w1, s1, b1, w2, s2, b2, rows, rows per
     # segment, t_real, E, H, hidden, eps, stream

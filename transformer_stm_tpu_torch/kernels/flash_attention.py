@@ -7,7 +7,10 @@ Port of the Pallas TPU kernel ``flash_attention``
 :102) is ``csrc/flash_attention.cu``; both backward pairs, the
 whole-side-resident ``_bwd_pallas`` :296 and the streaming
 ``_bwd_pallas_streaming`` :469 that ``_bwd`` :601 picks at 512px, are the
-one pair of ``csrc/flash_attention_bwd.cu``.  The JAX router sends keys of
+one pair of ``csrc/flash_attention_bwd.cu``, f32 products in 3xTF32 on the
+tensor cores (csrc/tf32x3.cuh); before it the wrapper computes delta and
+zero-pads the head dim to what the kernels' TMA loads and 8-deep k-steps
+take (``padded_head_dim``).  The JAX router sends keys of
 16,384 and more here (the 512px CvT's stage 1); the kernels take any Dh
 from 1 to 256 (the TPU kernel pads Dh to 128 lanes, so it takes any head
 dim) and any lengths.
@@ -64,13 +67,15 @@ def flash_attention_plain(q, k, v, with_lse: bool = False,
     return o, (m + torch.log(l)).squeeze(-1)
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, g, block: int = PLAIN_BLOCK):
+def flash_attention_bwd_plain(q, k, v, o, lse, g, block: int = PLAIN_BLOCK,
+                              scale: float | None = None):
     """The backward kernels' arithmetic in PyTorch, ``block`` keys at a
     time: p rebuilt from the saved lse, dp = dO . v, delta = rowsum(dO * o),
     dS = p (dp - delta); dq = scale sum dS k, dk = scale dS^T q,
     dv = p^T dO.  q, o, g: (B, T, H, Dh); k, v: (B, S, H, Dh); lse:
-    (B, H, T)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    (B, H, T); scale 1/sqrt(Dh) unless given (as for zero-padded inputs)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     delta = (g * o).sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)  # (B,H,T,1)
     lse = lse.unsqueeze(-1)
     dq = torch.zeros_like(q)
@@ -114,6 +119,21 @@ def _vec(dh, *tensors):
     return int(dh % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def padded_head_dim(dh: int) -> int:
+    """The head dim the backward kernels take: a multiple of 8 (the k-step
+    of a TF32 wgmma, and TMA's 16-byte row stride) and at least 32 (one
+    128-byte TMA box)."""
+    return max(32, -(-dh // 8) * 8)
+
+
+def pad_head_dim(t, dhp: int):
+    """t (..., Dh) with zero columns up to dhp, 16-byte aligned: t itself
+    when it already is, else a new tensor."""
+    if t.shape[-1] == dhp:
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+    return torch.nn.functional.pad(t, (0, dhp - t.shape[-1]))
+
+
 def flash_attention_fwd(q, k, v, with_lse: bool = False):
     """(o, lse or None) outside autograd: the plain version on the CPU,
     else the kernel."""
@@ -154,19 +174,22 @@ def flash_attention_bwd(q, k, v, o, lse, g):
     # delta = rowsum(dO * o), (B, H, T): one reduction before the kernels,
     # as the JAX package computes it outside its kernels (:284).
     delta = (g * o).sum(dim=-1).transpose(1, 2).contiguous()
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dhp = padded_head_dim(dh)
+    qp, kp, vp, gp = (pad_head_dim(x, dhp) for x in (q, k, v, g))
+    dq = torch.empty_like(qp)
+    dk = torch.empty_like(kp)
+    dv = torch.empty_like(vp)
     rc = library().launch_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), gp.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, t, k.shape[1], h, dh, 1.0 / math.sqrt(dh),
-        _vec(dh, q, k, v, g, dq, dk, dv),
+        dv.data_ptr(), b, t, k.shape[1], h, dhp, 1.0 / math.sqrt(dh), 1,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"launch_flash_attention_bwd failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
+    if dhp != dh:
+        dq, dk, dv = (x[..., :dh].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

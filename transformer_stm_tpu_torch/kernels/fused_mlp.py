@@ -4,9 +4,13 @@ chip, for evaluation and, with dropout, for training.
 ``fused_mlp`` ports the Pallas TPU kernel ``fused_mlp``
 (transformer_stm_tpu/kernels/fused_mlp.py:62; body ``_mlp_kernel`` :52),
 the inference MLP of every CvT block; its CUDA kernel is
-``csrc/fused_mlp.cu``.  It has no backward: it raises while autograd
-records (grad enabled and an input requires grad) rather than return a
-result cut off from the graph.
+``csrc/fused_mlp.cu``, f32 products in 3xTF32 on the tensor cores (each
+operand split into two TF32 halves, ``tf32_split``; csrc/tf32x3.cuh).  The
+kernel reads W1^T and W2^T as big/small pairs, K-major, which
+``packed_mlp_weights`` makes once per pair of weights and keeps while they live
+unchanged.  It has no backward: it raises while autograd records (grad
+enabled and an input requires grad) rather than return a result cut off
+from the graph.
 
 ``fused_mlp_train`` ports ``make_fused_mlp_train`` (:291), the training
 MLP y = Drop2(Drop1(GELU(x W1 + b1)) W2 + b2) with both masks drawn inside
@@ -27,6 +31,8 @@ its kernel for tensors on a CUDA device, or raises.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -36,6 +42,9 @@ from ._build import library
 WIDTHS = (64, 128, 256)  # the CvT stage widths the kernels are built for
 VIT_WIDTHS = (192, 384, 768)  # and the ViT widths of the inference kernel
 HIDDEN_CHUNK = 64
+# Widths at which the inference kernel splits fc2's hidden units between its
+# two warpgroups (csrc/fused_mlp.cu, SPLIT_K_MAX_D)
+SPLIT_K_WIDTHS = (64, 128)
 # Rows per block of the training backward, by width (csrc/fused_mlp_train.cu):
 # the weight and bias partials hold ceil(N / rows) blocks.
 TRAIN_BWD_ROWS = {64: 128, 128: 128, 256: 64}
@@ -45,6 +54,69 @@ def fused_mlp_plain(x, w1, b1, w2, b2):
     """The kernel's arithmetic in PyTorch, exact erf GELU.
     x: (..., D); w1: (D, Hd); w2: (Hd, D) -> (..., D)."""
     return dense(gelu(dense(x, w1, b1)), w2, b2)
+
+
+def tf32_round(x):
+    """x (float32) rounded to TF32, 10 explicit mantissa bits, to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32``: half of the low 13
+    bits' range added to the magnitude's bits, then those bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """(big, small), both TF32, with big + small = x to within 2^-22 |x|:
+    the operand split of the 3xTF32 products."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def kpos_order(w_t):
+    """w_t (rows, K) with each group of 8 columns in the order in which an
+    accumulator feeds a product as its register A operand (``kpos`` of
+    csrc/tf32x3.cuh): column 8 j + 2 a + b moves to 8 j + 4 b + a."""
+    rows, k = w_t.shape
+    return w_t.reshape(rows, k // 8, 4, 2).transpose(-1, -2).reshape(rows, k)
+
+
+def pack_mlp_weights(w1, w2):
+    """(W1^T, W2^T) as the kernel reads them: (2, Hd, D) and (2, D, Hd),
+    each the TF32 big half then the small half, contiguous.  At the split-K
+    widths W2^T's columns (the hidden units) are in ``kpos_order``: there
+    fc2 takes the hidden activation from registers (csrc/fused_mlp.cu)."""
+    w2_t = w2.t()
+    if w2.shape[1] in SPLIT_K_WIDTHS:
+        w2_t = kpos_order(w2_t)
+    return tuple(torch.stack(tf32_split(w.contiguous())) for w in (w1.t(), w2_t))
+
+
+# (id(w1), id(w2)) -> (weakrefs of both, their versions, the packed pair)
+_PACKS = {}
+
+
+def packed_mlp_weights(w1, w2):
+    """``pack_mlp_weights(w1, w2)``, kept while w1 and w2 live and are not
+    changed in place (their version counters); inference tensors keep no
+    version counter and are packed at every call."""
+    key = (id(w1), id(w2))
+    versions = None if w1.is_inference() or w2.is_inference() else \
+        (w1._version, w2._version)
+    hit = _PACKS.get(key)
+    if hit is not None and hit[0]() is w1 and hit[1]() is w2 and \
+            versions is not None and hit[2] == versions:
+        return hit[3]
+    packed = pack_mlp_weights(w1, w2)
+    packed_mlp_weights.packings += 1
+    if versions is not None:
+        def drop(_, key=key):
+            _PACKS.pop(key, None)
+        _PACKS[key] = (weakref.ref(w1, drop), weakref.ref(w2, drop),
+                       versions, packed)
+    return packed
+
+
+# Weight packings so far (misses of the cache).
+packed_mlp_weights.packings = 0
 
 
 def _check(x, w1, b1, w2, b2, what="fused_mlp", widths=WIDTHS, **more):
@@ -92,9 +164,12 @@ def fused_mlp(x, w1, b1, w2, b2):
     _check(x, w1, b1, w2, b2, widths=WIDTHS + VIT_WIDTHS)
     d, hd = w1.shape
     n = x.numel() // d
+    if x.data_ptr() % 16:  # the kernel's TMA reads x in 16-byte units
+        x = x.clone()
+    p1, p2 = packed_mlp_weights(w1, w2)
     y = torch.empty_like(x)
     rc = library().launch_fused_mlp(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        x.data_ptr(), p1.data_ptr(), b1.data_ptr(), p2.data_ptr(),
         b2.data_ptr(), y.data_ptr(), n, d, hd, d,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
