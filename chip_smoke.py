@@ -7,9 +7,11 @@ Phases, each printed as it finishes:
 0. watchdog and environment: true f32 on the card, versions, the card's
    name and power limit;
 1. build: the CUDA kernels of ``transformer_stm_tpu_torch/csrc`` with nvcc,
-   each kernel's registers and spills, and the registers, shared memory
-   and blocks an SM of the 3xTF32 kernels (``fused_mlp`` at every width,
-   both flash backward kernels);
+   each kernel's registers and spills, any ptxas C75xx note (wgmma
+   serialised), and the registers, shared memory and blocks an SM of the
+   3xTF32 kernels (``fused_mlp`` at every width, both flash backward
+   kernels, the training MLP's dx and weight-partial kernels at every
+   width);
 2. kernels: each kernel against its plain PyTorch version at the CvT stage
    shapes (in float32, and in float64 as a check that shares no rounding),
    with its time, the plain version's time and one PyTorch call's time as
@@ -19,12 +21,15 @@ Phases, each printed as it finishes:
    where longer), and for fused_mlp the one-off packing of its weights
    (``pack_ms``): the
    attention_small forward with and without lse, its backward
-   (attention_small_bwd, against the plain backward and f64 autograd; SDPA's
-   backward as the yardstick), fused_mlp, and the training MLP
-   fused_mlp_train forward and backward at rates 0.1 and 0 (against
-   fused_mlp_train_plain, which draws the same masks; the keep share of
-   both masks; two backward calls bit-equal; addmm+gelu+dropout+addmm+
-   dropout and its autograd backward as the yardstick); attention_small
+   (attention_small_bwd, against the plain backward and f64 autograd; the
+   same kernel pair timed as flash_attention_bwd; SDPA's backward as the
+   yardstick), fused_mlp, and the training MLP fused_mlp_train forward and
+   backward at rates 0.1 and 0 (against fused_mlp_train_plain, which draws
+   the same masks; the keep share of both masks; two backward calls
+   bit-equal; the backward's scratch bytes; addmm+gelu+dropout+addmm+
+   dropout and its autograd backward as the yardstick), and one training-
+   MLP backward at the 512px stage 1 (N 2,097,152, D 64) against plain with
+   its scratch bytes and time; attention_small
    under torch.func.vmap and grad over 2 slots, bit-equal to a loop;
    flash_attention forward (with and without lse) and backward at T 300,
    S 257 for Dh 16, 33, 64, 128 and 256 and at the 512px stage-1 shape
@@ -53,7 +58,9 @@ Phases, each printed as it finishes:
    so the slots train on 512 and 448 rows), 5 steps per epoch of which one
    is gated, 2 epochs with validation, with exact launch counts; the gated
    step leaves every slot bit for bit as it was; ms per slot-step and the
-   device's busy share; a stacked checkpoint round trip predicts the same;
+   device's busy share, and the ops that launch its torch reduce_kernel
+   (torch.profiler's op-to-kernel links); a stacked checkpoint round trip
+   predicts the same;
    3 steps at dropout 0 through the kernels and through plain PyTorch agree;
 6. the command line at 512px: a synthetic corpus of 2 groups x 5 pieces x
    32 layers of 512x512 images written into the decode cache, label and
@@ -143,10 +150,10 @@ from transformer_stm_tpu_torch.kernels.fused_layer import (  # noqa: E402
     vit_layer_infer, vit_layer_infer_int8, vit_layer_infer_int8_plain,
     vit_layer_infer_plain)
 from transformer_stm_tpu_torch.kernels.fused_mlp import (  # noqa: E402
-    STREAM_HIDDEN, STREAM_OUT, TRAIN_BWD_ROWS, dropout_mask, fused_mlp,
-    fused_mlp_plain, fused_mlp_train, fused_mlp_train_bwd,
-    fused_mlp_train_bwd_plain, fused_mlp_train_fwd, fused_mlp_train_plain,
-    pack_mlp_weights, VIT_WIDTHS, WIDTHS)
+    STREAM_HIDDEN, STREAM_OUT, dropout_mask, fused_mlp, fused_mlp_plain,
+    fused_mlp_train, fused_mlp_train_bwd, fused_mlp_train_bwd_plain,
+    fused_mlp_train_fwd, fused_mlp_train_plain, pack_mlp_weights,
+    train_bwd_scratch, train_bwd_slots, VIT_WIDTHS, WIDTHS)
 from transformer_stm_tpu_torch.models.cvt import (  # noqa: E402
     cvt_forward, cvt_param_count, init_cvt)
 from transformer_stm_tpu_torch.models.vit import (  # noqa: E402
@@ -295,6 +302,36 @@ def device_ms(fn, calls=3):
                             calls) for e in top]
 
 
+def kernel_sources(fn, pattern, calls=3, top=5):
+    """Which ops launch the kernels whose names hold `pattern`: (the op and
+    its callers up to the first ``aten::`` op that has an input shape, those
+    shapes, device ms per call of fn), the `top` largest, from
+    torch.profiler's links between launches and kernels."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    found = {}
+    for ev in prof.events():
+        ks = [k for k in getattr(ev, "kernels", []) if pattern in k.name]
+        if not ks:
+            continue
+        chain, shapes, op = [], "", ev
+        while op is not None and len(chain) < 5:
+            if op.name.startswith("aten::") or not chain:
+                chain.append(op.name)
+            if not shapes and op.name.startswith("aten::") and op.input_shapes:
+                shapes = str([sh for sh in op.input_shapes if sh])[:60]
+            op = op.cpu_parent
+        key = (" <- ".join(chain), shapes)
+        found[key] = found.get(key, 0.0) + sum(k.duration for k in ks) / 1e3
+    return sorted(((k, ms / calls) for k, ms in found.items()),
+                  key=lambda kv: -kv[1])[:top]
+
+
 def bound(flops, nbytes):
     """Least time on the card in ms, and what bounds it."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -373,18 +410,27 @@ def phase_build():
         elif "registers" in line:
             say(f"[1] ptxas {name}: {line.split(':', 1)[-1].strip()}; "
                 f"{spill}")
+        elif re.search(r"\(C75\d\d\)", line):
+            m = re.search(r"(\(C75\d\d\)[^']*)'([^']+)'", line)
+            say(f"[1] ptxas note {m.group(1).strip() if m else line.strip()}"
+                f" {kernel_name(m.group(2)) if m else ''}")
     say(f"[1] kernels built with nvcc in {dt:.1f} s "
         f"(nvcc {_build.build_seconds} s)")
     # the 3xTF32 kernels (csrc/tf32x3.cuh): registers a thread, dynamic
     # shared memory and blocks an SM, from the runtime (spills: above)
     lib = _build.library()
-    for name, fn, arg in (
-            *((f"fused_mlp_tf32x3 D{d}", lib.fused_mlp_info, d)
+    for name, fn, args in (
+            *((f"fused_mlp_tf32x3 D{d}", lib.fused_mlp_info, (d,))
               for d in WIDTHS + VIT_WIDTHS),
-            ("flash_bwd_tf32x3 dk/dv", lib.flash_attention_bwd_info, 0),
-            ("flash_bwd_tf32x3 dq", lib.flash_attention_bwd_info, 1)):
+            ("flash_bwd_tf32x3 dk/dv (flash_attention_bwd, "
+             "attention_small_bwd)", lib.flash_attention_bwd_info, (0,)),
+            ("flash_bwd_tf32x3 dq", lib.flash_attention_bwd_info, (1,)),
+            *((f"mlp_bwd_tf32x3 {what} D{d} (fused_mlp_train_bwd)",
+               lib.fused_mlp_train_bwd_info, (kind, d))
+              for kind, what in ((0, "dx"), (1, "weight partials"))
+              for d in WIDTHS)):
         regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        rc = fn(arg, ctypes.byref(regs), ctypes.byref(smem),
+        rc = fn(*args, ctypes.byref(regs), ctypes.byref(smem),
                 ctypes.byref(blocks))
         if rc != 0 or blocks.value < 1:
             raise RuntimeError(f"{name}: info error {rc}, {blocks.value} "
@@ -458,6 +504,8 @@ def phase_kernels():
             errs64.append((x - ref64).abs().max().item())
         del leaves, d64, dwant
         ms = time_ms(lambda: attention_small_bwd(q, k, v, got_l, lse, g))
+        # the same kernel pair called as flash_attention's backward
+        flash_ms = time_ms(lambda: flash_attention_bwd(q, k, v, got_l, lse, g))
         plain = time_ms(lambda: attention_small_bwd_plain(q, k, v, got_l,
                                                           lse, g))
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -470,6 +518,7 @@ def phase_kernels():
         work = (10.0 * b * h * s * s * 64, 4.0 * (8 * b * s * h * 64 + b * h * s))
         b_ms, b_by = bound(*work)
         brows.append(dict(stage=stage, shape=[b, s, h, 64], ms=ms,
+                          flash_pair_ms=flash_ms,
                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by, bound_tc_ms=bound_tc(*work),
                           max_abs_err=max(errs),
@@ -479,13 +528,14 @@ def phase_kernels():
             "bit-equal): max|err| "
             f"dq/dk/dv {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (vs f64 "
             f"{errs64[0]:.2e}/{errs64[1]:.2e}/{errs64[2]:.2e})  kernel "
-            f"{ms:.3f} ms  plain {plain:.3f} ms  sdpa bwd {lib:.3f} ms  "
-            f"bound {b_ms:.3f} ms ({b_by})")
+            f"{ms:.3f} ms (as flash_attention_bwd {flash_ms:.3f} ms)  plain "
+            f"{plain:.3f} ms  sdpa bwd {lib:.3f} ms  bound {b_ms:.3f} ms "
+            f"({b_by}), on the tensor cores {brows[-1]['bound_tc_ms']:.3f} ms")
     # On the main paths only stage 1 reaches the kernels (T*S > 300,000);
     # training runs the forward with lse.
     for name, source, replaces, rs, w in (
             ("attention_small", "attention_small.cu", 680, rows, worst),
-            ("attention_small_bwd", "attention_small_bwd.cu", 764, brows,
+            ("attention_small_bwd", "flash_attention_bwd.cu", 764, brows,
              bworst)):
         s1 = rs[0]
         results.append(dict(
@@ -642,13 +692,14 @@ def phase_mlp_train(dev, gen):
         bwork = (10.0 * n * d * hd,
                  4.0 * (3 * n * d + 2 * (2 * d * hd + hd + d)) + 8)
         bb_ms, bb_by = bound(*bwork)
-        nb = -(-n // TRAIN_BWD_ROWS[d])
-        part_ms = 2e3 * 4.0 * nb * (2 * d * hd + hd + d) / PEAK_BYTES
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        slots = train_bwd_slots(n, d, hd, sms)
+        scratch = 4 * sum(train_bwd_scratch(n, d, hd, sms))
         brows.append(dict(stage=stage, shape=[n, d, hd], ms=bms,
                           plain_ms=bplain, library_ms=blib, bound_ms=bb_ms,
                           bound_by=bb_by, bound_tc_ms=bound_tc(*bwork),
-                          partials_ms_at_peak=part_ms,
-                          blocks=nb, max_rel_err=rel, max_rel_err_f64=rel64))
+                          scratch_bytes=scratch, slots=slots,
+                          max_rel_err=rel, max_rel_err_f64=rel64))
         worst["fwd"] = max(worst["fwd"], *(errs[(r, "y")][2]
                                            for r in (DROPOUT, 0.0)))
         worst["bwd"] = max(worst["bwd"], *(v[2] for k, v in errs.items()
@@ -658,10 +709,13 @@ def phase_mlp_train(dev, gen):
             f"{rel:.2e} (vs f64 {rel64:.2e})  forward kernel {ms:.3f} ms  "
             f"plain {plain:.3f} ms  addmm+gelu+dropout+addmm+dropout "
             f"{lib:.3f} ms  bound {b_ms:.3f} ms ({b_by});  backward kernel "
-            f"{bms:.3f} ms (partials {nb} blocks, {part_ms:.3f} ms of bytes "
-            f"at peak)  plain {bplain:.3f} ms  autograd of that graph "
-            f"{blib:.3f} ms  bound {bb_ms:.3f} ms ({bb_by})")
+            f"{bms:.3f} ms (scratch {scratch} bytes: packed weights and "
+            f"{slots} row slots of partials)  plain {bplain:.3f} ms  "
+            f"autograd of that graph {blib:.3f} ms  bound {bb_ms:.3f} ms "
+            f"({bb_by}), on the tensor cores "
+            f"{brows[-1]['bound_tc_ms']:.3f} ms")
         del x, w1, b1, w2, b2, dy, args
+    big = mlp_train_bwd_512px(dev, gen)
     out = []
     for name, rows, line, key in (
             ("fused_mlp_train", frows, 170, "fwd"),
@@ -679,7 +733,47 @@ def phase_mlp_train(dev, gen):
             bound_by="operations",
             bound_tc_ms=sum(r["bound_tc_ms"] for r in rows),
             library_ms=sum(r["library_ms"] for r in rows), shapes=rows))
+    out[-1]["at_512px_stage1"] = big
     return out
+
+
+def mlp_train_bwd_512px(dev, gen):
+    """One training-MLP backward at the 512px CvT's stage 1 (N 2,097,152 =
+    128 images x 16,384 tokens, D 64) against its plain version at rate
+    0.1: the scratch that the partials need stays bounded there."""
+    n, d = BATCH * FLASH_SHAPE[1], 64
+    hd = 4 * d
+    x = torch.randn(n, d, device=dev, generator=gen)
+    w1 = torch.randn(d, hd, device=dev, generator=gen) / d ** 0.5
+    b1 = 0.1 * torch.randn(hd, device=dev, generator=gen)
+    w2 = torch.randn(hd, d, device=dev, generator=gen) / hd ** 0.5
+    b2 = 0.1 * torch.randn(d, device=dev, generator=gen)
+    dy = torch.randn(n, d, device=dev, generator=gen)
+    seed = torch.randint(0, 2 ** 31 - 1, (2,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    args = (x, w1, b1, w2, b2, seed)
+    got = fused_mlp_train_bwd(*args, DROPOUT, dy)
+    want = fused_mlp_train_bwd_plain(*args, DROPOUT, dy)
+    torch.cuda.synchronize()
+    rel = 0.0
+    for name, g, w in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want):
+        scale = w.abs().max().item()
+        e = (g - w).abs().max().item()
+        if not torch.isfinite(g).all() or e > MLP_TOL * scale:
+            raise AssertionError(f"fused_mlp_train_bwd N{n} D{d} {name}: max "
+                                 f"|err| {e:.3e} over {MLP_TOL} x max "
+                                 f"{scale:.3e}")
+        rel = max(rel, e / scale)
+    del got, want
+    ms = time_ms(lambda: fused_mlp_train_bwd(*args, DROPOUT, dy), reps=5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    scratch = 4 * sum(train_bwd_scratch(n, d, hd, sms))
+    say(f"[2] fused_mlp_train_bwd at the 512px stage 1, N{n} D{d} Hd{hd}, rate "
+        f"{DROPOUT}: max |err| / max |ref| {rel:.2e} against plain  kernel "
+        f"{ms:.3f} ms  scratch {scratch} bytes "
+        f"({train_bwd_slots(n, d, hd, sms)} row slots)")
+    return dict(shape=[n, d, hd], ms=ms, scratch_bytes=scratch,
+                max_rel_err=rel)
 
 
 def phase_vmap(dev, gen):
@@ -910,6 +1004,8 @@ def phase_small_512(dev, gen, results):
                      bound_ms=f_ms, bound_by=f_by, bound_tc_ms=f_tc,
                      bwd_ms=time_ms(lambda: attention_small_bwd(
                          q, k, v, o, lse, g)),
+                     bwd_flash_pair_ms=time_ms(lambda: flash_attention_bwd(
+                         q, k, v, o, lse, g)),
                      bwd_library_ms=time_ms(lib_bwd(q, k, v, g)),
                      bwd_bound_ms=b_ms, bwd_bound_by=b_by,
                      bwd_bound_tc_ms=b_tc)
@@ -933,6 +1029,8 @@ def phase_small_512(dev, gen, results):
                            max_rel_err=err)
                 if not key:
                     row["ms_inference"] = r["ms_inference"]
+                else:
+                    row["flash_pair_ms"] = r["bwd_flash_pair_ms"]
                 by_name[name]["shapes"].append(row)
         c, m = rows[CHECK_BATCH], rows[b]
         say(f"[2] attention_small 512px {stage} S{s} H{h}: forward max|err|/"
@@ -945,8 +1043,10 @@ def phase_small_512(dev, gen, results):
             f"{c['bwd_library_ms']:.3f}  bound {c['bwd_bound_ms']:.3f}; "
             f"B{b}: forward {m['ms_inference']:.2f} ms, with lse "
             f"{m['ms']:.2f}  sdpa {m['library_ms']:.2f}  bound "
-            f"{m['bound_ms']:.2f}; backward {m['bwd_ms']:.2f}  sdpa "
-            f"{m['bwd_library_ms']:.2f}  bound {m['bwd_bound_ms']:.2f}")
+            f"{m['bound_ms']:.2f}; backward {m['bwd_ms']:.2f} (as "
+            f"flash_attention_bwd {m['bwd_flash_pair_ms']:.2f})  sdpa "
+            f"{m['bwd_library_ms']:.2f}  bound {m['bwd_bound_ms']:.2f}, on "
+            f"the tensor cores {m['bwd_bound_tc_ms']:.2f}")
 
 
 def phase_main_path():
@@ -1265,6 +1365,11 @@ def phase_multi(kernels):
                     "; profiler, 3 steps); largest per slot-step: "
                     + ", ".join(f"{n} {ms / len(tr.targets):.3f}"
                                 for n, ms in top))
+    # the largest kernel of a slot-step is a torch reduction: what runs it
+    srcs = kernel_sources(one_step, "reduce_kernel")
+    say("[5] reduce_kernel per slot-step, by the op that launches it: " +
+        "; ".join(f"{chain} {shapes} {ms / len(tr.targets):.3f} ms"
+                  for (chain, shapes), ms in srcs))
     by_name = {k["name"]: k for k in kernels}
     mlp_ms = by_name["fused_mlp_train"]["ms"] + \
         by_name["fused_mlp_train_bwd"]["ms"]

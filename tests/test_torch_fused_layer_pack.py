@@ -258,3 +258,41 @@ def test_modules_copy_and_pickle_without_the_cache():
     del twin
     gc.collect()
     assert gone() is None
+
+
+@pytest.mark.parametrize("mode,dtype", KINDS, ids=KIND_IDS)
+def test_vector_to_parameters_repacks(mode, dtype):
+    """``vector_to_parameters`` rebinds each parameter's ``.data`` and bumps
+    no version counter; the storage in the key sees it."""
+    mods = used(mode, layer(dtype=dtype))
+    params = [p for m in mods if m is not None for p in m.parameters()]
+    old = packed_weights(mode, dtype, "cpu", *mods)["ops"]
+    versions = [p._version for p in params]
+    new_values = torch.nn.utils.parameters_to_vector(params) * 0.5 + 1.0
+    torch.nn.utils.vector_to_parameters(new_values, params)
+    assert [p._version for p in params] == versions
+    start = pack_weights.packings
+    new = packed_weights(mode, dtype, "cpu", *mods)["ops"]
+    assert pack_weights.packings == start + 1
+    assert not equal(new, old)
+    assert equal(new, pack_weights(mode, dtype, "cpu", *mods))
+
+
+@pytest.mark.parametrize("mode,dtype", KINDS, ids=KIND_IDS)
+def test_write_through_data_then_clear_weight_packs(mode, dtype):
+    """A write through ``.data`` changes neither version nor storage, so the
+    cache keeps its entry; ``kernels.clear_weight_packs()`` drops it."""
+    from transformer_stm_tpu_torch.kernels import clear_weight_packs
+
+    mods = used(mode, layer(dtype=dtype))
+    old = packed_weights(mode, dtype, "cpu", *mods)["ops"]
+    target = mods[1] if mods[1] is not None else mods[3]
+    next(target.parameters()).data.copy_(2.0)
+    assert packed_weights(mode, dtype, "cpu", *mods)["ops"] is old
+    clear_weight_packs()
+    assert target not in fused_layer._PACKS
+    start = pack_weights.packings
+    new = packed_weights(mode, dtype, "cpu", *mods)["ops"]
+    assert pack_weights.packings == start + 1
+    assert equal(new, pack_weights(mode, dtype, "cpu", *mods))
+    assert not equal(new, old)

@@ -288,3 +288,46 @@ def test_packed_weights_of_inference_tensors_are_not_kept():
     packed_mlp_weights(w1, w2)
     assert packed_mlp_weights.packings == before + 2
     assert (id(w1), id(w2)) not in port_mlp._PACKS
+
+
+def _param_pair():
+    rng = np.random.default_rng(7)
+    return [torch.nn.Parameter(torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)))
+        for shape in ((64, 256), (256, 64))]
+
+
+def _is_pack_of(packed, w1, w2):
+    want = port_mlp.pack_mlp_weights(w1, w2)
+    return all(torch.equal(p, w) for p, w in zip(packed, want))
+
+
+def test_packed_weights_follow_vector_to_parameters():
+    """``vector_to_parameters`` rebinds ``.data`` and bumps no version: the
+    storage in the cache's key sees it, and the next call repacks."""
+    w1, w2 = _param_pair()
+    packed_mlp_weights(w1, w2)
+    versions = (w1._version, w2._version)
+    torch.nn.utils.vector_to_parameters(
+        torch.ones(w1.numel() + w2.numel()), [w1, w2])
+    assert (w1._version, w2._version) == versions
+    before = packed_mlp_weights.packings
+    packed = packed_mlp_weights(w1, w2)
+    assert packed_mlp_weights.packings == before + 1
+    assert _is_pack_of(packed, w1, w2)
+    assert packed[0][0].sum().item() == w1.numel()  # big halves of 1.0
+
+
+def test_packed_weights_after_data_copy_need_clear_weight_packs():
+    """A write through ``.data`` changes neither version nor storage; after
+    ``kernels.clear_weight_packs()`` the pack follows the new weights."""
+    from transformer_stm_tpu_torch.kernels import clear_weight_packs
+
+    w1, w2 = _param_pair()
+    old = packed_mlp_weights(w1, w2)
+    w1.data.copy_(torch.full_like(w1, 2.0))
+    assert packed_mlp_weights(w1, w2) is old  # no key can see the write
+    clear_weight_packs()
+    assert (id(w1), id(w2)) not in port_mlp._PACKS
+    packed = packed_mlp_weights(w1, w2)
+    assert packed is not old and _is_pack_of(packed, w1, w2)

@@ -1,17 +1,19 @@
-// flash_attention backward: dq, dk, dv of o = softmax(q k^T * scale) v in
-// f32 on Hopper's tensor cores in 3xTF32 (csrc/tf32x3.cuh), for any head dim
-// from 1 to 256 and any lengths.
+// flash_attention and attention_small backward: dq, dk, dv of o =
+// softmax(q k^T * scale) v in f32 on Hopper's tensor cores in 3xTF32
+// (csrc/tf32x3.cuh), for any head dim from 1 to 256 and any lengths.
 //
 // Replaces both Pallas TPU backward pairs of `flash_attention`
 // (transformer_stm_tpu/kernels/flash_attention.py:175): `_bwd_pallas` :296
 // with `_flash_bwd_dq_kernel` :185 and `_flash_bwd_dkv_kernel` :221 (the
 // whole other side resident in VMEM), and `_bwd_pallas_streaming` :469 with
 // `_stream_bwd_dq_kernel` :388 and `_stream_bwd_dkv_kernel` :429 (both sides
-// blocked, picked by `_bwd` :601 once residency passes 12 MiB, as at 512px).
-// The two differ only in what stays in VMEM; one design serves both.  With
-// p = exp(q.k * scale - lse), dp = dO.v and delta = rowsum(dO * o) (one torch
-// reduction before the launch, as the JAX package computes it outside its
-// kernels, :284):
+// blocked, picked by `_bwd` :601 once residency passes 12 MiB, as at 512px);
+// and the pair of `attention_small` (:935), `_small_bwd_dq_kernel` :764 and
+// `_small_bwd_dkv_kernel` :791 (`_small_bwd_impl` :825), the same function
+// at Dh 64 for the CvT's short sequences.  The TPU kernels differ only in
+// what stays in VMEM; one design serves all.  With p = exp(q.k * scale -
+// lse), dp = dO.v and delta = rowsum(dO * o) (one torch reduction before the
+// launch, as the JAX package computes it outside its kernels, :284):
 //
 //   dq = scale * sum_s p (dp - delta) k     (kernel DQ: a block per 64 query
 //                                            rows, K and V streamed)
@@ -24,42 +26,44 @@
 // Bound: operations.  The least work is five products of 2 B H T S Dh flops;
 // at the 512px CvT's stage 1 (B 128, T = S = 16,384, H 1, Dh 64) that is
 // 22.0 TFLOP: 328 ms at the 67 TFLOP/s of f32 FMA, 133 ms as three TF32
-// products at 495 TFLOP/s.  The split recomputes q k^T and dO v^T in both
-// kernels, as the JAX split does (seven products where five are needed,
-// 187 ms in 3xTF32), so that no atomics are used.
+// products at 495 TFLOP/s; at the 128px stage 1 (B 128, T = S = 1,024) 85.9
+// GFLOP, 1.28 and 0.52 ms.  The split recomputes q k^T and dO v^T in both
+// kernels, as the JAX split does (seven products where five are needed),
+// so that no atomics are used.
 //
-// Design.  One kernel body serves both: a block holds 64 rows of its own
-// side R (DKV: k and v; DQ: q and dO) and streams the other side S in tiles
-// of 64 rows (DKV: q and dO; DQ: k and v), for one 64-column chunk `co` of
-// the head dim it writes (blockIdx.z; one chunk for Dh <= 64).
+// Design.  A block holds 64 rows of its own side R (DKV: k and v; DQ: q and
+// dO) and streams the other side S in tiles of 64 rows (DKV: q and dO; DQ:
+// k and v), for one 64-column chunk `co` of the head dim it writes
+// (blockIdx.z; one chunk for Dh <= 64).  TMA loads use 4-d maps over (Dh,
+// H, rows, B), so rows past the sequence are zero-filled, never the next
+// batch's.
 //
-// - One producer warp loads by TMA (4-d maps over (Dh, H, rows, B), so rows
-//   past the sequence are zero-filled, never the next batch's): R once when
-//   Dh <= 64, else R's chunk c with every chunk of every S tile.
-// - One consumer warpgroup splits what arrives in shared memory into big and
-//   small tiles (R in place), and writes S's chunk co transposed, split, in
-//   the k-order of `kpos`: the B operands of the products over S's rows,
-//   which .tf32 wgmma takes only K-major.  The wrapper makes no transposed
-//   copy (that would be 3 x 537 MB at 512px); the transposes cost shared
-//   memory bandwidth in the split pass instead.
-// - Scores X = R1 S1^T and Y = R2 S2^T (DKV: k q^T and v dO^T; DQ: q k^T and
-//   dO v^T) accumulate over the chunks on wgmma, both operands from shared
-//   memory.  p = 2^(X scale log2 e - lse log2 e), masked past the sequence,
-//   and ds = p (Y - delta) run in registers.
-// - DKV: dv += p dO and dk += ds q; DQ: dq += ds k: p and ds are the
-//   register A operands, split in registers, and B is S's transposed chunk.
-//   The accumulators stay in registers until the epilogue scales and stores
-//   them.
-// - Each chunk's scores and each tile's dk, dv and dq products go into
-//   fresh accumulators that f32 adds fold into the running ones: the tensor
-//   cores truncate as they accumulate, and over 16,384 keys (6,144 wgmma
-//   into one accumulator) that bias would pass the 1e-5 tolerance.
+// - Dh <= 64 (every main path): two consumer warpgroups split the work by
+//   operand.  Warpgroup 0 splits R's and S's first tensor (DKV: k, q; DQ:
+//   q, k) into big and small tiles and computes X = R1 S1^T, warpgroup 1
+//   the second (v, dO; dO, v) and Y = R2 S2^T, side by side; p = 2^(X scale
+//   log2 e - lse log2 e), masked past the sequence, goes from warpgroup 0
+//   to 1 through a big tile that X no longer needs, and ds = p (Y - delta)
+//   is formed there.  DKV: warpgroup 0 adds p dO into dv, warpgroup 1 ds q
+//   into dk; DQ: ds comes back through Y's freed tile and each warpgroup
+//   adds ds k into half of dq's columns.  p and ds are register A operands
+//   (accumulator columns in `kpos` order), B the streamed tensor's chunk
+//   written transposed and split during the split pass (.tf32 wgmma takes
+//   shared operands only K-major), so the wrapper makes no transposed copy.
+//   Thread 0 issues the TMA loads (R and the first S tile, then each next
+//   S tile once the raw stage is split): a producer warp would make a
+//   288-thread block, which ptxas caps at 168 registers a thread.
+// - Dh > 64: one consumer warpgroup and a producer warp; R's chunk is
+//   reloaded with each chunk of each S tile and the scores are recomputed
+//   for each output chunk: slower, off the main path.
+// - Each S tile's products go into fresh accumulators that f32 adds fold
+//   into the running ones: the tensor cores truncate as they accumulate,
+//   and over 16,384 keys (6,144 wgmma into one accumulator) that bias would
+//   pass the 1e-5 tolerance.
 //
-// Shared memory (DKV, Dh <= 64): R big/small 64 KB, S big/small 64 KB, S^T
-// big/small 64 KB, one raw S stage 32 KB: 224 KB, one block an SM.  DQ
-// needs one transposed operand, 192 KB.  Dh past 64 reloads R with each
-// chunk and recomputes the scores for each output chunk: slower, but Dh 64
-// is the main path.
+// Shared memory (DKV): R big/small 64 KB, S big/small 64 KB, S^T big/small
+// 64 KB, one raw S stage 32 KB: 224 KB, one block an SM.  DQ needs one
+// transposed operand, 192 KB.
 //
 // Layout: q, dO, dq (B, T, H, Dh); k, v, dk, dv (B, S, H, Dh); lse and delta
 // (B, H, T); all contiguous f32, 16-byte aligned, with Dh a multiple of 8 and
@@ -79,12 +83,15 @@ using namespace tf32x3;
 
 constexpr int TILE = 64;                  // rows of a tile; columns of a Dh chunk
 constexpr int MAX_DH = 256;
-constexpr int CONSUMERS = 128;            // one consumer warpgroup
-constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
+constexpr int CONSUMERS = 128;            // a consumer warpgroup
+constexpr int THREADS = CONSUMERS + 32;   // one of them and a producer warp
+constexpr int THREADS2 = 2 * CONSUMERS;   // DKV at Dh <= 64: two, no producer warp
 constexpr int TILE_BYTES = TILE * TILE * 4;  // 64 x 64 f32, two atoms, 16 KB
 constexpr int HEAD_BYTES = 1024;
 constexpr int ALIGN = 1024;
 constexpr int BAR_SPLIT = 1;              // named barrier of the consumers
+constexpr int BAR_P = 2;                  // two consumer warpgroups: p is written
+constexpr int BAR_DS = 3;                 // and (DQ) ds is written
 constexpr float LOG2E = 1.44269504088896341f;
 enum { DKV = 0, DQ = 1 };
 
@@ -361,10 +368,260 @@ __device__ void consumer(const Params& p, uint8_t* sm, uint64_t* full, uint64_t*
   }
 }
 
+// DKV with two consumer warpgroups at Dh <= 64 (one chunk): warpgroup 0
+// owns k, q and dv (X = k q^T, p = 2^(X scale log2 e - lse log2 e), dv +=
+// p dO), warpgroup 1 owns v, dO and dk (Y = v dO^T, ds = p (Y - delta), dk
+// += ds q), with p traded through q's big tile, free once X is done.  Each
+// splits its own streamed tensor (and, once, its own resident one), so the
+// split pass takes half as long, and the two chains of products run side
+// by side on the tensor cores.  Thread 0 issues the loads: R and the first
+// S tile, then each next S tile as soon as the raw stage is split (a
+// producer warp would make ptxas cap every thread at 168 registers).
+__device__ void consumer_dkv2(const Params& p, uint8_t* sm, uint64_t* full, int b, int h, int r0) {
+  using L = Layout<DKV>;
+  const int w = warpgroup();
+  const int tid = threadIdx.x % CONSUMERS, wi = tid / 32, lane = tid % 32, g = lane / 4,
+            t = lane % 4;
+  const int ra = 16 * wi + g;
+  const long bh = (long)b * p.H + h;
+  const float sl = p.scale * LOG2E;
+  const int own = w * TILE_BYTES;  // this warpgroup's tensor in each region
+  float* P = reinterpret_cast<float*>(sm + L::S_BIG);
+
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(full, 4 * TILE_BYTES);
+    load_chunk(sm + L::R_BIG, &p.r1, full, 0, h, r0, b);
+    load_chunk(sm + L::R_BIG + TILE_BYTES, &p.r2, full, 0, h, r0, b);
+    load_chunk(sm + L::RAW, &p.s1, full, 0, h, 0, b);
+    load_chunk(sm + L::RAW + TILE_BYTES, &p.s2, full, 0, h, 0, b);
+  }
+
+  float acc[TILE / 2];  // w 0: dv; w 1: dk
+  zero(acc);
+  uint32_t phase = 0;
+  for (int s0 = 0; s0 < p.LS; s0 += TILE) {
+    // the columns' lse (log2 e folded in; w 0) or delta (w 1): queries
+    // s0 + 8 j + 2 t + e
+    float col[TILE / 4];
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = s0 + 8 * j + 2 * t + e;
+        col[2 * j + e] = q < p.T ? (w == 0 ? p.lse[bh * p.T + q] * LOG2E : p.delta[bh * p.T + q])
+                                 : 0.f;
+      }
+    mbar_wait(full, phase);
+    phase ^= 1;
+    if (s0 > 0) bar_sync(BAR_SPLIT, 2 * CONSUMERS);  // the last tile's products are done
+    else split_tile(sm + L::R_BIG + own, sm + L::R_SMALL + own, tid);
+    split_s(sm + L::RAW + own, sm + L::S_BIG + own, sm + L::S_SMALL + own, sm + L::T_BIG + own,
+            sm + L::T_SMALL + own, true, tid);
+    fence_proxy_shared();
+    bar_sync(BAR_SPLIT, 2 * CONSUMERS);
+    if (threadIdx.x == 0 && s0 + TILE < p.LS) {  // the raw stage is free: the next S tile
+      mbar_expect_tx(full, 2 * TILE_BYTES);
+      load_chunk(sm + L::RAW, &p.s1, full, 0, h, s0 + TILE, b);
+      load_chunk(sm + L::RAW + TILE_BYTES, &p.s2, full, 0, h, s0 + TILE, b);
+    }
+
+    float x[TILE / 2];  // w 0: X, then p; w 1: Y, then ds
+    zero(x);
+    wg_fence();
+    mma3_ss<TILE, TILE / 8>(x, desc_sw128(sm + L::R_BIG + own), desc_sw128(sm + L::R_SMALL + own),
+                            TILE, desc_sw128(sm + L::S_BIG + own),
+                            desc_sw128(sm + L::S_SMALL + own), TILE);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(x);
+    if (w == 0) {
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, c = s0 + 8 * j + 2 * t + (e & 1);
+          x[i] = c < p.LS ? exp2_approx(x[i] * sl - col[2 * j + (e & 1)]) : 0.f;
+          P[i * CONSUMERS + tid] = x[i];
+        }
+      bar_arrive(BAR_P, 2 * CONSUMERS);
+    } else {
+      bar_sync(BAR_P, 2 * CONSUMERS);
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          x[i] = P[i * CONSUMERS + tid] * (x[i] - col[2 * j + (e & 1)]);
+        }
+    }
+
+    // w 0: dv += p dO (B: dO^T, the other tensor's transposed copy);
+    // w 1: dk += ds q (B: q^T)
+    const int other = (1 - w) * TILE_BYTES;
+    float part[TILE / 2];
+    uint32_t ab[TILE / 8][4], as[TILE / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < TILE / 8; ++kk) acc_as_a(x, kk, ab[kk], as[kk]);
+    fence_frag(ab);
+    fence_frag(as);
+    zero(part);
+    wg_fence();
+    mma3_rs<TILE, TILE / 8>(part, ab, as, desc_sw128(sm + L::T_BIG + other),
+                            desc_sw128(sm + L::T_SMALL + other), TILE);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(part);
+#pragma unroll
+    for (int i = 0; i < TILE / 2; ++i) acc[i] += part[i];
+  }
+
+  // the epilogue: w 0 stores dv, w 1 dk (scaled); rows past LR and
+  // columns past Dh are not stored
+  const long tok = (long)p.H * p.Dh;
+  float* out = w == 0 ? p.out2 : p.out1;
+  const float f = w == 0 ? 1.f : p.scale;
+#pragma unroll
+  for (int j = 0; j < TILE / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (c >= p.Dh) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + ra + 8 * half;
+      if (row >= p.LR) continue;
+      const long at = ((long)b * p.LR + row) * tok + (long)h * p.Dh + c;
+      const int i = 4 * j + 2 * half;
+      *reinterpret_cast<float2*>(out + at) = make_float2(acc[i] * f, acc[i + 1] * f);
+    }
+  }
+}
+
+// DQ with two consumer warpgroups at Dh <= 64: warpgroup 0 owns q and k
+// (X = q k^T, p = 2^(X scale log2 e - lse log2 e)), warpgroup 1 owns dO and
+// v (Y = dO v^T, ds = p (Y - delta)); p goes to warpgroup 1 through k's big
+// tile and ds back through v's, both free once the scores are done, and
+// each adds ds k into its half of dq's 64 columns.  Thread 0 issues the
+// loads, as in consumer_dkv2.
+__device__ void consumer_dq2(const Params& p, uint8_t* sm, uint64_t* full, int b, int h, int r0) {
+  using L = Layout<DQ>;
+  constexpr int HALF = TILE / 2;
+  const int w = warpgroup();
+  const int tid = threadIdx.x % CONSUMERS, wi = tid / 32, lane = tid % 32, g = lane / 4,
+            t = lane % 4;
+  const int ra = 16 * wi + g;
+  const long bh = (long)b * p.H + h;
+  const float sl = p.scale * LOG2E;
+  const int own = w * TILE_BYTES;
+  float* P = reinterpret_cast<float*>(sm + L::S_BIG);                // p: k's big tile
+  float* DS = reinterpret_cast<float*>(sm + L::S_BIG + TILE_BYTES);  // ds: v's big tile
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(full, 4 * TILE_BYTES);
+    load_chunk(sm + L::R_BIG, &p.r1, full, 0, h, r0, b);
+    load_chunk(sm + L::R_BIG + TILE_BYTES, &p.r2, full, 0, h, r0, b);
+    load_chunk(sm + L::RAW, &p.s1, full, 0, h, 0, b);
+    load_chunk(sm + L::RAW + TILE_BYTES, &p.s2, full, 0, h, 0, b);
+  }
+  // the rows' lse (w 0, log2 e folded in) or delta (w 1), once
+  float row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = r0 + ra + 8 * i;
+    row[i] = q < p.T ? (w == 0 ? p.lse[bh * p.T + q] * LOG2E : p.delta[bh * p.T + q]) : 0.f;
+  }
+
+  float acc[HALF / 2];  // dq's columns HALF w .. HALF w + HALF - 1
+  zero(acc);
+  uint32_t phase = 0;
+  for (int s0 = 0; s0 < p.LS; s0 += TILE) {
+    mbar_wait(full, phase);
+    phase ^= 1;
+    if (s0 > 0) bar_sync(BAR_SPLIT, 2 * CONSUMERS);  // the last tile's products are done
+    else split_tile(sm + L::R_BIG + own, sm + L::R_SMALL + own, tid);
+    // k (w 0) also transposed: the B operand of dq += ds k
+    split_s(sm + L::RAW + own, sm + L::S_BIG + own, sm + L::S_SMALL + own, sm + L::T_BIG,
+            sm + L::T_SMALL, w == 0, tid);
+    fence_proxy_shared();
+    bar_sync(BAR_SPLIT, 2 * CONSUMERS);
+    if (threadIdx.x == 0 && s0 + TILE < p.LS) {  // the raw stage is free: the next S tile
+      mbar_expect_tx(full, 2 * TILE_BYTES);
+      load_chunk(sm + L::RAW, &p.s1, full, 0, h, s0 + TILE, b);
+      load_chunk(sm + L::RAW + TILE_BYTES, &p.s2, full, 0, h, s0 + TILE, b);
+    }
+
+    float x[TILE / 2];  // w 0: X, then p, then ds; w 1: Y, then ds
+    zero(x);
+    wg_fence();
+    mma3_ss<TILE, TILE / 8>(x, desc_sw128(sm + L::R_BIG + own), desc_sw128(sm + L::R_SMALL + own),
+                            TILE, desc_sw128(sm + L::S_BIG + own),
+                            desc_sw128(sm + L::S_SMALL + own), TILE);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(x);
+    if (w == 0) {
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, c = s0 + 8 * j + 2 * t + (e & 1);
+          P[i * CONSUMERS + tid] = c < p.LS ? exp2_approx(x[i] * sl - row[e >> 1]) : 0.f;
+        }
+      bar_arrive(BAR_P, 2 * CONSUMERS);
+      bar_sync(BAR_DS, 2 * CONSUMERS);
+#pragma unroll
+      for (int i = 0; i < TILE / 2; ++i) x[i] = DS[i * CONSUMERS + tid];
+    } else {
+      bar_sync(BAR_P, 2 * CONSUMERS);
+#pragma unroll
+      for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          x[i] = P[i * CONSUMERS + tid] * (x[i] - row[e >> 1]);
+          DS[i * CONSUMERS + tid] = x[i];
+        }
+      bar_arrive(BAR_DS, 2 * CONSUMERS);
+    }
+
+    // dq[:, HALF w ..] += ds k: B is rows HALF w .. of k's transposed tile
+    float part[HALF / 2];
+    uint32_t ab[TILE / 8][4], as[TILE / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < TILE / 8; ++kk) acc_as_a(x, kk, ab[kk], as[kk]);
+    fence_frag(ab);
+    fence_frag(as);
+    zero(part);
+    wg_fence();
+    mma3_rs<HALF, TILE / 8>(part, ab, as, desc_sw128(sm + L::T_BIG + w * HALF * 128),
+                            desc_sw128(sm + L::T_SMALL + w * HALF * 128), TILE);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(part);
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) acc[i] += part[i];
+  }
+
+  const long tok = (long)p.H * p.Dh;
+#pragma unroll
+  for (int j = 0; j < HALF / 8; ++j) {
+    const int c = HALF * w + 8 * j + 2 * t;
+    if (c >= p.Dh) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q = r0 + ra + 8 * half;
+      if (q >= p.LR) continue;
+      const long at = ((long)b * p.LR + q) * tok + (long)h * p.Dh + c;
+      const int i = 4 * j + 2 * half;
+      *reinterpret_cast<float2*>(p.out1 + at) =
+          make_float2(acc[i] * p.scale, acc[i + 1] * p.scale);
+    }
+  }
+}
+
 // blockIdx.x: 64 rows of R; blockIdx.y: batch * H + head; blockIdx.z: the
-// output chunk of the head dim
-template <int KIND>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_tf32x3(const __grid_constant__ Params p) {
+// output chunk of the head dim.  One consumer warpgroup and a producer
+// warp, or (WGS 2: Dh <= 64) two consumer warpgroups.
+template <int KIND, int WGS>
+__global__ void __launch_bounds__(WGS == 2 ? THREADS2 : THREADS, 1)
+    flash_bwd_tf32x3(const __grid_constant__ Params p) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
@@ -378,14 +635,19 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_tf32x3(const __grid_cons
   }
   __syncthreads();
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, r0 = blockIdx.x * TILE;
-  if (warpgroup() == 1)
+  if constexpr (WGS == 2 && KIND == DKV)
+    consumer_dkv2(p, sm, full, b, h, r0);
+  else if constexpr (WGS == 2)
+    consumer_dq2(p, sm, full, b, h, r0);
+  else if (warpgroup() == 1)
     producer<KIND>(p, sm, full, empty, b, h, r0);
   else
     consumer<KIND>(p, sm, full, empty, b, h, r0, blockIdx.z);
 }
 
+// the main path's kernels (Dh 64): two consumer warpgroups
 const void* kernel_of(int kind) {
-  return kind == DKV ? (const void*)flash_bwd_tf32x3<DKV> : (const void*)flash_bwd_tf32x3<DQ>;
+  return kind == DKV ? (const void*)flash_bwd_tf32x3<DKV, 2> : (const void*)flash_bwd_tf32x3<DQ, 2>;
 }
 
 int smem_of(int kind) { return kind == DKV ? Layout<DKV>::SMEM : Layout<DQ>::SMEM; }
@@ -399,14 +661,14 @@ int encode_qkv(CUtensorMap* map, const float* ptr, int B, int L, int H, int Dh) 
   return encode_f32(map, ptr, 4, dims, strides, box);
 }
 
-template <int KIND>
+template <int KIND, int WGS>
 int launch(Params& P, int B, int H, cudaStream_t stream) {
   const int smem = Layout<KIND>::SMEM;
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_bwd_tf32x3<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_tf32x3<KIND, WGS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((P.LR + TILE - 1) / TILE), (unsigned)(B * H), (unsigned)P.nc);
-  flash_bwd_tf32x3<KIND><<<grid, THREADS, smem, stream>>>(P);
+  flash_bwd_tf32x3<KIND, WGS><<<grid, WGS == 2 ? THREADS2 : THREADS, smem, stream>>>(P);
   return (int)cudaGetLastError();
 }
 
@@ -425,7 +687,7 @@ extern "C" int flash_attention_bwd_info(int kind, int* regs, int* smem, int* blo
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, THREADS, *smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, THREADS2, *smem);
   *regs = attr.numRegs;
   return (int)err;
 }
@@ -455,10 +717,10 @@ extern "C" int launch_flash_attention_bwd(const float* q, const float* k, const 
   // dq: R = (q, dO), S = (k, v)
   P.r1 = mq, P.r2 = mg, P.s1 = mk, P.s2 = mv;
   P.out1 = dq, P.out2 = nullptr, P.LR = T, P.LS = S;
-  rc = launch<DQ>(P, B, H, stream);
+  rc = P.nc == 1 ? launch<DQ, 2>(P, B, H, stream) : launch<DQ, 1>(P, B, H, stream);
   if (rc != 0) return rc;
   // dk, dv: R = (k, v), S = (q, dO)
   P.r1 = mk, P.r2 = mv, P.s1 = mq, P.s2 = mg;
   P.out1 = dk, P.out2 = dv, P.LR = S, P.LS = T;
-  return launch<DKV>(P, B, H, stream);
+  return P.nc == 1 ? launch<DKV, 2>(P, B, H, stream) : launch<DKV, 1>(P, B, H, stream);
 }

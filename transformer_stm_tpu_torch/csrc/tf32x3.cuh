@@ -1,5 +1,6 @@
-// 3xTF32 on Hopper's tensor cores, shared by csrc/fused_mlp.cu and
-// csrc/flash_attention_bwd.cu: f32-accurate products from `wgmma`'s tf32
+// 3xTF32 on Hopper's tensor cores, shared by csrc/fused_mlp.cu,
+// csrc/flash_attention_bwd.cu and the backward of csrc/fused_mlp_train.cu:
+// f32-accurate products from `wgmma`'s tf32
 // path, and the TMA, mbarrier and descriptor pieces around it (copied from
 // csrc/vit_layer_sm90.cu, which keeps its own).
 //
@@ -155,6 +156,11 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// signals named barrier `id` without waiting (the waiters bar_sync it)
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -227,6 +233,32 @@ __device__ __forceinline__ uint64_t desc_k(uint64_t d, int kk, int rows) {
 
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  __device__ static __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+  __device__ static __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
 
 template <>
 struct Wgmma<64> {

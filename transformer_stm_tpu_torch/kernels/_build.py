@@ -38,9 +38,6 @@ SIGNATURES = {
     # q, k, v, o, lse (or null), B, T, S, H, Dh, scale, stream
     "launch_attention_small": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P],
-    # q, k, v, dO, lse, delta, dq, dk, dv, B, T, S, H, Dh, scale, stream
-    "launch_attention_small_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # q, k, v, o, lse (or null), B, T, S, H, Dh, scale, vec, stream
     "launch_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                ctypes.c_float, _I, _P],
@@ -74,11 +71,14 @@ SIGNATURES = {
     # scale, stream
     "launch_fused_mlp_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, ctypes.c_uint32, ctypes.c_float, _P],
-    # x, dy, w1, b1, w2, seed, dx, dw1p, db1p, dw2p, db2p, N, D, Hd, Dout,
-    # rows per block, keep threshold, keep scale, stream
-    "launch_fused_mlp_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _I, _I, _I, _I, _I, ctypes.c_uint32,
-                                   ctypes.c_float, _P],
+    # x, dy, w1, b1, w2, seed, dx, grads (dW1, dW2, db1, db2), packed
+    # weights, partials, N, D, Hd, Dout, row slots, keep threshold, keep
+    # scale, stream
+    "launch_fused_mlp_train_bwd": [*[_P] * 10, _I, _I, _I, _I, _I,
+                                   ctypes.c_uint32, ctypes.c_float, _P],
+    # kind (0 dx, 1 weight partials), D, registers, shared memory bytes,
+    # blocks per SM
+    "fused_mlp_train_bwd_info": [_I, _I, _P, _P, _P],
 }
 
 _lib = None

@@ -3,9 +3,11 @@
 Port of the Pallas TPU kernel ``attention_small``
 (transformer_stm_tpu/kernels/flash_attention.py:935, a ``jax.custom_vjp``):
 the forward ``_small_fwd_impl`` :703 / ``_small_fwd_kernel`` :680 is
-``csrc/attention_small.cu``, the backward pair ``_small_bwd_dq_kernel`` :764
-and ``_small_bwd_dkv_kernel`` :791 (``_small_bwd_impl`` :825) is
-``csrc/attention_small_bwd.cu``.  Each source's header says how it streams
+``csrc/attention_small.cu``; the backward pair ``_small_bwd_dq_kernel`` :764
+and ``_small_bwd_dkv_kernel`` :791 (``_small_bwd_impl`` :825) computes the
+same function as flash attention's backward at Dh 64 and runs the pair of
+``csrc/flash_attention_bwd.cu`` (f32 products in 3xTF32 on the tensor
+cores), which takes any lengths.  Each source's header says how it streams
 K/V where the TPU kernels held whole rows in VMEM.
 
 ``attention_small(q, k, v)`` is differentiable: when autograd records (grad
@@ -130,17 +132,21 @@ def attention_small_bwd(q, k, v, o, lse, g):
     # delta = rowsum(dO * o), (B, H, T): one reduction before the kernels,
     # as the JAX package computes it outside its kernels (:852-860).
     delta = (g * o).sum(dim=-1).transpose(1, 2).contiguous()
+    # the kernels' TMA reads q, k, v and dO in 16-byte units
+    q, k, v, g = (x if x.data_ptr() % 16 == 0 else x.clone()
+                  for x in (q, k, v, g))
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = library().launch_attention_small_bwd(
+    rc = library().launch_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, t, k.shape[1], h, dh, 1.0 / math.sqrt(dh),
+        dv.data_ptr(), b, t, k.shape[1], h, dh, 1.0 / math.sqrt(dh), 1,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
-            f"launch_attention_small_bwd failed: CUDA error {rc}")
+            f"attention_small_bwd: launch_flash_attention_bwd failed: CUDA "
+            f"error {rc}")
     attention_small_bwd.launches += 1
     return dq, dk, dv
 
@@ -258,6 +264,7 @@ def attention_small(q, k, v):
 
 # Kernel launches so far; a caller resets them to 0 to count a run.  The
 # forward counts its launches with or without lse; the backward counts each
-# call, which launches its two kernels.
+# call, which launches its two kernels (the flash backward pair, counted
+# here and not in ``flash_attention_bwd.launches``).
 attention_small.launches = 0
 attention_small_bwd.launches = 0

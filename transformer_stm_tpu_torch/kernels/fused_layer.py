@@ -413,9 +413,14 @@ def packed_weights(mode, dtype, device, norm1, attn, norm2, mlp):
     identity, version counter, storage, dtype and device: an in-place
     update, ``load_state_dict`` or ``.to()`` repacks at the next call, which
     also drops the layer's entries that no longer match their modules (a
-    dtype or device the model has left).  Modules with an inference tensor
-    among their parameters (made under ``torch.inference_mode()``) are
-    packed at every call: nothing would show their in-place updates."""
+    dtype or device the model has left).  Rebinding a parameter's ``.data``
+    (as ``torch.nn.utils.vector_to_parameters`` does) changes its storage
+    and repacks too.  An in-place write through ``.data``
+    (``p.data.copy_(...)``) changes neither its version nor its storage, so
+    no key can see it: after one, call ``kernels.clear_weight_packs()``.
+    Modules with an inference tensor among their parameters (made under
+    ``torch.inference_mode()``) are packed at every call: nothing would show
+    their in-place updates."""
     mods = (norm1, attn, norm2, mlp)
     owner = attn if attn is not None else mlp
     key = _state(mods)

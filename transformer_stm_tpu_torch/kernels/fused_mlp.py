@@ -15,15 +15,16 @@ from the graph.
 ``fused_mlp_train`` ports ``make_fused_mlp_train`` (:291), the training
 MLP y = Drop2(Drop1(GELU(x W1 + b1)) W2 + b2) with both masks drawn inside
 the kernels: the forward ``_mlp_train_fwd_kernel`` (:170) and the backward
-``_mlp_train_bwd_kernel`` (:189) are ``csrc/fused_mlp_train.cu``.  It is the
-autograd Function ``FusedMLPTrain``, which saves x, the weights and the
-seed, never the hidden activation; the backward recomputes it and writes
-per-block weight and bias partials that are summed here over the block
-axis.  A mask element is a pure function of the (2,) int32 seed and the
-element's global index (``dropout_mask``), so the masks do not depend on
-the block size and forward and backward agree; parity with JAX holds in
-distribution only, as for the TPU kernel, whose bits came from the TPU's
-own generator.
+``_mlp_train_bwd_kernel`` (:189) are ``csrc/fused_mlp_train.cu``, the
+backward's products in 3xTF32 on the tensor cores.  It is the autograd
+Function ``FusedMLPTrain``, which saves x, the weights and the seed, never
+the hidden activation; the backward recomputes it and writes one weight
+and bias partial per row slot (``train_bwd_slots``), summed over the slots
+in a fixed order by its last launch.  A mask element is a pure function of the (2,)
+int32 seed and the element's global index (``dropout_mask``), so the masks
+do not depend on the block size and forward and backward agree; parity
+with JAX holds in distribution only, as for the TPU kernel, whose bits came
+from the TPU's own generator.
 
 Every wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device, or raises.
@@ -45,9 +46,8 @@ HIDDEN_CHUNK = 64
 # Widths at which the inference kernel splits fc2's hidden units between its
 # two warpgroups (csrc/fused_mlp.cu, SPLIT_K_MAX_D)
 SPLIT_K_WIDTHS = (64, 128)
-# Rows per block of the training backward, by width (csrc/fused_mlp_train.cu):
-# the weight and bias partials hold ceil(N / rows) blocks.
-TRAIN_BWD_ROWS = {64: 128, 128: 128, 256: 64}
+# Row tiles and hidden tiles of the training backward (csrc/fused_mlp_train.cu)
+TRAIN_BWD_TILE = 64
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2):
@@ -90,28 +90,42 @@ def pack_mlp_weights(w1, w2):
     return tuple(torch.stack(tf32_split(w.contiguous())) for w in (w1.t(), w2_t))
 
 
-# (id(w1), id(w2)) -> (weakrefs of both, their versions, the packed pair)
+# (id(w1), id(w2)) -> (weakrefs of both, their state, the packed pair)
 _PACKS = {}
 
 
+def _weight_state(w1, w2):
+    """The version counter, storage, dtype and device of both weights, as
+    ``fused_layer._state`` keys a layer's parameters; None if either is an
+    inference tensor, whose in-place updates leave no version behind."""
+    if w1.is_inference() or w2.is_inference():
+        return None
+    return tuple((w._version, w.data_ptr(), w.dtype, w.device)
+                 for w in (w1, w2))
+
+
 def packed_mlp_weights(w1, w2):
-    """``pack_mlp_weights(w1, w2)``, kept while w1 and w2 live and are not
-    changed in place (their version counters); inference tensors keep no
+    """``pack_mlp_weights(w1, w2)``, kept while w1 and w2 live and keep
+    their version counters, storage, dtype and device: an in-place update
+    through autograd's view of them, or a rebinding of ``.data`` (as
+    ``torch.nn.utils.vector_to_parameters`` does), repacks at the next call.
+    An in-place write through ``.data`` (``w.data.copy_(...)``) changes
+    neither the version nor the storage, so nothing here can see it: after
+    one, call ``kernels.clear_weight_packs()``.  Inference tensors keep no
     version counter and are packed at every call."""
     key = (id(w1), id(w2))
-    versions = None if w1.is_inference() or w2.is_inference() else \
-        (w1._version, w2._version)
+    state = _weight_state(w1, w2)
     hit = _PACKS.get(key)
     if hit is not None and hit[0]() is w1 and hit[1]() is w2 and \
-            versions is not None and hit[2] == versions:
+            state is not None and hit[2] == state:
         return hit[3]
     packed = pack_mlp_weights(w1, w2)
     packed_mlp_weights.packings += 1
-    if versions is not None:
+    if state is not None:
         def drop(_, key=key):
             _PACKS.pop(key, None)
         _PACKS[key] = (weakref.ref(w1, drop), weakref.ref(w2, drop),
-                       versions, packed)
+                       state, packed)
     return packed
 
 
@@ -308,11 +322,32 @@ def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
     return y
 
 
+def train_bwd_slots(n: int, d: int, hd: int, sms: int = 132) -> int:
+    """Row slots of the training backward's weight kernel: its blocks take
+    (hidden tile, slot) pairs, about one block an SM, and slot s walks row
+    tiles s, s + slots, ...; there are no more slots than row tiles."""
+    tiles = -(-n // TRAIN_BWD_TILE)
+    return max(1, min(sms // (hd // TRAIN_BWD_TILE), tiles))
+
+
+def train_bwd_scratch(n: int, d: int, hd: int, sms: int = 132):
+    """The float32 sizes of the training backward's scratch: the packed
+    weights (W1^T, W2 and W1 in kpos order, each split) and the row slots'
+    partials, slot by slot dW1 (D, Hd), dW2 (Hd, D), db1 (Hd), db2 (D).  It
+    does not grow with n once n passes slots row tiles."""
+    return [6 * d * hd, train_bwd_slots(n, d, hd, sms) * (2 * d * hd + hd + d)]
+
+
+def _aligned(t):
+    """t, or a copy of it 16-byte aligned for the kernels' TMA loads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
     """(dx, dW1, db1, dW2, db2) for the output gradient dy (contiguous):
-    the plain version on the CPU, else the backward kernel, whose per-block
-    partials are summed here over the block axis in a fixed order (the JAX
-    package sums its partials outside the kernel too, :437-441)."""
+    the plain version on the CPU, else the backward kernels, whose per-slot
+    partials their last launch sums in slot order (the JAX package sums its
+    partials outside the kernel, :437-441)."""
     if _on_cpu(x, w1, b1, w2, b2, seed, dy):
         return fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate, dy)
     _train_check(x, w1, b1, w2, b2, seed, dy=dy)
@@ -321,24 +356,24 @@ def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
                          f"not match x {tuple(x.shape)}")
     d, hd = w1.shape
     n = x.numel() // d
-    rows = TRAIN_BWD_ROWS[d]
-    nb = -(-n // rows)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    x, dy = _aligned(x), _aligned(dy)
     dx = torch.empty_like(x)
-    dw1p = x.new_empty((nb, d, hd))
-    db1p = x.new_empty((nb, hd))
-    dw2p = x.new_empty((nb, hd, d))
-    db2p = x.new_empty((nb, d))
+    sizes = train_bwd_scratch(n, d, hd, sms)
+    pack, part = x.new_empty(sum(sizes)).split(sizes)
+    grads = x.new_empty(2 * d * hd + hd + d)  # dW1, dW2, db1, db2
     rc = library().launch_fused_mlp_train_bwd(
         x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), seed.data_ptr(), dx.data_ptr(), dw1p.data_ptr(),
-        db1p.data_ptr(), dw2p.data_ptr(), db2p.data_ptr(), n, d, hd, d, rows,
-        keep_threshold(rate), keep_scale(rate),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        w2.data_ptr(), seed.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+        pack.data_ptr(), part.data_ptr(), n, d, hd, d,
+        train_bwd_slots(n, d, hd, sms), keep_threshold(rate),
+        keep_scale(rate), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch_fused_mlp_train_bwd failed: CUDA error "
                            f"{rc}")
     fused_mlp_train_bwd.launches += 1
-    return dx, dw1p.sum(0), db1p.sum(0), dw2p.sum(0), db2p.sum(0)
+    dw1, dw2, db1, db2 = grads.split([d * hd, hd * d, hd, d])
+    return dx, dw1.view(d, hd), db1, dw2.view(hd, d), db2
 
 
 class FusedMLPTrain(torch.autograd.Function):
@@ -371,6 +406,7 @@ def fused_mlp_train(x, w1, b1, w2, b2, seed, rate: float):
 
 
 # Kernel launches so far; a caller resets them to 0 to count a run.  The
-# backward counts each call of its kernel.
+# backward counts each call, which launches its four kernels (packing, dx,
+# the weight partials, their sum).
 fused_mlp_train.launches = 0
 fused_mlp_train_bwd.launches = 0

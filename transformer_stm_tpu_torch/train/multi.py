@@ -36,8 +36,8 @@ index the slots' steps run one after another through the single-target
 ``make_train_step``.  JAX vmaps the step over the slots (:174); batching
 the slots into one launch is a speed question for a later change.  JAX's
 ``_mlp_train_bn_for_width`` and ``TSTM_MLP_TRAIN_BN`` existed only for
-Mosaic's VMEM limit under vmap and are not carried over: the CUDA kernel's
-block size is its own constant (``kernels/fused_mlp.TRAIN_BWD_ROWS``).
+Mosaic's VMEM limit under vmap and are not carried over: the CUDA kernels'
+tiles are their own constants (``kernels/fused_mlp.TRAIN_BWD_TILE``).
 ``remat`` is accepted and changes nothing (``models/cvt.cvt_forward``).
 ``augment`` and ``watchdog`` are not ported yet and must be None.
 """
