@@ -21,15 +21,15 @@ Phases, each printed as it finishes:
    where longer), and for fused_mlp the one-off packing of its weights
    (``pack_ms``): the
    attention_small forward with and without lse, its backward
-   (attention_small_bwd, against the plain backward and f64 autograd; the
-   same kernel pair timed as flash_attention_bwd; SDPA's backward as the
-   yardstick), fused_mlp, and the training MLP fused_mlp_train forward and
+   (attention_small_bwd, against the plain backward and f64 autograd;
+   SDPA's backward as the yardstick), fused_mlp, and the training MLP fused_mlp_train forward and
    backward at rates 0.1 and 0 (against fused_mlp_train_plain, which draws
    the same masks; the keep share of both masks; two backward calls
-   bit-equal; the backward's scratch bytes; addmm+gelu+dropout+addmm+
+   bit-equal; the backward's scratch bytes, measured by the caching
+   allocator, at most 64 MiB; addmm+gelu+dropout+addmm+
    dropout and its autograd backward as the yardstick), and one training-
    MLP backward at the 512px stage 1 (N 2,097,152, D 64) against plain with
-   its scratch bytes and time; attention_small
+   its measured scratch bytes and time; attention_small
    under torch.func.vmap and grad over 2 slots, bit-equal to a loop;
    flash_attention forward (with and without lse) and backward at T 300,
    S 257 for Dh 16, 33, 64, 128 and 256 and at the 512px stage-1 shape
@@ -234,6 +234,25 @@ def time_ms(fn, reps=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+SCRATCH_LIMIT = 64 << 20  # the training MLP backward's scratch, bytes
+
+
+def scratch_bytes(fn):
+    """The device memory that one call of fn() holds at its peak beyond
+    what it returns, measured by the caching allocator: the peak allocation
+    during the call, less what was allocated before it, less the storages
+    of the tensors it returns."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    kept = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in out}
+    return peak - before - sum(kept.values())
 
 
 def time_ms_batched(fn, calls=10, reps=5, warmup=2):
@@ -504,8 +523,6 @@ def phase_kernels():
             errs64.append((x - ref64).abs().max().item())
         del leaves, d64, dwant
         ms = time_ms(lambda: attention_small_bwd(q, k, v, got_l, lse, g))
-        # the same kernel pair called as flash_attention's backward
-        flash_ms = time_ms(lambda: flash_attention_bwd(q, k, v, got_l, lse, g))
         plain = time_ms(lambda: attention_small_bwd_plain(q, k, v, got_l,
                                                           lse, g))
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -518,7 +535,6 @@ def phase_kernels():
         work = (10.0 * b * h * s * s * 64, 4.0 * (8 * b * s * h * 64 + b * h * s))
         b_ms, b_by = bound(*work)
         brows.append(dict(stage=stage, shape=[b, s, h, 64], ms=ms,
-                          flash_pair_ms=flash_ms,
                           plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by, bound_tc_ms=bound_tc(*work),
                           max_abs_err=max(errs),
@@ -528,7 +544,7 @@ def phase_kernels():
             "bit-equal): max|err| "
             f"dq/dk/dv {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (vs f64 "
             f"{errs64[0]:.2e}/{errs64[1]:.2e}/{errs64[2]:.2e})  kernel "
-            f"{ms:.3f} ms (as flash_attention_bwd {flash_ms:.3f} ms)  plain "
+            f"{ms:.3f} ms  plain "
             f"{plain:.3f} ms  sdpa bwd {lib:.3f} ms  bound {b_ms:.3f} ms "
             f"({b_by}), on the tensor cores {brows[-1]['bound_tc_ms']:.3f} ms")
     # On the main paths only stage 1 reaches the kernels (T*S > 300,000);
@@ -692,13 +708,13 @@ def phase_mlp_train(dev, gen):
         bwork = (10.0 * n * d * hd,
                  4.0 * (3 * n * d + 2 * (2 * d * hd + hd + d)) + 8)
         bb_ms, bb_by = bound(*bwork)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        slots = train_bwd_slots(n, d, hd, sms)
-        scratch = 4 * sum(train_bwd_scratch(n, d, hd, sms))
+        scratch, predicted, slots = mlp_bwd_scratch(
+            stage, lambda: fused_mlp_train_bwd(*args, DROPOUT, dy), n, d, hd)
         brows.append(dict(stage=stage, shape=[n, d, hd], ms=bms,
                           plain_ms=bplain, library_ms=blib, bound_ms=bb_ms,
                           bound_by=bb_by, bound_tc_ms=bound_tc(*bwork),
-                          scratch_bytes=scratch, slots=slots,
+                          scratch_bytes=scratch,
+                          scratch_predicted_bytes=predicted, slots=slots,
                           max_rel_err=rel, max_rel_err_f64=rel64))
         worst["fwd"] = max(worst["fwd"], *(errs[(r, "y")][2]
                                            for r in (DROPOUT, 0.0)))
@@ -709,8 +725,9 @@ def phase_mlp_train(dev, gen):
             f"{rel:.2e} (vs f64 {rel64:.2e})  forward kernel {ms:.3f} ms  "
             f"plain {plain:.3f} ms  addmm+gelu+dropout+addmm+dropout "
             f"{lib:.3f} ms  bound {b_ms:.3f} ms ({b_by});  backward kernel "
-            f"{bms:.3f} ms (scratch {scratch} bytes: packed weights and "
-            f"{slots} row slots of partials)  plain {bplain:.3f} ms  "
+            f"{bms:.3f} ms (scratch {scratch} bytes measured, {predicted} "
+            f"predicted: packed weights and {slots} row slots of partials)  "
+            f"plain {bplain:.3f} ms  "
             f"autograd of that graph {blib:.3f} ms  bound {bb_ms:.3f} ms "
             f"({bb_by}), on the tensor cores "
             f"{brows[-1]['bound_tc_ms']:.3f} ms")
@@ -735,6 +752,19 @@ def phase_mlp_train(dev, gen):
             library_ms=sum(r["library_ms"] for r in rows), shapes=rows))
     out[-1]["at_512px_stage1"] = big
     return out
+
+
+def mlp_bwd_scratch(what, call, n, d, hd):
+    """(measured scratch bytes of one training-MLP backward, the bytes
+    that train_bwd_scratch predicts, its row slots); raises when the
+    measured scratch passes SCRATCH_LIMIT."""
+    scratch = scratch_bytes(call)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    predicted = 4 * sum(train_bwd_scratch(n, d, hd, sms))
+    if scratch > SCRATCH_LIMIT:
+        raise AssertionError(f"fused_mlp_train_bwd {what} N{n} D{d}: scratch "
+                             f"{scratch} bytes over {SCRATCH_LIMIT}")
+    return scratch, predicted, train_bwd_slots(n, hd, sms)
 
 
 def mlp_train_bwd_512px(dev, gen):
@@ -766,13 +796,15 @@ def mlp_train_bwd_512px(dev, gen):
         rel = max(rel, e / scale)
     del got, want
     ms = time_ms(lambda: fused_mlp_train_bwd(*args, DROPOUT, dy), reps=5)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    scratch = 4 * sum(train_bwd_scratch(n, d, hd, sms))
+    scratch, predicted, slots = mlp_bwd_scratch(
+        "512px stage1", lambda: fused_mlp_train_bwd(*args, DROPOUT, dy), n, d,
+        hd)
     say(f"[2] fused_mlp_train_bwd at the 512px stage 1, N{n} D{d} Hd{hd}, rate "
         f"{DROPOUT}: max |err| / max |ref| {rel:.2e} against plain  kernel "
-        f"{ms:.3f} ms  scratch {scratch} bytes "
-        f"({train_bwd_slots(n, d, hd, sms)} row slots)")
+        f"{ms:.3f} ms  scratch {scratch} bytes measured, {predicted} "
+        f"predicted ({slots} row slots)")
     return dict(shape=[n, d, hd], ms=ms, scratch_bytes=scratch,
+                scratch_predicted_bytes=predicted, slots=slots,
                 max_rel_err=rel)
 
 
@@ -1004,8 +1036,6 @@ def phase_small_512(dev, gen, results):
                      bound_ms=f_ms, bound_by=f_by, bound_tc_ms=f_tc,
                      bwd_ms=time_ms(lambda: attention_small_bwd(
                          q, k, v, o, lse, g)),
-                     bwd_flash_pair_ms=time_ms(lambda: flash_attention_bwd(
-                         q, k, v, o, lse, g)),
                      bwd_library_ms=time_ms(lib_bwd(q, k, v, g)),
                      bwd_bound_ms=b_ms, bwd_bound_by=b_by,
                      bwd_bound_tc_ms=b_tc)
@@ -1029,8 +1059,6 @@ def phase_small_512(dev, gen, results):
                            max_rel_err=err)
                 if not key:
                     row["ms_inference"] = r["ms_inference"]
-                else:
-                    row["flash_pair_ms"] = r["bwd_flash_pair_ms"]
                 by_name[name]["shapes"].append(row)
         c, m = rows[CHECK_BATCH], rows[b]
         say(f"[2] attention_small 512px {stage} S{s} H{h}: forward max|err|/"
@@ -1043,8 +1071,7 @@ def phase_small_512(dev, gen, results):
             f"{c['bwd_library_ms']:.3f}  bound {c['bwd_bound_ms']:.3f}; "
             f"B{b}: forward {m['ms_inference']:.2f} ms, with lse "
             f"{m['ms']:.2f}  sdpa {m['library_ms']:.2f}  bound "
-            f"{m['bound_ms']:.2f}; backward {m['bwd_ms']:.2f} (as "
-            f"flash_attention_bwd {m['bwd_flash_pair_ms']:.2f})  sdpa "
+            f"{m['bound_ms']:.2f}; backward {m['bwd_ms']:.2f}  sdpa "
             f"{m['bwd_library_ms']:.2f}  bound {m['bwd_bound_ms']:.2f}, on "
             f"the tensor cores {m['bwd_bound_tc_ms']:.2f}")
 

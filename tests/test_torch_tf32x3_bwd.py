@@ -147,7 +147,7 @@ def mlp_bwd3(x, w1, b1, w2, seed, rate, dy, sms):
         dx = dx + mm3(da[:, c0:c0 + TILE], w1[:, c0:c0 + TILE].t())
 
     tiles = -(-n // TILE)
-    slots = train_bwd_slots(n, d, hd, sms)
+    slots = train_bwd_slots(n, hd, sms)
     lanes = 2 if d == 64 else 1  # D 64: two warpgroups a slot
     parts = []
     for s in range(slots):
@@ -188,7 +188,7 @@ def test_emulated_mlp_backward_within_tolerance(d):
     seed = torch.tensor([1234, 5678], dtype=torch.int32)
     tx, tw1, tb1, tw2, tb2, tdy = map(torch.from_numpy, (x, w1, b1, w2, b2,
                                                          dy))
-    assert -(-n // TILE) > train_bwd_slots(n, d, 4 * d, sms=8)
+    assert -(-n // TILE) > train_bwd_slots(n, 4 * d, sms=8)
     f = make_fused_mlp_train(0.0, interpret=True)
     _, vjp = jax.vjp(lambda *a: f(*a, jnp.zeros(2, jnp.int32)),
                      *map(jnp.asarray, (x[None], w1, b1, w2, b2)))
@@ -250,7 +250,7 @@ def test_scratch_stays_bounded(n):
         sizes = train_bwd_scratch(n, d, 4 * d, sms=132)
         assert 4 * sum(sizes) <= 64 * 2 ** 20
         assert sizes == train_bwd_scratch(max(n, 131072), d, 4 * d, sms=132)
-        slots = train_bwd_slots(n, d, 4 * d, sms=132)
+        slots = train_bwd_slots(n, 4 * d, sms=132)
         assert slots * (4 * d // TRAIN_BWD_TILE) <= 132
         assert sizes == [6 * d * 4 * d, slots * (2 * d * 4 * d + 4 * d + d)]
-    assert port_mlp.train_bwd_slots(100, 64, 256, sms=132) == 2
+    assert port_mlp.train_bwd_slots(100, 256, sms=132) == 2

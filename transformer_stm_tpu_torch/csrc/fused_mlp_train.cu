@@ -261,8 +261,9 @@ constexpr int SMEM_MAX = 232448;          // 227 KB, a block's most
 constexpr int MAX_SLABS = 8;              // D / KS at D 256
 constexpr int MAX_STAGES = 4;
 // Kinds of kernel, picked by width (each measured fastest at its widths on
-// the H100; the registers do not hold a width-256 row of dx, nor shared
-// memory DWS's or DW1's tiles at width 256):
+// the H100 against the general DX and DW by the package's
+// tools/compare_mlp_bwd_kinds.py; the registers do not hold a width-256 row
+// of dx, nor shared memory DWS's or DW1's tiles at width 256):
 // - DX (dx, D 256): the two warpgroups share one row tile; warpgroup 0
 //   computes a, warpgroup 1 dh and da (a traded through Q), and each adds
 //   da W1^T into half of dx's columns.

@@ -175,6 +175,12 @@ def build() -> Path:
     return lib_path
 
 
+def aligned16(t):
+    """t, or a copy of it 16-byte aligned: the kernels' TMA loads read
+    their inputs in 16-byte units."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use, with argtypes set."""
     global _lib

@@ -29,7 +29,7 @@ import types
 
 import torch
 
-from ._build import library
+from ._build import aligned16, library
 
 HEAD_DIM = 64
 
@@ -132,9 +132,7 @@ def attention_small_bwd(q, k, v, o, lse, g):
     # delta = rowsum(dO * o), (B, H, T): one reduction before the kernels,
     # as the JAX package computes it outside its kernels (:852-860).
     delta = (g * o).sum(dim=-1).transpose(1, 2).contiguous()
-    # the kernels' TMA reads q, k, v and dO in 16-byte units
-    q, k, v, g = (x if x.data_ptr() % 16 == 0 else x.clone()
-                  for x in (q, k, v, g))
+    q, k, v, g = map(aligned16, (q, k, v, g))
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

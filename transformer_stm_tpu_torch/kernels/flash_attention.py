@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from ._build import library
+from ._build import aligned16, library
 from .attention_small import _on_cpu, apply, autograd_functions
 
 MAX_HEAD_DIM = 256
@@ -130,7 +130,7 @@ def pad_head_dim(t, dhp: int):
     """t (..., Dh) with zero columns up to dhp, 16-byte aligned: t itself
     when it already is, else a new tensor."""
     if t.shape[-1] == dhp:
-        return t if t.data_ptr() % 16 == 0 else t.clone()
+        return aligned16(t)
     return torch.nn.functional.pad(t, (0, dhp - t.shape[-1]))
 
 

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..ops.common import dense, gelu
-from ._build import library
+from ._build import aligned16, library
 
 WIDTHS = (64, 128, 256)  # the CvT stage widths the kernels are built for
 VIT_WIDTHS = (192, 384, 768)  # and the ViT widths of the inference kernel
@@ -178,8 +178,7 @@ def fused_mlp(x, w1, b1, w2, b2):
     _check(x, w1, b1, w2, b2, widths=WIDTHS + VIT_WIDTHS)
     d, hd = w1.shape
     n = x.numel() // d
-    if x.data_ptr() % 16:  # the kernel's TMA reads x in 16-byte units
-        x = x.clone()
+    x = aligned16(x)
     p1, p2 = packed_mlp_weights(w1, w2)
     y = torch.empty_like(x)
     rc = library().launch_fused_mlp(
@@ -322,7 +321,7 @@ def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
     return y
 
 
-def train_bwd_slots(n: int, d: int, hd: int, sms: int = 132) -> int:
+def train_bwd_slots(n: int, hd: int, sms: int = 132) -> int:
     """Row slots of the training backward's weight kernel: its blocks take
     (hidden tile, slot) pairs, about one block an SM, and slot s walks row
     tiles s, s + slots, ...; there are no more slots than row tiles."""
@@ -335,12 +334,7 @@ def train_bwd_scratch(n: int, d: int, hd: int, sms: int = 132):
     weights (W1^T, W2 and W1 in kpos order, each split) and the row slots'
     partials, slot by slot dW1 (D, Hd), dW2 (Hd, D), db1 (Hd), db2 (D).  It
     does not grow with n once n passes slots row tiles."""
-    return [6 * d * hd, train_bwd_slots(n, d, hd, sms) * (2 * d * hd + hd + d)]
-
-
-def _aligned(t):
-    """t, or a copy of it 16-byte aligned for the kernels' TMA loads."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return [6 * d * hd, train_bwd_slots(n, hd, sms) * (2 * d * hd + hd + d)]
 
 
 def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
@@ -357,7 +351,7 @@ def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
     d, hd = w1.shape
     n = x.numel() // d
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    x, dy = _aligned(x), _aligned(dy)
+    x, dy = aligned16(x), aligned16(dy)
     dx = torch.empty_like(x)
     sizes = train_bwd_scratch(n, d, hd, sms)
     pack, part = x.new_empty(sum(sizes)).split(sizes)
@@ -366,7 +360,7 @@ def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
         x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), seed.data_ptr(), dx.data_ptr(), grads.data_ptr(),
         pack.data_ptr(), part.data_ptr(), n, d, hd, d,
-        train_bwd_slots(n, d, hd, sms), keep_threshold(rate),
+        train_bwd_slots(n, hd, sms), keep_threshold(rate),
         keep_scale(rate), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch_fused_mlp_train_bwd failed: CUDA error "
