@@ -9,9 +9,10 @@ Phases, each printed as it finishes:
 1. build: the CUDA kernels of ``transformer_stm_tpu_torch/csrc`` with nvcc,
    each kernel's registers and spills, any ptxas C75xx note (wgmma
    serialised), and the registers, shared memory and blocks an SM of the
-   3xTF32 kernels (``fused_mlp`` at every width, both flash backward
-   kernels, the training MLP's dx and weight-partial kernels at every
-   width);
+   3xTF32 kernels (``fused_mlp`` at every width, the attention forward of
+   flash_attention and attention_small at Dh <= 64 and above, both flash
+   backward kernels, the training MLP's dx and weight-partial kernels at
+   every width);
 2. kernels: each kernel against its plain PyTorch version at the CvT stage
    shapes (in float32, and in float64 as a check that shares no rounding),
    with its time, the plain version's time and one PyTorch call's time as
@@ -69,9 +70,10 @@ Phases, each printed as it finishes:
    and ``cli.main(["test", ...])`` with exact launch counts, the records and
    metrics sheets read back, and a second ``train --epochs 3`` that resumes
    from the epoch-2 checkpoint; ms per training step and per evaluation
-   batch of 128 at 512px with the device's busy share and peak memory; the
-   kernel path against the plain path on 4 images (outputs, and losses over
-   2 training steps at dropout 0);
+   batch of 128 at 512px with the device's busy share, its largest device
+   kernels and each attention kernel launch in order (torch.profiler), and
+   peak memory; the kernel path against the plain path on 4 images
+   (outputs, and losses over 2 training steps at dropout 0);
 7. ViT-S/16 inference at 224px (``VIT_PRESETS["ViT-S/16"]``, 197 tokens
    folded into t_pad 200): the four fused-layer kernels
    (``vit_layer_infer``, ``attn_layer_infer``, ``ln_mlp_infer``,
@@ -351,6 +353,21 @@ def kernel_sources(fn, pattern, calls=3, top=5):
                   key=lambda kv: -kv[1])[:top]
 
 
+def launch_ms(fn, pattern):
+    """Device ms of each launch of the kernels whose names hold `pattern`
+    in one call of fn, in launch order (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and pattern in e.name),
+                   key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in found]
+
+
 def bound(flops, nbytes):
     """Least time on the card in ms, and what bounds it."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -441,6 +458,10 @@ def phase_build():
     for name, fn, args in (
             *((f"fused_mlp_tf32x3 D{d}", lib.fused_mlp_info, (d,))
               for d in WIDTHS + VIT_WIDTHS),
+            ("flash_fwd_tf32x3 Dh <= 64 (flash_attention, attention_small)",
+             lib.flash_attention_fwd_info, (0,)),
+            ("flash_fwd_tf32x3 Dh > 64 (flash_attention)",
+             lib.flash_attention_fwd_info, (1,)),
             ("flash_bwd_tf32x3 dk/dv (flash_attention_bwd, "
              "attention_small_bwd)", lib.flash_attention_bwd_info, (0,)),
             ("flash_bwd_tf32x3 dq", lib.flash_attention_bwd_info, (1,)),
@@ -550,7 +571,7 @@ def phase_kernels():
     # On the main paths only stage 1 reaches the kernels (T*S > 300,000);
     # training runs the forward with lse.
     for name, source, replaces, rs, w in (
-            ("attention_small", "attention_small.cu", 680, rows, worst),
+            ("attention_small", "flash_attention.cu", 680, rows, worst),
             ("attention_small_bwd", "flash_attention_bwd.cu", 764, brows,
              bworst)):
         s1 = rs[0]
@@ -1619,6 +1640,17 @@ def phase_cli():
         say(f"[6] 512px {name}, batch {BATCH}: {ms:.1f} ms "
             f"({1e3 * BATCH / ms:.1f} images/s; CUDA events, median of 5); "
             f"peak device memory {peak / 2**30:.2f} GiB; {busy_txt}")
+        # flash_attention (stage 1) and attention_small (stages 2, 3) run
+        # one forward kernel, and both backwards one pair: each launch
+        for what, pattern in (("forward", "flash_fwd"),
+                              ("backward", "flash_bwd")):
+            each = launch_ms(fn, pattern)
+            if each:
+                say(f"[6] 512px {name}: attention {what} kernel launches in "
+                    f"order, device ms (profiler, one call): " + ", ".join(
+                        f"{t:.2f}" for t in each) +
+                    f"; {sum(each):.1f} ms = {100 * sum(each) / ms:.1f}% of "
+                    f"the {name}")
     del loop, batch
 
     # The kernel path against the plain path on PATH_IMAGES images: the

@@ -120,8 +120,7 @@ def test_importing_kernels_needs_no_nvcc_and_no_gpu():
 
 def test_sources_are_plain_cuda():
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["attention_small.cu",
-                                      "flash_attention.cu",
+    assert [s.name for s in srcs] == ["flash_attention.cu",
                                       "flash_attention_bwd.cu",
                                       "fused_layer.cu", "fused_mlp.cu",
                                       "fused_mlp_train.cu",
@@ -135,7 +134,7 @@ def test_sources_are_plain_cuda():
 
 def test_build_commands_compile_each_source_for_sm90a(tmp_path):
     compiles, link = _build.commands("nvcc", _build.sources(), tmp_path)
-    assert len(compiles) == 7
+    assert len(compiles) == 6
     for cmd in compiles + [link]:
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     for cmd, src in zip(compiles, _build.sources()):
@@ -164,7 +163,8 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
     # the bf16 layer's host helpers take no stream: the weight maps'
     # buffer and four weights; three out-pointers of the kernel's info
     helpers = {"vit_layer_sm90_weight_maps": 5, "vit_layer_sm90_info": 3,
-               "fused_mlp_info": 3, "flash_attention_bwd_info": 3,
+               "fused_mlp_info": 3, "flash_attention_fwd_info": 3,
+               "flash_attention_bwd_info": 3,
                "fused_mlp_train_bwd_info": 3}
     for name, n_ptr in helpers.items():
         argtypes = _build.SIGNATURES[name]
@@ -174,8 +174,7 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
         if name in helpers:
             continue
         assert argtypes[-1] is ctypes.c_void_p  # the stream
-        n_ptr = {"launch_attention_small": 5,
-                 "launch_flash_attention": 5,
+        n_ptr = {"launch_flash_attention": 5,
                  "launch_flash_attention_bwd": 9,
                  "launch_fused_mlp": 6,
                  "launch_fused_mlp_train_fwd": 7,

@@ -35,12 +35,13 @@ CUDA_NVCC = "/usr/local/cuda/bin/nvcc"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # q, k, v, o, lse (or null), B, T, S, H, Dh, scale, stream
-    "launch_attention_small": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               ctypes.c_float, _P],
-    # q, k, v, o, lse (or null), B, T, S, H, Dh, scale, vec, stream
+    # q, k, v, o, lse (or null), B, T, S, H, Dh, scale, stream: both
+    # attention forwards (attention_small and flash_attention)
     "launch_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               ctypes.c_float, _I, _P],
+                               ctypes.c_float, _P],
+    # kind (0 Dh <= 64, 1 Dh > 64), registers, shared memory bytes, blocks
+    # per SM
+    "flash_attention_fwd_info": [_I, _P, _P, _P],
     # q, k, v, dO, lse, delta, dq, dk, dv, B, T, S, H, Dh, scale, vec, stream
     "launch_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, ctypes.c_float, _I,

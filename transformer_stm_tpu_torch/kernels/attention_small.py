@@ -1,14 +1,15 @@
 """attention_small: exact softmax(q k^T / sqrt(Dh)) v, forward and backward.
 
 Port of the Pallas TPU kernel ``attention_small``
-(transformer_stm_tpu/kernels/flash_attention.py:935, a ``jax.custom_vjp``):
-the forward ``_small_fwd_impl`` :703 / ``_small_fwd_kernel`` :680 is
-``csrc/attention_small.cu``; the backward pair ``_small_bwd_dq_kernel`` :764
-and ``_small_bwd_dkv_kernel`` :791 (``_small_bwd_impl`` :825) computes the
-same function as flash attention's backward at Dh 64 and runs the pair of
-``csrc/flash_attention_bwd.cu`` (f32 products in 3xTF32 on the tensor
-cores), which takes any lengths.  Each source's header says how it streams
-K/V where the TPU kernels held whole rows in VMEM.
+(transformer_stm_tpu/kernels/flash_attention.py:935, a ``jax.custom_vjp``).
+Both directions compute the same function as flash attention at Dh 64 and
+run its kernels, f32 products in 3xTF32 on the tensor cores, which take any
+lengths: the forward ``_small_fwd_impl`` :703 / ``_small_fwd_kernel`` :680
+launches ``csrc/flash_attention.cu``, and the backward pair
+``_small_bwd_dq_kernel`` :764 and ``_small_bwd_dkv_kernel`` :791
+(``_small_bwd_impl`` :825) the pair of ``csrc/flash_attention_bwd.cu``.
+Each source's header says how it streams K/V where the TPU kernels held
+whole rows in VMEM.
 
 ``attention_small(q, k, v)`` is differentiable: when autograd records (grad
 enabled and an input requires grad) it runs ``AttentionSmall``, whose
@@ -101,15 +102,18 @@ def attention_small_fwd(q, k, v, with_lse: bool = False):
         return attention_small_plain(q, k, v), None
     _check(q, k, v)
     b, t, h, dh = q.shape
+    q, k, v = map(aligned16, (q, k, v))
     o = torch.empty_like(q)
     lse = q.new_empty((b, h, t)) if with_lse else None
-    rc = library().launch_attention_small(
+    rc = library().launch_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if with_lse else None,
         b, t, k.shape[1], h, dh, 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"launch_attention_small failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"attention_small: launch_flash_attention failed: CUDA error "
+            f"{rc}")
     attention_small.launches += 1
     return o, lse
 
@@ -261,8 +265,9 @@ def attention_small(q, k, v):
 
 
 # Kernel launches so far; a caller resets them to 0 to count a run.  The
-# forward counts its launches with or without lse; the backward counts each
-# call, which launches its two kernels (the flash backward pair, counted
-# here and not in ``flash_attention_bwd.launches``).
+# forward counts its launches with or without lse (the flash forward kernel,
+# counted here and not in ``flash_attention.launches``); the backward counts
+# each call, which launches its two kernels (the flash backward pair,
+# counted here and not in ``flash_attention_bwd.launches``).
 attention_small.launches = 0
 attention_small_bwd.launches = 0

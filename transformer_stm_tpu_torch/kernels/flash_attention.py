@@ -7,10 +7,12 @@ Port of the Pallas TPU kernel ``flash_attention``
 :102) is ``csrc/flash_attention.cu``; both backward pairs, the
 whole-side-resident ``_bwd_pallas`` :296 and the streaming
 ``_bwd_pallas_streaming`` :469 that ``_bwd`` :601 picks at 512px, are the
-one pair of ``csrc/flash_attention_bwd.cu``, f32 products in 3xTF32 on the
-tensor cores (csrc/tf32x3.cuh); before it the wrapper computes delta and
+one pair of ``csrc/flash_attention_bwd.cu``.  Both run f32 products in
+3xTF32 on the tensor cores (csrc/tf32x3.cuh); before them the wrapper
 zero-pads the head dim to what the kernels' TMA loads and 8-deep k-steps
-take (``padded_head_dim``).  The JAX router sends keys of
+take (``padded_head_dim``), keeps the scale of the true head dim and
+slices the outputs, and before the backward it computes delta.  The JAX
+router sends keys of
 16,384 and more here (the 512px CvT's stage 1); the kernels take any Dh
 from 1 to 256 (the TPU kernel pads Dh to 128 lanes, so it takes any head
 dim) and any lengths.
@@ -41,14 +43,17 @@ PLAIN_BLOCK = 512  # keys per block of the plain versions
 
 
 def flash_attention_plain(q, k, v, with_lse: bool = False,
-                          block: int = PLAIN_BLOCK):
+                          block: int = PLAIN_BLOCK,
+                          scale: float | None = None):
     """The forward kernel's arithmetic in PyTorch, ``block`` keys at a
     time: f32 scores (q . k) * scale, a running row max m and denominator
     l, the accumulator rescaled by exp(m_old - m_new) as m grows, divided
     by l at the end.  q: (B, T, H, Dh); k, v: (B, S, H, Dh) -> o
-    (B, T, H, Dh), and with ``with_lse`` also lse = m + log(l), (B, H, T)."""
+    (B, T, H, Dh), and with ``with_lse`` also lse = m + log(l), (B, H, T);
+    scale 1/sqrt(Dh) unless given (as for zero-padded inputs)."""
     b, t, h, dh = q.shape
-    scale = 1.0 / math.sqrt(dh)
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
     m = q.new_full((b, h, t, 1), -math.inf)
     l = q.new_zeros((b, h, t, 1))
     acc = q.new_zeros((b, h, t, dh))
@@ -113,14 +118,8 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: B*H = {b * h} exceeds 65,535")
 
 
-def _vec(dh, *tensors):
-    """The kernels' float4 loads need Dh a multiple of 4 and every pointer
-    16-byte aligned."""
-    return int(dh % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
-
-
 def padded_head_dim(dh: int) -> int:
-    """The head dim the backward kernels take: a multiple of 8 (the k-step
+    """The head dim the kernels take: a multiple of 8 (the k-step
     of a TF32 wgmma, and TMA's 16-byte row stride) and at least 32 (one
     128-byte TMA box)."""
     return max(32, -(-dh // 8) * 8)
@@ -143,16 +142,20 @@ def flash_attention_fwd(q, k, v, with_lse: bool = False):
         return flash_attention_plain(q, k, v), None
     _check(q, k, v)
     b, t, h, dh = q.shape
-    o = torch.empty_like(q)
+    dhp = padded_head_dim(dh)
+    qp, kp, vp = (pad_head_dim(x, dhp) for x in (q, k, v))
+    o = torch.empty_like(qp)
     lse = q.new_empty((b, h, t)) if with_lse else None
     rc = library().launch_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
         lse.data_ptr() if with_lse else None,
-        b, t, k.shape[1], h, dh, 1.0 / math.sqrt(dh), _vec(dh, q, k, v, o),
+        b, t, k.shape[1], h, dhp, 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch_flash_attention failed: CUDA error {rc}")
     flash_attention.launches += 1
+    if dhp != dh:
+        o = o[..., :dh].contiguous()
     return o, lse
 
 
