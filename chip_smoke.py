@@ -493,16 +493,18 @@ def phase_kernels():
         got_l, lse = attention_small_fwd(q, k, v, with_lse=True)
         want, want_lse = attention_small_plain(q, k, v, with_lse=True)
         # and in float64, a yardstick that shares no rounding with either
-        want64 = attention_small_plain(q.double(), k.double(), v.double())
+        want64, want64_lse = attention_small_plain(
+            q.double(), k.double(), v.double(), with_lse=True)
         torch.cuda.synchronize()
         for what, x, ref in (("o", got, want), ("o", got, want64),
                              ("o with lse", got_l, want),
-                             ("lse", lse, want_lse)):
+                             ("o with lse", got_l, want64),
+                             ("lse", lse, want_lse), ("lse", lse, want64_lse)):
             check_close(f"attention_small {stage} {what}", x, ref)
         err = (got - want).abs().max().item()
         err64 = (got - want64).abs().max().item()
         err_lse = (lse - want_lse).abs().max().item()
-        del want64
+        del want64, want64_lse
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms_inf = time_ms(lambda: attention_small(q, k, v))
         ms = time_ms(lambda: attention_small_fwd(q, k, v, with_lse=True))
@@ -911,6 +913,8 @@ def flash_checks(what, q, k, v, g, f64_batch):
     po, plse = flash_attention_plain(q64, k64, v64, with_lse=True)
     pd = flash_attention_bwd_plain(q64, k64, v64, po, plse, g64)
     efwd = max(efwd, check_rel(f"flash_attention {what} o (f64)", o[:n], po),
+               check_rel(f"flash_attention {what} o without lse (f64)",
+                         o_inf[:n], po),
                check_rel(f"flash_attention {what} lse (f64)", lse[:n], plse))
     ebwd = max(ebwd, *(check_rel(f"flash_attention_bwd {what} {nm} (f64)",
                                  x[:n], y)
@@ -1037,6 +1041,7 @@ def phase_small_512(dev, gen, results):
                  check_rel(f"{what} o without lse", o_inf, po),
                  check_rel(f"{what} lse", lse, plse),
                  check_rel(f"{what} o (f64)", o[:n], po64),
+                 check_rel(f"{what} o without lse (f64)", o_inf[:n], po64),
                  check_rel(f"{what} lse (f64)", lse[:n], plse64))
         eb = max(*(check_rel(f"{what} backward {nm}", x, y)
                    for nm, x, y in zip("qkv", d, pd)),
