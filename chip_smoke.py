@@ -305,10 +305,13 @@ def check_close(what, got, ref, tol=ATTN_TOL):
             f"({ref.dtype}) over atol/rtol {tol}")
 
 
-def device_ms(fn, calls=3):
+def device_ms(fn, calls=3, launches=()):
     """(ms of device activity per call of fn, summed by torch.profiler over
     its CUDA events; the five largest as (name, ms per call)).  The total is
-    None when the profiler records no device activity."""
+    None when the profiler records no device activity.  With `launches`, a
+    tuple of name patterns, a third item maps each pattern to the device ms
+    of each launch of the kernels whose names hold it, in launch order
+    within a call, the mean over the calls."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -319,8 +322,19 @@ def device_ms(fn, calls=3):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in dev) / 1e3 / calls
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-    return total or None, [(e.key[:48], e.self_device_time_total / 1e3 /
-                            calls) for e in top]
+    top = [(e.key[:48], e.self_device_time_total / 1e3 / calls) for e in top]
+    if not launches:
+        return total or None, top
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    each = {}
+    for pattern in launches:
+        ms = [e.time_range.elapsed_us() / 1e3 for e in events
+              if pattern in e.name]
+        n = len(ms) // calls  # every call launches the same kernels
+        each[pattern] = [sum(ms[i::n]) / calls for i in range(n)]
+    return total or None, top, each
 
 
 def kernel_sources(fn, pattern, calls=3, top=5):
@@ -351,21 +365,6 @@ def kernel_sources(fn, pattern, calls=3, top=5):
         found[key] = found.get(key, 0.0) + sum(k.duration for k in ks) / 1e3
     return sorted(((k, ms / calls) for k, ms in found.items()),
                   key=lambda kv: -kv[1])[:top]
-
-
-def launch_ms(fn, pattern):
-    """Device ms of each launch of the kernels whose names hold `pattern`
-    in one call of fn, in launch order (torch.profiler)."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    found = sorted((e for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and pattern in e.name),
-                   key=lambda e: e.time_range.start)
-    return [e.time_range.elapsed_us() / 1e3 for e in found]
 
 
 def bound(flops, nbytes):
@@ -873,6 +872,24 @@ def check_rel(what, got, ref, tol=FLASH_TOL):
     return e
 
 
+def check_chunks(what, got, plain, inputs):
+    """Holds kernel outputs at the main path's batch against the plain
+    version on the same inputs, CHECK_BATCH images at a time so that the
+    plain version's (T, S) scores fit.  got: (name, output, index of the
+    plain output it equals); plain(*inputs) returns a tuple.  Each chunk is
+    held by check_rel to its own max |ref|, no weaker a bar than the whole
+    batch's.  Returns the worst max |err| / max |ref|."""
+    worst, b = 0.0, inputs[0].shape[0]
+    for i in range(0, b, CHECK_BATCH):
+        sl = slice(i, min(i + CHECK_BATCH, b))
+        ref = plain(*(x[sl] for x in inputs))
+        worst = max(worst, *(check_rel(
+            f"{what} {name} (images {sl.start}-{sl.stop - 1})", x[sl],
+            ref[j]) for name, x, j in got))
+        del ref
+    return worst
+
+
 def sdpa(q, k, v):
     """One PyTorch call of the same function: scaled_dot_product_attention
     on its memory-efficient backend, the one that takes f32 at these
@@ -953,8 +970,9 @@ def lib_bwd(q, k, v, g):
 def phase_flash(dev, gen):
     """flash_attention at odd shapes for every chunk count of Dh, at the
     512px stage-1 shape against plain (batch CHECK_BATCH, float64 on
-    CHECK_BATCH_F64 images), and alone at the main path's batch with its
-    plain version and SDPA timed on the same inputs."""
+    CHECK_BATCH_F64 images), and at the main path's batch against plain
+    (CHECK_BATCH images at a time), timed there beside its plain version and
+    SDPA on the same inputs."""
     worst_f = worst_b = 0.0
     for dh in ODD_DH:
         b, t, s, h = ODD_SHAPE
@@ -976,6 +994,21 @@ def phase_flash(dev, gen):
     b = FLASH_SHAPE[0]
     q, k, v, g = attn_inputs(gen, b, s, s, h, 64)
     o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    o_inf = flash_attention(q, k, v)
+    d = flash_attention_bwd(q, k, v, o, lse, g)
+    what = f"flash_attention B{b} S{s} H{h} Dh64"
+    ef = check_chunks(what, [("o", o, 0), ("o without lse", o_inf, 0),
+                             ("lse", lse, 1)],
+                      lambda *x: flash_attention_plain(*x, with_lse=True),
+                      (q, k, v))
+    eb = check_chunks(f"{what} backward", list(zip(("dq", "dk", "dv"), d,
+                                                   range(3))),
+                      flash_attention_bwd_plain, (q, k, v, o, lse, g))
+    worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
+    del o_inf, d
+    say(f"[2] {what} (the main path's shape): forward (with and without "
+        f"lse) max|err|/max|ref| {ef:.2e}, backward {eb:.2e} (f32, "
+        f"{CHECK_BATCH} images a check)")
     ms_inf = time_ms(lambda: flash_attention(q, k, v))
     ms = time_ms(lambda: flash_attention_fwd(q, k, v, with_lse=True))
     plain = time_ms(lambda: flash_attention_plain(q, k, v, with_lse=True),
@@ -1017,9 +1050,9 @@ def phase_flash(dev, gen):
 def phase_small_512(dev, gen, results):
     """attention_small forward (with and without lse) and backward at the
     512px stages 2 and 3, against plain at CHECK_BATCH images (float64 on
-    CHECK_BATCH_F64), the kernel, plain and SDPA timed there, and the
-    kernel alone at the main path's batch.  The rows join the kernels'
-    ``shapes``."""
+    CHECK_BATCH_F64), the kernel, plain and SDPA timed there, and at the
+    main path's batch against plain (CHECK_BATCH images at a time), the
+    kernel and SDPA timed there.  The rows join the kernels' ``shapes``."""
     by_name = {r["name"]: r for r in results}
     for stage, b, s, h in SMALL_512_SHAPES:
         q, k, v, g = attn_inputs(gen, CHECK_BATCH, s, s, h, 64)
@@ -1053,6 +1086,19 @@ def phase_small_512(dev, gen, results):
             if bb != CHECK_BATCH:
                 q, k, v, g = attn_inputs(gen, bb, s, s, h, 64)
                 o, lse = attention_small_fwd(q, k, v, with_lse=True)
+                o_inf = attention_small(q, k, v)
+                d = attention_small_bwd(q, k, v, o, lse, g)
+                ef = max(ef, check_chunks(
+                    f"attention_small 512px {stage} B{bb} S{s} H{h}",
+                    [("o", o, 0), ("o without lse", o_inf, 0),
+                     ("lse", lse, 1)],
+                    lambda *x: attention_small_plain(*x, with_lse=True),
+                    (q, k, v)))
+                eb = max(eb, check_chunks(
+                    f"attention_small_bwd 512px {stage} B{bb} S{s} H{h}",
+                    list(zip(("dq", "dk", "dv"), d, range(3))),
+                    attention_small_bwd_plain, (q, k, v, o, lse, g)))
+                del o_inf, d
             (f_ms, f_by), (b_ms, b_by) = attn_bounds(bb, s, s, h, 64)
             f_tc, b_tc = attn_bounds_tc(bb, s, s, h, 64)
             r = dict(ms=time_ms(lambda: attention_small_fwd(
@@ -1089,7 +1135,8 @@ def phase_small_512(dev, gen, results):
         c, m = rows[CHECK_BATCH], rows[b]
         say(f"[2] attention_small 512px {stage} S{s} H{h}: forward max|err|/"
             f"max|ref| {ef:.2e}, backward {eb:.2e} (B{CHECK_BATCH} f32, "
-            f"B{CHECK_BATCH_F64} f64; two backward calls bit-equal); "
+            f"B{CHECK_BATCH_F64} f64, B{b} f32 {CHECK_BATCH} images a check; "
+            f"two backward calls bit-equal); "
             f"B{CHECK_BATCH}: forward {c['ms_inference']:.3f} ms, with lse "
             f"{c['ms']:.3f}  plain {c['plain_ms']:.3f}  sdpa "
             f"{c['library_ms']:.3f}  bound {c['bound_ms']:.3f}; backward "
@@ -1635,7 +1682,10 @@ def phase_cli():
         torch.cuda.reset_peak_memory_stats()
         ms = time_ms(fn, reps=5, warmup=1)
         peak = torch.cuda.max_memory_allocated()
-        busy, top = device_ms(fn, calls=2)
+        # flash_attention (stage 1) and attention_small (stages 2, 3) run
+        # one forward kernel, and both backwards one pair
+        busy, top, each = device_ms(fn, calls=2,
+                                    launches=("flash_fwd", "flash_bwd"))
         out[name] = (ms, busy, peak)
         busy_txt = ("device time not measured (the profiler recorded none)"
                     if busy is None else
@@ -1645,17 +1695,15 @@ def phase_cli():
         say(f"[6] 512px {name}, batch {BATCH}: {ms:.1f} ms "
             f"({1e3 * BATCH / ms:.1f} images/s; CUDA events, median of 5); "
             f"peak device memory {peak / 2**30:.2f} GiB; {busy_txt}")
-        # flash_attention (stage 1) and attention_small (stages 2, 3) run
-        # one forward kernel, and both backwards one pair: each launch
         for what, pattern in (("forward", "flash_fwd"),
                               ("backward", "flash_bwd")):
-            each = launch_ms(fn, pattern)
-            if each:
+            if each[pattern]:
+                t = each[pattern]
                 say(f"[6] 512px {name}: attention {what} kernel launches in "
-                    f"order, device ms (profiler, one call): " + ", ".join(
-                        f"{t:.2f}" for t in each) +
-                    f"; {sum(each):.1f} ms = {100 * sum(each) / ms:.1f}% of "
-                    f"the {name}")
+                    f"order, device ms (profiler, mean of 2 calls): " +
+                    ", ".join(f"{x:.2f}" for x in t) +
+                    f"; {sum(t):.1f} ms = {100 * sum(t) / ms:.1f}% of the "
+                    f"{name}")
     del loop, batch
 
     # The kernel path against the plain path on PATH_IMAGES images: the

@@ -153,9 +153,11 @@ def test_plain_forward_on_padded_inputs_equals_unpadded(dh):
                                 .astype(np.float64)) for n in (70, 130, 130))
     o, lse = flash_attention_plain(q, k, v, with_lse=True)
     dhp = padded_head_dim(dh)
+    # plain scales by 1/sqrt(dhp): q carries sqrt(dhp / dh) to make it
+    # 1/sqrt(dh), the scale the wrapper passes the kernel
     got, got_lse = flash_attention_plain(
-        *(pad_head_dim(x, dhp) for x in (q, k, v)), with_lse=True,
-        scale=1.0 / math.sqrt(dh))
+        pad_head_dim(q * math.sqrt(dhp / dh), dhp), pad_head_dim(k, dhp),
+        pad_head_dim(v, dhp), with_lse=True)
     torch.testing.assert_close(got[..., :dh], o, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(got_lse, lse, rtol=1e-12, atol=1e-12)
     assert not got[..., dh:].any()

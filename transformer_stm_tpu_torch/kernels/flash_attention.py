@@ -43,17 +43,14 @@ PLAIN_BLOCK = 512  # keys per block of the plain versions
 
 
 def flash_attention_plain(q, k, v, with_lse: bool = False,
-                          block: int = PLAIN_BLOCK,
-                          scale: float | None = None):
+                          block: int = PLAIN_BLOCK):
     """The forward kernel's arithmetic in PyTorch, ``block`` keys at a
     time: f32 scores (q . k) * scale, a running row max m and denominator
     l, the accumulator rescaled by exp(m_old - m_new) as m grows, divided
     by l at the end.  q: (B, T, H, Dh); k, v: (B, S, H, Dh) -> o
-    (B, T, H, Dh), and with ``with_lse`` also lse = m + log(l), (B, H, T);
-    scale 1/sqrt(Dh) unless given (as for zero-padded inputs)."""
+    (B, T, H, Dh), and with ``with_lse`` also lse = m + log(l), (B, H, T)."""
     b, t, h, dh = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh)
     m = q.new_full((b, h, t, 1), -math.inf)
     l = q.new_zeros((b, h, t, 1))
     acc = q.new_zeros((b, h, t, dh))
