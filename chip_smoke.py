@@ -9,10 +9,12 @@ Phases, each printed as it finishes:
 1. build: the CUDA kernels of ``transformer_stm_tpu_torch/csrc`` with nvcc,
    each kernel's registers and spills, any ptxas C75xx note (wgmma
    serialised), and the registers, shared memory and blocks an SM of the
-   3xTF32 kernels (``fused_mlp`` at every width, the attention forward of
+   3xTF32 kernels (``fused_mlp`` at every width, its dropout form that is
+   the training MLP's forward at D 64, 128 and 256, the attention forward of
    flash_attention and attention_small at Dh <= 64 and above, both flash
    backward kernels, the training MLP's dx and weight-partial kernels at
-   every width);
+   every width) and of the int8 ViT layer's kernel (csrc/vit_layer_sm90.cu,
+   mode 7);
 2. kernels: each kernel against its plain PyTorch version at the CvT stage
    shapes (in float32, and in float64 as a check that shares no rounding),
    with its time, the plain version's time and one PyTorch call's time as
@@ -25,10 +27,13 @@ Phases, each printed as it finishes:
    (attention_small_bwd, against the plain backward and f64 autograd;
    SDPA's backward as the yardstick), fused_mlp, and the training MLP fused_mlp_train forward and
    backward at rates 0.1 and 0 (against fused_mlp_train_plain, which draws
-   the same masks; the keep share of both masks; two backward calls
+   the same masks; the keep share of both masks; the forward's zeros
+   exactly m2's at stage 1; two backward calls
    bit-equal; the backward's scratch bytes, measured by the caching
    allocator, at most 64 MiB; addmm+gelu+dropout+addmm+
-   dropout and its autograd backward as the yardstick), and one training-
+   dropout and its autograd backward as the yardstick; the forward's time
+   summed over the stages, its weights split at every call included), and
+   one training-
    MLP backward at the 512px stage 1 (N 2,097,152, D 64) against plain with
    its measured scratch bytes and time; attention_small
    under torch.func.vmap and grad over 2 slots, bit-equal to a loop;
@@ -81,8 +86,9 @@ Phases, each printed as it finishes:
    ViT-Ti and ViT-B widths (B 2) and at B 3 with 17 tokens padded to 24, in
    f32 (within 1e-5 of the largest entry) and bf16 (within two bf16 ulps of
    it; int8 within 1e-2 of it), fused_mlp at D 192/384/768 and
-   attention_small on bf16; the bf16 layer's kernel (csrc/vit_layer_sm90.cu)
-   with its registers, shared memory and blocks an SM; each timed at
+   attention_small on bf16; the bf16 layer's kernel (csrc/vit_layer_sm90.cu,
+   the int8 layer's too) with its registers, shared memory and blocks an SM
+   in each mode; each timed at
    ViT-S, B 192, bf16 (back-to-back calls, and one call alone), beside its
    plain version, the packing of its weights (once per model),
    nn.TransformerEncoderLayer (the yardstick of the whole layer) and its
@@ -457,6 +463,9 @@ def phase_build():
     for name, fn, args in (
             *((f"fused_mlp_tf32x3 D{d}", lib.fused_mlp_info, (d,))
               for d in WIDTHS + VIT_WIDTHS),
+            *((f"fused_mlp_tf32x3 with dropout D{d} (fused_mlp_train "
+               "forward)", lib.fused_mlp_train_fwd_info, (d,))
+              for d in WIDTHS),
             ("flash_fwd_tf32x3 Dh <= 64 (flash_attention, attention_small)",
              lib.flash_attention_fwd_info, (0,)),
             ("flash_fwd_tf32x3 Dh > 64 (flash_attention)",
@@ -467,7 +476,10 @@ def phase_build():
             *((f"mlp_bwd_tf32x3 {what} D{d} (fused_mlp_train_bwd)",
                lib.fused_mlp_train_bwd_info, (kind, d))
               for kind, what in ((0, "dx"), (1, "weight partials"))
-              for d in WIDTHS)):
+              for d in WIDTHS),
+            ("vit_layer_sm90<7> at t_pad 200 (vit_layer_infer_int8, bf16)",
+             lib.vit_layer_sm90_info,
+             (MODE_ATTN | MODE_MLP | MODE_Q8, 200))):
         regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         rc = fn(*args, ctypes.byref(regs), ctypes.byref(smem),
                 ctypes.byref(blocks))
@@ -697,6 +709,17 @@ def phase_mlp_train(dev, gen):
                 errs[(rate, name)] = (e / scale, e64 / scale, e)
             del got, again, want, want64, a64
         if stage == "stage1":
+            # the kernel's zeros are exactly m2's
+            y = fused_mlp_train_fwd(*args, DROPOUT)
+            m2 = dropout_mask(seed, n, d, STREAM_OUT, DROPOUT)
+            if not torch.equal(y == 0, m2 == 0):
+                off = int(((y == 0) != (m2 == 0)).sum())
+                raise AssertionError(
+                    f"fused_mlp_train {stage}: {off} outputs are zero where "
+                    "m2 is not, or not where it is")
+            say(f"[2] fused_mlp_train {stage} rate {DROPOUT}: the forward's "
+                f"zeros are m2's ({int((m2 == 0).sum())} of {m2.numel()})")
+            del y, m2
             shares = [(dropout_mask(seed, n, w, s, DROPOUT) > 0).double()
                       .mean().item() for s, w in ((STREAM_HIDDEN, hd),
                                                   (STREAM_OUT, d))]
@@ -756,13 +779,22 @@ def phase_mlp_train(dev, gen):
         del x, w1, b1, w2, b2, dy, args
     big = mlp_train_bwd_512px(dev, gen)
     out = []
-    for name, rows, line, key in (
-            ("fused_mlp_train", frows, 170, "fwd"),
-            ("fused_mlp_train_bwd", brows, 189, "bwd")):
+    fsum = {k: sum(r[k] for r in frows)
+            for k in ("ms", "plain_ms", "library_ms", "bound_tc_ms")}
+    say(f"[2] fused_mlp_train forward summed over the three stages at rate "
+        f"{DROPOUT} (the weights split at every call included): kernel "
+        f"{fsum['ms']:.3f} ms (the f32-FMA design it replaces: 1.219 / "
+        f"1.250 ms in PERF.md's table)  plain {fsum['plain_ms']:.3f} ms  "
+        f"addmm+gelu+dropout+addmm+dropout {fsum['library_ms']:.3f} ms  "
+        f"bound on the tensor cores {fsum['bound_tc_ms']:.3f} ms")
+    for name, rows, line, key, source in (
+            ("fused_mlp_train", frows, 170, "fwd", "fused_mlp.cu"),
+            ("fused_mlp_train_bwd", brows, 189, "bwd",
+             "fused_mlp_train.cu")):
         # per slot-step every stage reaches the kernel once: the sums
         out.append(dict(
             name=name, route="cuda",
-            source="transformer_stm_tpu_torch/csrc/fused_mlp_train.cu",
+            source=f"transformer_stm_tpu_torch/csrc/{source}",
             replaces=f"transformer_stm_tpu/kernels/fused_mlp.py:{line}",
             max_abs_err=worst[key],
             max_rel_err=max(r["max_rel_err"] for r in rows),
@@ -1957,7 +1989,8 @@ def vit_kernel_times(worst, card):
     # thread, dynamic shared memory, blocks an SM, for each mode at t_pad
     for mode, what in ((both, "vit_layer_infer"),
                        (MODE_ATTN, "attn_layer_infer"),
-                       (MODE_MLP, "ln_mlp_infer")):
+                       (MODE_MLP, "ln_mlp_infer"),
+                       (both | MODE_Q8, "vit_layer_infer_int8")):
         regs, smem, blocks = (ctypes.c_int() for _ in range(3))
         rc = _build.library().vit_layer_sm90_info(
             mode, tp, ctypes.byref(regs), ctypes.byref(smem),
@@ -1965,7 +1998,7 @@ def vit_kernel_times(worst, card):
         if rc != 0 or blocks.value < 1:
             raise RuntimeError(f"vit_layer_sm90_info({mode}): error {rc}, "
                                f"{blocks.value} blocks an SM")
-        if mode == both and smem.value != attention_smem_bytes(tp):
+        if mode & MODE_ATTN and smem.value != attention_smem_bytes(tp):
             raise AssertionError(f"shared memory {smem.value} bytes, "
                                  f"fused_layer.py states "
                                  f"{attention_smem_bytes(tp)}")
@@ -2014,8 +2047,7 @@ def vit_kernel_times(worst, card):
         b_ms = max(t_ops, t_bytes)
         rows.append(dict(
             name=name, route="cuda",
-            source="transformer_stm_tpu_torch/csrc/" + (
-                "fused_layer.cu" if mode & MODE_Q8 else "vit_layer_sm90.cu"),
+            source="transformer_stm_tpu_torch/csrc/vit_layer_sm90.cu",
             replaces=f"transformer_stm_tpu/kernels/fused_layer.py:{line}",
             max_abs_err=worst[name][0], max_rel_err=worst[name][1], ms=ms,
             batched_ms=batched_ms, host_ms=host_ms, pack_ms=pack_ms,

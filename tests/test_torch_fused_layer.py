@@ -16,7 +16,8 @@ weights and folded token rows:
 - ``quant_rows``, ``quant_cols`` and ``gelu_exact`` against the JAX
   helpers; ``attention_small`` in bfloat16 against the JAX kernel;
 - ``fused_layer_fits`` and ``FusedLayerSharedMemoryError`` at the limits
-  the CUDA design states (the bf16 layer's, and the int8 layer's), and the
+  the CUDA design states (the bf16 layer's, which the int8 layer shares,
+  and the f32 layer's), and the
   wrappers raising, never falling back, for tensors that are not on the
   CPU, and while autograd records.
 
@@ -217,27 +218,24 @@ def test_attention_small_takes_bf16():
 def test_fits_at_the_cuda_limits():
     """In f32 (itemsize 4) the attention holds K and V of a head and a
     32-row score tile: t_pad 344 fits 227 KB and 352 does not.  The bf16
-    layer (csrc/vit_layer_sm90.cu) holds Q, K and V of a head in 64-row
-    tiles beside its product ring: 576 fits and 584 does not; the bf16 int8
-    layer, K and V and a score tile: 464 fits and 472 does not.  Dh must be
-    64 and the widths multiples of 64."""
+    layer (csrc/vit_layer_sm90.cu), which also runs the bf16 int8 layer,
+    holds Q, K and V of a head in 64-row tiles beside its product ring: 576
+    fits and 584 does not (the int8 layer's limit was 464 while it ran in
+    csrc/fused_layer.cu).  Dh must be 64 and the widths multiples of 64."""
     limit = fused_layer.SMEM_LIMIT
     assert fused_layer.attention_smem_bytes(344, 4) <= limit
     assert fused_layer.attention_smem_bytes(352, 4) > limit
     assert fused_layer.attention_smem_bytes(576, 2) <= limit
     assert fused_layer.attention_smem_bytes(584, 2) > limit
-    assert fused_layer.attention_smem_bytes(464, 2, int8=True) <= limit
-    assert fused_layer.attention_smem_bytes(472, 2, int8=True) > limit
     assert fused_layer_fits(200, 384, 6, 64, 1536, 2)
     assert fused_layer_fits(200, 768, 12, 64, 3072, 4)
     assert fused_layer_fits(344, 192, 3, 64, 768, 4)
     assert fused_layer_fits(464, 384, 6, 64, 1536, 2)
+    assert fused_layer_fits(472, 384, 6, 64, 1536, 2)
     assert fused_layer_fits(576, 384, 6, 64, 1536, 2)
-    assert fused_layer_fits(464, 384, 6, 64, 1536, 2, int8=True)
     assert fused_layer_fits(24, 384, 6, 64, 1536, 2)
     assert not fused_layer_fits(352, 384, 6, 64, 1536, 4)
     assert not fused_layer_fits(584, 384, 6, 64, 1536, 2)
-    assert not fused_layer_fits(472, 384, 6, 64, 1536, 2, int8=True)
     assert not fused_layer_fits(1032, 384, 6, 64, 1536, 2)
     assert not fused_layer_fits(200, 384, 12, 32, 1536, 2)
     assert not fused_layer_fits(200, 400, 6, 64, 1600, 2)
@@ -255,9 +253,9 @@ def test_refusal_error_and_no_fallback_off_the_cpu():
     and where the shapes fit, a tensor that is not on a CUDA device raises
     ValueError (a meta tensor stands in for the card here)."""
     n1, attn, n2, mlp = _meta_layer()
-    # past each kernel's limit: bf16 584, the bf16 int8 layer 472, f32 352
+    # past each kernel's limit: bf16 584 (the int8 layer too), f32 352
     for t_pad, dtype, int8 in ((584, torch.bfloat16, False),
-                               (472, torch.bfloat16, True),
+                               (584, torch.bfloat16, True),
                                (352, torch.float32, False),
                                (352, torch.float32, True)):
         big = torch.empty(t_pad, 384, dtype=dtype, device="meta")
@@ -283,10 +281,14 @@ def test_refusal_error_and_no_fallback_off_the_cpu():
             call()
     with pytest.raises(ValueError, match="whole images"):
         vit_layer_infer(ok, n1, attn, n2, mlp, t_pad=24, t_real=17)
-    # t_pad 472 now fits the bf16 layer: refused only for lying off the card
-    at472 = torch.empty(472, 384, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="CUDA device"):
-        vit_layer_infer(at472, n1, attn, n2, mlp, t_pad=472, t_real=470)
+    # t_pad 472 and 576 fit the bf16 layer, the int8 layer too: refused
+    # only for lying off the card
+    for t_pad in (472, 576):
+        fits = torch.empty(t_pad, 384, dtype=torch.bfloat16, device="meta")
+        for layer in (vit_layer_infer, vit_layer_infer_int8):
+            with pytest.raises(ValueError, match="CUDA device"):
+                layer(fits, n1, attn, n2, mlp, t_pad=t_pad,
+                      t_real=t_pad - 2)
 
 
 def test_wrappers_raise_while_autograd_records():

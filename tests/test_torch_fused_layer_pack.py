@@ -145,17 +145,18 @@ def test_dtype_and_device_changes_repack():
 
 
 def test_int8_through_the_cache_equals_quant_cols():
+    """The bf16 int8 layer (csrc/vit_layer_sm90.cu) takes each projection as
+    int8 W^T (out, in), its column scales after the biases."""
     n1, attn, n2, mlp = layer(dtype=torch.bfloat16)
     ops = packed_weights(BOTH | MODE_Q8, torch.bfloat16, "cpu", n1, attn, n2,
                          mlp)["ops"]
     wqkv, _, wo, _ = fused_layer._attn_weights(attn, attn.query.kernel.dtype)
     w1, _, w2, _ = fused_layer._mlp_weights(mlp, mlp.fc1.kernel.dtype)
-    for (q, s), w in zip(((ops[0], ops[1]), (ops[3], ops[4]),
-                          (ops[6], ops[7]), (ops[9], ops[10])),
-                         (wqkv, wo, w1, w2)):
+    assert len(ops) == 16
+    for q, s, w in zip(ops[:4], ops[12:], (wqkv, wo, w1, w2)):
         want_q, want_s = quant_cols(w)
-        assert q.dtype == torch.int8 and torch.equal(q, want_q)
-        assert torch.equal(s, want_s)
+        assert q.dtype == torch.int8 and torch.equal(q, want_q.t())
+        assert q.is_contiguous() and torch.equal(s, want_s)
 
 
 def test_bf16_layer_takes_the_weights_transposed():

@@ -163,7 +163,8 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
     # the bf16 layer's host helpers take no stream: the weight maps'
     # buffer and four weights; three out-pointers of the kernel's info
     helpers = {"vit_layer_sm90_weight_maps": 5, "vit_layer_sm90_info": 3,
-               "fused_mlp_info": 3, "flash_attention_fwd_info": 3,
+               "fused_mlp_info": 3, "fused_mlp_train_fwd_info": 3,
+               "flash_attention_fwd_info": 3,
                "flash_attention_bwd_info": 3,
                "fused_mlp_train_bwd_info": 3}
     for name, n_ptr in helpers.items():
@@ -177,20 +178,20 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
         n_ptr = {"launch_flash_attention": 5,
                  "launch_flash_attention_bwd": 9,
                  "launch_fused_mlp": 6,
-                 "launch_fused_mlp_train_fwd": 7,
+                 "launch_fused_mlp_train_fwd": 8,
                  "launch_fused_mlp_train_bwd": 10,
                  "launch_fused_layer": 19,
-                 "launch_vit_layer_sm90": 12}[name]
+                 "launch_vit_layer_sm90": 16}[name]
         assert argtypes.count(ctypes.c_void_p) == n_ptr + 1
         if name == "launch_fused_layer":
-            # mode and dtype, then x, y and the workspace; slots and bytes
-            # per slot; then the 16 weight, scale and bias pointers
-            assert argtypes[2:5] == [ctypes.c_void_p] * 3
-            assert argtypes[7:23] == [ctypes.c_void_p] * 16
+            # mode, then x, y and the workspace; slots and bytes per slot;
+            # then the 16 weight, scale and bias pointers
+            assert argtypes[1:4] == [ctypes.c_void_p] * 3
+            assert argtypes[6:22] == [ctypes.c_void_p] * 16
         elif name == "launch_vit_layer_sm90":
             # mode, then x, y and the workspace; its bytes and the slots;
-            # the maps and the 8 LN and bias pointers
+            # the maps, the 8 LN and bias pointers and the 4 int8 scales
             assert argtypes[1:4] == [ctypes.c_void_p] * 3
-            assert argtypes[6:15] == [ctypes.c_void_p] * 9
+            assert argtypes[6:19] == [ctypes.c_void_p] * 13
         else:
             assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr

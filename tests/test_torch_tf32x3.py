@@ -23,7 +23,8 @@ is emulated with torch on the CPU:
 - the k-order (``kpos`` in csrc/tf32x3.cuh) that lets an accumulator feed
   a product as its register A operand;
 - ``packed_mlp_weights``: layout, reuse, and repacking after an in-place
-  update.
+  update, bfloat16 weights included (packed once, converted inside the
+  pack).
 """
 
 import importlib
@@ -278,6 +279,27 @@ def test_packed_weights_follow_in_place_updates():
     assert key in port_mlp._PACKS
     del w1, q1
     assert key not in port_mlp._PACKS  # dropped with the weight
+
+
+def test_packed_weights_of_bf16_weights_pack_once():
+    """``fused_mlp`` hands bfloat16 weights to the cache as they are, and
+    the pack converts them to float32: two packs of the same weights count
+    one packing, and an in-place update of them repacks."""
+    rng = np.random.default_rng(11)
+    w1, w2 = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              .to(torch.bfloat16) for shape in ((64, 256), (256, 64)))
+    before = packed_mlp_weights.packings
+    p1, p2 = packed_mlp_weights(w1, w2)
+    again = packed_mlp_weights(w1, w2)
+    assert again[0] is p1 and again[1] is p2
+    assert packed_mlp_weights.packings == before + 1
+    assert p1.dtype == torch.float32 and p2.dtype == torch.float32
+    assert _is_pack_of((p1, p2), w1.float(), w2.float())
+    with torch.no_grad():
+        w2.mul_(2.0)
+    q1, q2 = packed_mlp_weights(w1, w2)
+    assert packed_mlp_weights.packings == before + 2
+    assert q2 is not p2 and _is_pack_of((q1, q2), w1.float(), w2.float())
 
 
 def test_packed_weights_of_inference_tensors_are_not_kept():

@@ -1,5 +1,5 @@
-// Fused ViT-layer inference on folded (B * t_pad, E) token rows, in f32, and
-// the int8 layer in f32 or bf16:
+// Fused ViT-layer inference on folded (B * t_pad, E) token rows in float32,
+// the int8 layer too:
 //
 //   mode ATTN        y = x + OutProj(MHA(LN1 x))           attn_layer_infer
 //   mode MLP         y = x + MLP(LN2 x)                     ln_mlp_infer
@@ -10,7 +10,7 @@
 // `_attn_layer_kernel` :62 (`attn_layer_infer` :200), `_ln_mlp_kernel` :590
 // (`ln_mlp_infer` :602), `_layer_kernel` :279 (`vit_layer_infer` :335) in
 // float32, and `_layer_kernel_int8` :440 with `_quant_rows` :410 and `_qdot`
-// :430 (`vit_layer_infer_int8` :509).  The first three in bfloat16 are
+// :430 (`vit_layer_infer_int8` :509).  All four in bfloat16 are
 // csrc/vit_layer_sm90.cu (wgmma and TMA).
 //
 // Bound: operations.  At ViT-S (E 384, H 6, Dh 64, hidden 1536, t_pad 200) a
@@ -26,18 +26,14 @@
 // products are FMA tiles (true f32: 4x4 outputs a thread) and the attention
 // holds K^T and V in f32 (136 KB, one block an SM); in int8 the products run
 // on the tensor cores (wmma 16x16x16 int8 -> int32, 64x128 tiles, operands
-// staged with cp.async in two stages) and a bf16 layer's attention too (K
-// and V in bf16, 104 KB at t_pad 200, so two blocks fit an SM).
+// staged with cp.async in two stages).
 // The per-image intermediates (xn, q/k/v, the attention output, z in f32,
 // zn, the MLP hidden) go through a workspace in device memory, one slot per
 // resident block, which the wrapper allocates; a block walks the images
 // blockIdx.x, blockIdx.x + gridDim.x, ...
 //
-// Rounding points are the JAX kernels': q/k/v, p before p v (l sums the
-// unrounded p) and the per-head output are rounded to x's type; products
-// accumulate in f32 (int32 for int8); scores, softmax, l and z stay f32 (the
-// merged modes keep z f32 in the workspace; mode ATTN writes it out in x's
-// type).  At f32 every value is f32 and every product is true f32.  GELU is
+// Every value is f32 and every product is true f32 (int32 sums for int8),
+// so the JAX kernels' rounding points to x's type are no-ops here.  GELU is
 // the Abramowitz-Stegun form of `_gelu_exact` (kernels/fused_mlp.py:33-49).
 // Int8: weights come quantised per column from the wrapper; rows are
 // quantised here per row (amax clamped at 1e-6, q = rint(v * (127 / amax))
@@ -47,9 +43,8 @@
 //
 // Limits (fused_layer.py states them for the router): Dh 64; E, H * Dh and
 // the hidden width multiples of 64; t_pad a multiple of 8 whose attention
-// phase fits 227 KB (t_pad <= 344 in f32, <= 464 for the bf16 int8 layer).
+// phase fits 227 KB (t_pad <= 344).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
@@ -67,22 +62,7 @@ constexpr int QT = 32;                    // query rows per attention tile
 constexpr float NEG_INF = -1e30f;
 constexpr int MODE_ATTN = 1, MODE_MLP = 2, MODE_Q8 = 4;
 
-typedef __nv_bfloat16 bf16;
 using namespace nvcuda;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
-
-// v rounded through T (round to nearest even) and back
-template <typename T>
-__device__ __forceinline__ float round_t(float v) { return to_f(from_f<T>(v)); }
 
 // `_gelu_exact`: x * 0.5 * (1 + erf(x / sqrt 2)), A&S 7.1.26 erf
 __device__ __forceinline__ float gelu_as(float x) {
@@ -304,25 +284,24 @@ __device__ void gemm(const T* __restrict__ A, long lda, int rows, const T* __res
 // LayerNorm of rows [0, rows) of x (row stride E), one warp a row, as
 // `_layer_norm_rows`: mean, then the mean of the squared deviations, then
 // ((x - mean) * rsqrt(var + eps)) * gamma + beta, written as TO.
-template <typename TI, typename TO>
-__device__ void layer_norm_rows(const TI* __restrict__ x, int rows, int E,
+__device__ void layer_norm_rows(const float* __restrict__ x, int rows, int E,
                                 const float* __restrict__ g, const float* __restrict__ b,
-                                float eps, TO* __restrict__ out) {
+                                float eps, float* __restrict__ out) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   for (int r = warp; r < rows; r += THREADS / 32) {
-    const TI* xr = x + (long)r * E;
+    const float* xr = x + (long)r * E;
     float s = 0.f;
-    for (int c = lane; c < E; c += 32) s += to_f(xr[c]);
+    for (int c = lane; c < E; c += 32) s += xr[c];
     const float mu = warp_sum(s) / (float)E;
     float v = 0.f;
     for (int c = lane; c < E; c += 32) {
-      const float d = to_f(xr[c]) - mu;
+      const float d = xr[c] - mu;
       v += d * d;
     }
     const float rs = 1.f / sqrtf(warp_sum(v) / (float)E + eps);
     for (int c = lane; c < E; c += 32)
       out[(long)r * E + c] =
-          from_f<TO>(__fadd_rn(__fmul_rn(__fmul_rn(to_f(xr[c]) - mu, rs), g[c]), b[c]));
+          __fadd_rn(__fmul_rn(__fmul_rn(xr[c] - mu, rs), g[c]), b[c]);
   }
   __syncthreads();
 }
@@ -330,18 +309,17 @@ __device__ void layer_norm_rows(const TI* __restrict__ x, int rows, int E,
 // `_quant_rows`: per-row symmetric int8 of rows [0, rows) of v (width W):
 // amax clamped at 1e-6, q = clip(rint(v * (127 / amax)), -127, 127), and the
 // dequantisation scale amax * (1 / 127).
-template <typename TI>
-__device__ void quant_rows(const TI* __restrict__ v, int rows, int W, int8_t* __restrict__ q,
+__device__ void quant_rows(const float* __restrict__ v, int rows, int W, int8_t* __restrict__ q,
                            float* __restrict__ scale) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   for (int r = warp; r < rows; r += THREADS / 32) {
-    const TI* vr = v + (long)r * W;
+    const float* vr = v + (long)r * W;
     float m = 0.f;
-    for (int c = lane; c < W; c += 32) m = fmaxf(m, fabsf(to_f(vr[c])));
+    for (int c = lane; c < W; c += 32) m = fmaxf(m, fabsf(vr[c]));
     const float amax = fmaxf(warp_max(m), 1e-6f);
     const float inv = 127.f / amax;
     for (int c = lane; c < W; c += 32) {
-      const float t = fminf(fmaxf(rintf(to_f(vr[c]) * inv), -127.f), 127.f);
+      const float t = fminf(fmaxf(rintf(vr[c] * inv), -127.f), 127.f);
       q[(long)r * W + c] = (int8_t)t;
     }
     if (lane == 0) scale[r] = amax * (1.f / 127.f);
@@ -351,10 +329,9 @@ __device__ void quant_rows(const TI* __restrict__ v, int rows, int W, int8_t* __
 
 // softmax(q k^T) v for each head of one image: qkv (Tp, 3 HD) holds q (pre-
 // scaled by 1/sqrt(Dh)), k and v, head h at columns h Dh of each third; the
-// output o (Tp, HD) is rounded to T.
-template <typename T>
-__device__ void attention(const T* __restrict__ qkv, int HD, int H, int Tp, int t_real,
-                          T* __restrict__ o, float* smem) {
+// output o is (Tp, HD).
+__device__ void attention(const float* __restrict__ qkv, int HD, int H, int Tp, int t_real,
+                          float* __restrict__ o, float* smem) {
   const long ld = 3L * HD;
   float* Kt = smem;             // [DH][Tp]   K^T of the head
   float* Vs = Kt + DH * Tp;     // [Tp][DH]
@@ -367,15 +344,15 @@ __device__ void attention(const T* __restrict__ qkv, int HD, int H, int Tp, int 
     __syncthreads();  // the previous head consumed
     for (int i = threadIdx.x; i < Tp * DH; i += THREADS) {
       const int s = i / DH, d = i % DH;
-      const T* row = qkv + (long)s * ld + h * DH + d;
-      Kt[d * Tp + s] = to_f(row[HD]);
-      Vs[s * DH + d] = to_f(row[2 * HD]);
+      const float* row = qkv + (long)s * ld + h * DH + d;
+      Kt[d * Tp + s] = row[HD];
+      Vs[s * DH + d] = row[2 * HD];
     }
     for (int q0 = 0; q0 < Tp; q0 += QT) {
       __syncthreads();  // K and V written; the previous tile consumed
       for (int i = threadIdx.x; i < QT * DH; i += THREADS) {
         const int q = i / DH, d = i % DH;
-        Qt[d * QT + q] = q0 + q < Tp ? to_f(qkv[(long)(q0 + q) * ld + h * DH + d]) : 0.f;
+        Qt[d * QT + q] = q0 + q < Tp ? qkv[(long)(q0 + q) * ld + h * DH + d] : 0.f;
       }
       __syncthreads();
       // scores: rows 2ty, 2ty + 1 of the tile, keys 4tx + 64 j .. + 3
@@ -407,7 +384,7 @@ __device__ void attention(const T* __restrict__ qkv, int HD, int H, int Tp, int 
         for (int s = lane; s < Tp; s += 32) {
           const float p = expf(sr[s] - m);
           l += p;
-          sr[s] = round_t<T>(p);
+          sr[s] = p;
         }
         l = warp_sum(l);
         if (lane == 0) Ls[r] = l;
@@ -433,7 +410,7 @@ __device__ void attention(const T* __restrict__ qkv, int HD, int H, int Tp, int 
           const float l = Ls[2 * ty + r];
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            o[(long)q * HD + h * DH + 4 * tx + j] = from_f<T>(acc[r][j] / l);
+            o[(long)q * HD + h * DH + 4 * tx + j] = acc[r][j] / l;
         }
       }
     }
@@ -441,109 +418,9 @@ __device__ void attention(const T* __restrict__ qkv, int HD, int H, int Tp, int 
   __syncthreads();
 }
 
-constexpr int LKV = DH + 8;  // row length of the bf16 K, V and Q tiles
-
-// softmax(q k^T) v of each head of one image on the tensor cores, bf16: K and
-// V of the head in shared memory (bf16, rows padded with zeros to T16, a
-// multiple of 16), a query tile of QT rows; S = Q K^T (f32) by 16x16
-// fragments spread over the warps, the whole-row softmax in f32 with p
-// rounded to bf16 into P, O = P V (f32) by one fragment a warp, divided by l
-// and rounded to bf16.
-__device__ void attention_mma(const bf16* __restrict__ qkv, int HD, int H, int Tp, int t_real,
-                              bf16* __restrict__ o, char* smem) {
-  const long ld = 3L * HD;
-  const int T16 = (Tp + 15) / 16 * 16, LP = T16 + 8;
-  const int LS = (T16 > DH ? T16 : DH) + 4;  // Ss holds the scores, then p v
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [T16][LKV]
-  bf16* Vs = Ks + T16 * LKV;                 // [T16][LKV]
-  bf16* Qs = Vs + T16 * LKV;                 // [QT][LKV]
-  bf16* Ps = Qs + QT * LKV;                  // [QT][LP]   p rounded to bf16
-  float* Ss = reinterpret_cast<float*>(Ps + QT * LP);  // [QT][LS]
-  float* Ls = Ss + QT * LS;                  // [QT]       row sums l
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nt = T16 / 16;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();  // the previous head consumed
-    for (int i = threadIdx.x; i < T16 * (DH / 8); i += THREADS) {
-      const int s = i / (DH / 8), d = (i % (DH / 8)) * 8;
-      const bf16* row = qkv + (long)s * ld + h * DH + d;
-      *reinterpret_cast<uint4*>(Ks + s * LKV + d) =
-          s < Tp ? *reinterpret_cast<const uint4*>(row + HD) : zero;
-      *reinterpret_cast<uint4*>(Vs + s * LKV + d) =
-          s < Tp ? *reinterpret_cast<const uint4*>(row + 2 * HD) : zero;
-    }
-    for (int q0 = 0; q0 < Tp; q0 += QT) {
-      __syncthreads();  // K and V written; the previous tile consumed
-      for (int i = threadIdx.x; i < QT * (DH / 8); i += THREADS) {
-        const int q = i / (DH / 8), d = (i % (DH / 8)) * 8;
-        *reinterpret_cast<uint4*>(Qs + q * LKV + d) =
-            q0 + q < Tp
-                ? *reinterpret_cast<const uint4*>(qkv + (long)(q0 + q) * ld + h * DH + d)
-                : zero;
-      }
-      __syncthreads();
-      for (int f = warp; f < (QT / 16) * nt; f += THREADS / 32) {
-        const int i = f % (QT / 16), j = f / (QT / 16);
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-        wmma::fill_fragment(c, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < DH; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(a, Qs + 16 * i * LKV + kk, LKV);
-          wmma::load_matrix_sync(b, Ks + 16 * j * LKV + kk, LKV);
-          wmma::mma_sync(c, a, b, c);
-        }
-        wmma::store_matrix_sync(Ss + 16 * i * LS + 16 * j, c, LS, wmma::mem_row_major);
-      }
-      __syncthreads();
-      for (int r = warp; r < QT; r += THREADS / 32) {
-        const float* sr = Ss + r * LS;
-        bf16* pr = Ps + r * LP;
-        float m = NEG_INF;
-        for (int s = lane; s < Tp; s += 32) m = fmaxf(m, s < t_real ? sr[s] : NEG_INF);
-        m = warp_max(m);
-        float l = 0.f;
-        for (int s = lane; s < T16; s += 32) {
-          const float p = s < Tp ? expf((s < t_real ? sr[s] : NEG_INF) - m) : 0.f;
-          l += p;
-          pr[s] = __float2bfloat16_rn(p);
-        }
-        l = warp_sum(l);
-        if (lane == 0) Ls[r] = l;
-      }
-      __syncthreads();
-      {  // O = P V: warp w owns rows 16 (w / 4), columns 16 (w % 4)
-        const int i = warp / (DH / 16), j = warp % (DH / 16);
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-        wmma::fill_fragment(c, 0.f);
-        for (int k0 = 0; k0 < T16; k0 += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(a, Ps + 16 * i * LP + k0, LP);
-          wmma::load_matrix_sync(b, Vs + k0 * LKV + 16 * j, LKV);
-          wmma::mma_sync(c, a, b, c);
-        }
-        wmma::store_matrix_sync(Ss + 16 * i * LS + 16 * j, c, LS, wmma::mem_row_major);
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < QT * DH; i += THREADS) {
-        const int q = i / DH, d = i % DH;
-        if (q0 + q < Tp)
-          o[(long)(q0 + q) * HD + h * DH + d] = __float2bfloat16_rn(Ss[q * LS + d] / Ls[q]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// shared memory of the attention phase at t_pad Tp: f32 (FMA) or bf16 (mma)
-size_t attention_smem_bytes(int Tp, bool bf16_mma) {
-  if (!bf16_mma)
-    return sizeof(float) * ((size_t)2 * DH * Tp + (size_t)QT * Tp + DH * QT + QT);
-  const size_t T16 = (Tp + 15) / 16 * 16, LS = (T16 > DH ? T16 : DH) + 4;
-  return 2 * (2 * T16 * LKV + QT * LKV + QT * (T16 + 8)) + 4 * (QT * LS + QT);
+// shared memory of the attention phase at t_pad Tp
+size_t attention_smem_bytes(int Tp) {
+  return sizeof(float) * ((size_t)2 * DH * Tp + (size_t)QT * Tp + DH * QT + QT);
 }
 
 constexpr size_t FMA_SMEM = sizeof(float) * (TK * APAD + TK * TN);
@@ -563,15 +440,15 @@ struct Layout {
   size_t xn, qkv, o, z, hid, f, aq, sa, total;
 };
 
-__host__ __device__ inline Layout layout(int seg, int E, int HD, int hidden, int ts, bool q8) {
+__host__ __device__ inline Layout layout(int seg, int E, int HD, int hidden, bool q8) {
   const size_t s = (size_t)seg;
   Layout L;
-  L.xn = 0;                                    // xn, then zn, in T
-  L.qkv = L.xn + align256(s * E * ts);         // q | k | v, in T
-  L.o = L.qkv + align256(s * 3 * HD * ts);     // attention output, in T
-  L.z = L.o + align256(s * HD * ts);           // z, f32
-  L.hid = L.z + align256(s * E * 4);           // MLP hidden, in T
-  L.f = L.hid + align256(s * hidden * ts);     // int8 modes: LN or hidden in f32
+  L.xn = 0;                                    // xn, then zn
+  L.qkv = L.xn + align256(s * E * 4);          // q | k | v
+  L.o = L.qkv + align256(s * 3 * HD * 4);      // attention output
+  L.z = L.o + align256(s * HD * 4);            // z
+  L.hid = L.z + align256(s * E * 4);           // MLP hidden
+  L.f = L.hid + align256(s * hidden * 4);      // int8 mode: LN or hidden
   const int wmax = imax(imax(E, HD), hidden);
   L.aq = L.f + (q8 ? align256(s * imax(E, hidden) * 4) : 0);  // quantised rows
   L.sa = L.aq + (q8 ? align256(s * wmax) : 0);               // their scales
@@ -599,19 +476,19 @@ struct Args {
 };
 
 // At most 128 registers a thread, so that two blocks share an SM.
-template <typename T, int MODE>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2) fused_layer(Args a) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool ATTN = MODE & MODE_ATTN, MLP = MODE & MODE_MLP, Q8 = MODE & MODE_Q8;
-  typedef typename std::conditional<Q8, int8_t, T>::type W;  // weight type
+  typedef typename std::conditional<Q8, int8_t, float>::type W;  // weight type
   const int E = a.E, HD = a.H * DH, HID = a.hidden;
-  const Layout L = layout(a.seg, E, HD, HID, (int)sizeof(T), Q8);
+  const Layout L = layout(a.seg, E, HD, HID, Q8);
   char* ws = a.ws + (size_t)blockIdx.x * L.total;
-  T* xn = reinterpret_cast<T*>(ws + L.xn);
-  T* qkv = reinterpret_cast<T*>(ws + L.qkv);
-  T* o = reinterpret_cast<T*>(ws + L.o);
+  float* xn = reinterpret_cast<float*>(ws + L.xn);
+  float* qkv = reinterpret_cast<float*>(ws + L.qkv);
+  float* o = reinterpret_cast<float*>(ws + L.o);
   float* z = reinterpret_cast<float*>(ws + L.z);
-  T* hid = reinterpret_cast<T*>(ws + L.hid);
+  float* hid = reinterpret_cast<float*>(ws + L.hid);
   float* f = reinterpret_cast<float*>(ws + L.f);
   int8_t* aq = reinterpret_cast<int8_t*>(ws + L.aq);
   float* sa = reinterpret_cast<float*>(ws + L.sa);
@@ -624,47 +501,44 @@ __global__ void __launch_bounds__(THREADS, 2) fused_layer(Args a) {
   for (long sg = blockIdx.x; sg < nseg; sg += gridDim.x) {
     const long base = sg * a.seg;
     const int rows = (int)(a.n_rows - base < a.seg ? a.n_rows - base : a.seg);
-    const T* x = static_cast<const T*>(a.x) + base * E;
-    T* y = static_cast<T*>(a.y) + base * E;
+    const float* x = static_cast<const float*>(a.x) + base * E;
+    float* y = static_cast<float*>(a.y) + base * E;
 
     if constexpr (ATTN) {
       if constexpr (Q8) {
         layer_norm_rows(x, rows, E, a.g1, a.be1, a.eps, f);
         quant_rows(f, rows, E, aq, sa);
         gemm(aq, E, rows, wqkv, 3 * HD, E, 3 * HD, smem, [&](int r, int c, int acc) {
-          qkv[(long)r * 3 * HD + c] = from_f<T>(dequant(acc, sa[r], a.sqkv[c], a.bqkv[c]));
+          qkv[(long)r * 3 * HD + c] = (dequant(acc, sa[r], a.sqkv[c], a.bqkv[c]));
         });
       } else {
         layer_norm_rows(x, rows, E, a.g1, a.be1, a.eps, xn);
         gemm(xn, E, rows, wqkv, 3 * HD, E, 3 * HD, smem, [&](int r, int c, float acc) {
-          qkv[(long)r * 3 * HD + c] = from_f<T>(acc + a.bqkv[c]);
+          qkv[(long)r * 3 * HD + c] = (acc + a.bqkv[c]);
         });
       }
-      if constexpr (std::is_same<T, bf16>::value)
-        attention_mma(qkv, HD, a.H, rows, a.t_real, o, reinterpret_cast<char*>(smem));
-      else
-        attention(qkv, HD, a.H, rows, a.t_real, o, smem);
+      attention(qkv, HD, a.H, rows, a.t_real, o, smem);
       if constexpr (Q8) {
         quant_rows(o, rows, HD, aq, sa);
         gemm(aq, HD, rows, wo, E, HD, E, smem, [&](int r, int c, int acc) {
           const long i = (long)r * E + c;
-          z[i] = to_f(x[i]) + dequant(acc, sa[r], a.so[c], a.bo[c]);
+          z[i] = x[i] + dequant(acc, sa[r], a.so[c], a.bo[c]);
         });
       } else {
         gemm(o, HD, rows, wo, E, HD, E, smem, [&](int r, int c, float acc) {
           const long i = (long)r * E + c;
-          const float v = to_f(x[i]) + a.bo[c] + acc;
+          const float v = x[i] + a.bo[c] + acc;
           if constexpr (MLP)
             z[i] = v;
           else
-            y[i] = from_f<T>(v);
+            y[i] = (v);
         });
       }
     }
 
     if constexpr (MLP) {
       // the residual: z (f32) after the attention sublayer, else x
-      auto res = [&](long i) { return ATTN ? z[i] : to_f(x[i]); };
+      auto res = [&](long i) { return ATTN ? z[i] : x[i]; };
       if constexpr (Q8) {
         layer_norm_rows(z, rows, E, a.g2, a.be2, a.eps, f);
         quant_rows(f, rows, E, aq, sa);
@@ -674,7 +548,7 @@ __global__ void __launch_bounds__(THREADS, 2) fused_layer(Args a) {
         quant_rows(f, rows, HID, aq, sa);
         gemm(aq, HID, rows, w2, E, HID, E, smem, [&](int r, int c, int acc) {
           const long i = (long)r * E + c;
-          y[i] = from_f<T>(res(i) + dequant(acc, sa[r], a.s2[c], a.b2[c]));
+          y[i] = (res(i) + dequant(acc, sa[r], a.s2[c], a.b2[c]));
         });
       } else {
         if constexpr (ATTN)
@@ -682,37 +556,36 @@ __global__ void __launch_bounds__(THREADS, 2) fused_layer(Args a) {
         else
           layer_norm_rows(x, rows, E, a.g2, a.be2, a.eps, xn);
         gemm(xn, E, rows, w1, HID, E, HID, smem, [&](int r, int c, float acc) {
-          hid[(long)r * HID + c] = from_f<T>(gelu_as(acc + a.b1[c]));
+          hid[(long)r * HID + c] = (gelu_as(acc + a.b1[c]));
         });
         gemm(hid, HID, rows, w2, E, HID, E, smem, [&](int r, int c, float acc) {
           const long i = (long)r * E + c;
-          y[i] = from_f<T>(res(i) + (acc + a.b2[c]));
+          y[i] = (res(i) + (acc + a.b2[c]));
         });
       }
     }
   }
 }
 
-template <typename T, int MODE>
+template <int MODE>
 int launch(const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
   const int HD = a.H * DH;
-  const Layout L = layout(a.seg, a.E, HD, a.hidden, (int)sizeof(T), MODE & MODE_Q8);
+  const Layout L = layout(a.seg, a.E, HD, a.hidden, MODE & MODE_Q8);
   if (L.total != ws_bytes) return (int)cudaErrorInvalidValue;
-  constexpr bool BF = std::is_same<T, bf16>::value;
   size_t smem = (MODE & MODE_Q8) ? MMA_SMEM : FMA_SMEM;
   if (MODE & MODE_ATTN) {
-    const size_t att = attention_smem_bytes(a.seg, BF);
+    const size_t att = attention_smem_bytes(a.seg);
     if (att > smem) smem = att;
   }
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(fused_layer<T, MODE>,
+  cudaError_t err = cudaFuncSetAttribute(fused_layer<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_layer<T, MODE>, THREADS,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_layer<MODE>, THREADS,
                                                            smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -720,33 +593,32 @@ int launch(const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
   long grid = (long)per_sm * sms;
   if (grid > slots) grid = slots;
   if (grid > nseg) grid = nseg;
-  fused_layer<T, MODE><<<(unsigned)grid, THREADS, smem, stream>>>(a);
+  fused_layer<MODE><<<(unsigned)grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// f32: every mode; bf16: the int8 layer only (vit_layer_sm90.cu has the rest)
-int launch_f32(int mode, const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
+int launch_mode(int mode, const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
   switch (mode) {
-    case MODE_ATTN: return launch<float, MODE_ATTN>(a, slots, ws_bytes, stream);
-    case MODE_MLP: return launch<float, MODE_MLP>(a, slots, ws_bytes, stream);
+    case MODE_ATTN: return launch<MODE_ATTN>(a, slots, ws_bytes, stream);
+    case MODE_MLP: return launch<MODE_MLP>(a, slots, ws_bytes, stream);
     case MODE_ATTN | MODE_MLP:
-      return launch<float, MODE_ATTN | MODE_MLP>(a, slots, ws_bytes, stream);
+      return launch<MODE_ATTN | MODE_MLP>(a, slots, ws_bytes, stream);
     case MODE_ATTN | MODE_MLP | MODE_Q8:
-      return launch<float, MODE_ATTN | MODE_MLP | MODE_Q8>(a, slots, ws_bytes, stream);
+      return launch<MODE_ATTN | MODE_MLP | MODE_Q8>(a, slots, ws_bytes, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// One launch of the fused layer in `mode` (1 ATTN, 2 MLP, 3 ATTN|MLP, 7 with
-// int8) on `n_rows` rows of x, in segments of `seg` rows (an image of t_pad
-// rows for the attention modes), dtype 0 f32 or 1 bf16 (mode 7 only).
-// Weights: wqkv (E, 3 HD) = [Wq / sqrt(Dh) | Wk | Wv], wo (HD, E), w1 (E,
-// hidden), w2 (hidden, E) in x's type, or int8 with per-column scales s* in
-// mode 7; biases and LN parameters f32.  ws holds `slots` slots of `ws_bytes` each.  Returns a
-// cudaError_t as int: 0 when the launch was accepted.
-extern "C" int launch_fused_layer(int mode, int dtype, const void* x, void* y, void* ws,
+// One launch of the f32 fused layer in `mode` (1 ATTN, 2 MLP, 3 ATTN|MLP, 7
+// with int8) on `n_rows` rows of x, in segments of `seg` rows (an image of
+// t_pad rows for the attention modes).  Weights: wqkv (E, 3 HD) = [Wq /
+// sqrt(Dh) | Wk | Wv], wo (HD, E), w1 (E, hidden), w2 (hidden, E) in f32, or
+// int8 with per-column scales s* in mode 7; biases and LN parameters f32.
+// ws holds `slots` slots of `ws_bytes` each.  Returns a cudaError_t as int: 0
+// when the launch was accepted.
+extern "C" int launch_fused_layer(int mode, const void* x, void* y, void* ws,
                                   int slots, long long ws_bytes, const float* g1,
                                   const float* be1, const void* wqkv, const float* sqkv,
                                   const float* bqkv, const void* wo, const float* so,
@@ -760,8 +632,5 @@ extern "C" int launch_fused_layer(int mode, int dtype, const void* x, void* y, v
     return (int)cudaErrorInvalidValue;
   Args a{x, y, static_cast<char*>(ws), g1, be1, wqkv, sqkv, bqkv, wo, so, bo, g2, be2,
          w1, s1, b1, w2, s2, b2, (long)n_rows, seg, t_real, E, H, hidden, eps};
-  if (dtype == 0) return launch_f32(mode, a, slots, (size_t)ws_bytes, stream);
-  if (dtype == 1 && mode == (MODE_ATTN | MODE_MLP | MODE_Q8))
-    return launch<bf16, MODE_ATTN | MODE_MLP | MODE_Q8>(a, slots, (size_t)ws_bytes, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_mode(mode, a, slots, (size_t)ws_bytes, stream);
 }

@@ -1,11 +1,15 @@
-// fused_mlp inference: y = GELU(x W1 + b1) W2 + b2 in f32, with the hidden
-// activation kept on chip, on Hopper's tensor cores in 3xTF32
-// (csrc/tf32x3.cuh).
+// The fused MLPs in f32, with the hidden activation kept on chip, on
+// Hopper's tensor cores in 3xTF32 (csrc/tf32x3.cuh), one templated body:
 //
-// Replaces the Pallas TPU kernel `_mlp_kernel`
-// (transformer_stm_tpu/kernels/fused_mlp.py:52, launched by `fused_mlp` :62).
-// GELU is the exact erf form through `erff`; the TPU kernel's rational erf
-// (fused_mlp.py:33) only stood in for an erf that Mosaic lacked.
+//   inference      y = GELU(x W1 + b1) W2 + b2                  fused_mlp
+//   training fwd   y = ((GELU(x W1 + b1) m1) W2 + b2) m2         fused_mlp_train
+//
+// Replaces the Pallas TPU kernels `_mlp_kernel`
+// (transformer_stm_tpu/kernels/fused_mlp.py:52, launched by `fused_mlp` :62)
+// and `_mlp_train_fwd_kernel` (:170, the forward of `make_fused_mlp_train`
+// :291; its backward is csrc/fused_mlp_train.cu).  GELU is the exact erf
+// form through `erff`; the TPU kernel's rational erf (fused_mlp.py:33) only
+// stood in for an erf that Mosaic lacked.
 //
 // Bound: operations.  4 N D Hd flops; at ViT-S width (N 37,824, D 384, Hd
 // 1536) that is 89.2 GFLOP: 1.332 ms at the 67 TFLOP/s of f32 FMA, 0.540 ms
@@ -45,19 +49,36 @@
 //   max |y|).  Every wgmma is as wide in N as its tile: narrower ones,
 //   tried on the H100, cost nearly as much each.
 //
+// Dropout (the training forward, DROP): m1 and m2 are the Philox masks of
+// csrc/philox.cuh, equal to `dropout_mask` bit for bit.  m1 multiplies the
+// GELU output in registers, before the split that feeds fc2; a thread holds
+// units 8 j + 2 t and 8 j + 2 t + 1 of rows ra and ra + 8, which share one
+// Philox group per row with the neighbour thread t ^ 1, so each thread draws
+// one group (row ra for even t, ra + 8 for odd t) and the pair trades the
+// two words the other needs (`keep_quad`): one Philox call per four
+// elements.  A chunk's words are drawn a share per fc1 stage, between the
+// issue of its products and the wait for them, so that they run while the
+// tensor cores work.  m2 multiplies (y + b2) in the epilogue, after the
+// split-K partial sums meet, as the plain version orders it.  thr == 0
+// (rate 0) skips both masks.  Training changes the weights every step, so
+// the training launch splits them into its own scratch at every call (a
+// small packing launch) instead of keeping a pack per pair of weights.
+//
 // Every TMA box past N rows or Hd units is zero-filled; b1 past Hd reads as
 // 0, so a ragged last chunk adds GELU(0) = 0.  Rows past N are not stored.
 //
 // Layout: x (N, D), b1 (Hd), b2 (D), y (N, D), f32 contiguous; w1 the packed
 // W1^T, (2, Hd, D): big then small; w2 the packed W2^T, (2, D, Hd), its
 // columns in kpos order at D 64 and 128.  D is 64, 128, 192, 256, 384 or
-// 768; Hd a multiple of 64; x, w1 and w2 16-byte aligned.
+// 768 (the training forward: 64, 128 or 256); Hd a multiple of 64; x, w1
+// and w2 16-byte aligned; seed int32[2] on the device.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -88,6 +109,9 @@ struct Params {
   const float* b1;
   const float* b2;
   float* y;
+  const int* seed;  // the training forward's masks (DROP)
+  uint32_t thr;
+  float scale;
   int N, D, Hd;
 };
 
@@ -108,6 +132,25 @@ struct Plan {
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// Keep bits of the thread's accumulator elements 4 j + 0..3 (rows ra and ra
+// + 8, columns 8 j + 2 t and 8 j + 2 t + 1) of a mask of `width` columns:
+// e_top is the element index of (row ra, column 8 j + 2 t).  Threads t and
+// t ^ 1 hold the two halves of the same two groups of four; each draws one
+// (even t the group of row ra, odd t that of row ra + 8) and they trade the
+// two words the other needs.  Every lane of the warp must call it.
+__device__ __forceinline__ uint32_t keep_quad(long e_top, int width, int t, uint32_t stream,
+                                              uint32_t k0, uint32_t k1, uint32_t thr) {
+  const bool odd = t & 1;
+  const uint4 w =
+      philox::mask_words(e_top - 2 * odd + (odd ? 8L * width : 0L), stream, k0, k1);
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+  const uint32_t a0 = odd ? r0 : w.x, a1 = odd ? r1 : w.y;  // row ra
+  const uint32_t c0 = odd ? w.z : r0, c1 = odd ? w.w : r1;  // row ra + 8
+  return (uint32_t)(a0 >= thr) | (uint32_t)(a1 >= thr) << 1 | (uint32_t)(c0 >= thr) << 2 |
+         (uint32_t)(c1 >= thr) << 3;
 }
 
 struct Ring {
@@ -165,7 +208,7 @@ __device__ __forceinline__ bool issue(const Params& p, Ring& r, int u, int row0,
 // stage it needs next is not issued yet.  Products go into a fresh
 // accumulator for each stage, added into the running one with f32 adds
 // (csrc/tf32x3.cuh: the tensor cores truncate as they accumulate).
-template <int NW, bool SK>
+template <int NW, bool SK, bool DROP>
 __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf, int row0,
                                          int col0) {
   const int w = warpgroup();
@@ -175,6 +218,11 @@ __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf,
   uint8_t* hbig = hbuf;
   uint8_t* hsmall = hbuf + H_BYTES;
   const int total = (p.Hd + HC - 1) / HC * (p.D / KS + Plan<NW, SK>::FC2);
+  // dropout: the masks are drawn only at a rate above 0
+  const bool masks = DROP && p.thr != 0;
+  const uint32_t k0 = DROP ? (uint32_t)p.seed[0] : 0u, k1 = DROP ? (uint32_t)p.seed[1] : 0u;
+  const float keep_scale = DROP ? p.scale : 1.f;
+  const int nslab = p.D / KS, per = (HW / 8 + nslab - 1) / nslab;  // m1 groups an fc1 stage
   Ring loads = r;  // thread 0's view of the ring as the one who fills it
   int issued = 0, u = 0;
   auto fill = [&]() {
@@ -197,7 +245,9 @@ __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf,
     // fc1: this warpgroup's 64 hidden units of the chunk
     float acc[HW / 2], part1[HW / 2];
     zero(acc);
-    for (int k0 = 0; k0 < p.D; k0 += KS) {
+    uint32_t keep = 0;  // m1's keep bits of the chunk: element i of acc at bit i
+    const long m1_top = (row0 + ra) * (long)p.Hd + h0 + w * HW + 2 * t;
+    for (int ks = 0; ks < nslab; ++ks) {
       fill();
       mbar_wait(&r.full[r.stage], r.phase);
       const uint8_t* s = r.at();
@@ -220,6 +270,12 @@ __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf,
                         desc_sw128(s + X_BYTES + W1_BYTES + w * HW * 128), HC);
       wg_commit();
       fill();
+      if (masks) {
+        // this stage's share of m1's words, while the products run
+        for (int j = ks * per; j < min(HW / 8, (ks + 1) * per); ++j)
+          keep |= keep_quad(m1_top + 8 * j, p.Hd, t, philox::STREAM_HIDDEN, k0, k1, p.thr)
+                  << (4 * j);
+      }
       wg_wait<0>();
       fence_acc(part1);
       release();
@@ -227,7 +283,7 @@ __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf,
       for (int i = 0; i < HW / 2; ++i) acc[i] += part1[i];
     }
 
-    // GELU(acc + b1): in place (split K), or split into this warpgroup's
+    // GELU(acc + b1) m1: in place (split K), or split into this warpgroup's
     // half of the shared chunk
     if (!SK) bar_sync(BAR_H_FREE, THREADS);  // both warpgroups are done with the last chunk
 #pragma unroll
@@ -237,7 +293,8 @@ __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf,
         const int row = ra + 8 * (e >> 1);
         const int col = w * HW + 8 * j + 2 * t + (e & 1);
         const int unit = h0 + col;
-        const float v = gelu_erf(acc[4 * j + e] + (unit < p.Hd ? p.b1[unit] : 0.f));
+        float v = gelu_erf(acc[4 * j + e] + (unit < p.Hd ? p.b1[unit] : 0.f));
+        if (masks) v *= (keep >> (4 * j + e)) & 1 ? keep_scale : 0.f;
         if (SK) {
           acc[4 * j + e] = v;
         } else {
@@ -294,7 +351,8 @@ __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf,
 
   if (SK) {
     // the two partial sums meet in shared memory (the chunk's buffer, unused
-    // with split K): row-major 64 x D floats each, then y = sum + b2
+    // with split K): row-major 64 x D floats each, then y = (sum + b2) m2,
+    // four columns (one m2 group) a thread at a time
     float* sum = reinterpret_cast<float*>(hbuf);
 #pragma unroll
     for (int j = 0; j < NW / 8; ++j)
@@ -302,30 +360,49 @@ __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf,
       for (int e = 0; e < 4; ++e)
         sum[w * ROWS * NW + (ra + 8 * (e >> 1)) * NW + 8 * j + 2 * t + (e & 1)] = y[4 * j + e];
     __syncthreads();
-    for (int i = threadIdx.x; i < ROWS * NW; i += THREADS) {
+    for (int i = 4 * threadIdx.x; i < ROWS * NW; i += 4 * THREADS) {
       const long row = (long)row0 + i / NW;
-      if (row < p.N) p.y[row * p.D + i % NW] = sum[i] + sum[ROWS * NW + i] + p.b2[i % NW];
+      const int col = i % NW;
+      if (row >= p.N) continue;
+      const float4 a = *reinterpret_cast<const float4*>(sum + i);
+      const float4 b = *reinterpret_cast<const float4*>(sum + ROWS * NW + i);
+      const float* bias = p.b2 + col;
+      float v[4] = {a.x + b.x + bias[0], a.y + b.y + bias[1], a.z + b.z + bias[2],
+                    a.w + b.w + bias[3]};
+      if (masks) {
+        const uint4 m = philox::mask_words(row * p.D + col, philox::STREAM_OUT, k0, k1);
+        const uint32_t words[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] *= words[e] >= p.thr ? keep_scale : 0.f;
+      }
+      *reinterpret_cast<float4*>(p.y + row * p.D + col) = make_float4(v[0], v[1], v[2], v[3]);
     }
     return;
   }
 
-  // y + b2, rows past N not stored
+  // y = (y + b2) m2, rows past N not stored
 #pragma unroll
   for (int j = 0; j < NW / 8; ++j) {
     const int col = col0 + w * NW + 8 * j + 2 * t;
     const float2 bias = *reinterpret_cast<const float2*>(p.b2 + col);
+    const uint32_t keep2 =
+        masks ? keep_quad((row0 + ra) * (long)p.D + col, p.D, t, philox::STREAM_OUT, k0, k1, p.thr)
+              : 0u;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const long row = (long)row0 + ra + 8 * half;
-      if (row < p.N)
-        *reinterpret_cast<float2*>(p.y + row * p.D + col) =
-            make_float2(y[4 * j + 2 * half] + bias.x, y[4 * j + 2 * half + 1] + bias.y);
+      float2 v = make_float2(y[4 * j + 2 * half] + bias.x, y[4 * j + 2 * half + 1] + bias.y);
+      if (masks) {
+        v.x *= (keep2 >> (2 * half)) & 1 ? keep_scale : 0.f;
+        v.y *= (keep2 >> (2 * half + 1)) & 1 ? keep_scale : 0.f;
+      }
+      if (row < p.N) *reinterpret_cast<float2*>(p.y + row * p.D + col) = v;
     }
   }
 }
 
 // blockIdx.x: the 64-row tile; blockIdx.y: the column half at D 768
-template <int NW, bool SK>
+template <int NW, bool SK, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1) fused_mlp_tf32x3(const __grid_constant__ Params p) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
@@ -342,20 +419,48 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mlp_tf32x3(const __grid_cons
     mbar_init_fence();
   }
   __syncthreads();
-  mlp_tile<NW, SK>(p, r, r.stages + NSTAGE * STAGE_BYTES, blockIdx.x * ROWS,
-                   blockIdx.y * (SK ? NW : 2 * NW));
+  mlp_tile<NW, SK, DROP>(p, r, r.stages + NSTAGE * STAGE_BYTES, blockIdx.x * ROWS,
+                         blockIdx.y * (SK ? NW : 2 * NW));
+}
+
+// The training launch's weights, split at every call: W1^T (2, Hd, D) into
+// pk1 and W2^T (2, D, Hd) into pk2, each big then small, W2^T's columns in
+// kpos order at the split-K widths (as `pack_mlp_weights` packs them)
+__global__ void mlp_train_pack(const float* __restrict__ w1, const float* __restrict__ w2,
+                               float* __restrict__ pk1, float* __restrict__ pk2, int D, int Hd) {
+  const long n = (long)D * Hd;
+  const bool kp = D <= SPLIT_K_MAX_D;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    const int d = (int)(i / Hd), u = (int)(i % Hd);  // w1[d][u]
+    float b, s;
+    split(w1[i], b, s);
+    pk1[(long)u * D + d] = b;
+    pk1[n + (long)u * D + d] = s;
+    const long j = (long)d * Hd + (kp ? kpos(u) : u);  // W2^T[d][u] = w2[u][d]
+    split(w2[(long)u * D + d], b, s);
+    pk2[j] = b;
+    pk2[n + j] = s;
+  }
 }
 
 // the output columns a warpgroup accumulates at width D (Plan)
 int columns(int D) { return D <= SPLIT_K_MAX_D ? D : D == 768 ? 192 : D / 2; }
 
+// the kernel of width D: the inference kernel at every width, the training
+// forward (DROP) at the CvT widths 64, 128 and 256 only
+template <bool DROP>
 const void* kernel_of(int D) {
+  if constexpr (DROP)
+    return D == 64    ? (const void*)fused_mlp_tf32x3<64, true, true>
+           : D == 128 ? (const void*)fused_mlp_tf32x3<128, true, true>
+                      : (const void*)fused_mlp_tf32x3<128, false, true>;
   switch (D) {
-    case 64: return (const void*)fused_mlp_tf32x3<64, true>;
-    case 128: return (const void*)fused_mlp_tf32x3<128, true>;
-    case 192: return (const void*)fused_mlp_tf32x3<96, false>;
-    case 256: return (const void*)fused_mlp_tf32x3<128, false>;
-    default: return (const void*)fused_mlp_tf32x3<192, false>;
+    case 64: return (const void*)fused_mlp_tf32x3<64, true, false>;
+    case 128: return (const void*)fused_mlp_tf32x3<128, true, false>;
+    case 192: return (const void*)fused_mlp_tf32x3<96, false, false>;
+    case 256: return (const void*)fused_mlp_tf32x3<128, false, false>;
+    default: return (const void*)fused_mlp_tf32x3<192, false, false>;
   }
 }
 
@@ -363,13 +468,9 @@ bool width_ok(int D) {
   return D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 768;
 }
 
-}  // namespace
+bool train_width_ok(int D) { return D == 64 || D == 128 || D == 256; }
 
-// The kernel of width D: its registers a thread, its dynamic shared memory
-// and the blocks an SM holds.  Returns a cudaError_t as int.
-extern "C" int fused_mlp_info(int D, int* regs, int* smem, int* blocks) {
-  if (!width_ok(D)) return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_of(D);
+int info(const void* fn, int* regs, int* smem, int* blocks) {
   *smem = SMEM;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
@@ -381,19 +482,12 @@ extern "C" int fused_mlp_info(int D, int* regs, int* smem, int* blocks) {
   return (int)err;
 }
 
-// Returns a cudaError_t as int (or 1000 + a CUresult from encoding a tensor
-// map): 0 when the launch was accepted.
-extern "C" int launch_fused_mlp(const float* x, const float* w1, const float* b1,
-                                const float* w2, const float* b2, float* y, int N, int D, int Hd,
-                                int Dout, cudaStream_t stream) {
-  if (N <= 0 || Dout != D || !width_ok(D) || Hd <= 0 || Hd % 64 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w1) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w2) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int DN = columns(D);
-  Params P;
-  memset(&P, 0, sizeof(P));
-  P.b1 = b1, P.b2 = b2, P.y = y, P.N = N, P.D = D, P.Hd = Hd;
+// Encodes the tensor maps of x and the packed weights into P and launches
+// the kernel of width D.  Returns a cudaError_t as int (or 1000 + a CUresult
+// from encoding a tensor map): 0 when the launch was accepted.
+template <bool DROP>
+int launch(Params& P, const float* x, const float* w1, const float* w2, cudaStream_t stream) {
+  const int N = P.N, D = P.D, Hd = P.Hd, DN = columns(D);
   const cuuint64_t xd[3] = {(cuuint64_t)D, (cuuint64_t)N, 1};
   const cuuint64_t xs[2] = {(cuuint64_t)D * 4, (cuuint64_t)N * D * 4};
   const cuuint32_t xb[3] = {KS, ROWS, 1};
@@ -407,16 +501,66 @@ extern "C" int launch_fused_mlp(const float* x, const float* w1, const float* b1
   if (rc == 0) rc = encode_f32(&P.m_w1, w1, 3, w1d, w1s, w1b);
   if (rc == 0) rc = encode_f32(&P.m_w2, w2, 3, w2d, w2s, w2b);
   if (rc != 0) return rc;
-  const void* fn = kernel_of(D);
+  const void* fn = kernel_of<DROP>(D);
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((N + ROWS - 1) / ROWS), D == 768 ? 2 : 1);
-  switch (D) {
-    case 64: fused_mlp_tf32x3<64, true><<<grid, THREADS, SMEM, stream>>>(P); break;
-    case 128: fused_mlp_tf32x3<128, true><<<grid, THREADS, SMEM, stream>>>(P); break;
-    case 192: fused_mlp_tf32x3<96, false><<<grid, THREADS, SMEM, stream>>>(P); break;
-    case 256: fused_mlp_tf32x3<128, false><<<grid, THREADS, SMEM, stream>>>(P); break;
-    default: fused_mlp_tf32x3<192, false><<<grid, THREADS, SMEM, stream>>>(P); break;
-  }
-  return (int)cudaGetLastError();
+  void* args[] = {&P};
+  err = cudaLaunchKernel(fn, grid, dim3(THREADS), args, SMEM, stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace
+
+// The inference kernel of width D: its registers a thread, its dynamic
+// shared memory and the blocks an SM holds.  Returns a cudaError_t as int.
+extern "C" int fused_mlp_info(int D, int* regs, int* smem, int* blocks) {
+  if (!width_ok(D)) return (int)cudaErrorInvalidValue;
+  return info(kernel_of<false>(D), regs, smem, blocks);
+}
+
+// The same for the training forward's kernel of width D.
+extern "C" int fused_mlp_train_fwd_info(int D, int* regs, int* smem, int* blocks) {
+  if (!train_width_ok(D)) return (int)cudaErrorInvalidValue;
+  return info(kernel_of<true>(D), regs, smem, blocks);
+}
+
+// The inference MLP on the packed weights of `pack_mlp_weights`.  Returns a
+// cudaError_t as int (or 1000 + a CUresult from encoding a tensor map): 0
+// when the launch was accepted.
+extern "C" int launch_fused_mlp(const float* x, const float* w1, const float* b1,
+                                const float* w2, const float* b2, float* y, int N, int D, int Hd,
+                                int Dout, cudaStream_t stream) {
+  if (N <= 0 || Dout != D || !width_ok(D) || Hd <= 0 || Hd % 64 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w1) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w2) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  Params P;
+  memset(&P, 0, sizeof(P));
+  P.b1 = b1, P.b2 = b2, P.y = y, P.N = N, P.D = D, P.Hd = Hd;
+  return launch<false>(P, x, w1, w2, stream);
+}
+
+// The training forward y = ((GELU(x W1 + b1) m1) W2 + b2) m2 on w1 (D, Hd)
+// and w2 (Hd, D) as stored: a packing launch splits them into `pack` (4 D Hd
+// floats, 16-byte aligned), then the kernel runs with the masks of `seed`
+// at keep threshold thr and keep scale `scale`.  Returns a cudaError_t as
+// int (or 1000 + a CUresult): 0 when both launches were accepted.
+extern "C" int launch_fused_mlp_train_fwd(const float* x, const float* w1, const float* b1,
+                                          const float* w2, const float* b2, const int* seed,
+                                          float* y, float* pack, int N, int D, int Hd, int Dout,
+                                          unsigned thr, float scale, cudaStream_t stream) {
+  if (N <= 0 || Dout != D || !train_width_ok(D) || Hd <= 0 || Hd % 64 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(pack) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long n = (long)D * Hd;
+  const int pack_blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  mlp_train_pack<<<pack_blocks, 256, 0, stream>>>(w1, w2, pack, pack + 2 * n, D, Hd);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  Params P;
+  memset(&P, 0, sizeof(P));
+  P.b1 = b1, P.b2 = b2, P.y = y, P.seed = seed, P.thr = thr, P.scale = scale;
+  P.N = N, P.D = D, P.Hd = Hd;
+  return launch<true>(P, x, pack, pack + 2 * n, stream);
 }

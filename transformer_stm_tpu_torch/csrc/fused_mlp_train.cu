@@ -1,35 +1,24 @@
-// fused_mlp_train: the training MLP y = Drop2(Drop1(GELU(x W1 + b1)) W2 + b2)
-// in f32, forward and backward, with both dropout masks drawn inside the
-// kernels and the (N, Hd) hidden activation never in device memory.
+// fused_mlp_train's backward: the gradients of the training MLP
+// y = Drop2(Drop1(GELU(x W1 + b1)) W2 + b2) in f32, with both dropout masks
+// drawn inside the kernels (csrc/philox.cuh) and the (N, Hd) hidden
+// activation never in device memory.  The forward is csrc/fused_mlp.cu's
+// body with its dropout flag.
 //
-// Replaces the Pallas TPU kernels of `make_fused_mlp_train`
-// (transformer_stm_tpu/kernels/fused_mlp.py:291): the forward
-// `_mlp_train_fwd_kernel` (:170) and the backward `_mlp_train_bwd_kernel`
-// (:189).  GELU is the exact erf form through `erff`.
+// Replaces the Pallas TPU kernel `_mlp_train_bwd_kernel`
+// (transformer_stm_tpu/kernels/fused_mlp.py:189) of `make_fused_mlp_train`
+// (:291).  GELU is the exact erf form through `erff`.  The TPU kernels drew
+// their mask bits from the core PRNG seeded per token block; here a mask
+// element is a pure function of the seed and the element's index, so the
+// forward and the backward rebuild the same masks whatever their tiles.  thr
+// == 0 (rate 0) skips the masks.  The slot index of the multi-target trainer
+// is deliberately not in the key: two slots with the same seed train alike,
+// as in JAX.
 //
-// Dropout masks.  The TPU kernels drew their bits from the core PRNG seeded
-// per token block.  Here a mask element is a pure function of the call's two
-// seed words and the element's global index e = row * width + col, so forward
-// and backward rebuild the same masks whatever the block size: Philox-4x32-10
-// keyed on (seed[0], seed[1]) with the counter (lo32(e >> 2), stream,
-// hi32(e >> 2), 0) gives four words, and word e & 3 belongs to element e.
-// Stream 1 is the hidden mask m1 (width Hd), stream 2 the output mask m2
-// (width D).  A unit is kept iff its word >= thr (unsigned compare,
-// thr = min(floor(rate 2^32), 2^32 - 1)) and kept units scale by `scale`
-// = 1 / (1 - rate).  thr == 0 (rate 0) skips the masks.  The plain version
-// in kernels/fused_mlp.py computes the same function with int64 torch ops.
-// The slot index of the multi-target trainer is deliberately not in the key:
-// two slots with the same seed train alike, as in JAX.
-//
-// Bound: operations.  The forward does 4 N D Hd flops, the backward 10 N D
-// Hd (a recomputed, dh = g W2^T, dx = da W1^T, dW1 = x^T da, dW2 = h^T g),
-// against a few bytes per row.  At each CvT stage (N D Hd = 2^31, 2.18e9 at
-// stage 3) the backward's least time is 0.32 ms in f32 FMA (67 TFLOP/s) and
-// 0.13 ms as three TF32 products on the tensor cores (495 TFLOP/s).
-//
-// Forward: f32 FMA: 32-row blocks walk the hidden width in 64-unit chunks,
-// x and the hidden chunk kept transposed in shared memory, with the two
-// masks applied from keep bits that the block draws into shared memory.
+// Bound: operations.  The backward does 10 N D Hd flops (a recomputed, dh =
+// g W2^T, dx = da W1^T, dW1 = x^T da, dW2 = h^T g) against a few bytes per
+// row.  At each CvT stage (N D Hd = 2^31, 2.18e9 at stage 3) its least time
+// is 0.32 ms in f32 FMA (67 TFLOP/s) and 0.13 ms as three TF32 products on
+// the tensor cores (495 TFLOP/s).
 //
 // Backward: every product on the tensor cores in 3xTF32 (csrc/tf32x3.cuh),
 // as two kernels of one templated body and a small packing launch, with no
@@ -79,167 +68,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
 #include "tf32x3.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;  // 8 warps
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-// Keep bits of the (rows x cols) tile at (row0, col0) of a mask of `width`
-// columns, one byte per element, row-major into dst; cols % 4 == 0 and
-// col0 % 4 == 0.  All threads of the block take part.
-__device__ __forceinline__ void keep_bits(uint8_t* dst, int rows, int cols, long row0,
-                                          int col0, int width, uint32_t stream,
-                                          uint32_t k0, uint32_t k1, uint32_t thr) {
-  const int groups = rows * cols / 4;
-  for (int idx = threadIdx.x; idx < groups; idx += THREADS) {
-    const int r = idx / (cols / 4);
-    const int c = 4 * (idx % (cols / 4));
-    const uint64_t g = (uint64_t)((row0 + r) * width + col0 + c) >> 2;
-    const uint4 w = philox4x32_10(
-        make_uint4((uint32_t)g, stream, (uint32_t)(g >> 32), 0u), k0, k1);
-    uchar4 keep = make_uchar4(w.x >= thr, w.y >= thr, w.z >= thr, w.w >= thr);
-    *reinterpret_cast<uchar4*>(dst + r * cols + c) = keep;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Forward
-// ---------------------------------------------------------------------------
-
-constexpr int FBM = 32;         // rows per block
-constexpr int FBH = 64;         // hidden units per chunk
-constexpr int FPAD = FBM + 4;   // row length of the transposed tiles
-
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (size_t)(D * FPAD + D * FBH + FBH * D + FBH * FPAD) +
-         (size_t)(FBM * FBH + FBM * D);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-mlp_train_fwd(const float* __restrict__ x, const float* __restrict__ w1,
-              const float* __restrict__ b1, const float* __restrict__ w2,
-              const float* __restrict__ b2, const int* __restrict__ seed,
-              float* __restrict__ y, int N, int Hd, uint32_t thr, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* xt = smem;               // [D][FPAD]    x tile, transposed
-  float* w1s = xt + D * FPAD;     // [D][FBH]     W1[:, chunk]
-  float* w2s = w1s + D * FBH;     // [FBH][D]     W2[chunk, :]
-  float* ht = w2s + FBH * D;      // [FBH][FPAD]  hidden chunk, transposed
-  uint8_t* m1 = reinterpret_cast<uint8_t*>(ht + FBH * FPAD);  // [FBM][FBH]
-  uint8_t* m2 = m1 + FBM * FBH;                                // [FBM][D]
-
-  constexpr int NC = D / 32;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int r0 = (tid / 32) * 4;
-  const long row0 = (long)blockIdx.x * FBM;
-  const uint32_t k0 = (uint32_t)seed[0], k1 = (uint32_t)seed[1];
-
-  for (int idx = tid; idx < FBM * D; idx += THREADS) {
-    const int r = idx / D;
-    const int c = idx % D;
-    xt[c * FPAD + r] = row0 + r < N ? x[(row0 + r) * D + c] : 0.f;
-  }
-  if (thr) keep_bits(m2, FBM, D, row0, 0, D, 2u, k0, k1, thr);
-
-  float acc[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
-
-  for (int h0 = 0; h0 < Hd; h0 += FBH) {
-    __syncthreads();  // x tile written; the previous chunk fully consumed
-    for (int idx = tid; idx < D * FBH / 4; idx += THREADS) {
-      const int r = idx / (FBH / 4);
-      const int c4 = idx % (FBH / 4);
-      reinterpret_cast<float4*>(w1s)[idx] =
-          *reinterpret_cast<const float4*>(w1 + (long)r * Hd + h0 + 4 * c4);
-    }
-    const float4* w2src = reinterpret_cast<const float4*>(w2 + (long)h0 * D);
-    for (int idx = tid; idx < FBH * D / 4; idx += THREADS) {
-      reinterpret_cast<float4*>(w2s)[idx] = w2src[idx];
-    }
-    if (thr) keep_bits(m1, FBM, FBH, row0, h0, Hd, 1u, k0, k1, thr);
-    __syncthreads();
-
-    // Hidden units lane and lane + 32 of the chunk, rows r0..r0+3.
-    float ha[4][2];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) ha[r][0] = ha[r][1] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < D; ++kk) {
-      const float4 xv = *reinterpret_cast<const float4*>(xt + kk * FPAD + r0);
-      const float wa = w1s[kk * FBH + lane];
-      const float wb = w1s[kk * FBH + lane + 32];
-      ha[0][0] = fmaf(xv.x, wa, ha[0][0]); ha[0][1] = fmaf(xv.x, wb, ha[0][1]);
-      ha[1][0] = fmaf(xv.y, wa, ha[1][0]); ha[1][1] = fmaf(xv.y, wb, ha[1][1]);
-      ha[2][0] = fmaf(xv.z, wa, ha[2][0]); ha[2][1] = fmaf(xv.z, wb, ha[2][1]);
-      ha[3][0] = fmaf(xv.w, wa, ha[3][0]); ha[3][1] = fmaf(xv.w, wb, ha[3][1]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = lane + 32 * j;
-      const float bias = b1[h0 + col];
-      float m[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        m[r] = thr ? (m1[(r0 + r) * FBH + col] ? scale : 0.f) : 1.f;
-      *reinterpret_cast<float4*>(ht + col * FPAD + r0) = make_float4(
-          gelu_erf(ha[0][j] + bias) * m[0], gelu_erf(ha[1][j] + bias) * m[1],
-          gelu_erf(ha[2][j] + bias) * m[2], gelu_erf(ha[3][j] + bias) * m[3]);
-    }
-    __syncthreads();
-
-    // acc[r][i] += sum_j ht[j][r0 + r] * W2[h0 + j][lane + 32 i].
-#pragma unroll 4
-    for (int j = 0; j < FBH; ++j) {
-      const float4 hv = *reinterpret_cast<const float4*>(ht + j * FPAD + r0);
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const float w = w2s[j * D + lane + 32 * i];
-        acc[0][i] = fmaf(hv.x, w, acc[0][i]);
-        acc[1][i] = fmaf(hv.y, w, acc[1][i]);
-        acc[2][i] = fmaf(hv.z, w, acc[2][i]);
-        acc[3][i] = fmaf(hv.w, w, acc[3][i]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const long row = row0 + r0 + r;
-    if (row < N) {
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const int c = lane + 32 * i;
-        const float m = thr ? (m2[(r0 + r) * D + c] ? scale : 0.f) : 1.f;
-        y[row * D + c] = (acc[r][i] + b2[c]) * m;
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Backward, on the tensor cores in 3xTF32 (csrc/tf32x3.cuh)
@@ -248,6 +80,7 @@ mlp_train_fwd(const float* __restrict__ x, const float* __restrict__ w1,
 namespace bwd {
 
 using namespace tf32x3;
+using philox::mask_words;
 
 constexpr int ROWS = 64;                  // a row tile: one wgmma M
 constexpr int HT = 64;                    // hidden units of a tile
@@ -378,12 +211,6 @@ __device__ __forceinline__ void gelu_both(float v, float& h, float& d) {
 
 __device__ __forceinline__ uint32_t word(const uint4& w, int i) {
   return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
-}
-
-// the four words of the group of element e of a mask (stream 1: m1, 2: m2)
-__device__ __forceinline__ uint4 mask_words(long e, uint32_t stream, uint32_t k0, uint32_t k1) {
-  const uint64_t g = (uint64_t)e >> 2;
-  return philox4x32_10(make_uint4((uint32_t)g, stream, (uint32_t)(g >> 32), 0u), k0, k1);
 }
 
 __device__ __forceinline__ float ld(const uint8_t* tile, int r, int c) {
@@ -1481,37 +1308,7 @@ int launch_bwd(Params& P, const float* x, const float* dy, const float* pk, cuda
 
 }  // namespace bwd
 
-template <int D>
-int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2,
-               const float* b2, const int* seed, float* y, int N, int Hd,
-               uint32_t thr, float scale, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<D>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      mlp_train_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((N + FBM - 1) / FBM);
-  mlp_train_fwd<D><<<grid, THREADS, smem, stream>>>(x, w1, b1, w2, b2, seed, y, N,
-                                                     Hd, thr, scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
-
-// Both return a cudaError_t as int: 0 when the launch was accepted.
-extern "C" int launch_fused_mlp_train_fwd(const float* x, const float* w1,
-                                          const float* b1, const float* w2,
-                                          const float* b2, const int* seed, float* y,
-                                          int N, int D, int Hd, int Dout,
-                                          unsigned thr, float scale,
-                                          cudaStream_t stream) {
-  if (N <= 0 || Dout != D || Hd <= 0 || Hd % FBH != 0) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 64: return launch_fwd<64>(x, w1, b1, w2, b2, seed, y, N, Hd, thr, scale, stream);
-    case 128: return launch_fwd<128>(x, w1, b1, w2, b2, seed, y, N, Hd, thr, scale, stream);
-    case 256: return launch_fwd<256>(x, w1, b1, w2, b2, seed, y, N, Hd, thr, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 // Kernel kind 0 (dx) or 1 (the weight partials) at width D: its registers
 // a thread, its dynamic shared memory and the blocks an SM holds.  Returns

@@ -4,11 +4,13 @@
 //   mode ATTN        y = x + OutProj(MHA(LN1 x))            attn_layer_infer
 //   mode MLP         y = x + MLP(LN2 x)                      ln_mlp_infer
 //   mode ATTN|MLP    z = x + MHA(LN1 x), y = z + MLP(LN2 z)  vit_layer_infer
+//   ATTN|MLP|Q8      the same with the six projections int8  vit_layer_infer_int8
 //
 // Replaces the Pallas TPU kernels of transformer_stm_tpu/kernels/fused_layer.py
 // `_layer_kernel` :279 (`vit_layer_infer` :335), `_attn_layer_kernel` :62
-// (`attn_layer_infer` :200) and `_ln_mlp_kernel` :590 (`ln_mlp_infer` :602)
-// in bfloat16; csrc/fused_layer.cu keeps the float32 modes and the int8 layer.
+// (`attn_layer_infer` :200), `_ln_mlp_kernel` :590 (`ln_mlp_infer` :602) and
+// `_layer_kernel_int8` :440 (`vit_layer_infer_int8` :509) in bfloat16;
+// csrc/fused_layer.cu keeps the float32 modes.
 //
 // Bound: operations.  At ViT-S (E 384, H 6, Dh 64, hidden 1536, t_pad 200) a
 // layer does 0.77 GFLOP an image against 0.3 MB of x in and y out, far above
@@ -59,9 +61,11 @@
 //   with P as the register A operand and V as an MN-major B operand.  Past
 //   256 keys a first pass over 256-key blocks finds the row max and a second
 //   recomputes the scores: p and l are exactly those of the whole-row form.
-// - Each item kind is a function of its own; the attention's is not inlined,
-//   so that its registers are allocated apart from the products'.  Weight
-//   loads carry an L2 evict-last policy, ahead of the activations.
+// - Each item kind is a function of its own; the bf16 modes' attention is
+//   not inlined, so that its registers are allocated apart from the
+//   products' (the int8 layer inlines it, with two 64-key chunks of scores
+//   held at once: `attention_item`).  Weight loads carry an L2 evict-last
+//   policy, ahead of the activations.
 //
 // Rounding points are the JAX kernel's: xn, zn, q/k/v, p (l sums the
 // unrounded p), the per-head output and the hidden after GELU are rounded to
@@ -74,9 +78,43 @@
 // rows carry junk, as on the TPU.  Any B; rows past the last tile's are
 // zero-filled by TMA and not stored.
 //
+// The int8 layer (Q8; `_layer_kernel_int8`, with `_quant_rows` :410 and
+// `_qdot` :430) keeps the items, the ring and the attention, and changes
+// the products and their prologues and epilogues:
+//
+// - Weights are packed once per model as int8 W^T (out, in) with f32
+//   per-output-column scales (the wrapper's `quant_cols`): `wgmma` with
+//   .s8 takes both shared operands K-major.  A stage's 128-byte swizzled
+//   row then holds 128 int8 columns, so a stage is four m64nNk32 steps and
+//   every product has the wide form (N 192 a warpgroup, one stage of the A
+//   tile and both B tiles) with int32 sums in registers.  Past E, HD or the
+//   hidden width TMA fills the weights with zeros, so what a stage reads past
+//   a row's end adds nothing.
+// - Rows are quantised per row as `_quant_rows` does, bit for bit: amax
+//   clamped at 1e-6, q = rint(v * (127 / amax)) clipped to +-127, scale amax
+//   * (1 / 127); one consumer warp a row, the int8 row into the block's slot
+//   (int8, 64 x max(E, HD, hidden)), from which TMA brings the A tiles, and
+//   the scale into shared memory.  The epilogue of every product is ((acc *
+//   sx) * sw) + b, each step rounded, the int32 sum converted to f32 first.
+// - Item A: LN1 of the x tile in f32, then its quantisation, into the slot;
+//   q|k|v = bf16 of the int8 product's epilogue.
+// - Item C: the whole 64 x HD bf16 attention-output tile comes into the
+//   ring's memory, is quantised per row into the slot, and the out
+//   projection gives z = x + epilogue (f32, the block's z slot).  LN2 reads
+//   z back by rows and quantises it into the slot.  fc1 runs in 384-column
+//   passes; GELU of its epilogue is kept in f32 in the block's hidden slot
+//   (64 x hidden f32 in device memory, read back at once, from L2) while
+//   each row's absolute maximum gathers in registers, since the hidden is
+//   quantised over all its units: the maxima meet across the warpgroups,
+//   the hidden is quantised into the slot, and fc2 gives y = bf16(z +
+//   epilogue).  (Quantising a bf16-rounded hidden would change the function;
+//   computing fc1 twice, once for the maxima, would cost half of fc1 again
+//   and GELU twice, and GELU's ALU work is what the bf16 layer's tensor
+//   cores already wait on.)
+//
 // Limits (fused_layer.py states them for the router): Dh 64; E, H * Dh and
 // the hidden width multiples of 64; t_pad a multiple of 8 with Q, K and V of
-// one head within a block's shared memory (t_pad <= 576).
+// one head within a block's shared memory (t_pad <= 576, also for int8).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,12 +127,13 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int MODE_ATTN = 1, MODE_MLP = 2;
+constexpr int MODE_ATTN = 1, MODE_MLP = 2, MODE_Q8 = 4;
 constexpr int DH = 64;                      // head dim
 constexpr int CONSUMERS = 256;              // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 128;    // and one producer warpgroup
 constexpr int ROWS = 64;                    // rows of a tile: one wgmma M
 constexpr int KT = 64;                      // depth of a stage: 128 bytes of bf16
+constexpr int KQ = 128;                     // depth of an int8 stage: 128 bytes
 constexpr int NW = 192;                     // columns of a warpgroup in the wide products
 constexpr int NH = 64;                      // hidden columns of a warpgroup in a chunk
 constexpr int HCHUNK = 2 * NH;              // hidden chunk
@@ -108,6 +147,7 @@ static_assert(2 * TILE_BYTES + 2 * HCHUNK * KT * 2 <= STAGE_BYTES, "an fc1 stage
 constexpr int HEAD_BYTES = 1024;            // mbarriers and the item slots
 constexpr int ALIGN = 1024;                 // of the swizzled tiles
 constexpr int KEY_BLOCK = 4;                // 64-key chunks of scores held at once
+constexpr int KEY_BLOCK_Q8 = 2;             // the same in the int8 layer (attention inlined)
 constexpr int FC2_STEPS = HCHUNK / KT;      // fc2 stages a hidden chunk
 // the widest E whose x tile the ring's memory holds for LN (1344)
 constexpr int X_SMEM_MAX_E = NSTAGE * STAGE_BYTES / (ROWS * 2);
@@ -122,8 +162,10 @@ constexpr int LAG_B = 2, LAG = 5;
 constexpr long long WINDOW_BYTES = 32ll << 20;
 
 struct Params {
-  CUtensorMap m_wqkv, m_wo, m_w1, m_w2;  // W^T, (out, in), boxes 64 x NW (m_w1: 64 x HCHUNK)
+  CUtensorMap m_wqkv, m_wo, m_w1, m_w2;  // W^T, (out, in), boxes 64 x NW (m_w1: 64 x HCHUNK;
+                                         // int8: 128 x NW each)
   CUtensorMap m_slot;                    // the blocks' slots, (grid * 64, E), box 64 x 64
+                                         // (int8: (grid * 64, slot_w), box 128 x 64)
   CUtensorMap m_x;                       // x, (n, E), box 64 x 64
   CUtensorMap m_o;                       // attention output, (n, HD), box 64 x 64
   CUtensorMap m_qkv;                     // q|k|v as (3 HD, t_pad, B), box 64 x 64 x 1
@@ -133,10 +175,13 @@ struct Params {
   bf16* o;
   bf16* slot;
   float* zslot;
+  float* hslot;  // int8: each block's f32 hidden, 64 x hidden
   int* flags;  // [0] items taken; then items done: per A tile, heads per image
   const float *g1, *be1, *bqkv, *bo, *g2, *be2, *b1, *b2;
+  const float *sqkv, *so, *s1, *s2;  // int8: the weights' column scales
   long long n;
   int tiles, images, t_pad, t_real, E, H, hidden, group;
+  int slot_w;  // int8: bytes of a slot row, max(E, HD, hidden)
   float eps;
 };
 
@@ -364,6 +409,52 @@ __device__ __forceinline__ void wgmma_ss<NH>(float (&d)[NH / 2], uint64_t da, ui
   wgmma_n64(d, da, db, 1);
 }
 
+// d (m64n192 s32) += A (shared, K-major) B (shared, K-major), s8 in: the
+// int8 layer's products
+__device__ __forceinline__ void wgmma_s8_n192(int (&d)[96], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, "
+      "%96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0;
+}
+
 // ---------------------------------------------------------------------------
 // Arithmetic and stores
 // ---------------------------------------------------------------------------
@@ -402,6 +493,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // the two lanes' values of a row sit in the 4 lanes of a quad
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -417,21 +514,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// an accumulator element as f32: the value, or (int8 layer) the bits of its
+// dequantised value kept in place of the int32 sum
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(int v) { return __int_as_float(v); }
+
 // Lanes of a quad trade the f32 pairs of 4 consecutive 8-column groups of
 // an accumulator row (jj .. jj + 3, row half rr): afterwards lane q holds
 // the 8 columns of group jj + q in order.
-template <int N>
-__device__ __forceinline__ void quad_gather_f32(const float (&d)[N], int jj, int rr,
+template <int N, class T>
+__device__ __forceinline__ void quad_gather_f32(const T (&d)[N], int jj, int rr,
                                                 float (&v)[8]) {
   const int lane = threadIdx.x & 31, q = lane & 3;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int pub = (q - r) & 3, src = (q + r) & 3;
-    float s0 = d[4 * jj + 2 * rr], s1 = d[4 * jj + 2 * rr + 1];
+    float s0 = as_f32(d[4 * jj + 2 * rr]), s1 = as_f32(d[4 * jj + 2 * rr + 1]);
 #pragma unroll
     for (int k = 1; k < 4; ++k) {
-      s0 = pub == k ? d[4 * (jj + k) + 2 * rr] : s0;
-      s1 = pub == k ? d[4 * (jj + k) + 2 * rr + 1] : s1;
+      s0 = pub == k ? as_f32(d[4 * (jj + k) + 2 * rr]) : s0;
+      s1 = pub == k ? as_f32(d[4 * (jj + k) + 2 * rr + 1]) : s1;
     }
     const float g0 = __shfl_sync(0xffffffffu, s0, (lane & ~3) | src);
     const float g1 = __shfl_sync(0xffffffffu, s1, (lane & ~3) | src);
@@ -446,8 +548,8 @@ __device__ __forceinline__ void quad_gather_f32(const float (&d)[N], int jj, int
 // The epilogue of an m64 accumulator of NG 8-column groups, by rows: lane
 // q of each quad gets the 8 columns col .. col + 7 of one row (rq + 8rr) as
 // v and calls row(rr, col, v), which loads and stores whole vectors.
-template <int NG, int N, class R>
-__device__ __forceinline__ void epi_rows(const float (&d)[N], R row) {
+template <int NG, int N, class T, class R>
+__device__ __forceinline__ void epi_rows(const T (&d)[N], R row) {
   const int q = threadIdx.x & 3;
 #pragma unroll
   for (int jj = 0; jj < NG; jj += 4)
@@ -731,6 +833,128 @@ __device__ __forceinline__ void ln_regs(const float (&z)[NW / 2], int cw, int E,
 }
 
 // ---------------------------------------------------------------------------
+// The int8 layer: rows quantised as `_quant_rows`, and the epilogue of `_qdot`
+// ---------------------------------------------------------------------------
+
+// 8 values as int8 clip(rint(v * inv), -127, 127), packed in column order
+__device__ __forceinline__ uint2 quant8(const float (&v)[8], float inv) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float q = fminf(fmaxf(rintf(__fmul_rn(v[k], inv)), -127.f), 127.f);
+    w[k >> 2] |= ((uint32_t)(int)q & 0xFFu) << (8 * (k & 3));
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+// ((acc * sx) * sw) + b, each step rounded, the int32 sum converted first
+__device__ __forceinline__ float dequant(int acc, float sx, float sw, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw), b);
+}
+
+// Per-row int8 of the tile's 64 rows of W values into dst (row stride ld
+// bytes) and their scales into scale[64], one consumer warp a row:
+// stats(r) runs first for each row and val(r, c, st, v) then gives the 8
+// values of columns c .. c + 7 (c a multiple of 8); the row's amax, clamped
+// at 1e-6, then q = clip(rint(v * (127 / amax)), -127, 127) and the scale
+// amax * (1 / 127).  Rows past `rows` become zeros with scale 0 (nothing
+// stores them).
+template <class Stats, class Val>
+__device__ __forceinline__ void quant_tile(int rows, int W, Stats stats, Val val, int8_t* dst,
+                                           int ld, float* scale) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < ROWS; r += CONSUMERS / 32) {
+    int8_t* d = dst + (long long)r * ld;
+    if (r >= rows) {
+      for (int c = 8 * lane; c < W; c += 256) *reinterpret_cast<uint2*>(d + c) = make_uint2(0, 0);
+      if (lane == 0) scale[r] = 0.f;
+      continue;
+    }
+    const float2 st = stats(r);
+    float m = 0.f, v[8];
+    for (int c = 8 * lane; c < W; c += 256) {
+      val(r, c, st, v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) m = fmaxf(m, fabsf(v[k]));
+    }
+    const float amax = fmaxf(warp_max(m), 1e-6f);
+    const float inv = __fdiv_rn(127.f, amax);
+    for (int c = 8 * lane; c < W; c += 256) {
+      val(r, c, st, v);
+      *reinterpret_cast<uint2*>(d + c) = quant8(v, inv);
+    }
+    if (lane == 0) scale[r] = __fmul_rn(amax, 1.f / 127.f);
+  }
+}
+
+// LayerNorm of the tile's rows in f32 (E values a row, 8 at a time from
+// get(r, c, v)), as `_layer_norm_rows`, quantised per row as quant_tile
+template <class Get>
+__device__ __forceinline__ void ln_quant(int rows, int E, Get get, const float* __restrict__ g,
+                                         const float* __restrict__ b, float eps, int8_t* dst,
+                                         int ld, float* scale) {
+  const int lane = threadIdx.x & 31;
+  auto stats = [&](int r) {
+    float v[8], sum = 0.f;
+    for (int c = 8 * lane; c < E; c += 256) {
+      get(r, c, v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sum += v[k];
+    }
+    const float mu = warp_sum(sum) / (float)E;
+    float var = 0.f;
+    for (int c = 8 * lane; c < E; c += 256) {
+      get(r, c, v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float t = v[k] - mu;
+        var += t * t;
+      }
+    }
+    return make_float2(mu, 1.f / sqrtf(warp_sum(var) / (float)E + eps));
+  };
+  auto val = [&](int r, int c, float2 st, float (&v)[8]) {
+    float gg[8], bb[8];
+    get(r, c, v);
+    load8(g + c, gg);
+    load8(b + c, bb);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = __fadd_rn(__fmul_rn(__fmul_rn(v[k] - st.x, st.y), gg[k]), bb[k]);
+  };
+  quant_tile(rows, E, stats, val, dst, ld, scale);
+}
+
+// 8 bf16 columns c .. c + 7 of row r of a 64-row tile that TMA put in shared
+// memory as swizzled 64 x 64 tiles
+__device__ __forceinline__ void smem_row8(const uint8_t* tiles, int r, int c, float (&v)[8]) {
+  Raw<bf16> raw;
+  raw.u = *reinterpret_cast<const uint4*>(tiles + (c >> 6) * TILE_BYTES + sw128(r, c & 63));
+  raw.get(v);
+}
+
+// `_qdot`'s epilogue on a warpgroup's int32 accumulator of columns cw ..
+// cw + NW - 1: ((acc * sx[row]) * sw[col]) + b[col], the thread's two rows'
+// scales in sx, in place (as f32 bits, which `as_f32` reads); columns at or
+// past ncols give 0
+__device__ __forceinline__ void dequant_acc(int (&acc)[NW / 2], const float (&sx)[2],
+                                            const float* __restrict__ sw,
+                                            const float* __restrict__ b, int cw, int ncols) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int c = cw + 8 * j + 2 * q;  // c even, ncols too
+    const bool in = c < ncols;
+    const float2 s = f32x2_at(sw + (in ? c : 0)), bb = f32x2_at(b + (in ? c : 0));
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[4 * j + e] = __float_as_int(
+          in ? dequant(acc[4 * j + e], sx[e >> 1], (e & 1) ? s.y : s.x, (e & 1) ? bb.y : bb.x)
+             : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The ring, consumer side
 // ---------------------------------------------------------------------------
 
@@ -746,23 +970,33 @@ __device__ __forceinline__ void release(uint64_t* empty, int s) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[s]);
 }
 
-// acc (m64nN per warpgroup) += sum over nk stages of A(k) B(k)^T, 64 deep
-// each: a(k, stage) and b(k, stage) give the swizzled tiles.  One group of
-// wgmmas stays in flight while the next stage is awaited.  Both warpgroups
-// run every stage, also where one's columns lie past N (zeros or stale
-// tiles, never stored), so that no wgmma sits behind a divergent branch.
-template <int N, class FA, class FB>
-__device__ __forceinline__ void mma_loop(float (&acc)[N / 2], int nk, uint64_t* full,
-                                         uint64_t* empty, int& stage, uint32_t& phase, FA a,
-                                         FB b) {
+// The products of one stage, 128 bytes deep: four bf16 k16 steps into an
+// f32 accumulator, or four s8 k32 steps into an int32 one
+__device__ __forceinline__ void wgmma_stage(float (&d)[NW / 2], uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) wgmma_ss<NW>(d, da + 2 * kk, db + 2 * kk);
+}
+__device__ __forceinline__ void wgmma_stage(int (&d)[NW / 2], uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < KQ / 32; ++kk) wgmma_s8_n192(d, da + 2 * kk, db + 2 * kk);
+}
+
+// acc (m64n192 per warpgroup) += sum over nk stages of A(k) B(k)^T, 128
+// bytes deep each: a(k, stage) and b(k, stage) give the swizzled tiles.  One
+// group of wgmmas stays in flight while the next stage is awaited.  Both
+// warpgroups run every stage, also where one's columns lie past N (zeros or
+// stale tiles, never stored), so that no wgmma sits behind a divergent
+// branch.
+template <class Acc, class FA, class FB>
+__device__ __forceinline__ void mma_loop(Acc& acc, int nk, uint64_t* full, uint64_t* empty,
+                                         int& stage, uint32_t& phase, FA a, FB b) {
   int prev = -1;
   for (int k = 0; k < nk; ++k) {
     mbar_wait(&full[stage], phase);
     const uint64_t da = desc_sw128(a(k, stage)), db = desc_sw128(b(k, stage));
     fence_acc(acc);
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) wgmma_ss<N>(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_stage(acc, da, db);
     wg_commit();
     fence_acc(acc);
     if (prev >= 0) {
@@ -786,11 +1020,13 @@ __device__ __forceinline__ void mma_loop(float (&acc)[N / 2], int nk, uint64_t* 
 // divided by l and rounded to bf16, into o.  Every branch around a wgmma is
 // uniform over the block: an odd last query tile is recomputed by the other
 // warpgroup and not stored, and a key block past the last tile repeats the
-// last tile with every key masked.
-__device__ __noinline__ void attention_item(const Params& p, const uint8_t* data, int b, int h) {
+// last tile with every key masked.  KB 64-key chunks of scores are held at
+// once; past KB chunks a first pass finds the row max.
+template <int KB>
+__device__ __forceinline__ void attention(const Params& p, const uint8_t* data, int b, int h) {
   const int t = threadIdx.x & 127, w = threadIdx.x >> 7, lane = threadIdx.x & 31, q = lane & 3;
   const int rq = 16 * (t >> 5) + (lane >> 2);
-  const int nq = cdiv(p.t_pad, 64), nblk = cdiv(nq, KEY_BLOCK);
+  const int nq = cdiv(p.t_pad, 64), nblk = cdiv(nq, KB);
   const uint8_t* Q = data;
   const uint8_t* K = data + nq * TILE_BYTES;
   const uint8_t* V = data + 2 * nq * TILE_BYTES;
@@ -804,16 +1040,16 @@ __device__ __noinline__ void attention_item(const Params& p, const uint8_t* data
     // past 256 keys, pass 0 finds the row max over every block first
     for (int pass = nblk > 1 ? 0 : 1; pass < 2; ++pass) {
       for (int blk = 0; blk < nblk; ++blk) {
-        const int c0 = blk * KEY_BLOCK;
-        float s[KEY_BLOCK][32];
+        const int c0 = blk * KB;
+        float s[KB][32];
 #pragma unroll
-        for (int c = 0; c < KEY_BLOCK; ++c) {
+        for (int c = 0; c < KB; ++c) {
           zero(s[c]);
           fence_acc(s[c]);
         }
         wg_fence();
 #pragma unroll
-        for (int c = 0; c < KEY_BLOCK; ++c) {
+        for (int c = 0; c < KB; ++c) {
           const uint64_t dk = desc_sw128(K + min(c0 + c, nq - 1) * TILE_BYTES);
 #pragma unroll
           for (int kk = 0; kk < DH / 16; ++kk) wgmma_n64(s[c], dq + 2 * kk, dk + 2 * kk, 1);
@@ -821,11 +1057,11 @@ __device__ __noinline__ void attention_item(const Params& p, const uint8_t* data
         wg_commit();
         wg_wait<0>();
 #pragma unroll
-        for (int c = 0; c < KEY_BLOCK; ++c) fence_acc(s[c]);
+        for (int c = 0; c < KB; ++c) fence_acc(s[c]);
         // keys at or past t_real (and every key of a repeated tile) masked
         float bm[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-        for (int c = 0; c < KEY_BLOCK; ++c)
+        for (int c = 0; c < KB; ++c)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -853,7 +1089,7 @@ __device__ __noinline__ void attention_item(const Params& p, const uint8_t* data
         // 64 x 16 A operand), all before the fence
         const float ml[2] = {m[0] * LOG2E, m[1] * LOG2E};
 #pragma unroll
-        for (int c = 0; c < KEY_BLOCK; ++c)
+        for (int c = 0; c < KB; ++c)
 #pragma unroll
           for (int i = 0; i < 32; i += 2) {
             const float p0 = exp2_approx(fmaf(s[c][i], LOG2E, -ml[(i >> 1) & 1]));
@@ -864,7 +1100,7 @@ __device__ __noinline__ void attention_item(const Params& p, const uint8_t* data
         fence_acc(o);
         wg_fence();
 #pragma unroll
-        for (int c = 0; c < KEY_BLOCK; ++c) {
+        for (int c = 0; c < KB; ++c) {
           const uint64_t dv = desc_sw128(V + min(c0 + c, nq - 1) * TILE_BYTES);
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
@@ -889,6 +1125,14 @@ __device__ __noinline__ void attention_item(const Params& p, const uint8_t* data
       *reinterpret_cast<uint4*>(p.o + (row0 + r) * HD + h * DH + col) = pack8_bf16(v);
     });
   }
+}
+
+// The bf16 modes' attention, a function of its own, so that its registers
+// are allocated apart from the products'.  (The int8 layer inlines it with
+// KEY_BLOCK_Q8: a call there costs its products ptxas's serialisation of
+// every wgmma (C7510) and spills of what lives across the call.)
+__device__ __noinline__ void attention_item(const Params& p, const uint8_t* data, int b, int h) {
+  attention<KEY_BLOCK>(p, data, b, h);
 }
 
 // ---------------------------------------------------------------------------
@@ -952,7 +1196,8 @@ struct Smem {
 // items, in the consumers' order; the others only keep the barriers.
 template <int MODE>
 __device__ void producer(const Params& p, const Smem& sm, int total) {
-  constexpr bool ATTN = MODE & MODE_ATTN, MLP = MODE & MODE_MLP;
+  constexpr bool ATTN = MODE & MODE_ATTN, MLP = MODE & MODE_MLP, Q8 = MODE & MODE_Q8;
+  constexpr int KD = Q8 ? KQ : KT;  // columns of an A or B tile's row
   const int E = p.E, HD = p.H * DH, N3 = 3 * HD;
   const bool issuer = threadIdx.x == CONSUMERS;
   const uint64_t keep = evict_last_policy();
@@ -966,6 +1211,21 @@ __device__ void producer(const Params& p, const Smem& sm, int total) {
     mbar_wait(&sm.empty[stage], phase ^ 1);
     mbar_expect_tx(&sm.full[stage], bytes);
     return sm.data + stage * STAGE_BYTES;
+  };
+  // the stages of a wide product (N 192 a warpgroup) of ncols output
+  // columns over depth K: the A tile (rows a_row of map a) and the two
+  // warpgroups' B tiles (weights w)
+  auto wide = [&](const CUtensorMap* a, int a_row, const CUtensorMap* w, int ncols, int K) {
+    for (int c0 = 0; c0 < ncols; c0 += 2 * NW) {
+      const bool two = c0 + NW < ncols;
+      for (int k = 0; k < cdiv(K, KD); ++k) {
+        uint8_t* st = next_stage(TILE_BYTES + (two ? 2 : 1) * BW_BYTES);
+        tma_2d(st, a, &sm.full[stage], k * KD, a_row);
+        tma_2d(st + TILE_BYTES, w, &sm.full[stage], k * KD, c0, keep);
+        if (two) tma_2d(st + TILE_BYTES + BW_BYTES, w, &sm.full[stage], k * KD, c0 + NW, keep);
+        advance(stage, phase);
+      }
+    }
   };
   for (int it = 0;; ++it) {
     bar_sync(0, THREADS);  // the block has finished the previous item
@@ -981,23 +1241,17 @@ __device__ void producer(const Params& p, const Smem& sm, int total) {
           tma_2d(sm.data + k * TILE_BYTES, &p.m_x, sm.x_full, k * 64, idx * ROWS);
       }
     };
+    // waits until the heads of the tile's images are done
+    auto wait_heads = [&]() {
+      const long long r0 = (long long)idx * ROWS, r1 = min(r0 + ROWS, p.n) - 1;
+      for (int b = (int)(r0 / p.t_pad); b <= (int)(r1 / p.t_pad); ++b)
+        wait_count(&done_b[b], p.H);
+      fence_proxy_global();
+    };
     if (kind == 0) {
       load_x();
-      bar_sync(BAR_ALL, THREADS);  // xn is in the slot
-      if (issuer) {
-        for (int c0 = 0; c0 < N3; c0 += 2 * NW) {
-          const bool two = c0 + NW < N3;
-          for (int k = 0; k < E / KT; ++k) {
-            uint8_t* st = next_stage(TILE_BYTES + (two ? 2 : 1) * BW_BYTES);
-            tma_2d(st, &p.m_slot, &sm.full[stage], k * KT, slot_row0);
-            tma_2d(st + TILE_BYTES, &p.m_wqkv, &sm.full[stage], k * KT, c0, keep);
-            if (two)
-              tma_2d(st + TILE_BYTES + BW_BYTES, &p.m_wqkv, &sm.full[stage], k * KT, c0 + NW,
-                     keep);
-            advance(stage, phase);
-          }
-        }
-      }
+      bar_sync(BAR_ALL, THREADS);  // xn (int8: xq) is in the slot
+      if (issuer) wide(&p.m_slot, slot_row0, &p.m_wqkv, N3, E);
     } else if (kind == 1) {
       if (issuer) {
         const int b = idx / p.H, h = idx % p.H;
@@ -1012,24 +1266,26 @@ __device__ void producer(const Params& p, const Smem& sm, int total) {
             tma_3d(sm.data + (part * nq + j) * TILE_BYTES, &p.m_qkv, sm.attn_full,
                    part * HD + h * DH, j * 64, b);
       }
+    } else if (Q8) {
+      // the attention output tile into the ring's memory, to be quantised
+      if (issuer) {
+        wait_heads();
+        if (HD <= X_SMEM_MAX_E) {
+          mbar_expect_tx(sm.x_full, HD / 64 * TILE_BYTES);
+          for (int k = 0; k < HD / 64; ++k)
+            tma_2d(sm.data + k * TILE_BYTES, &p.m_o, sm.x_full, k * 64, idx * ROWS);
+        }
+      }
+      bar_sync(BAR_ALL, THREADS);  // oq is in the slot
+      if (issuer) wide(&p.m_slot, slot_row0, &p.m_wo, E, HD);
+      bar_sync(BAR_ALL, THREADS);  // zq is in the slot
+      if (issuer) wide(&p.m_slot, slot_row0, &p.m_w1, p.hidden, E);
+      bar_sync(BAR_ALL, THREADS);  // hq is in the slot
+      if (issuer) wide(&p.m_slot, slot_row0, &p.m_w2, E, p.hidden);
     } else {
       if (ATTN && issuer) {
-        const long long r0 = (long long)idx * ROWS, r1 = min(r0 + ROWS, p.n) - 1;
-        for (int b = (int)(r0 / p.t_pad); b <= (int)(r1 / p.t_pad); ++b)
-          wait_count(&done_b[b], p.H);
-        fence_proxy_global();
-        for (int c0 = 0; c0 < E; c0 += 2 * NW) {
-          const bool two = c0 + NW < E;
-          for (int k = 0; k < HD / KT; ++k) {
-            uint8_t* st = next_stage(TILE_BYTES + (two ? 2 : 1) * BW_BYTES);
-            tma_2d(st, &p.m_o, &sm.full[stage], k * KT, idx * ROWS);
-            tma_2d(st + TILE_BYTES, &p.m_wo, &sm.full[stage], k * KT, c0, keep);
-            if (two)
-              tma_2d(st + TILE_BYTES + BW_BYTES, &p.m_wo, &sm.full[stage], k * KT, c0 + NW,
-                     keep);
-            advance(stage, phase);
-          }
-        }
+        wait_heads();
+        wide(&p.m_o, idx * ROWS, &p.m_wo, E, HD);
       }
       if (MLP) {
         if (!ATTN) load_x();
@@ -1112,25 +1368,60 @@ __device__ __forceinline__ void item_a(const Params& p, const Smem& sm, int idx,
       ln_tile(p.x + row0 * E, rows, E, g, b, p.eps, slot);
     }
   };
-  // LN1 into the slot, then q|k|v = xn Wqkv + b
-  ln_x(p.g1, p.be1);
-  fence_proxy_global();
-  bar_sync(BAR_ALL, THREADS);
-  for (int c0 = 0; c0 < N3; c0 += 2 * NW) {
-    const int cw = c0 + w * NW;
-    float acc[NW / 2];
-    zero(acc);
-    mma_loop<NW>(acc, E / KT, sm.full, sm.empty, stage, phase, stage_a, stage_b);
-    // q|k|v = acc + b, a row's 8 columns a lane
-    epi_rows<NW / 8>(acc, [&](int rr, int col, float (&v)[8]) {
-      const int r = rq + 8 * rr, c = cw + col;
-      if (r >= rows || c >= N3) return;
-      float b[8];
-      load8(p.bqkv + c, b);
+  if constexpr (MODE & MODE_Q8) {
+    // LN1 in f32, quantised per row into the slot; q|k|v = bf16 of the int8
+    // product's epilogue
+    float* qs = reinterpret_cast<float*>(sm.hbuf);  // the rows' scales
+    if (E <= X_SMEM_MAX_E) {
+      mbar_wait(sm.x_full, ring.x_phase);
+      ring.x_phase ^= 1;
+    }
+    ln_quant(
+        rows, E,
+        [&](int r, int c, float (&v)[8]) {
+          if (E <= X_SMEM_MAX_E)
+            smem_row8(data, r, c, v);
+          else
+            load8(p.x + (row0 + r) * E + c, v);
+        },
+        p.g1, p.be1, p.eps, reinterpret_cast<int8_t*>(p.slot) + (long long)slot_row0 * p.slot_w,
+        p.slot_w, qs);
+    fence_proxy_global();
+    bar_sync(BAR_ALL, THREADS);
+    const float sx[2] = {qs[rq], qs[rq + 8]};
+    for (int c0 = 0; c0 < N3; c0 += 2 * NW) {
+      const int cw = c0 + w * NW;
+      int acc[NW / 2];
+      zero(acc);
+      mma_loop(acc, cdiv(E, KQ), sm.full, sm.empty, stage, phase, stage_a, stage_b);
+      dequant_acc(acc, sx, p.sqkv, p.bqkv, cw, N3);
+      epi_rows<NW / 8>(acc, [&](int rr, int col, float (&v)[8]) {
+        const int r = rq + 8 * rr, c = cw + col;
+        if (r < rows && c < N3)
+          *reinterpret_cast<uint4*>(p.qkv + (row0 + r) * N3 + c) = pack8_bf16(v);
+      });
+    }
+  } else {
+    // LN1 into the slot, then q|k|v = xn Wqkv + b
+    ln_x(p.g1, p.be1);
+    fence_proxy_global();
+    bar_sync(BAR_ALL, THREADS);
+    for (int c0 = 0; c0 < N3; c0 += 2 * NW) {
+      const int cw = c0 + w * NW;
+      float acc[NW / 2];
+      zero(acc);
+      mma_loop(acc, E / KT, sm.full, sm.empty, stage, phase, stage_a, stage_b);
+      // q|k|v = acc + b, a row's 8 columns a lane
+      epi_rows<NW / 8>(acc, [&](int rr, int col, float (&v)[8]) {
+        const int r = rq + 8 * rr, c = cw + col;
+        if (r >= rows || c >= N3) return;
+        float b[8];
+        load8(p.bqkv + c, b);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += b[e];
-      *reinterpret_cast<uint4*>(p.qkv + (row0 + r) * N3 + c) = pack8_bf16(v);
-    });
+        for (int e = 0; e < 8; ++e) v[e] += b[e];
+        *reinterpret_cast<uint4*>(p.qkv + (row0 + r) * N3 + c) = pack8_bf16(v);
+      });
+    }
   }
   ring.stage = stage, ring.phase = phase;
   fence_proxy_global();
@@ -1139,6 +1430,151 @@ __device__ __forceinline__ void item_a(const Params& p, const Smem& sm, int idx,
     __threadfence();
     atomicAdd(&p.flags[1 + idx], 1);
   }
+}
+
+// Item C of the int8 layer (a 64-row tile): the attention output quantised
+// per row, z = x + its out projection into the z slot, LN2 of z quantised,
+// fc1 with GELU into the hidden slot while the rows' maxima gather, the
+// hidden quantised, and y = z + fc2.
+__device__ __forceinline__ void item_c_q8(const Params& p, const Smem& sm, int idx, Ring& ring) {
+  const int E = p.E, HD = p.H * DH, HID = p.hidden;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 7, q = lane & 3;
+  const int rq = 16 * ((tid & 127) >> 5) + (lane >> 2);
+  const int slot_row0 = blockIdx.x * ROWS;
+  int8_t* slot = reinterpret_cast<int8_t*>(p.slot) + (long long)slot_row0 * p.slot_w;
+  float* zslot = p.zslot + (long long)slot_row0 * E;
+  float* hslot = p.hslot + (long long)slot_row0 * HID;
+  float* qs = reinterpret_cast<float*>(sm.hbuf);  // [64] the rows' scales
+  float* red = qs + ROWS;                          // [2][64] the warpgroups' row maxima
+  uint8_t* data = sm.data;
+  int stage = ring.stage;
+  uint32_t phase = ring.phase;
+  auto stage_a = [&](int, int s) -> const void* { return data + s * STAGE_BYTES; };
+  auto stage_b = [&](int, int s) -> const void* {
+    return data + s * STAGE_BYTES + TILE_BYTES + w * BW_BYTES;
+  };
+  const long long row0 = (long long)idx * ROWS;
+  const int rows = (int)min((long long)ROWS, p.n - row0);
+  auto no_stats = [](int) { return make_float2(0.f, 0.f); };
+  // the slot is ready for the next product's A tiles (the producer waits)
+  auto slot_ready = [&]() {
+    fence_proxy_global();
+    bar_sync(BAR_ALL, THREADS);
+  };
+
+  // the attention output, quantised per row: from the ring's memory, where
+  // TMA put the tile, or (HD past X_SMEM_MAX_E) from device memory
+  if (HD <= X_SMEM_MAX_E) {
+    mbar_wait(sm.x_full, ring.x_phase);
+    ring.x_phase ^= 1;
+  }
+  quant_tile(
+      rows, HD, no_stats,
+      [&](int r, int c, float2, float (&v)[8]) {
+        if (HD <= X_SMEM_MAX_E)
+          smem_row8(data, r, c, v);
+        else
+          load8(p.o + (row0 + r) * HD + c, v);
+      },
+      slot, p.slot_w, qs);
+  slot_ready();
+  float sx[2] = {qs[rq], qs[rq + 8]};
+
+  // z = x + ((acc so) sw + bo), f32, into the z slot (0 past the last row)
+  for (int c0 = 0; c0 < E; c0 += 2 * NW) {
+    const int cw = c0 + w * NW;
+    int acc[NW / 2];
+    zero(acc);
+    mma_loop(acc, cdiv(HD, KQ), sm.full, sm.empty, stage, phase, stage_a, stage_b);
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int c = cw + 8 * j + 2 * q;
+      if (c < E) {
+        const float2 s = f32x2_at(p.so + c), b = f32x2_at(p.bo + c);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = rq + 8 * rr;
+          float2 z = make_float2(0.f, 0.f);
+          if (r < rows) {
+            const float2 xv = bf16x2_at(p.x + (row0 + r) * E + c);
+            z.x = __fadd_rn(xv.x, dequant(acc[4 * j + 2 * rr], sx[rr], s.x, b.x));
+            z.y = __fadd_rn(xv.y, dequant(acc[4 * j + 2 * rr + 1], sx[rr], s.y, b.y));
+          }
+          *reinterpret_cast<float2*>(zslot + r * E + c) = z;
+        }
+      }
+    }
+  }
+  bar_sync(BAR_CONSUMERS, CONSUMERS);  // z is in its slot
+
+  // LN2 of z in f32, quantised per row
+  ln_quant(
+      rows, E, [&](int r, int c, float (&v)[8]) { load8(zslot + r * E + c, v); }, p.g2, p.be2,
+      p.eps, slot, p.slot_w, qs);
+  slot_ready();
+  sx[0] = qs[rq], sx[1] = qs[rq + 8];
+
+  // fc1: h = GELU((acc sz) s1 + b1) into the hidden slot, f32, while each
+  // row's absolute maximum gathers
+  float hmax[2] = {0.f, 0.f};
+  for (int c0 = 0; c0 < HID; c0 += 2 * NW) {
+    const int cw = c0 + w * NW;
+    int acc[NW / 2];
+    zero(acc);
+    mma_loop(acc, cdiv(E, KQ), sm.full, sm.empty, stage, phase, stage_a, stage_b);
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j) {
+      const int c = cw + 8 * j + 2 * q;
+      if (c < HID) {
+        const float2 s = f32x2_at(p.s1 + c), b = f32x2_at(p.b1 + c);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float h0 = gelu_as(dequant(acc[4 * j + 2 * rr], sx[rr], s.x, b.x));
+          const float h1 = gelu_as(dequant(acc[4 * j + 2 * rr + 1], sx[rr], s.y, b.y));
+          hmax[rr] = fmaxf(hmax[rr], fmaxf(fabsf(h0), fabsf(h1)));
+          *reinterpret_cast<float2*>(hslot + (rq + 8 * rr) * HID + c) = make_float2(h0, h1);
+        }
+      }
+    }
+  }
+  // the rows' maxima meet: over each quad, then across the warpgroups
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const float m = quad_max(hmax[rr]);
+    if (q == 0) red[w * ROWS + rq + 8 * rr] = m;
+  }
+  bar_sync(BAR_CONSUMERS, CONSUMERS);  // the maxima, and the hidden, are in place
+  // the hidden, quantised per row over all its units, into the slot
+  for (int i = 8 * tid; i < ROWS * HID; i += 8 * CONSUMERS) {
+    const int r = i / HID, c = i % HID;
+    const float amax = fmaxf(fmaxf(red[r], red[ROWS + r]), 1e-6f);
+    float v[8];
+    load8(hslot + r * HID + c, v);
+    *reinterpret_cast<uint2*>(slot + (long long)r * p.slot_w + c) =
+        quant8(v, __fdiv_rn(127.f, amax));
+  }
+  if (tid < ROWS) qs[tid] = __fmul_rn(fmaxf(fmaxf(red[tid], red[ROWS + tid]), 1e-6f), 1.f / 127.f);
+  slot_ready();
+  sx[0] = qs[rq], sx[1] = qs[rq + 8];
+
+  // fc2: y = bf16(z + ((acc sh) s2 + b2))
+  for (int c0 = 0; c0 < E; c0 += 2 * NW) {
+    const int cw = c0 + w * NW;
+    int acc[NW / 2];
+    zero(acc);
+    mma_loop(acc, cdiv(HID, KQ), sm.full, sm.empty, stage, phase, stage_a, stage_b);
+    dequant_acc(acc, sx, p.s2, p.b2, cw, E);
+    epi_rows<NW / 8>(acc, [&](int rr, int col, float (&v)[8]) {
+      const int r = rq + 8 * rr, c = cw + col;
+      if (r >= rows || c >= E) return;
+      float z[8];
+      load8(zslot + r * E + c, z);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = __fadd_rn(z[e], v[e]);
+      *reinterpret_cast<uint4*>(p.y + (row0 + r) * E + c) = pack8_bf16(v);
+    });
+  }
+  ring.stage = stage, ring.phase = phase;
 }
 
 // Item C (a 64-row tile): the out projection with the residual into z (or
@@ -1180,7 +1616,7 @@ __device__ __forceinline__ void item_c(const Params& p, const Smem& sm, int idx,
       const int cw = c0 + w * NW;
       float acc[NW / 2];
       zero(acc);
-      mma_loop<NW>(acc, HD / KT, sm.full, sm.empty, stage, phase, stage_a, stage_b);
+      mma_loop(acc, HD / KT, sm.full, sm.empty, stage, phase, stage_a, stage_b);
       auto value = [&](int j, int rr) {
         const int r = rq + 8 * rr, c = cw + 8 * j + 2 * q;
         if (r >= rows || c >= E) return make_float2(0.f, 0.f);
@@ -1358,13 +1794,18 @@ __device__ void consumer(const Params& p, const Smem& sm, int total) {
     } else if (kind == 1) {
       mbar_wait(sm.attn_full, ring.attn_phase);
       ring.attn_phase ^= 1;
-      attention_item(p, sm.data, idx / p.H, idx % p.H);
+      if constexpr (MODE & MODE_Q8)
+        attention<KEY_BLOCK_Q8>(p, sm.data, idx / p.H, idx % p.H);
+      else
+        attention_item(p, sm.data, idx / p.H, idx % p.H);
       fence_proxy_global();
       bar_sync(BAR_CONSUMERS, CONSUMERS);
       if (threadIdx.x == 0) {
         __threadfence();
         atomicAdd(&p.flags[1 + p.tiles + idx / p.H], 1);
       }
+    } else if constexpr (MODE & MODE_Q8) {
+      item_c_q8(p, sm, idx, ring);
     } else {
       item_c<MODE>(p, sm, idx, ring);
     }
@@ -1438,49 +1879,61 @@ EncodeTiled encoder() {
 
 constexpr int ENCODE_FAILED = 1000;  // + the CUresult
 
-// a map of a bf16 array of `rank` dims (innermost first, each row 64
-// columns wide in the box, 128-byte swizzle, zero fill past the edges)
+// a map of a bf16 (or int8) array of `rank` dims (innermost first, each row
+// of the box 128 bytes wide, 128-byte swizzle, zero fill past the edges)
 int encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-           const cuuint32_t* box) {
+           const cuuint32_t* box, bool int8 = false) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return ENCODE_FAILED;
   cuuint64_t strides[2];
-  strides[0] = dims[0] * 2;
+  strides[0] = dims[0] * (int8 ? 1 : 2);
   if (rank > 2) strides[1] = strides[0] * dims[1];
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+  const CUresult r = fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        rank, const_cast<void*>(ptr), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
 }
 
-int encode_2d(CUtensorMap* map, const void* ptr, long long rows, int cols, int box_rows) {
+int encode_2d(CUtensorMap* map, const void* ptr, long long rows, int cols, int box_rows,
+              bool int8 = false) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  return encode(map, ptr, 2, dims, box);
+  const cuuint32_t box[2] = {int8 ? (cuuint32_t)KQ : (cuuint32_t)KT, (cuuint32_t)box_rows};
+  return encode(map, ptr, 2, dims, box, int8);
 }
 
 __host__ inline size_t align1k(size_t b) { return (b + 1023) / 1024 * 1024; }
 
+// bytes of a row of the int8 layer's slot: every A operand it holds
+int slot_width(int E, int HD, int hidden) {
+  const int w = E > HD ? E : HD;
+  return w > hidden ? w : hidden;
+}
+
 // Byte offsets of the workspace regions (fused_layer.py mirrors this in
 // `sm90_workspace_bytes`): the counters, q|k|v and the attention output of
-// every row (attention modes), each block's bf16 slot, and in the merged
-// mode its f32 slot for z.
+// every row (attention modes), each block's slot (bf16, 64 x E; int8, 64 x
+// slot_width), in the merged modes its f32 slot for z, and for int8 its
+// f32 slot for the hidden.
 struct Layout {
-  size_t flags, qkv, o, slot, zslot, total;
+  size_t flags, qkv, o, slot, zslot, hslot, total;
 };
 
-Layout layout(int mode, long long n, int t_pad, int E, int HD, int slots) {
-  const bool attn = mode & MODE_ATTN;
+Layout layout(int mode, long long n, int t_pad, int E, int HD, int hidden, int slots) {
+  const bool attn = mode & MODE_ATTN, q8 = mode & MODE_Q8;
   const size_t tiles = (size_t)cdiv(n, ROWS), images = attn ? (size_t)(n / t_pad) : 0;
   Layout L;
   L.flags = 0;
   L.qkv = align1k(4 * (1 + tiles + images));
   L.o = L.qkv + (attn ? align1k((size_t)n * 3 * HD * 2) : 0);
   L.slot = L.o + (attn ? align1k((size_t)n * HD * 2) : 0);
-  L.zslot = L.slot + align1k((size_t)slots * ROWS * E * 2);
-  L.total = L.zslot + (mode == (MODE_ATTN | MODE_MLP) ? align1k((size_t)slots * ROWS * E * 4) : 0);
+  L.zslot = L.slot + align1k((size_t)slots * ROWS * (q8 ? slot_width(E, HD, hidden) : E * 2));
+  L.hslot = L.zslot + ((mode & (MODE_ATTN | MODE_MLP)) == (MODE_ATTN | MODE_MLP)
+                           ? align1k((size_t)slots * ROWS * E * 4)
+                           : 0);
+  L.total = L.hslot + (q8 ? align1k((size_t)slots * ROWS * hidden * 4) : 0);
   return L;
 }
 
@@ -1507,9 +1960,11 @@ int launch(Params& P, int slots, cudaStream_t stream) {
 // The kernel of `mode` at t_pad: its registers a thread, its dynamic shared
 // memory and the blocks an SM holds.  Returns a cudaError_t as int.
 extern "C" int vit_layer_sm90_info(int mode, int t_pad, int* regs, int* smem, int* blocks) {
-  const void* fn = mode == MODE_ATTN  ? (const void*)vit_layer_sm90<MODE_ATTN>
-                   : mode == MODE_MLP ? (const void*)vit_layer_sm90<MODE_MLP>
-                                      : (const void*)vit_layer_sm90<MODE_ATTN | MODE_MLP>;
+  constexpr int BOTH = MODE_ATTN | MODE_MLP;
+  const void* fn = mode == MODE_ATTN          ? (const void*)vit_layer_sm90<MODE_ATTN>
+                   : mode == MODE_MLP         ? (const void*)vit_layer_sm90<MODE_MLP>
+                   : mode == (BOTH | MODE_Q8) ? (const void*)vit_layer_sm90<BOTH | MODE_Q8>
+                                              : (const void*)vit_layer_sm90<BOTH>;
   *smem = (int)smem_bytes(mode, t_pad);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
@@ -1522,21 +1977,22 @@ extern "C" int vit_layer_sm90_info(int mode, int t_pad, int* regs, int* smem, in
 }
 
 // The four weight maps of a layer into `maps` (host memory, 4 x 128
-// bytes, in the order wqkv, wo, w1, w2): the packed W^T, bf16, (3 HD, E),
-// (E, HD), (hidden, E) and (E, hidden); a null pointer leaves its map
-// zero.  Returns 0, or an error code.
+// bytes, in the order wqkv, wo, w1, w2): the packed W^T, bf16 (int8 with
+// q8), (3 HD, E), (E, HD), (hidden, E) and (E, hidden); a null pointer
+// leaves its map zero.  Returns 0, or an error code.
 extern "C" int vit_layer_sm90_weight_maps(void* maps, const void* wqkv_t, const void* wo_t,
                                           const void* w1_t, const void* w2_t, int E, int H,
-                                          int hidden) {
+                                          int hidden, int q8) {
   const int HD = H * DH;
   const void* ptr[4] = {wqkv_t, wo_t, w1_t, w2_t};
   const long long rows[4] = {3LL * HD, E, hidden, E};
-  const int cols[4] = {E, HD, E, hidden}, box[4] = {NW, NW, HCHUNK, NW};
+  // int8 runs every product in the wide form, fc1 too
+  const int cols[4] = {E, HD, E, hidden}, box[4] = {NW, NW, q8 ? NW : HCHUNK, NW};
   for (int i = 0; i < 4; ++i) {
     CUtensorMap m;
     memset(&m, 0, sizeof(m));
     if (ptr[i] != nullptr) {
-      const int rc = encode_2d(&m, ptr[i], rows[i], cols[i], box[i]);
+      const int rc = encode_2d(&m, ptr[i], rows[i], cols[i], box[i], q8 != 0);
       if (rc != 0) return rc;
     }
     memcpy(static_cast<char*>(maps) + i * sizeof(CUtensorMap), &m, sizeof(m));
@@ -1544,26 +2000,30 @@ extern "C" int vit_layer_sm90_weight_maps(void* maps, const void* wqkv_t, const 
   return 0;
 }
 
-// One launch of the bf16 layer in `mode` (1 ATTN, 2 MLP, 3 ATTN|MLP) on
-// n_rows rows of x (images of t_pad rows in the attention modes), at most
-// `slots` blocks.  `maps` holds the weight maps of
-// vit_layer_sm90_weight_maps; biases and LN parameters are f32, bqkv with
-// q's part pre-scaled.  ws holds `ws_bytes` (`layout`).
+// One launch of the bf16 layer in `mode` (1 ATTN, 2 MLP, 3 ATTN|MLP, 7 the
+// int8 layer) on n_rows rows of x (images of t_pad rows in the attention
+// modes), at most `slots` blocks.  `maps` holds the weight maps of
+// vit_layer_sm90_weight_maps; biases, LN parameters and the int8 weights'
+// column scales (sqkv, so, s1, s2; mode 7 only) are f32, bqkv with q's part
+// pre-scaled.  ws holds `ws_bytes` (`layout`).
 // Returns a cudaError_t as int (or 1000 + a CUresult): 0 when the launch was
 // accepted.
 extern "C" int launch_vit_layer_sm90(int mode, const void* x, void* y, void* ws,
                                      long long ws_bytes, int slots, const void* maps,
                                      const float* g1, const float* be1, const float* bqkv,
                                      const float* bo, const float* g2, const float* be2,
-                                     const float* b1, const float* b2, long long n_rows, int t_pad,
-                                     int t_real, int E, int H, int hidden, float eps,
-                                     cudaStream_t stream) {
-  const bool attn = mode & MODE_ATTN;
-  if (mode < 1 || mode > 3 || n_rows <= 0 || slots <= 0 || E % 64 || hidden % 64 || H <= 0 ||
+                                     const float* b1, const float* b2, const float* sqkv,
+                                     const float* so, const float* s1, const float* s2,
+                                     long long n_rows, int t_pad, int t_real, int E, int H,
+                                     int hidden, float eps, cudaStream_t stream) {
+  const bool attn = mode & MODE_ATTN, q8 = mode & MODE_Q8;
+  if ((mode < 1 || mode > 3) && mode != (MODE_ATTN | MODE_MLP | MODE_Q8))
+    return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || slots <= 0 || E % 64 || hidden % 64 || H <= 0 ||
       (attn && (t_pad <= 0 || t_pad % 8 || t_real <= 0 || t_real > t_pad || n_rows % t_pad)))
     return (int)cudaErrorInvalidValue;
   const int HD = H * DH;
-  const Layout L = layout(mode, n_rows, t_pad, E, HD, slots);
+  const Layout L = layout(mode, n_rows, t_pad, E, HD, hidden, slots);
   if ((long long)L.total != ws_bytes) return (int)cudaErrorInvalidValue;
   Params P;
   memset(&P, 0, sizeof(P));
@@ -1575,8 +2035,11 @@ extern "C" int launch_vit_layer_sm90(int mode, const void* x, void* y, void* ws,
   P.o = reinterpret_cast<bf16*>(w + L.o);
   P.slot = reinterpret_cast<bf16*>(w + L.slot);
   P.zslot = reinterpret_cast<float*>(w + L.zslot);
+  P.hslot = reinterpret_cast<float*>(w + L.hslot);
   P.flags = reinterpret_cast<int*>(w + L.flags);
   P.g1 = g1, P.be1 = be1, P.bqkv = bqkv, P.bo = bo, P.g2 = g2, P.be2 = be2, P.b1 = b1, P.b2 = b2;
+  P.sqkv = sqkv, P.so = so, P.s1 = s1, P.s2 = s2;
+  P.slot_w = slot_width(E, HD, hidden);
   P.n = n_rows;
   P.tiles = cdiv(n_rows, ROWS);
   P.images = attn ? (int)(n_rows / t_pad) : 0;
@@ -1587,7 +2050,8 @@ extern "C" int launch_vit_layer_sm90(int mode, const void* x, void* y, void* ws,
   const long long live = (long long)ROWS * HD * 2 * (3 * (LAG_B + 1) + (LAG - LAG_B + 1));
   P.group = (int)(WINDOW_BYTES / live);
   if (P.group < 1) P.group = 1;
-  int rc = encode_2d(&P.m_slot, P.slot, (long long)slots * ROWS, E, 64);
+  int rc = q8 ? encode_2d(&P.m_slot, P.slot, (long long)slots * ROWS, P.slot_w, ROWS, true)
+              : encode_2d(&P.m_slot, P.slot, (long long)slots * ROWS, E, ROWS);
   if (rc == 0) rc = encode_2d(&P.m_x, P.x, n_rows, E, 64);
   if (rc == 0 && attn) rc = encode_2d(&P.m_o, P.o, n_rows, HD, 64);
   if (rc == 0 && attn) {
@@ -1602,6 +2066,7 @@ extern "C" int launch_vit_layer_sm90(int mode, const void* x, void* y, void* ws,
   switch (mode) {
     case MODE_ATTN: return launch<MODE_ATTN>(P, slots, stream);
     case MODE_MLP: return launch<MODE_MLP>(P, slots, stream);
-    default: return launch<MODE_ATTN | MODE_MLP>(P, slots, stream);
+    case MODE_ATTN | MODE_MLP: return launch<MODE_ATTN | MODE_MLP>(P, slots, stream);
+    default: return launch<MODE_ATTN | MODE_MLP | MODE_Q8>(P, slots, stream);
   }
 }

@@ -52,26 +52,31 @@ SIGNATURES = {
     "fused_mlp_info": [_I, _P, _P, _P],
     # kind (0 dk/dv, 1 dq), registers, shared memory bytes, blocks per SM
     "flash_attention_bwd_info": [_I, _P, _P, _P],
-    # mode, dtype, x, y, workspace, slots, bytes per slot, g1, be1, wqkv,
-    # sqkv, bqkv, wo, so, bo, g2, be2, w1, s1, b1, w2, s2, b2, rows, rows per
+    # mode, x, y, workspace, slots, bytes per slot, g1, be1, wqkv, sqkv,
+    # bqkv, wo, so, bo, g2, be2, w1, s1, b1, w2, s2, b2, rows, rows per
     # segment, t_real, E, H, hidden, eps, stream
-    "launch_fused_layer": [_I, _I, _P, _P, _P, _I, ctypes.c_longlong,
+    "launch_fused_layer": [_I, _P, _P, _P, _I, ctypes.c_longlong,
                            *[_P] * 16, ctypes.c_longlong, _I, _I, _I, _I,
                            _I, ctypes.c_float, _P],
     # mode, t_pad, registers (out), shared memory bytes (out), blocks per SM
     # (out)
     "vit_layer_sm90_info": [_I, _I, _P, _P, _P],
-    # maps (host, 4 x 128 bytes), wqkv^T, wo^T, w1^T, w2^T, E, H, hidden
-    "vit_layer_sm90_weight_maps": [_P, _P, _P, _P, _P, _I, _I, _I],
+    # maps (host, 4 x 128 bytes), wqkv^T, wo^T, w1^T, w2^T, E, H, hidden,
+    # int8
+    "vit_layer_sm90_weight_maps": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     # mode, x, y, workspace, its bytes, slots, maps, g1, be1, bqkv, bo, g2,
-    # be2, b1, b2, rows, t_pad, t_real, E, H, hidden, eps, stream
+    # be2, b1, b2, sqkv, so, s1, s2, rows, t_pad, t_real, E, H, hidden, eps,
+    # stream
     "launch_vit_layer_sm90": [_I, _P, _P, _P, ctypes.c_longlong, _I, _P,
-                              *[_P] * 8, ctypes.c_longlong, _I, _I, _I, _I,
+                              *[_P] * 12, ctypes.c_longlong, _I, _I, _I, _I,
                               _I, ctypes.c_float, _P],
-    # x, w1, b1, w2, b2, seed, y, N, D, Hd, Dout, keep threshold, keep
-    # scale, stream
-    "launch_fused_mlp_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, ctypes.c_uint32, ctypes.c_float, _P],
+    # x, w1, b1, w2, b2, seed, y, packed weights (scratch), N, D, Hd, Dout,
+    # keep threshold, keep scale, stream
+    "launch_fused_mlp_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, ctypes.c_uint32, ctypes.c_float,
+                                   _P],
+    # D, registers, shared memory bytes, blocks per SM
+    "fused_mlp_train_fwd_info": [_I, _P, _P, _P],
     # x, dy, w1, b1, w2, seed, dx, grads (dW1, dW2, db1, db2), packed
     # weights, partials, N, D, Hd, Dout, row slots, keep threshold, keep
     # scale, stream

@@ -1,8 +1,8 @@
 """Fused ViT-layer inference kernels, each beside its plain PyTorch version.
 
 Ports of the Pallas TPU kernels of transformer_stm_tpu/kernels/fused_layer.py
-(``csrc/vit_layer_sm90.cu`` holds the first three in bfloat16, on wgmma and
-TMA; ``csrc/fused_layer.cu`` holds them in float32 and the int8 layer):
+(``csrc/vit_layer_sm90.cu`` holds all four in bfloat16, on wgmma and TMA;
+``csrc/fused_layer.cu`` holds them in float32):
 
 - ``attn_layer_infer`` (:200, ``_attn_layer_kernel`` :62):
   y = x + OutProj(MHA(LN1 x));
@@ -11,7 +11,8 @@ TMA; ``csrc/fused_layer.cu`` holds them in float32 and the int8 layer):
   z = x + MHA(LN1 x), y = z + MLP(LN2 z), with z kept in float32;
 - ``vit_layer_infer_int8`` (:509, ``_layer_kernel_int8`` :440): that layer
   with all six projections int8 x int8 -> int32, weights quantised per
-  column here (``quant_cols``), rows per row inside the kernel.
+  column here (``quant_cols``), rows per row inside the kernel (in
+  bfloat16 on ``wgmma`` with s8 operands).
 
 Tokens are folded: x is (B * t_pad, E), t_pad a multiple of 8, keys at or
 past t_real are masked and padded query rows carry junk.  x is float32 or
@@ -61,49 +62,39 @@ MODE_ATTN, MODE_MLP, MODE_Q8 = 1, 2, 4
 class FusedLayerSharedMemoryError(ValueError):
     """Raised when a fused layer kernel's attention phase needs more shared
     memory than one block may use on the card (``SMEM_LIMIT``, 227 KB on
-    Hopper), ``attention_smem_bytes``: past t_pad 344 in float32, past
-    t_pad 576 in bfloat16 and past t_pad 464 for the int8 layer.
-    ``fused_layer_fits`` predicts it; callers route to the composable
-    impl='small' path instead."""
+    Hopper), ``attention_smem_bytes``: past t_pad 344 in float32 and past
+    t_pad 576 in bfloat16, the int8 layer included.  ``fused_layer_fits``
+    predicts it; callers route to the composable impl='small' path
+    instead."""
 
 
-def attention_smem_bytes(t_pad: int, itemsize: int = 2,
-                         int8: bool = False) -> int:
+def attention_smem_bytes(t_pad: int, itemsize: int = 2) -> int:
     """Shared memory a block of the kernel that runs the attention at t_pad
     needs.  float32 (``attention_smem_bytes`` of csrc/fused_layer.cu): K^T
     and V of one head, a score tile and a query tile of ``QUERY_TILE`` rows
-    and their row sums, all f32.  The int8 layer on bfloat16 (the same
-    function): K, V (rows padded to a multiple of 16) and the query tile in
-    bf16 with rows of ``HEAD_DIM`` + 8, the probabilities in bf16, the
-    scores (which then hold the output tile, ``HEAD_DIM`` wide) and row sums
-    in f32.  bfloat16 (``smem_bytes`` of csrc/vit_layer_sm90.cu): the larger
-    of the product ring with its hidden chunk and Q, K and V of one head in
-    64-row tiles, beside the barriers."""
+    and their row sums, all f32.  bfloat16, the int8 layer too
+    (``smem_bytes`` of csrc/vit_layer_sm90.cu): the larger of the product
+    ring with its hidden chunk and Q, K and V of one head in 64-row tiles,
+    beside the barriers."""
     qt = QUERY_TILE
     if itemsize == 4:
         return 4 * (2 * HEAD_DIM * t_pad + qt * t_pad + HEAD_DIM * qt + qt)
-    if int8:
-        t16 = -(-t_pad // 16) * 16
-        row = HEAD_DIM + 8
-        return (2 * (2 * t16 * row + qt * row + qt * (t16 + 8))
-                + 4 * (qt * (max(t16, HEAD_DIM) + 4) + qt))
     tiles = -(-t_pad // SM90_ROWS)
     return SM90_EXTRA_BYTES + max(SM90_GEMM_BYTES,
                                   3 * tiles * SM90_TILE_BYTES)
 
 
 def fused_layer_fits(t_pad: int, e: int, heads: int, dh: int, hidden: int,
-                     itemsize: int = 2, int8: bool = False) -> bool:
+                     itemsize: int = 2) -> bool:
     """True iff the CUDA fused-layer kernels take these model dims in x's
-    type (``itemsize`` 4 for float32, 2 for bfloat16; ``int8`` for the int8
-    layer): Dh 64; E, H * Dh and the hidden width multiples of 64; t_pad a
-    multiple of 8 whose attention fits a block's shared memory (t_pad <= 344
-    in float32, <= 576 in bfloat16, <= 464 for the int8 layer).  Unlike
-    JAX's, the answer is the same for the merged layer and the pair: both
-    share the attention."""
+    type (``itemsize`` 4 for float32, 2 for bfloat16): Dh 64; E, H * Dh and
+    the hidden width multiples of 64; t_pad a multiple of 8 whose attention
+    fits a block's shared memory (t_pad <= 344 in float32, <= 576 in
+    bfloat16).  Unlike JAX's, the answer is the same for the merged layer,
+    the pair and the int8 layer: all share the attention of their type."""
     return (dh == HEAD_DIM and e % TILE == 0 and (heads * dh) % TILE == 0
             and hidden % TILE == 0 and t_pad % 8 == 0
-            and attention_smem_bytes(t_pad, itemsize, int8) <= SMEM_LIMIT)
+            and attention_smem_bytes(t_pad, itemsize) <= SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------
@@ -276,20 +267,19 @@ def vit_layer_infer_int8_plain(x, norm1, attn, norm2, mlp, *, t_pad: int,
 # The kernels
 # ---------------------------------------------------------------------------
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def workspace_bytes(seg: int, e: int, hd: int, hidden: int, itemsize: int,
+def workspace_bytes(seg: int, e: int, hd: int, hidden: int,
                     int8: bool) -> int:
-    """Bytes of one workspace slot (``layout`` of csrc/fused_layer.cu): xn,
-    q|k|v, the attention output and the MLP hidden in x's type, z in f32,
-    and for int8 an f32 row buffer, the quantised rows and their scales;
+    """Bytes of one workspace slot of the float32 layer (``layout`` of
+    csrc/fused_layer.cu): xn, q|k|v, the attention output, z and the MLP
+    hidden, and for int8 a row buffer, the quantised rows and their scales;
     each region rounded up to 256 bytes."""
     def a(n):
         return -(-n // 256) * 256
-    total = (a(seg * e * itemsize) + a(seg * 3 * hd * itemsize)
-             + a(seg * hd * itemsize) + a(seg * e * 4)
-             + a(seg * hidden * itemsize))
+    total = (a(seg * e * 4) + a(seg * 3 * hd * 4) + a(seg * hd * 4)
+             + a(seg * e * 4) + a(seg * hidden * 4))
     if int8:
         total += (a(seg * max(e, hidden) * 4) + a(seg * max(e, hd, hidden))
                   + a(seg * 4))
@@ -305,29 +295,34 @@ def _no_grad(what, x, *modules):
                            "torch.inference_mode()")
 
 
-def _sm90(mode, dtype):
-    """True where csrc/vit_layer_sm90.cu runs the launch: bfloat16, not
-    int8."""
-    return dtype == torch.bfloat16 and not mode & MODE_Q8
+def _sm90(dtype):
+    """True where csrc/vit_layer_sm90.cu runs the launch: bfloat16, the
+    int8 layer included."""
+    return dtype == torch.bfloat16
 
 
 def sm90_workspace_bytes(mode: int, n: int, t_pad: int, e: int, hd: int,
-                         slots: int) -> int:
+                         slots: int, hidden: int = 0) -> int:
     """Bytes of the workspace of csrc/vit_layer_sm90.cu (``layout`` there):
     the item counter and the per-tile and per-image counters, q|k|v and the
-    attention output of every row in the attention modes, each block's bf16
-    slot (xn, then zn) and in the merged mode its f32 slot (z); each region
-    rounded up to 1 KB."""
+    attention output of every row in the attention modes, each block's slot
+    (bf16 xn, then zn; for int8 the quantised rows, max(E, HD, hidden)
+    bytes a row), in the merged modes its f32 slot (z) and for int8 its f32
+    slot of the MLP hidden; each region rounded up to 1 KB."""
     def a(b):
         return -(-b // 1024) * 1024
     attn = bool(mode & MODE_ATTN)
+    q8 = bool(mode & MODE_Q8)
     tiles = -(-n // SM90_ROWS)
     images = n // t_pad if attn else 0
-    total = a(4 * (1 + tiles + images)) + a(slots * SM90_ROWS * e * 2)
+    row = max(e, hd, hidden) if q8 else e * 2
+    total = a(4 * (1 + tiles + images)) + a(slots * SM90_ROWS * row)
     if attn:
         total += a(n * 3 * hd * 2) + a(n * hd * 2)
-    if mode == MODE_ATTN | MODE_MLP:
+    if mode & MODE_ATTN and mode & MODE_MLP:
         total += a(slots * SM90_ROWS * e * 4)
+    if q8:
+        total += a(slots * SM90_ROWS * hidden * 4)
     return total
 
 
@@ -338,10 +333,12 @@ def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
 
     bfloat16 (csrc/vit_layer_sm90.cu): (wqkv^T (3 HD, E), wo^T (E, HD),
     w1^T (hidden, E), w2^T (E, hidden) in bf16, every product's operands
-    K-major; g1, be1, bqkv, bo, g2, be2, b1, b2 in f32).  Otherwise the 16
-    operands of ``launch_fused_layer``: (wqkv, sqkv, bqkv, wo, so, bo, w1,
-    s1, b1, w2, s2, b2, g1, be1, g2, be2), products in ``dtype``, or int8
-    with their column scales in ``MODE_Q8``."""
+    K-major; g1, be1, bqkv, bo, g2, be2, b1, b2 in f32), and in
+    ``MODE_Q8`` the four W^T in int8 followed by their column scales sqkv,
+    so, s1, s2 (f32).  float32: the 16 operands of ``launch_fused_layer``:
+    (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1, g2,
+    be2), products in float32, or int8 with their column scales in
+    ``MODE_Q8``."""
     pack_weights.packings += 1
     null = torch.zeros(1, device=device)
     if mode & MODE_Q8:
@@ -355,9 +352,11 @@ def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
                           else (null,) * 4)
     g1, be1 = _norm(norm1) if norm1 is not None else (null, null)
     g2, be2 = _norm(norm2) if norm2 is not None else (null, null)
-    if _sm90(mode, dtype):
+    if _sm90(dtype):
         t = [w.t() if w is not null else w for w in (wqkv, wo, w1, w2)]
         ops = (*t, g1, be1, bqkv, bo, g2, be2, b1, b2)
+        if mode & MODE_Q8:
+            ops += (sqkv, so, s1, s2)
     else:
         ops = (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1,
                g2, be2)
@@ -451,14 +450,13 @@ def _check(what, mode, x, seg, t_real, attn, mlp):
     hidden = mlp.fc1.kernel.shape[1] if mlp is not None else TILE
     dh = attn.query.bias.shape[1] if attn is not None else HEAD_DIM
     it = x.element_size()
-    int8 = bool(mode & MODE_Q8)
     if not fused_layer_fits(seg if mode & MODE_ATTN else 8, e, heads, dh,
-                            hidden, it, int8):
+                            hidden, it):
         if dh == HEAD_DIM and e % TILE == 0 and hd % TILE == 0 and \
                 hidden % TILE == 0 and seg % 8 == 0:
             raise FusedLayerSharedMemoryError(
                 f"{what}: t_pad={seg} needs "
-                f"{attention_smem_bytes(seg, it, int8)} bytes of shared "
+                f"{attention_smem_bytes(seg, it)} bytes of shared "
                 f"memory for its attention, over the {SMEM_LIMIT} a block "
                 "may use; use the composable impl='small' path")
         raise ValueError(f"{what}: E={e} heads={heads} Dh={dh} "
@@ -482,7 +480,7 @@ def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
     launches ``launch_vit_layer_sm90`` (bfloat16) or ``launch_fused_layer``
     in ``mode``."""
     heads, hidden = _check(what, mode, x, seg, t_real, attn, mlp)
-    if _sm90(mode, x.dtype):
+    if _sm90(x.dtype):
         return _launch_sm90(what, mode, x, seg, t_real, norm1, attn, norm2,
                             mlp, eps, heads, hidden)
     n, e = x.shape
@@ -493,11 +491,11 @@ def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     slots = min(nseg, SLOTS_PER_SM * sms)
     ws_bytes = workspace_bytes(seg, e, heads * HEAD_DIM, hidden,
-                               x.element_size(), bool(mode & MODE_Q8))
+                               bool(mode & MODE_Q8))
     ws = torch.empty(slots * ws_bytes, dtype=torch.uint8, device=dev)
     y = torch.empty_like(x)
     rc = library().launch_fused_layer(
-        mode, _DTYPES[x.dtype], x.data_ptr(), y.data_ptr(), ws.data_ptr(),
+        mode, x.data_ptr(), y.data_ptr(), ws.data_ptr(),
         slots, ws_bytes, g1.data_ptr(), be1.data_ptr(), wqkv.data_ptr(),
         sqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), so.data_ptr(),
         bo.data_ptr(), g2.data_ptr(), be2.data_ptr(), w1.data_ptr(),
@@ -518,14 +516,16 @@ def _launch_sm90(what, mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps,
     dev = x.device
     lib = library()
     entry = packed_weights(mode, x.dtype, dev, norm1, attn, norm2, mlp)
-    wqkv, wo, w1, w2, g1, be1, bqkv, bo, g2, be2, b1, b2 = entry["ops"]
+    wqkv, wo, w1, w2, g1, be1, bqkv, bo, g2, be2, b1, b2, *scales = \
+        entry["ops"]
+    q8 = bool(mode & MODE_Q8)
     if entry["maps"] is None:
         maps = ctypes.create_string_buffer(4 * TMA_MAP_BYTES)
         a, m = attn is not None, mlp is not None
         rc = lib.vit_layer_sm90_weight_maps(
             ctypes.addressof(maps), wqkv.data_ptr() if a else None,
             wo.data_ptr() if a else None, w1.data_ptr() if m else None,
-            w2.data_ptr() if m else None, e, heads, hidden)
+            w2.data_ptr() if m else None, e, heads, hidden, int(q8))
         if rc != 0:
             raise RuntimeError(f"vit_layer_sm90_weight_maps ({what}) failed: "
                                f"error {rc}")
@@ -534,14 +534,15 @@ def _launch_sm90(what, mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps,
         t_pad, t_real = SM90_ROWS, 1
     slots = torch.cuda.get_device_properties(dev).multi_processor_count
     ws = torch.empty(sm90_workspace_bytes(mode, n, t_pad, e,
-                                          heads * HEAD_DIM, slots),
+                                          heads * HEAD_DIM, slots, hidden),
                      dtype=torch.uint8, device=dev)
     y = torch.empty_like(x)
+    scale_ptrs = [t.data_ptr() for t in scales] if q8 else [None] * 4
     rc = lib.launch_vit_layer_sm90(
         mode, x.data_ptr(), y.data_ptr(), ws.data_ptr(), ws.numel(), slots,
         entry["maps"], g1.data_ptr(), be1.data_ptr(),
         bqkv.data_ptr(), bo.data_ptr(), g2.data_ptr(), be2.data_ptr(),
-        b1.data_ptr(), b2.data_ptr(), n, t_pad, t_real, e, heads, hidden, eps,
+        b1.data_ptr(), b2.data_ptr(), *scale_ptrs, n, t_pad, t_real, e, heads, hidden, eps,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch_vit_layer_sm90 ({what}) failed: error "

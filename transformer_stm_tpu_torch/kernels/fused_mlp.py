@@ -14,9 +14,11 @@ from the graph.
 
 ``fused_mlp_train`` ports ``make_fused_mlp_train`` (:291), the training
 MLP y = Drop2(Drop1(GELU(x W1 + b1)) W2 + b2) with both masks drawn inside
-the kernels: the forward ``_mlp_train_fwd_kernel`` (:170) and the backward
-``_mlp_train_bwd_kernel`` (:189) are ``csrc/fused_mlp_train.cu``, the
-backward's products in 3xTF32 on the tensor cores.  It is the autograd
+the kernels: the forward ``_mlp_train_fwd_kernel`` (:170) is
+``csrc/fused_mlp.cu``'s body with its dropout flag, on weights it splits
+at every call (training changes them every step), and the backward
+``_mlp_train_bwd_kernel`` (:189) is ``csrc/fused_mlp_train.cu``, both on
+the tensor cores in 3xTF32.  It is the autograd
 Function ``FusedMLPTrain``, which saves x, the weights and the seed, never
 the hidden activation; the backward recomputes it and writes one weight
 and bias partial per row slot (``train_bwd_slots``), summed over the slots
@@ -81,13 +83,15 @@ def kpos_order(w_t):
 
 def pack_mlp_weights(w1, w2):
     """(W1^T, W2^T) as the kernel reads them: (2, Hd, D) and (2, D, Hd),
-    each the TF32 big half then the small half, contiguous.  At the split-K
-    widths W2^T's columns (the hidden units) are in ``kpos_order``: there
-    fc2 takes the hidden activation from registers (csrc/fused_mlp.cu)."""
+    each the TF32 big half then the small half, contiguous float32, from
+    weights of any float type.  At the split-K widths W2^T's columns (the
+    hidden units) are in ``kpos_order``: there fc2 takes the hidden
+    activation from registers (csrc/fused_mlp.cu)."""
     w2_t = w2.t()
     if w2.shape[1] in SPLIT_K_WIDTHS:
         w2_t = kpos_order(w2_t)
-    return tuple(torch.stack(tf32_split(w.contiguous())) for w in (w1.t(), w2_t))
+    return tuple(torch.stack(tf32_split(w.float().contiguous()))
+                 for w in (w1.t(), w2_t))
 
 
 # (id(w1), id(w2)) -> (weakrefs of both, their state, the packed pair)
@@ -133,13 +137,19 @@ def packed_mlp_weights(w1, w2):
 packed_mlp_weights.packings = 0
 
 
-def _check(x, w1, b1, w2, b2, what="fused_mlp", widths=WIDTHS, **more):
+def _check(x, w1, b1, w2, b2, what="fused_mlp", widths=WIDTHS,
+           packed=False, **more):
+    """Devices, types and shapes; with ``packed`` the weights only reach the
+    kernel through their pack, so they may be of any float type and
+    layout."""
     tensors = (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2),
                *more.items())
     for name, t in tensors:
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"{what}: {name} must lie on the CUDA device "
                              f"of x, got {t.device} and {x.device}")
+        if packed and name in ("w1", "w2") and t.is_floating_point():
+            continue
         want = torch.int32 if name == "seed" else torch.float32
         if t.dtype != want or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous {want}, "
@@ -160,9 +170,10 @@ def _check(x, w1, b1, w2, b2, what="fused_mlp", widths=WIDTHS, **more):
 def fused_mlp(x, w1, b1, w2, b2):
     """x: (..., D), D in WIDTHS or VIT_WIDTHS; w1 (D, Hd); w2 (Hd, D).
 
-    The kernel computes in float32.  A bfloat16 x, or bfloat16 weights, are
-    converted to float32 here and the result is returned in x's type, as
-    the TPU kernel casts x and the weights to float32 and writes in x's
+    The kernel computes in float32.  A bfloat16 x or biases are converted
+    to float32 here, bfloat16 weights inside their pack (which stays keyed
+    on the caller's own weights), and the result is returned in x's type,
+    as the TPU kernel casts x and the weights to float32 and writes in x's
     type (kernels/fused_mlp.py:52-59)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
@@ -170,12 +181,12 @@ def fused_mlp(x, w1, b1, w2, b2):
             "fused_mlp is an inference kernel with no backward; run it under "
             "torch.no_grad() or torch.inference_mode(), or train through "
             "mlp(..., train=True), which takes the plain MLP")
-    if any(t.dtype != torch.float32 for t in (x, w1, b1, w2, b2)):
-        y = fused_mlp(*(t.float().contiguous() for t in (x, w1, b1, w2, b2)))
-        return y.to(x.dtype)
+    dtype = x.dtype
     if all(t.device.type == "cpu" for t in (x, w1, b1, w2, b2)):
-        return fused_mlp_plain(x, w1, b1, w2, b2)
-    _check(x, w1, b1, w2, b2, widths=WIDTHS + VIT_WIDTHS)
+        return fused_mlp_plain(*(t.float() for t in (x, w1, b1, w2,
+                                                     b2))).to(dtype)
+    x, b1, b2 = (t.float().contiguous() for t in (x, b1, b2))
+    _check(x, w1, b1, w2, b2, widths=WIDTHS + VIT_WIDTHS, packed=True)
     d, hd = w1.shape
     n = x.numel() // d
     x = aligned16(x)
@@ -188,7 +199,7 @@ def fused_mlp(x, w1, b1, w2, b2):
     if rc != 0:
         raise RuntimeError(f"launch_fused_mlp failed: CUDA error {rc}")
     fused_mlp.launches += 1
-    return y
+    return y.to(dtype)
 
 
 # Kernel launches so far; a caller resets it to 0 to count a run.
@@ -303,16 +314,20 @@ def _on_cpu(*tensors):
 
 def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
     """y (..., D) outside autograd: the plain version on the CPU, else the
-    forward kernel."""
+    forward kernel, after a launch that splits the weights as
+    ``pack_mlp_weights`` does into scratch of 4 D Hd floats (kept for no
+    later call: the weights change every step)."""
     if _on_cpu(x, w1, b1, w2, b2, seed):
         return fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate)
     _train_check(x, w1, b1, w2, b2, seed)
     d, hd = w1.shape
+    x = aligned16(x)
+    pack = x.new_empty(4 * d * hd)
     y = torch.empty_like(x)
     rc = library().launch_fused_mlp_train_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), seed.data_ptr(), y.data_ptr(), x.numel() // d, d, hd,
-        d, keep_threshold(rate), keep_scale(rate),
+        b2.data_ptr(), seed.data_ptr(), y.data_ptr(), pack.data_ptr(),
+        x.numel() // d, d, hd, d, keep_threshold(rate), keep_scale(rate),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch_fused_mlp_train_fwd failed: CUDA error "

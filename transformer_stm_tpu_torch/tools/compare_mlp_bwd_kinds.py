@@ -86,9 +86,9 @@ def build_all(src_dir, tmp, builds):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for build {name}:\n{out}")
         lib = ctypes.CDLL(str(tmp / f"lib{name}.so"))
-        for sym in ("launch_fused_mlp_train_bwd", "launch_fused_mlp_train_fwd"):
-            getattr(lib, sym).argtypes = _build.SIGNATURES[sym]
-            getattr(lib, sym).restype = ctypes.c_int
+        sym = "launch_fused_mlp_train_bwd"
+        getattr(lib, sym).argtypes = _build.SIGNATURES[sym]
+        getattr(lib, sym).restype = ctypes.c_int
         libs[name] = lib
     return libs
 

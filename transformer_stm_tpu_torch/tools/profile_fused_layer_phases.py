@@ -1,12 +1,14 @@
 """Where the bf16 fused ViT layer spends its time, phase by phase, on the card.
 
     python3 -m transformer_stm_tpu_torch.tools.profile_fused_layer_phases \
-        [--batch B]
+        [--batch B] [--int8]
 
 Builds a copy of ``csrc/vit_layer_sm90.cu`` with `clock64()` spans inserted
 at fixed lines (the committed source stays as it is), loads it in place of
-the kernel library, and runs ``vit_layer_infer`` at ViT-S/16 widths (E 384,
-H 6, hidden 1536, 197 tokens padded to 200) in bfloat16 at batch B (192).
+the kernel library, and runs ``vit_layer_infer`` (with ``--int8``
+``vit_layer_infer_int8``, the kernel's mode 7, spans ``ANCHORS_INT8``) at
+ViT-S/16 widths (E 384, H 6, hidden 1536, 197 tokens padded to 200) in
+bfloat16 at batch B (192).
 Thread 0 of each block (a consumer) adds the cycles since its previous mark
 to the phase that the mark closes.  The table gives each phase's share of
 the summed cycles and that share of the uninstrumented kernel's time (CUDA
@@ -66,17 +68,19 @@ ANCHORS = [
      "before", "PROF(0);"),
     ("    bar_sync(0, THREADS);  // the block has finished the previous item",
      1, "after", "PROF(1);"),
-    ("  ln_x(p.g1, p.be1);", 0, "after", "PROF(2);"),
+    ("    ln_x(p.g1, p.be1);", 0, "after", "PROF(2);"),
     ("    atomicAdd(&p.flags[1 + idx], 1);", 0, "after", "PROF(3);"),
     ("      ring.attn_phase ^= 1;", 0, "after", "PROF(4);"),
     ("        atomicAdd(&p.flags[1 + p.tiles + idx / p.H], 1);", 0, "after",
      "PROF(5);"),
-    ("      mma_loop<NW>(acc, HD / KT, sm.full, sm.empty, stage, phase, "
+    ("      mma_loop(acc, HD / KT, sm.full, sm.empty, stage, phase, "
      "stage_a, stage_b);", 0, "before",
      "if (c0 == 0) { mbar_wait(&sm.full[stage], phase); PROF(13); }"),
     ("    // LN2 into the slot (above, from the registers, where E <= 2 NW)", 0,
      "before", "PROF(6);"),
-    ("    bar_sync(BAR_ALL, THREADS);", 0, "after", "PROF(7);"),
+    # the bf16 merged mode's: after the int8 layer's item A and C and the
+    # bf16 item A's
+    ("    bar_sync(BAR_ALL, THREADS);", 3, "after", "PROF(7);"),
     ("      for (int st = 0; st < nst1; ++st) issue_fc1(hacc);", 0, "after",
      "PROF(8);"),
     ("        drain();  // this chunk's fc1 and the previous chunk's fc2 are done",
@@ -88,9 +92,9 @@ ANCHORS = [
     ("        bar_sync(BAR_CONSUMERS, CONSUMERS);  // the chunk is in hbuf", 0,
      "after", "PROF(9);"),
     ("      fence_acc(yacc);", 0, "after", "PROF(17);"),
-    ("      mma_loop<NW>(acc, HD / KT, sm.full, sm.empty, stage, phase, "
+    ("      mma_loop(acc, HD / KT, sm.full, sm.empty, stage, phase, "
      "stage_a, stage_b);", 0, "after", "PROF(15);"),
-    ("    mma_loop<NW>(acc, E / KT, sm.full, sm.empty, stage, phase, stage_a, "
+    ("      mma_loop(acc, E / KT, sm.full, sm.empty, stage, phase, stage_a, "
      "stage_b);", 0, "after", "PROF(16);"),
 ]
 # the phase each PROF(k) closes, by k
@@ -103,6 +107,58 @@ PHASES = ["C: y epilogue (end of the previous item)", "wait for the block",
     "C: wait for the heads (deps + TMA of o)", "C: h into shared memory",
     "C: out projection products", "A: q|k|v products",
     "C: the last chunk's fc2 (to the drain)"]
+
+# the int8 layer's spans (mode 7): its items A and C and the attention
+ANCHORS_INT8 = [
+    ("  Ring ring{0, 0, 0, 0};", 0, "after", INIT),
+    ("    if (threadIdx.x == 0) sm.item[it & 1] = atomicAdd(p.flags, 1);", 0,
+     "before", "PROF(0);"),
+    ("    bar_sync(0, THREADS);  // the block has finished the previous item",
+     1, "after", "PROF(1);"),
+    ("      ring.x_phase ^= 1;", 1, "after", "PROF(2);"),
+    ("        p.slot_w, qs);", 0, "after", "PROF(3);"),
+    ("    bar_sync(BAR_ALL, THREADS);", 0, "after", "PROF(4);"),
+    ("      dequant_acc(acc, sx, p.sqkv, p.bqkv, cw, N3);", 0, "before",
+     "PROF(5);"),
+    ("    atomicAdd(&p.flags[1 + idx], 1);", 0, "after", "PROF(6);"),
+    ("      ring.attn_phase ^= 1;", 0, "after", "PROF(7);"),
+    ("        atomicAdd(&p.flags[1 + p.tiles + idx / p.H], 1);", 0, "after",
+     "PROF(8);"),
+    ("    ring.x_phase ^= 1;", 0, "after", "PROF(9);"),
+    ("      slot, p.slot_w, qs);", 0, "after", "PROF(10);"),
+    ("  slot_ready();", 0, "after", "PROF(11);"),
+    ("    mma_loop(acc, cdiv(HD, KQ), sm.full, sm.empty, stage, phase, "
+     "stage_a, stage_b);", 0, "after", "PROF(12);"),
+    ("  bar_sync(BAR_CONSUMERS, CONSUMERS);  // z is in its slot", 0, "after",
+     "PROF(13);"),
+    ("      p.eps, slot, p.slot_w, qs);", 0, "after", "PROF(14);"),
+    ("  slot_ready();", 1, "after", "PROF(15);"),
+    ("    mma_loop(acc, cdiv(E, KQ), sm.full, sm.empty, stage, phase, "
+     "stage_a, stage_b);", 0, "after", "PROF(16);"),
+    ("  // the rows' maxima meet: over each quad, then across the warpgroups",
+     0, "before", "PROF(17);"),
+    ("  bar_sync(BAR_CONSUMERS, CONSUMERS);  // the maxima, and the hidden, "
+     "are in place", 0, "after", "PROF(18);"),
+    ("  slot_ready();", 2, "before", "PROF(19);"),
+    ("  slot_ready();", 2, "after", "PROF(20);"),
+    ("    mma_loop(acc, cdiv(HID, KQ), sm.full, sm.empty, stage, phase, "
+     "stage_a, stage_b);", 0, "after", "PROF(21);"),
+    ("  ring.stage = stage, ring.phase = phase;", 1, "before", "PROF(22);"),
+]
+PHASES_INT8 = [
+    "end of the previous item (C: fc2's last epilogue)", "wait for the block",
+    "A: wait for the x tile (TMA)", "A: LN1 and its quantisation",
+    "A: barrier", "A: q|k|v products (and the previous pass's epilogue)",
+    "A: q|k|v epilogue (the last pass)", "B: wait for q|k|v (deps + TMA)",
+    "B: attention", "C: wait for the heads (deps + TMA of o)",
+    "C: o quantised", "C: barrier (oq in the slot)", "C: out projection products",
+    "C: z epilogue", "C: LN2 and its quantisation", "C: barrier (zq)",
+    "C: fc1 products (and the previous pass's GELU, hidden slot)",
+    "C: fc1 epilogue, the last pass (GELU, hidden slot)", "C: row maxima meet",
+    "C: hidden quantised", "C: barrier (hq)",
+    "C: fc2 products (and the previous pass's epilogue)",
+    "C: fc2 epilogue, the last pass"]
+
 
 def patch(text, anchors=ANCHORS):
     """text with the spans' prelude, each anchor's code before or after
@@ -150,7 +206,11 @@ def time_ms(fn, calls=10, reps=5, warmup=2):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=192)
+    ap.add_argument("--int8", action="store_true",
+                    help="profile vit_layer_infer_int8 (mode 7)")
     args = ap.parse_args()
+    anchors, phases = ((ANCHORS_INT8, PHASES_INT8) if args.int8
+                       else (ANCHORS, PHASES))
     import torch
 
     from transformer_stm_tpu_torch.kernels import _build, fused_layer
@@ -159,7 +219,7 @@ def main():
     from transformer_stm_tpu_torch.ops.common import LayerNorm
 
     src_dir = Path(__file__).resolve().parents[1] / "csrc"
-    text = patch((src_dir / SOURCE).read_text())
+    text = patch((src_dir / SOURCE).read_text(), anchors)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -185,8 +245,11 @@ def main():
     x[:, t:] = 0.0
     x = x.reshape(b * tp, e).to(torch.bfloat16)
 
+    layer = (fused_layer.vit_layer_infer_int8 if args.int8
+             else fused_layer.vit_layer_infer)
+
     def run():
-        return fused_layer.vit_layer_infer(x, *mods, t_pad=tp, t_real=t)
+        return layer(x, *mods, t_pad=tp, t_real=t)
 
     with torch.inference_mode():
         plain_ms = time_ms(run)  # the committed kernel
@@ -214,15 +277,16 @@ def main():
     buf = (ctypes.c_ulonglong * 64)()
     if lib.prof_read(buf) != 0:
         raise RuntimeError("prof_read failed")
-    cycles = [buf[i] / reps for i in range(len(PHASES))]
+    cycles = [buf[i] / reps for i in range(len(phases))]
     total = sum(cycles)
-    print(f"{SOURCE} at ViT-S, B {b}, bf16 ({b * tp} folded rows); {card}")
+    print(f"{SOURCE}{' mode 7 (int8)' if args.int8 else ''} at ViT-S, B {b}, "
+          f"bf16 ({b * tp} folded rows); {card}")
     print(f"kernel {plain_ms:.3f} ms uninstrumented, {prof_ms:.3f} ms with "
           "the spans (CUDA events, 10 calls back to back, median of 5)")
-    print(f"{'phase':44s} {'share':>7s} {'ms':>8s} {'marks':>8s}")
-    for i, name in enumerate(PHASES):
+    print(f"{'phase':60s} {'share':>7s} {'ms':>8s} {'marks':>8s}")
+    for i, name in enumerate(phases):
         share = cycles[i] / total if total else math.nan
-        print(f"{name:44s} {100 * share:6.1f}% {share * plain_ms:8.3f} "
+        print(f"{name:60s} {100 * share:6.1f}% {share * plain_ms:8.3f} "
               f"{buf[32 + i] // reps:8d}")
 
 
