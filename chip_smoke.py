@@ -10,11 +10,11 @@ Phases, each printed as it finishes:
    each kernel's registers and spills, any ptxas C75xx note (wgmma
    serialised), and the registers, shared memory and blocks an SM of the
    3xTF32 kernels (``fused_mlp`` at every width, its dropout form that is
-   the training MLP's forward at D 64, 128 and 256, the attention forward of
-   flash_attention and attention_small at Dh <= 64 and above, both flash
-   backward kernels, the training MLP's dx and weight-partial kernels at
-   every width) and of the int8 ViT layer's kernel (csrc/vit_layer_sm90.cu,
-   mode 7);
+   the training MLP's forward at the CvT widths D 64, 128 and 256 and the
+   ViT widths 192, 384 and 768, the attention forward of flash_attention
+   and attention_small at Dh <= 64 and above, both flash backward kernels,
+   the training MLP's dx and weight-partial kernels at the same six widths)
+   and of the int8 ViT layer's kernel (csrc/vit_layer_sm90.cu, mode 7);
 2. kernels: each kernel against its plain PyTorch version at the CvT stage
    shapes (in float32, and in float64 as a check that shares no rounding),
    with its time, the plain version's time and one PyTorch call's time as
@@ -35,7 +35,13 @@ Phases, each printed as it finishes:
    summed over the stages, its weights split at every call included), and
    one training-
    MLP backward at the 512px stage 1 (N 2,097,152, D 64) against plain with
-   its measured scratch bytes and time; attention_small
+   its measured scratch bytes and time; the training MLP forward and
+   backward at the ViT widths D 192, 384 and 768, each at its model's B 64
+   of the fine-tune (N 12,608), with the same checks (the masks included),
+   bfloat16 x (y and dx in bf16 within 1e-2 of max |plain|, the weight
+   gradients f32 within MLP_TOL) and its time beside plain, the library
+   graph and the bounds; the scratch at most 64 MiB there too but at D 768
+   (the design's own count, at most 96 MiB); attention_small
    under torch.func.vmap and grad over 2 slots, bit-equal to a loop;
    flash_attention forward (with and without lse) and backward at T 300,
    S 257 for Dh 16, 33, 64, 128 and 256 and at the 512px stage-1 shape
@@ -55,14 +61,17 @@ Phases, each printed as it finishes:
    0.1) for 2 epochs of 512 synthetic images with a learnable label and
    validates on 128: 8 steps, with exact launch counts; 3 steps of
    ``make_train_step`` on one batch with dropout 0 through the kernels and
-   through plain PyTorch agree; a checkpoint saved and loaded into a fresh
-   loop predicts bit for bit the same; ms per step on both paths;
+   through plain PyTorch agree, in f32 and in bf16 compute (losses within
+   2e-2 relative); a checkpoint saved and loaded into a fresh loop predicts
+   bit for bit the same, and ``predict(exact=True)`` under the bf16 config
+   bit for bit as the f32 config's; ms per step on both paths;
 5. multi-target path: ``MultiTargetTrainer`` trains the full-width CvT
    (dropout 0.1, mlp_impl="pallas") as 2 slots of two targets over a
    synthetic corpus of 2 groups x 5 pieces x 64 layers (label and process
    sheets written with the port's xlsx writer; one target misses a label,
    so the slots train on 512 and 448 rows), 5 steps per epoch of which one
-   is gated, 2 epochs with validation, with exact launch counts; the gated
+   is gated, 2 epochs with validation, with exact launch counts, and one
+   epoch with ``AugmentConfig()`` with the same counts; the gated
    step leaves every slot bit for bit as it was; ms per slot-step and the
    device's busy share, and the ops that launch its torch reduce_kernel
    (torch.profiler's op-to-kernel links); a stacked checkpoint round trip
@@ -103,13 +112,29 @@ Phases, each printed as it finishes:
    of max(1, |logits|); int8 against f32 within 3% of the logit scale and
    correlation above 0.999; f32 auto within 1e-3), images/s (CUDA
    events, median of 5) and peak memory of each route at B 192, 384 and
-   768, and the device's busy share in a B 192 auto forward.
+   768, and the device's busy share in a B 192 auto forward; the f32 layer
+   beside nn.TransformerEncoderLayer in f32;
+8. the ViT-B/16 fine-tune (BASELINE.json config 3, as
+   scripts/bench_vit_finetune.py:34-38 sets it: one channel, 4 classes,
+   batch 64, bf16, AdamW with weight decay 0.05, label smoothing 0.1) on
+   320 synthetic 224x224 quadrant-class images: ``ViTTrainer.fit`` through
+   the kernels (``impl="pallas"``) for 2 epochs with ``val_split=0.2`` and
+   ``AugmentConfig()``, with exact launch counts (a layer's flash forward,
+   flash backward pair and training MLP forward and backward a step, the
+   MLP at D 768); a loaded checkpoint predicts bit for bit the same and a
+   second trainer resumes to epoch 3; 3 steps on one batch without
+   augmentation through ``"auto"`` (plain PyTorch at 197 tokens, no
+   launch) and ``"pallas"``, in f32 (losses within 1e-4 relative) and bf16
+   (2e-2, first logits within 5e-2 x max(1, |logits|)); ms per bf16 step,
+   images/s, peak memory and busy share of both routes.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON object with each kernel's numbers (``launches`` from phase 6, or
-phase 5 for the training MLP, which only the multi-target trainer runs, or
-phase 7 for the fused-layer kernels; ``launches_by_path`` from phases 3 to
-7); the last line is
+phase 5 for the training MLP, which the multi-target trainer runs at the
+CvT widths, or phase 7 for the fused-layer kernels; ``launches_by_path``
+from phases 3 to 8, the last ``vit_finetune``, where rows 4-5 run at D
+768; rows 4-5 carry their ViT-width rows as ``vit_shapes``) and phase 8's
+step times; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing is read from or written to the
 repository except the kernels' build directory; phase 6 works in a
 temporary directory.
@@ -175,7 +200,7 @@ from transformer_stm_tpu_torch.ops.common import LayerNorm  # noqa: E402
 from transformer_stm_tpu_torch.ops.common import use_true_f32  # noqa: E402
 from transformer_stm_tpu_torch.train.checkpoint import (  # noqa: E402
     from_jax_params, latest_checkpoint, load_checkpoint, save_checkpoint,
-    to_jax_params)
+    to_jax_params, vit_from_jax_params)
 from transformer_stm_tpu_torch.train.loop import (  # noqa: E402
     TrainLoop, make_train_step)
 from transformer_stm_tpu_torch.train.optimizer import adam_init  # noqa: E402
@@ -184,6 +209,9 @@ from transformer_stm_tpu_torch.train.metrics import (  # noqa: E402
     write_predictions_metrics)
 from transformer_stm_tpu_torch.train.multi import (  # noqa: E402
     MultiTargetTrainer)
+from transformer_stm_tpu_torch.data.augment import AugmentConfig  # noqa: E402
+from transformer_stm_tpu_torch.train.vit_train import (  # noqa: E402
+    ViTTrainer, make_vit_train_step)
 
 SEED = 0
 BATCH = 128
@@ -198,6 +226,11 @@ ATTN_SHAPES = [("stage1", BATCH, 1024, 1), ("stage2", BATCH, 256, 2),
                ("stage3", BATCH, 65, 4)]
 MLP_SHAPES = [("stage1", BATCH * 1024, 64), ("stage2", BATCH * 256, 128),
               ("stage3", BATCH * 65, 256)]
+# The training MLP at the ViT widths, each at its model's B 64 of the
+# fine-tune (BASELINE config 3): N = 64 x 197 rows
+VIT_MLP_SHAPES = [("ViT-Ti", 192), ("ViT-S", 384), ("ViT-B", 768)]
+VIT_MLP_ROWS = 64 * 197
+BF16_MLP_TOL = 1e-2  # bf16 y and dx against plain's: max |err| / max |ref|
 ATTN_TOL = 1e-4   # atol and rtol, elementwise (forward, lse, backward)
 MLP_TOL = 1e-4    # max |kernel - plain| <= MLP_TOL * max |plain|
 PATH_TOL = 1e-3   # |kernel path - plain path| <= PATH_TOL * max(1, |plain|);
@@ -208,6 +241,8 @@ EPOCHS = 2        # of N_IMAGES training images in batches of BATCH
 MULTI_TARGETS = ("50HZ_Bm", "50HZ_Hc")  # phase 5's slots
 MULTI_GROUPS, MULTI_LAYERS, MULTI_EPOCHS = 2, 64, 2
 MULTI_LOSS_TOL = 1e-4  # per-step losses, kernel path vs plain path
+BF16_LOSS_TOL = 2e-2   # bf16 training losses, kernel route vs plain route
+BF16_OUT_TOL = 5e-2    # bf16 outputs: max |diff| <= tol x max(1, |ref|)
 # The 512px CvT (cvt_highres_spec(512)): stage 1 (B, S = T, H) goes to
 # flash_attention, stages 2 and 3 to attention_small; Dh 64 everywhere.
 FLASH_SHAPE = (BATCH, 16384, 1)
@@ -245,6 +280,9 @@ def time_ms(fn, reps=10, warmup=2):
 
 
 SCRATCH_LIMIT = 64 << 20  # the training MLP backward's scratch, bytes
+# at D 768 the design's own count, (6 + 2 slots) D Hd + slots (Hd + D)
+# floats, 94.4 MB at ViT-B B 64 with 2 slots
+VIT_SCRATCH_LIMIT = 96 << 20
 
 
 def scratch_bytes(fn):
@@ -465,7 +503,7 @@ def phase_build():
               for d in WIDTHS + VIT_WIDTHS),
             *((f"fused_mlp_tf32x3 with dropout D{d} (fused_mlp_train "
                "forward)", lib.fused_mlp_train_fwd_info, (d,))
-              for d in WIDTHS),
+              for d in WIDTHS + VIT_WIDTHS),
             ("flash_fwd_tf32x3 Dh <= 64 (flash_attention, attention_small)",
              lib.flash_attention_fwd_info, (0,)),
             ("flash_fwd_tf32x3 Dh > 64 (flash_attention)",
@@ -476,7 +514,7 @@ def phase_build():
             *((f"mlp_bwd_tf32x3 {what} D{d} (fused_mlp_train_bwd)",
                lib.fused_mlp_train_bwd_info, (kind, d))
               for kind, what in ((0, "dx"), (1, "weight partials"))
-              for d in WIDTHS),
+              for d in WIDTHS + VIT_WIDTHS),
             ("vit_layer_sm90<7> at t_pad 200 (vit_layer_infer_int8, bf16)",
              lib.vit_layer_sm90_info,
              (MODE_ATTN | MODE_MLP | MODE_Q8, 200))):
@@ -664,120 +702,166 @@ def mlp_train_library(x, w1, b1, w2, b2, rate):
     return F.dropout(torch.addmm(b2, h, w2), rate, training=True)
 
 
-def phase_mlp_train(dev, gen):
-    """fused_mlp_train forward and backward at the three stage shapes, at
-    rate 0.1 and 0, against fused_mlp_train_plain (the same masks) and its
-    float64 evaluation; the keep share of both masks at stage 1; two
-    backward calls bit-equal; times at rate 0.1."""
-    frows, brows, worst = [], [], {"fwd": 0.0, "bwd": 0.0}
+def mlp_train_shape(dev, gen, stage, n, d, masks=False, bf16=False,
+                    limit=SCRATCH_LIMIT):
+    """fused_mlp_train forward and backward at N rows and width D (Hd 4D),
+    at rate 0.1 and 0, against fused_mlp_train_plain (the same masks) and
+    its float64 evaluation; two backward calls bit-equal; with ``masks`` the
+    forward's zeros exactly m2's and the keep share of both masks; with
+    ``bf16`` bfloat16 x (y and dx in bfloat16, the weight gradients in
+    float32); times at rate 0.1 beside the library graph and the bounds,
+    and the backward's scratch, at most ``limit`` bytes.  Returns (forward
+    row, backward row, worst forward |err|, worst backward |err|)."""
     names = ("y", "dx", "dW1", "db1", "dW2", "db2")
-    for stage, n, d in MLP_SHAPES:
-        hd = 4 * d
-        x = torch.randn(n, d, device=dev, generator=gen)
-        w1 = torch.randn(d, hd, device=dev, generator=gen) / d ** 0.5
-        b1 = 0.1 * torch.randn(hd, device=dev, generator=gen)
-        w2 = torch.randn(hd, d, device=dev, generator=gen) / hd ** 0.5
-        b2 = 0.1 * torch.randn(d, device=dev, generator=gen)
-        dy = torch.randn(n, d, device=dev, generator=gen)
-        seed = torch.randint(0, 2 ** 31 - 1, (2,), device=dev, generator=gen,
-                             dtype=torch.int32)
-        args = (x, w1, b1, w2, b2, seed)
-        errs = {}
-        for rate in (DROPOUT, 0.0):
-            got = (fused_mlp_train_fwd(*args, rate),
-                   *fused_mlp_train_bwd(*args, rate, dy))
-            again = fused_mlp_train_bwd(*args, rate, dy)
-            if not all(map(torch.equal, got[1:], again)):
-                raise AssertionError(f"fused_mlp_train_bwd {stage}: two "
-                                     "calls on the same inputs differ")
-            want = (fused_mlp_train_plain(*args, rate),
-                    *fused_mlp_train_bwd_plain(*args, rate, dy))
-            a64 = [t.double() for t in args[:5]] + [seed]
-            want64 = (fused_mlp_train_plain(*a64, rate),
-                      *fused_mlp_train_bwd_plain(*a64, rate, dy.double()))
-            torch.cuda.synchronize()
-            for name, g, w, w64 in zip(names, got, want, want64):
-                scale = w.abs().max().item()
-                e, e64 = ((g - w).abs().max().item(),
-                          (g.double() - w64).abs().max().item())
-                if not torch.isfinite(g).all() or max(e, e64) > \
-                        MLP_TOL * scale:
-                    raise AssertionError(
-                        f"fused_mlp_train {stage} rate {rate} {name}: max "
-                        f"|err| {e:.3e}, vs f64 {e64:.3e}, over {MLP_TOL} x "
-                        f"max {scale:.3e}")
-                errs[(rate, name)] = (e / scale, e64 / scale, e)
-            del got, again, want, want64, a64
-        if stage == "stage1":
-            # the kernel's zeros are exactly m2's
-            y = fused_mlp_train_fwd(*args, DROPOUT)
-            m2 = dropout_mask(seed, n, d, STREAM_OUT, DROPOUT)
-            if not torch.equal(y == 0, m2 == 0):
-                off = int(((y == 0) != (m2 == 0)).sum())
+    hd = 4 * d
+    x = torch.randn(n, d, device=dev, generator=gen)
+    w1 = torch.randn(d, hd, device=dev, generator=gen) / d ** 0.5
+    b1 = 0.1 * torch.randn(hd, device=dev, generator=gen)
+    w2 = torch.randn(hd, d, device=dev, generator=gen) / hd ** 0.5
+    b2 = 0.1 * torch.randn(d, device=dev, generator=gen)
+    dy = torch.randn(n, d, device=dev, generator=gen)
+    seed = torch.randint(0, 2 ** 31 - 1, (2,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    args = (x, w1, b1, w2, b2, seed)
+    errs = {}
+    for rate in (DROPOUT, 0.0):
+        got = (fused_mlp_train_fwd(*args, rate),
+               *fused_mlp_train_bwd(*args, rate, dy))
+        again = fused_mlp_train_bwd(*args, rate, dy)
+        if not all(map(torch.equal, got[1:], again)):
+            raise AssertionError(f"fused_mlp_train_bwd {stage}: two "
+                                 "calls on the same inputs differ")
+        want = (fused_mlp_train_plain(*args, rate),
+                *fused_mlp_train_bwd_plain(*args, rate, dy))
+        a64 = [t.double() for t in args[:5]] + [seed]
+        want64 = (fused_mlp_train_plain(*a64, rate),
+                  *fused_mlp_train_bwd_plain(*a64, rate, dy.double()))
+        torch.cuda.synchronize()
+        for name, g, w, w64 in zip(names, got, want, want64):
+            scale = w.abs().max().item()
+            e, e64 = ((g - w).abs().max().item(),
+                      (g.double() - w64).abs().max().item())
+            if not torch.isfinite(g).all() or max(e, e64) > \
+                    MLP_TOL * scale:
                 raise AssertionError(
-                    f"fused_mlp_train {stage}: {off} outputs are zero where "
-                    "m2 is not, or not where it is")
-            say(f"[2] fused_mlp_train {stage} rate {DROPOUT}: the forward's "
-                f"zeros are m2's ({int((m2 == 0).sum())} of {m2.numel()})")
-            del y, m2
-            shares = [(dropout_mask(seed, n, w, s, DROPOUT) > 0).double()
-                      .mean().item() for s, w in ((STREAM_HIDDEN, hd),
-                                                  (STREAM_OUT, d))]
-            if any(abs(sh - (1 - DROPOUT)) > 1e-3 for sh in shares):
-                raise AssertionError(f"keep shares {shares}, want "
-                                     f"{1 - DROPOUT} +- 1e-3")
-            say(f"[2] fused_mlp_train {stage} keep share m1 {shares[0]:.5f} "
-                f"m2 {shares[1]:.5f} at rate {DROPOUT}")
-        rel = max(v[0] for v in errs.values())
-        rel64 = max(v[1] for v in errs.values())
+                    f"fused_mlp_train {stage} rate {rate} {name}: max "
+                    f"|err| {e:.3e}, vs f64 {e64:.3e}, over {MLP_TOL} x "
+                    f"max {scale:.3e}")
+            errs[(rate, name)] = (e / scale, e64 / scale, e)
+        del got, again, want, want64, a64
+    if masks:
+        # the kernel's zeros are exactly m2's
+        y = fused_mlp_train_fwd(*args, DROPOUT)
+        m2 = dropout_mask(seed, n, d, STREAM_OUT, DROPOUT)
+        if not torch.equal(y == 0, m2 == 0):
+            off = int(((y == 0) != (m2 == 0)).sum())
+            raise AssertionError(
+                f"fused_mlp_train {stage}: {off} outputs are zero where "
+                "m2 is not, or not where it is")
+        say(f"[2] fused_mlp_train {stage} rate {DROPOUT}: the forward's "
+            f"zeros are m2's ({int((m2 == 0).sum())} of {m2.numel()})")
+        del y, m2
+        shares = [(dropout_mask(seed, n, w, s, DROPOUT) > 0).double()
+                  .mean().item() for s, w in ((STREAM_HIDDEN, hd),
+                                              (STREAM_OUT, d))]
+        if any(abs(sh - (1 - DROPOUT)) > 1e-3 for sh in shares):
+            raise AssertionError(f"keep shares {shares}, want "
+                                 f"{1 - DROPOUT} +- 1e-3")
+        say(f"[2] fused_mlp_train {stage} keep share m1 {shares[0]:.5f} "
+            f"m2 {shares[1]:.5f} at rate {DROPOUT}")
+    if bf16:
+        # bf16 x runs the f32 kernels on its values: y and dx rounded to
+        # bf16, the weight gradients f32 from the same inputs as plain's
+        xb, dyb = x.bfloat16(), dy.bfloat16()
+        got = (fused_mlp_train_fwd(xb, *args[1:], DROPOUT),
+               *fused_mlp_train_bwd(xb, *args[1:], DROPOUT, dyb))
+        want = (fused_mlp_train_plain(xb, *args[1:], DROPOUT),
+                *fused_mlp_train_bwd_plain(xb, *args[1:], DROPOUT, dyb))
+        dtypes = [str(t.dtype)[6:] for t in got]
+        if dtypes != ["bfloat16"] * 2 + ["float32"] * 4:
+            raise AssertionError(f"fused_mlp_train {stage} bf16 x: dtypes "
+                                 f"{dtypes}")
+        for i, (name, g, w) in enumerate(zip(names, got, want)):
+            tol = BF16_MLP_TOL if i < 2 else MLP_TOL
+            scale = w.float().abs().max().item()
+            e = (g.float() - w.float()).abs().max().item()
+            if e > tol * scale:
+                raise AssertionError(f"fused_mlp_train {stage} bf16 x "
+                                     f"{name}: max |err| {e:.3e} over {tol}"
+                                     f" x max {scale:.3e}")
+        say(f"[2] fused_mlp_train {stage} bf16 x: y and dx in bf16 within "
+            f"{BF16_MLP_TOL} x max of plain, weight gradients f32 within "
+            f"{MLP_TOL} x max")
+        del got, want, xb, dyb
+    rel = max(v[0] for v in errs.values())
+    rel64 = max(v[1] for v in errs.values())
 
-        ms = time_ms(lambda: fused_mlp_train_fwd(*args, DROPOUT))
-        plain = time_ms(lambda: fused_mlp_train_plain(*args, DROPOUT))
-        lib = time_ms(lambda: mlp_train_library(x, w1, b1, w2, b2, DROPOUT))
-        work = (4.0 * n * d * hd, 4.0 * (2 * n * d + 2 * d * hd + hd + d) + 8)
-        b_ms, b_by = bound(*work)
-        frows.append(dict(stage=stage, shape=[n, d, hd], ms=ms,
-                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                          bound_by=b_by, bound_tc_ms=bound_tc(*work),
-                          max_rel_err=rel,
-                          max_rel_err_f64=rel64))
-        bms = time_ms(lambda: fused_mlp_train_bwd(*args, DROPOUT, dy))
-        bplain = time_ms(lambda: fused_mlp_train_bwd_plain(*args, DROPOUT,
-                                                           dy))
-        leaves = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2,
-                                                            b2)]
-        out = mlp_train_library(*leaves, DROPOUT)
-        blib = time_ms(lambda: torch.autograd.grad(out, leaves, dy,
-                                                   retain_graph=True))
-        del out, leaves
-        bwork = (10.0 * n * d * hd,
-                 4.0 * (3 * n * d + 2 * (2 * d * hd + hd + d)) + 8)
-        bb_ms, bb_by = bound(*bwork)
-        scratch, predicted, slots = mlp_bwd_scratch(
-            stage, lambda: fused_mlp_train_bwd(*args, DROPOUT, dy), n, d, hd)
-        brows.append(dict(stage=stage, shape=[n, d, hd], ms=bms,
-                          plain_ms=bplain, library_ms=blib, bound_ms=bb_ms,
-                          bound_by=bb_by, bound_tc_ms=bound_tc(*bwork),
-                          scratch_bytes=scratch,
-                          scratch_predicted_bytes=predicted, slots=slots,
-                          max_rel_err=rel, max_rel_err_f64=rel64))
-        worst["fwd"] = max(worst["fwd"], *(errs[(r, "y")][2]
-                                           for r in (DROPOUT, 0.0)))
-        worst["bwd"] = max(worst["bwd"], *(v[2] for k, v in errs.items()
-                                           if k[1] != "y"))
-        say(f"[2] fused_mlp_train {stage} N{n} D{d} Hd{hd} (rates {DROPOUT} "
-            f"and 0; two backward calls bit-equal): max |err| / max |ref| "
-            f"{rel:.2e} (vs f64 {rel64:.2e})  forward kernel {ms:.3f} ms  "
-            f"plain {plain:.3f} ms  addmm+gelu+dropout+addmm+dropout "
-            f"{lib:.3f} ms  bound {b_ms:.3f} ms ({b_by});  backward kernel "
-            f"{bms:.3f} ms (scratch {scratch} bytes measured, {predicted} "
-            f"predicted: packed weights and {slots} row slots of partials)  "
-            f"plain {bplain:.3f} ms  "
-            f"autograd of that graph {blib:.3f} ms  bound {bb_ms:.3f} ms "
-            f"({bb_by}), on the tensor cores "
-            f"{brows[-1]['bound_tc_ms']:.3f} ms")
-        del x, w1, b1, w2, b2, dy, args
+    ms = time_ms(lambda: fused_mlp_train_fwd(*args, DROPOUT))
+    plain = time_ms(lambda: fused_mlp_train_plain(*args, DROPOUT))
+    lib = time_ms(lambda: mlp_train_library(x, w1, b1, w2, b2, DROPOUT))
+    work = (4.0 * n * d * hd, 4.0 * (2 * n * d + 2 * d * hd + hd + d) + 8)
+    b_ms, b_by = bound(*work)
+    frow = dict(stage=stage, shape=[n, d, hd], ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                bound_tc_ms=bound_tc(*work), max_rel_err=rel,
+                max_rel_err_f64=rel64)
+    bms = time_ms(lambda: fused_mlp_train_bwd(*args, DROPOUT, dy))
+    bplain = time_ms(lambda: fused_mlp_train_bwd_plain(*args, DROPOUT, dy))
+    leaves = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+    out = mlp_train_library(*leaves, DROPOUT)
+    blib = time_ms(lambda: torch.autograd.grad(out, leaves, dy,
+                                               retain_graph=True))
+    del out, leaves
+    bwork = (10.0 * n * d * hd,
+             4.0 * (3 * n * d + 2 * (2 * d * hd + hd + d)) + 8)
+    bb_ms, bb_by = bound(*bwork)
+    scratch, predicted, slots = mlp_bwd_scratch(
+        stage, lambda: fused_mlp_train_bwd(*args, DROPOUT, dy), n, d, hd,
+        limit)
+    brow = dict(stage=stage, shape=[n, d, hd], ms=bms, plain_ms=bplain,
+                library_ms=blib, bound_ms=bb_ms, bound_by=bb_by,
+                bound_tc_ms=bound_tc(*bwork), scratch_bytes=scratch,
+                scratch_predicted_bytes=predicted, scratch_limit=limit,
+                slots=slots, weight_blocks=slots * hd // 64,
+                max_rel_err=rel, max_rel_err_f64=rel64)
+    say(f"[2] fused_mlp_train {stage} N{n} D{d} Hd{hd} (rates {DROPOUT} "
+        f"and 0; two backward calls bit-equal): max |err| / max |ref| "
+        f"{rel:.2e} (vs f64 {rel64:.2e})  forward kernel {ms:.3f} ms  "
+        f"plain {plain:.3f} ms  addmm+gelu+dropout+addmm+dropout "
+        f"{lib:.3f} ms  bound {b_ms:.3f} ms ({b_by}), on the tensor cores "
+        f"{frow['bound_tc_ms']:.3f} ms;  backward kernel "
+        f"{bms:.3f} ms (scratch {scratch} bytes measured, {predicted} "
+        f"predicted, limit {limit}: packed weights and {slots} row slots of "
+        f"partials, {brow['weight_blocks']} weight blocks)  "
+        f"plain {bplain:.3f} ms  "
+        f"autograd of that graph {blib:.3f} ms  bound {bb_ms:.3f} ms "
+        f"({bb_by}), on the tensor cores {brow['bound_tc_ms']:.3f} ms")
+    worst_f = max(errs[(r, "y")][2] for r in (DROPOUT, 0.0))
+    worst_b = max(v[2] for k, v in errs.items() if k[1] != "y")
+    return frow, brow, worst_f, worst_b
+
+
+def phase_mlp_train(dev, gen):
+    """fused_mlp_train forward and backward at the three stage shapes
+    (``mlp_train_shape``; stage 1 also checks the masks), one backward at
+    the 512px stage 1, and the ViT widths D 192, 384 and 768 at their
+    models' B 64 (N 12,608), masks and bf16 x included."""
+    frows, brows, worst = [], [], {"fwd": 0.0, "bwd": 0.0}
+    for stage, n, d in MLP_SHAPES:
+        frow, brow, wf, wb = mlp_train_shape(dev, gen, stage, n, d,
+                                             masks=stage == "stage1")
+        frows.append(frow)
+        brows.append(brow)
+        worst["fwd"] = max(worst["fwd"], wf)
+        worst["bwd"] = max(worst["bwd"], wb)
     big = mlp_train_bwd_512px(dev, gen)
+    vrows = {"fwd": [], "bwd": []}
+    for model, d in VIT_MLP_SHAPES:
+        frow, brow, _, _ = mlp_train_shape(
+            dev, gen, model, VIT_MLP_ROWS, d, masks=True, bf16=True,
+            limit=SCRATCH_LIMIT if d < 768 else VIT_SCRATCH_LIMIT)
+        vrows["fwd"].append(frow)
+        vrows["bwd"].append(brow)
     out = []
     fsum = {k: sum(r[k] for r in frows)
             for k in ("ms", "plain_ms", "library_ms", "bound_tc_ms")}
@@ -803,21 +887,22 @@ def phase_mlp_train(dev, gen):
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by="operations",
             bound_tc_ms=sum(r["bound_tc_ms"] for r in rows),
-            library_ms=sum(r["library_ms"] for r in rows), shapes=rows))
+            library_ms=sum(r["library_ms"] for r in rows), shapes=rows,
+            vit_shapes=vrows[key]))
     out[-1]["at_512px_stage1"] = big
     return out
 
 
-def mlp_bwd_scratch(what, call, n, d, hd):
+def mlp_bwd_scratch(what, call, n, d, hd, limit=SCRATCH_LIMIT):
     """(measured scratch bytes of one training-MLP backward, the bytes
     that train_bwd_scratch predicts, its row slots); raises when the
-    measured scratch passes SCRATCH_LIMIT."""
+    measured scratch passes ``limit``."""
     scratch = scratch_bytes(call)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     predicted = 4 * sum(train_bwd_scratch(n, d, hd, sms))
-    if scratch > SCRATCH_LIMIT:
+    if scratch > limit:
         raise AssertionError(f"fused_mlp_train_bwd {what} N{n} D{d}: scratch "
-                             f"{scratch} bytes over {SCRATCH_LIMIT}")
+                             f"{scratch} bytes over {limit}")
     return scratch, predicted, train_bwd_slots(n, hd, sms)
 
 
@@ -1330,6 +1415,34 @@ def phase_training(kernels):
         f"|diff| {diff.max():.3e} (|y| up to "
         f"{np.abs(outs['plain']).max():.3f})")
 
+    # The same in bf16 compute: the images and process parameters cast to
+    # bf16, the parameters, Adam state and loss f32.
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    losses16 = {}
+    for impl in ("auto", "plain"):
+        before = read_launches()
+        model = from_jax_params(params, state, spec0, device="cuda")
+        opt = adam_init(model)
+        step = make_train_step(cfg16, impl=impl)
+        losses16[impl] = [step(model, opt, batch, None, cfg.learning_rate)
+                          ["loss"].item() for _ in range(TRAIN_STEPS)]
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        want = {**zero_launches(), **({"attention_small": TRAIN_STEPS,
+                                       "attention_small_bwd": TRAIN_STEPS}
+                                      if impl == "auto" else {})}
+        if got != want:
+            raise AssertionError(f"bf16 {impl} training launches {got}, "
+                                 f"want {want}")
+    la, lp = np.asarray(losses16["auto"]), np.asarray(losses16["plain"])
+    if not np.isfinite(la).all() or \
+            (np.abs(la - lp) > BF16_LOSS_TOL * np.abs(lp)).any():
+        raise AssertionError(f"bf16 training losses, kernel path {la} vs "
+                             f"plain path {lp}")
+    say(f"[4] {TRAIN_STEPS} steps in bf16 at dropout 0, kernel path vs "
+        f"plain path: losses {la.tolist()} vs {lp.tolist()}, max rel diff "
+        f"{(np.abs(la - lp) / np.abs(lp)).max():.2e} (limit "
+        f"{BF16_LOSS_TOL}); f32 losses {losses['plain']}")
+
     # ms per training step (CUDA events), dropout 0.1 as configured, and
     # the device's busy time in a step (torch.profiler).
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1374,6 +1487,19 @@ def phase_training(kernels):
                              f"{np.abs(a - b).max():.3e}")
     say(f"[4] checkpoint saved and loaded into a fresh loop: epoch "
         f"{fresh.epoch}, Adam step {fresh.opt.step}, predictions equal")
+
+    # predict(exact=True) under a bf16 config runs f32: bit for bit the f32
+    # config's prediction; without exact it runs bf16.
+    loop16 = TrainLoop(spec, cfg16, device="cuda", model=loop.model)
+    e16, p16 = loop16.predict(*val[:2], exact=True), loop16.predict(*val[:2])
+    if not np.array_equal(e16, a) or not np.isfinite(p16).all() or \
+            np.abs(p16 - a).max() > BF16_OUT_TOL * max(1.0, np.abs(a).max()):
+        raise AssertionError(f"bf16 predict: exact max |diff| "
+                             f"{np.abs(e16 - a).max():.3e}, bf16 "
+                             f"{np.abs(p16 - a).max():.3e}")
+    say(f"[4] predict under the bf16 config: exact=True equals the f32 "
+        f"config's bit for bit; bf16 max |diff| {np.abs(p16 - a).max():.3e} "
+        f"(|y| up to {np.abs(a).max():.3f})")
     return launches
 
 
@@ -1463,6 +1589,24 @@ def phase_multi(kernels):
             not np.isfinite(np.asarray(tr.records, np.float64)).all():
         raise AssertionError(f"Adam counts {[o.step for o in tr.opts]}, "
                              f"records {tr.records}")
+
+    # One epoch with on-device augmentation (AugmentConfig()): the same
+    # launches per slot-step and validation batch.
+    aug = multi_trainer(data, corpus, root, mlp_impl="pallas",
+                        augment=AugmentConfig())
+    reset_launches()
+    aug.fit(1, verbose=False)
+    got = read_launches()
+    want1 = {**zero_launches(), **{k: v // MULTI_EPOCHS
+                                   for k, v in want.items()}}
+    if got != want1 or not np.isfinite(np.asarray(aug.records,
+                                                  np.float64)).all():
+        raise AssertionError(f"augmented epoch: launches {got}, want "
+                             f"{want1}; records {aug.records}")
+    say(f"[5] one epoch with AugmentConfig(): launches {got}; slot losses "
+        f"{[r[-1][1] for r in aug.records]} (unaugmented epoch 1: "
+        f"{[r[0][1] for r in tr.records]})")
+    del aug
 
     # The gated step (the last of each epoch) leaves every slot as it was.
     plan = tr.epoch_plan(tr.epoch)
@@ -2065,19 +2209,25 @@ def vit_kernel_times(worst, card):
             f"model, {pack_ms:.3f} ms)  plain {plain_ms:.3f} ms{lib_txt}  "
             f"bound {b_ms:.3f} ms ({rows[-1]['bound_by']}; {card})")
     # the whole layer in f32 (true f32, FMA products) beside its f32 bound
+    # and nn.TransformerEncoderLayer in f32 (TF32 off: use_true_f32), one
+    # call alone, as the bf16 library time is taken
     m32 = vit_layer(e, h, SEED, torch.float32)
     x32 = x.float()
+    lib32 = library_layer(m32, torch.float32)
+    xl32 = xl.float()
     with torch.inference_mode():
         ms32 = time_ms(lambda: vit_layer_infer(x32, *m32, **layer))
         plain32 = time_ms(lambda: vit_layer_infer_plain(x32, *m32, **layer))
+        lib32_ms = time_ms(lambda: lib32(xl32))
     b32, by32 = bound(f_layer, nbytes * 2)
     tc32 = bound_tc(f_layer, nbytes * 2)
     rows[2].update(f32_ms=ms32, f32_plain_ms=plain32, f32_bound_ms=b32,
-                   f32_bound_tc_ms=tc32)
+                   f32_bound_tc_ms=tc32, f32_library_ms=lib32_ms)
     say(f"[7] vit_layer_infer ViT-S B{b} f32: kernel {ms32:.3f} ms  plain "
-        f"{plain32:.3f} ms  bound {b32:.3f} ms ({by32}), on the tensor cores "
+        f"{plain32:.3f} ms  TransformerEncoderLayer f32 {lib32_ms:.3f} ms a "
+        f"call  bound {b32:.3f} ms ({by32}), on the tensor cores "
         f"{tc32:.3f} ms ({card})")
-    del m32, x32
+    del m32, x32, lib32, xl32
 
     # the library layer computes the same function: a loose check that the
     # weights were carried over (bf16 rounds at other places there)
@@ -2301,6 +2451,188 @@ def phase_vit(kernels, card):
     return launches, rows
 
 
+# Phase 8, the ViT-B/16 fine-tune (BASELINE.json config 3) as
+# scripts/bench_vit_finetune.py:34-38 configures it: ViT-B/16 at 224px, one
+# channel, 4 classes, batch 64, bf16 compute, AdamW (weight decay 0.05),
+# label smoothing 0.1, softmax cross-entropy; weights from SEED.
+FT_IMAGES = 320       # synthetic 224x224x1 images, four quadrant classes
+FT_VAL_SPLIT = 0.2    # 64 held out: 256 train images, 4 steps an epoch
+FT_EPOCHS = 2         # then a second trainer resumes to epoch 3
+FT_LOSS_TOL = 1e-4    # f32 losses, pallas route vs auto route (relative)
+
+
+def finetune_setup():
+    spec = dataclasses.replace(VIT_PRESETS["ViT-B/16"], num_channels=1,
+                               num_classes=4)
+    cfg = TrainConfig(batch_size=64, seed=SEED, compute_dtype="bfloat16",
+                      optimizer="adamw", weight_decay=0.05,
+                      label_smoothing=0.1, loss="softmax_xent")
+    # tests/test_vit.py:44-52 at 224px: a dim background, the class's
+    # quadrant bright
+    rng = np.random.default_rng(SEED + 9)
+    labels = rng.integers(0, 4, FT_IMAGES)
+    images = rng.uniform(0, 0.2, (FT_IMAGES, 224, 224, 1))
+    for i, c in enumerate(labels):
+        y0, x0 = (c // 2) * 112, (c % 2) * 112
+        images[i, y0:y0 + 112, x0:x0 + 112, 0] += 0.7
+    return spec, cfg, (images * 255).round().astype(np.uint8), labels
+
+
+def vit_step_launches(impl, depth):
+    """The launches of one fine-tune step on each route: none at 197 tokens
+    on "auto" (plain PyTorch, as JAX's router keeps it), one flash forward,
+    one flash backward pair and one fused training MLP forward and backward
+    a layer on "pallas"."""
+    want = zero_launches()
+    if impl == "pallas":
+        want.update(flash_attention=depth, flash_attention_bwd=depth,
+                    fused_mlp_train=depth, fused_mlp_train_bwd=depth)
+    return want
+
+
+def phase_finetune(card):
+    """ViTTrainer.fit at full ViT-B width through the kernels, resume, the
+    routes against each other, step times."""
+    spec, cfg, images, labels = finetune_setup()
+    dev = torch.device("cuda")
+    n_train = FT_IMAGES - int(FT_IMAGES * FT_VAL_SPLIT)
+    steps = FT_EPOCHS * -(-n_train // cfg.batch_size)
+    evals = FT_EPOCHS * -(-(FT_IMAGES - n_train) // cfg.batch_size)
+    say(f"[8] ViT-B/16 fine-tune: E {spec.embed_dim}, depth {spec.depth}, "
+        f"{spec.num_heads} heads, {spec.num_channels} channel, "
+        f"{spec.num_classes} classes, batch {cfg.batch_size}, "
+        f"{cfg.compute_dtype}, AdamW wd {cfg.weight_decay}, label smoothing "
+        f"{cfg.label_smoothing}; {FT_IMAGES} synthetic quadrant images, "
+        f"val_split {FT_VAL_SPLIT}, AugmentConfig()")
+    with tempfile.TemporaryDirectory() as ck:
+        tr = ViTTrainer(spec, cfg, augment=AugmentConfig(), impl="pallas",
+                        device="cuda")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.fit(images, labels, epochs=FT_EPOCHS, val_split=FT_VAL_SPLIT,
+               checkpoint_dir=ck, checkpoint_every=1, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        # the steps' launches, and a flash forward a layer for each
+        # evaluation batch (f32 predict on the "pallas" route; its MLP
+        # takes the plain version there)
+        want = {k: v * steps for k, v in
+                vit_step_launches("pallas", spec.depth).items()}
+        want["flash_attention"] += spec.depth * evals
+        say(f"[8] fit: {FT_EPOCHS} epochs, {steps} steps of "
+            f"{cfg.batch_size} and {evals} evaluation batches in {dt:.2f} s "
+            f"(host clock); launches {launches}")
+        if launches != want:
+            raise AssertionError(f"fine-tune launches {launches}, want "
+                                 f"{want}")
+        for r in tr.records:
+            say(f"[8] epoch {r[0]}: loss {r[1]:.4f} acc {r[2]:.4f} "
+                f"val_loss {r[3]:.4f} val_acc {r[4]:.4f} lr {r[5]:.2e}")
+        if tr.epoch != FT_EPOCHS or not np.isfinite(
+                np.asarray(tr.records, np.float64)).all():
+            raise AssertionError(f"fine-tune records {tr.records}")
+
+        # a loaded checkpoint predicts bit for bit as the trainer saved it;
+        # a second trainer resumes from it to the next epoch
+        few = images[:cfg.batch_size]
+        saved = tr.predict(few)
+        fresh = ViTTrainer(spec, cfg, augment=AugmentConfig(),
+                           impl="pallas", device="cuda")
+        if not fresh.load(ck) or fresh.epoch != FT_EPOCHS or \
+                fresh.opt.step != tr.opt.step or \
+                not np.array_equal(fresh.predict(few), saved):
+            raise AssertionError("fine-tune checkpoint round trip changed "
+                                 "the model")
+        fresh.fit(images, labels, epochs=FT_EPOCHS + 1,
+                  val_split=FT_VAL_SPLIT, checkpoint_dir=ck, verbose=False)
+        if fresh.epoch != FT_EPOCHS + 1 or len(fresh.records) != \
+                FT_EPOCHS + 1 or fresh.records[:FT_EPOCHS] != tr.records:
+            raise AssertionError(f"resume: epoch {fresh.epoch}, records "
+                                 f"{fresh.records}")
+        say(f"[8] checkpoint loaded into a fresh trainer predicts bit for "
+            f"bit the same (Adam step {fresh.opt.step - steps // FT_EPOCHS}"
+            f" before the resume); resumed to epoch {fresh.epoch}: "
+            f"{fresh.records[-1]}")
+        del tr, fresh
+
+    # The routes against each other: 3 steps on one batch, dropout 0 (the
+    # preset's), no augmentation, from the same weights; per-step launches
+    x = torch.from_numpy(images[:cfg.batch_size]).to(dev).float() / 255.0
+    y = torch.from_numpy(labels[:cfg.batch_size]).to(dev)
+    mask = torch.ones(cfg.batch_size, device=dev)
+    start = to_jax_params(init_vit(spec, torch.Generator().manual_seed(SEED),
+                                   device="cuda"))[0]
+    found = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        for impl in ("auto", "pallas"):
+            model = vit_from_jax_params(start, spec, device="cuda")
+            opt = adam_init(model)
+            with torch.no_grad():
+                logits = vit_forward(model, x.to(torch.float32 if dtype ==
+                                                  "float32" else
+                                                  torch.bfloat16),
+                                     train=True, impl=impl).float()
+            step = make_vit_train_step(spec, c, impl=impl)
+            losses = []
+            for _ in range(TRAIN_STEPS):
+                reset_launches()
+                losses.append(step(model, opt, (x, y, mask), None,
+                                   cfg.learning_rate)["loss"].item())
+                if read_launches() != vit_step_launches(impl, spec.depth):
+                    raise AssertionError(f"{dtype} {impl} step launches "
+                                         f"{read_launches()}")
+            found[(dtype, impl)] = (np.asarray(losses), logits)
+            del model, opt
+    for dtype, tol in (("float32", FT_LOSS_TOL), ("bfloat16", BF16_LOSS_TOL)):
+        (la, ga), (lp, gp) = found[(dtype, "auto")], found[(dtype, "pallas")]
+        rel = np.abs(lp - la) / np.abs(la)
+        gdiff = (gp - ga).abs().max().item()
+        gscale = max(1.0, ga.abs().max().item())
+        if not np.isfinite(lp).all() or (rel > tol).any() or (
+                dtype == "bfloat16" and gdiff > BF16_OUT_TOL * gscale):
+            raise AssertionError(f"{dtype} routes: losses {lp} vs {la}, "
+                                 f"logits max |diff| {gdiff:.3e}")
+        say(f"[8] {dtype}, {TRAIN_STEPS} steps, pallas route vs auto: "
+            f"losses {lp.tolist()} vs {la.tolist()}, max rel diff "
+            f"{rel.max():.2e} (limit {tol}); first logits max |diff| "
+            f"{gdiff:.3e} (|logits| up to {gscale:.3f})")
+
+    # ms per step (CUDA events, median of 5 after a warm-up of 2), images/s,
+    # peak memory and the device's busy share, in the config's bf16
+    out = {}
+    for impl in ("auto", "pallas"):
+        model = init_vit(spec, torch.Generator().manual_seed(SEED),
+                         device="cuda")
+        opt = adam_init(model)
+        step = make_vit_train_step(spec, cfg, augment=AugmentConfig(),
+                                   impl=impl)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def one_step():
+            step(model, opt, (x, y, mask), gen, cfg.learning_rate)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(one_step, reps=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated()
+        busy, top = device_ms(one_step)
+        busy_txt = ("device time not measured (the profiler recorded none)"
+                    if busy is None else
+                    f"device busy {busy:.1f} ms ({100 * busy / ms:.1f}%; "
+                    "profiler, 3 steps); largest: " + ", ".join(
+                        f"{n} {t:.2f}" for n, t in top))
+        out[impl] = dict(ms=ms, images_per_s=1e3 * cfg.batch_size / ms,
+                         peak_bytes=peak, busy_ms=busy)
+        say(f"[8] {impl} route, bf16 step of {cfg.batch_size}: {ms:.2f} ms, "
+            f"{out[impl]['images_per_s']:.1f} images/s, peak "
+            f"{peak / 2 ** 30:.2f} GiB; {busy_txt} ({card})")
+        del model, opt
+    return launches, out
+
+
 def main():
     card = phase_env()
     phase_build()
@@ -2310,6 +2642,7 @@ def main():
                "multi_target_training": phase_multi(kernels)}
     by_path["cli_512px"], _ = phase_cli()
     by_path["vit_inference"], vit_kernels = phase_vit(kernels, card)
+    by_path["vit_finetune"], finetune = phase_finetune(card)
     kernels += vit_kernels
     for k in kernels:
         # the launches of the path each kernel belongs to: the ViT path for
@@ -2322,7 +2655,7 @@ def main():
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
     faulthandler.cancel_dump_traceback_later()
     say(card)
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": kernels, "vit_finetune_steps": finetune}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -49,6 +49,7 @@ from transformer_stm_tpu.models.cvt import cvt_forward as jax_cvt_forward
 from transformer_stm_tpu.train.multi import \
     MultiTargetTrainer as JaxMultiTargetTrainer
 from transformer_stm_tpu_torch import config as pc
+from transformer_stm_tpu_torch.data.augment import AugmentConfig
 from transformer_stm_tpu_torch.data.xlsx import read_xlsx
 from transformer_stm_tpu_torch.kernels import fused_mlp as port_mlp
 from transformer_stm_tpu_torch.models.cvt import cvt_forward
@@ -309,8 +310,15 @@ def test_export_writes_the_reference_layout(small, tmp_path):
 
 
 def test_unported_options_raise(small):
-    with pytest.raises(NotImplementedError, match="augment"):
-        small([("50HZ_Bm", 0, None)], augment=object())
+    """``augment`` is ported: a slot trains with it (its records differ from
+    an unaugmented slot's); an unknown ``mlp_impl`` and ``watchdog`` still
+    raise."""
+    aug = small([("50HZ_Bm", 0, None)], augment=AugmentConfig())
+    aug.fit(1, verbose=False)
+    plain = small([("50HZ_Bm", 0, None)])
+    plain.fit(1, verbose=False)
+    assert np.isfinite(aug.records[0][0][1:]).all()
+    assert aug.records[0][0][1] != plain.records[0][0][1]
     with pytest.raises(ValueError, match="mlp_impl"):
         small([("50HZ_Bm", 0, None)], mlp_impl="flash")
     tr = small([("50HZ_Bm", 0, None)])

@@ -340,8 +340,14 @@ def test_lr_schedule_matches_jax():
 
 
 def test_bfloat16_compute_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TrainConfig(compute_dtype="bfloat16")
+    """bfloat16 compute is ported: the config builds, and a compute type
+    or loss the JAX package does not know raises."""
+    cfg = TrainConfig(compute_dtype="bfloat16")
+    assert cfg.compute_dtype == "bfloat16" and cfg.loss == "mse"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TrainConfig(compute_dtype="float16")
+    with pytest.raises(ValueError, match="loss"):
+        TrainConfig(loss="hinge")
     assert TrainConfig().epochs == 1000 and TrainConfig().lr_decay == 0.8
 
 

@@ -2,9 +2,9 @@
 parts of transformer_stm_tpu/config.py that the port reads (``FREQUENCIES``
 and ``PROCESS_PARAMETERS`` :18-33, ``StageSpec`` and ``CvTSpec`` :36-90,
 ``ViTSpec`` and ``VIT_PRESETS`` :93-113, ``cvt_highres_spec`` :116,
-``DataConfig`` :125-139, the single-target
-fields of ``TrainConfig`` :143-169, ``ExperimentConfig`` :189-229 and the
-JSON files of ``save_config``/``load_config`` :232-278).
+``DataConfig`` :125-139, ``TrainConfig`` :143-169 but for ``prng_impl``,
+``ExperimentConfig`` :189-229 and the JSON files of
+``save_config``/``load_config`` :232-278).
 
 ``DataConfig``'s default paths are relative (``reference/...``), where the
 JAX defaults are absolute.  A JSON written by either package loads in the
@@ -12,10 +12,9 @@ other.  Fields of the JAX config that the port does not have are read from
 a JAX-written file and handled one by one (``JAX_ONLY``): ``mesh`` (the
 pjit device mesh) and ``train.prng_impl`` (the jax PRNG) mean nothing to
 one card and PyTorch and are ignored, but a mesh other than the default
-raises; ``ffn_hidden`` (the params-only FFN), ``train.loss`` and
-``train.label_smoothing`` (the ViT trainer's) raise "not ported yet" when
-they differ from the JAX defaults, as ``compute_dtype`` does.  Any other
-key the port does not know raises: nothing is dropped silently."""
+raises; ``ffn_hidden`` (the params-only FFN) raises "not ported yet" when it
+differs from the JAX default.  Any other key the port does not know raises:
+nothing is dropped silently."""
 
 from __future__ import annotations
 
@@ -131,7 +130,10 @@ class TrainConfig:
     464-476): Adam at 1e-3, lr x0.8 every 50 epochs, 1,000 epochs, batch
     128.  ``weight_decay`` > 0 makes the update AdamW (``optimizer`` names
     which, as in the JAX config); ``checkpoint_every`` > 0 writes a
-    checkpoint every that many epochs.  Only float32 compute is ported."""
+    checkpoint every that many epochs.  ``compute_dtype="bfloat16"`` runs
+    the forward and backward in bfloat16 with float32 parameters, optimizer
+    state, loss and metrics; ``loss`` and ``label_smoothing`` are the ViT
+    classification trainer's (train/vit_train.py)."""
 
     learning_rate: float = 1e-3
     lr_decay: float = 0.8
@@ -141,15 +143,19 @@ class TrainConfig:
     seed: int = 0
     optimizer: str = "adam"  # adam | adamw
     weight_decay: float = 0.0
-    compute_dtype: str = "float32"
+    label_smoothing: float = 0.0
+    loss: str = "mse"  # mse | softmax_xent
+    compute_dtype: str = "float32"  # float32 | bfloat16
     checkpoint_every: int = 0  # epochs between mid-run checkpoints; 0 = off
     repeats: int = 1  # "(many)" repeat runs of every target (harness.run)
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r} is not ported yet; "
-                "the port computes in float32")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={self.compute_dtype!r}, want "
+                             "'float32' or 'bfloat16'")
+        if self.loss not in ("mse", "softmax_xent"):
+            raise ValueError(f"loss={self.loss!r}, want 'mse' or "
+                             "'softmax_xent'")
 
 
 @dataclass(frozen=True)
@@ -212,8 +218,6 @@ class ExperimentConfig:
 JAX_ONLY = {
     (ExperimentConfig, "mesh"): {"data": -1, "model": 1},
     (ExperimentConfig, "ffn_hidden"): 256,
-    (TrainConfig, "loss"): "mse",
-    (TrainConfig, "label_smoothing"): 0.0,
     (TrainConfig, "prng_impl"): None,
 }
 

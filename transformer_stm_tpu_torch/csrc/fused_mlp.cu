@@ -50,7 +50,10 @@
 //   tried on the H100, cost nearly as much each.
 //
 // Dropout (the training forward, DROP): m1 and m2 are the Philox masks of
-// csrc/philox.cuh, equal to `dropout_mask` bit for bit.  m1 multiplies the
+// csrc/philox.cuh, equal to `dropout_mask` bit for bit.  Each element's
+// mask word comes from its global index (row, hidden unit) for m1 and (row,
+// column) for m2, so that at D 768, where both column halves recompute the
+// same fc1, they draw the same m1.  m1 multiplies the
 // GELU output in registers, before the split that feeds fc2; a thread holds
 // units 8 j + 2 t and 8 j + 2 t + 1 of rows ra and ra + 8, which share one
 // Philox group per row with the neighbour thread t ^ 1, so each thread draws
@@ -70,7 +73,7 @@
 // Layout: x (N, D), b1 (Hd), b2 (D), y (N, D), f32 contiguous; w1 the packed
 // W1^T, (2, Hd, D): big then small; w2 the packed W2^T, (2, D, Hd), its
 // columns in kpos order at D 64 and 128.  D is 64, 128, 192, 256, 384 or
-// 768 (the training forward: 64, 128 or 256); Hd a multiple of 64; x, w1
+// 768 (the training forward too); Hd a multiple of 64; x, w1
 // and w2 16-byte aligned; seed int32[2] on the device.
 
 #include <cuda.h>
@@ -447,20 +450,15 @@ __global__ void mlp_train_pack(const float* __restrict__ w1, const float* __rest
 // the output columns a warpgroup accumulates at width D (Plan)
 int columns(int D) { return D <= SPLIT_K_MAX_D ? D : D == 768 ? 192 : D / 2; }
 
-// the kernel of width D: the inference kernel at every width, the training
-// forward (DROP) at the CvT widths 64, 128 and 256 only
+// the kernel of width D, the inference kernel or the training forward (DROP)
 template <bool DROP>
 const void* kernel_of(int D) {
-  if constexpr (DROP)
-    return D == 64    ? (const void*)fused_mlp_tf32x3<64, true, true>
-           : D == 128 ? (const void*)fused_mlp_tf32x3<128, true, true>
-                      : (const void*)fused_mlp_tf32x3<128, false, true>;
   switch (D) {
-    case 64: return (const void*)fused_mlp_tf32x3<64, true, false>;
-    case 128: return (const void*)fused_mlp_tf32x3<128, true, false>;
-    case 192: return (const void*)fused_mlp_tf32x3<96, false, false>;
-    case 256: return (const void*)fused_mlp_tf32x3<128, false, false>;
-    default: return (const void*)fused_mlp_tf32x3<192, false, false>;
+    case 64: return (const void*)fused_mlp_tf32x3<64, true, DROP>;
+    case 128: return (const void*)fused_mlp_tf32x3<128, true, DROP>;
+    case 192: return (const void*)fused_mlp_tf32x3<96, false, DROP>;
+    case 256: return (const void*)fused_mlp_tf32x3<128, false, DROP>;
+    default: return (const void*)fused_mlp_tf32x3<192, false, DROP>;
   }
 }
 
@@ -468,7 +466,8 @@ bool width_ok(int D) {
   return D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 768;
 }
 
-bool train_width_ok(int D) { return D == 64 || D == 128 || D == 256; }
+// the training forward runs at every width of the inference kernel
+bool train_width_ok(int D) { return width_ok(D); }
 
 int info(const void* fn, int* regs, int* smem, int* blocks) {
   *smem = SMEM;

@@ -50,13 +50,24 @@
 //   partial (slot-major: dW1, dW2, db1, db2), and a last launch sums the
 //   slots in slot order.  The scratch is slots x (2 D Hd + Hd + D) floats,
 //   with slots = 132 / (Hd / 64) row slots (kernels/fused_mlp.py,
-//   train_bwd_slots): 5 to 24 MB with the packed weights, whatever N.
+//   train_bwd_slots): 5 to 24 MB with the packed weights at the CvT
+//   widths, whatever N; 94.4 MB at D 768, Hd 3,072 (2 slots, 96 blocks).
 // - g = dy m2 is written in place over the dy tile in shared memory, one
 //   Philox call per group of four elements; m1 is drawn for each pair of
 //   accumulator elements a thread holds (units 8 j + 2 t and 8 j + 2 t + 1
 //   share a Philox group), so both equal `dropout_mask` bit for bit.
-// - The scores accumulate over K = D <= 256 in one accumulator (96
+// - Up to D 256 the scores accumulate over K = D in one accumulator (96
 //   truncating adds at most; the folds above are over the long sums).
+// - The ViT widths: D 192 takes the general DX and DW.  At D 384 and 768 a
+//   64-row f32 tile of x or dy (96 or 192 KB) does not fit beside a ring,
+//   so DXW and DWW keep nothing of a row tile resident: x and dy come
+//   through the ring a 32-column slab at a time with the weights' slabs,
+//   each slab's score products in a fresh accumulator folded into the
+//   scores (dy masked in the stage by the warpgroup that reads it).  DXW
+//   computes dx in column halves of 384 (each warpgroup 192 columns, da
+//   from a shared tile); DWW folds each M-tile's product into its slot's
+//   partial in device memory, as the registers do not hold a hidden
+//   tile's 2 D / 64 M-tiles.
 //
 // Layout: x, dy, dx (N, D); w1 (D, Hd); b1 (Hd); w2 (Hd, D); b2 (D); seed
 // int32[2] on the device; all contiguous, x and dy 16-byte aligned.  Rows
@@ -112,10 +123,20 @@ constexpr int MAX_STAGES = 4;
 //   tiles with its own accumulators, the weights resident for the block; no
 //   barrier across the block until the end, so one warpgroup's element-wise
 //   work overlaps the other's products.
-enum { DX = 0, DW = 1, DX1 = 2, DW1 = 3, DWS = 4 };
+// - DXW, DWW (dx and weights, D 384 and 768): a 64-row f32 tile of x or dy
+//   is 192 KB at D 768, more than shared memory holds beside a ring, so
+//   nothing of a row tile stays resident: x and dy come through the ring
+//   slab by slab with the weights' slabs (see body_dxw and body_dww).
+enum { DX = 0, DW = 1, DX1 = 2, DW1 = 3, DWS = 4, DXW = 5, DWW = 6 };
 
+// the CvT widths' kinds
 __host__ __device__ constexpr int kind_dx(int D) { return D <= 128 ? DX1 : DX; }
 __host__ __device__ constexpr int kind_dw(int D) { return D == 64 ? DW1 : D == 128 ? DWS : DW; }
+// every width: the ViT widths 192 (the general kinds), 384 and 768 (the wide ones)
+__host__ __device__ constexpr int dx_kind(int D) { return D >= 384 ? DXW : D == 192 ? DX : kind_dx(D); }
+__host__ __device__ constexpr int dw_kind(int D) { return D >= 384 ? DWW : D == 192 ? DW : kind_dw(D); }
+
+constexpr int WIDE_NOUT = 192;  // DXW: dx columns of a warpgroup (a block: 384)
 
 // The shared-memory plan of a kernel:
 // - the x and dy row tiles as loaded (dy masked in place into g; DX1: one
@@ -129,41 +150,59 @@ __host__ __device__ constexpr int kind_dw(int D) { return D == 64 ? DW1 : D == 1
 //   order for dx (a unit: NOUT rows of W1 by one 32-unit K-slab, big and
 //   small); DW and DWS stages one slab of one weight;
 // - DW1: both weights' hidden tile, resident.
+// - DXW: Q, then the da tile (A of dx's products, split); a ring of stages
+//   that hold, for the scores, one 32-column slab of x, dy, W1^T and W2 (big
+//   and small), or, for dx, one unit of W1 in kpos order;
+// - DWW: Q, then the h^T and da^T tiles (split); a ring of stages that hold
+//   one slab of x or dy with the same slab of W1^T or W2 (big and small) for
+//   the scores, or two slabs of x or dy (one M-tile) for the weight products.
 template <int KIND, int D>
 struct Cfg {
+  static constexpr bool WIDE = KIND == DXW || KIND == DWW;
   static constexpr bool PER_WG = KIND == DW1;  // a half of shared memory each
   static constexpr int NSLAB = D / KS;
-  static constexpr int NOUT = KIND == DX ? D / 2 : D;  // dx columns of a warpgroup
-  static constexpr int TILE = ROWS * D * 4;
-  static constexpr int STAGE = KIND == DX || KIND == DX1 ? 4 * SLAB_BYTES : 2 * SLAB_BYTES;
+  static constexpr int NOUT = KIND == DXW ? WIDE_NOUT : KIND == DX ? D / 2 : D;  // dx columns of a warpgroup
+  static constexpr int TILE = WIDE ? 0 : ROWS * D * 4;
+  static constexpr int STAGE = KIND == DXW   ? 6 * SLAB_BYTES
+                               : KIND == DWW ? 3 * SLAB_BYTES
+                               : KIND == DX || KIND == DX1 ? 4 * SLAB_BYTES
+                                                           : 2 * SLAB_BYTES;
   static constexpr int UNIT = 2 * NOUT * KS * 4;
-  static constexpr int UNITS = KIND == DX ? 4 : KIND == DX1 ? 2 : 0;  // (K-slab, warpgroup)
+  static constexpr int UNITS = KIND == DX || KIND == DXW ? 4 : KIND == DX1 ? 2 : 0;  // (K-slab, warpgroup)
   static constexpr int OUT_PER = STAGE / UNIT < UNITS ? STAGE / UNIT : UNITS;
   static constexpr int OUT_STAGES = UNITS ? UNITS / OUT_PER : 0;
-  static constexpr int PER_ITEM = KIND == DW || KIND == DW1 ? 2 * NSLAB
-                                  : KIND == DWS ? NSLAB : NSLAB + OUT_STAGES;
+  static constexpr int PER_ITEM = KIND == DWW                 ? 3 * NSLAB
+                                  : KIND == DW || KIND == DW1 ? 2 * NSLAB
+                                  : KIND == DWS               ? NSLAB
+                                                              : NSLAB + OUT_STAGES;
   static constexpr bool RING_PER_WG = KIND == DWS;
   static constexpr int X = 0, G = TILE, Q = (KIND == DX1 ? 4 : 2) * TILE;
-  static constexpr int B = Q + (KIND == DX || KIND == DW || KIND == DWS ? Q_BYTES : 0);
-  static constexpr int FIXED =
-      B + (KIND == DW || KIND == DW1 ? B_BYTES : KIND == DWS ? 2 * B_BYTES : 0);
+  static constexpr int B =
+      Q + (KIND == DX || KIND == DW || KIND == DWS || WIDE ? Q_BYTES : 0);
+  static constexpr int FIXED = B + (KIND == DW || KIND == DW1 || KIND == DXW ? B_BYTES
+                                    : KIND == DWS || KIND == DWW             ? 2 * B_BYTES
+                                                                             : 0);
   static constexpr int W = 2 * FIXED;  // DW1: the resident weights, after both halves
   static constexpr int W_BYTES = KIND == DW1 ? 2 * 2 * HT * D * 4 : 0;
   static constexpr int RINGS = KIND == DW1 ? 0 : KIND == DWS ? 2 : 1;
-  // head: mbarriers (1 KB), then db1's warp sums (DW, DWS, DW1)
-  static constexpr int HEAD =
-      1024 + (KIND == DW || KIND == DWS ? 1024 : KIND == DW1 ? 2048 : 0);
+  // head: mbarriers (1 KB), then db1's warp sums (DW, DWS, DW1, DWW), then
+  // db2's column sums (DWW, up to D 1024)
+  static constexpr int HEAD = 1024 + (KIND == DW || KIND == DWS ? 1024
+                                      : KIND == DW1           ? 2048
+                                      : KIND == DWW           ? 1024 + 4096
+                                                              : 0);
   static constexpr int FIT =
       RINGS ? (SMEM_MAX - ALIGN - HEAD - FIXED) / (RINGS * STAGE) : 0;
   static constexpr int NSTAGE = FIT < MAX_STAGES ? FIT : MAX_STAGES;
   static constexpr int HALF = FIXED;  // DW1: one warpgroup's region
   static constexpr int SMEM = ALIGN + HEAD + W_BYTES +
                               (PER_WG ? 2 * HALF : FIXED + RINGS * NSTAGE * STAGE);
-  static constexpr int NT = D >= 128 ? D / 128 : 1;  // DW: M-tiles of each output a warpgroup owns
-  static constexpr int KB = D == 256 ? 4 : 8;        // DW: k-steps of A fragments held at once
+  static constexpr int NT = D >= 128 ? (D + 127) / 128 : 1;  // DW: M-tiles of each output a warpgroup owns
+  static constexpr int KB = D >= 192 && !WIDE ? 4 : 8;  // k-steps of A fragments held at once
   static_assert(!RINGS || NSTAGE >= 2, "a ring of two stages at least");
   static_assert(UNITS == 0 || (OUT_PER >= 1 && UNITS % OUT_PER == 0), "dx stages");
-  static_assert(NSLAB <= MAX_SLABS && SMEM <= SMEM_MAX, "shared memory");
+  static_assert((WIDE || NSLAB <= MAX_SLABS) && SMEM <= SMEM_MAX, "shared memory");
+  static_assert(!WIDE || D % (2 * WIDE_NOUT) == 0, "DXW: column halves of 384");
 };
 
 struct Params {
@@ -245,16 +284,17 @@ __device__ __forceinline__ void col_frags(const uint8_t* T, int m0, int kk0, int
   }
 }
 
-// g = dy m2 in place over 32-column slab `slab` of a raw 64-row tile at
-// row0: 128 threads, a Philox call for each group of four columns
+// g = dy m2 in place over one raw 64 x 32 slab S of dy, columns col0 ..
+// col0 + 31, rows from row0: 128 threads, a Philox call for each group of
+// four columns
 template <int D>
-__device__ __forceinline__ void mask_g(uint8_t* T, int slab, long row0, const Params& p,
-                                       uint32_t k0, uint32_t k1, int tid) {
+__device__ __forceinline__ void mask_slab(uint8_t* S, int col0, long row0, const Params& p,
+                                          uint32_t k0, uint32_t k1, int tid) {
 #pragma unroll
   for (int q = tid; q < ROWS * KS / 4; q += 128) {
-    const int row = q / (KS / 4), col = KS * slab + 4 * (q % (KS / 4));
-    const uint4 w = mask_words((row0 + row) * D + col, 2u, k0, k1);
-    float4* at = reinterpret_cast<float4*>(T + sw_off(row, col, ROWS));
+    const int row = q / (KS / 4), col = 4 * (q % (KS / 4));
+    const uint4 w = mask_words((row0 + row) * D + col0 + col, 2u, k0, k1);
+    float4* at = reinterpret_cast<float4*>(S + sw_off(row, col, ROWS));
     float4 v = *at;
     v.x *= w.x >= p.thr ? p.scale : 0.f;
     v.y *= w.y >= p.thr ? p.scale : 0.f;
@@ -263,6 +303,13 @@ __device__ __forceinline__ void mask_g(uint8_t* T, int slab, long row0, const Pa
     *at = v;
   }
   fence_proxy_shared();  // before a later TMA load writes the tile again
+}
+
+// the same over 32-column slab `slab` of a raw 64-row tile at row0
+template <int D>
+__device__ __forceinline__ void mask_g(uint8_t* T, int slab, long row0, const Params& p,
+                                       uint32_t k0, uint32_t k1, int tid) {
+  mask_slab<D>(T + slab * SLAB_BYTES, KS * slab, row0, p, k0, k1, tid);
 }
 
 // m1 of the accumulator elements 4 j + 2 e2 + (0, 1): row, units u and u + 1
@@ -304,7 +351,44 @@ __device__ __forceinline__ bool issue(const Params& p, Ring<Cfg<KIND, D>::NSTAGE
   const int item = u / C::PER_ITEM, j = u % C::PER_ITEM;
   uint8_t* s = r.at();
   uint64_t* bar = &r.full[r.stage];
-  if constexpr (KIND == DX || KIND == DX1) {
+  if constexpr (KIND == DXW) {
+    // an item is a hidden tile of the block's row tile: NSLAB score stages
+    // (x, dy, W1^T, W2), then 4 dx stages (K-slab f / 2, warpgroup f % 2)
+    const int h0 = HT * item, row0 = ROWS * blockIdx.x;
+    if (j < C::NSLAB) {
+      mbar_expect_tx(bar, 6 * SLAB_BYTES);
+      tma_3d(s, &p.m_x, bar, KS * j, row0, 0);
+      tma_3d(s + SLAB_BYTES, &p.m_dy, bar, KS * j, row0, 0);
+      tma_3d(s + 2 * SLAB_BYTES, &p.m_w1t, bar, KS * j, h0, 0);
+      tma_3d(s + 3 * SLAB_BYTES, &p.m_w1t, bar, KS * j, h0, 1);
+      tma_3d(s + 4 * SLAB_BYTES, &p.m_w2, bar, KS * j, h0, 0);
+      tma_3d(s + 5 * SLAB_BYTES, &p.m_w2, bar, KS * j, h0, 1);
+    } else {
+      const int f = j - C::NSLAB, n0 = WIDE_NOUT * (2 * blockIdx.y + f % 2);
+      mbar_expect_tx(bar, C::UNIT);
+      tma_3d(s, &p.m_w1k, bar, h0 + KS * (f / 2), n0, 0);
+      tma_3d(s + C::UNIT / 2, &p.m_w1k, bar, h0 + KS * (f / 2), n0, 1);
+    }
+  } else if constexpr (KIND == DWW) {
+    // an item is a row tile of the block's slot: 2 NSLAB score stages (x
+    // and W1^T's slab j / 2 for even j, dy and W2's for odd j), then NSLAB
+    // product stages (x for even f, dy for odd f: M-tile f / 2's two slabs)
+    const int h0 = HT * blockIdx.x, row0 = ROWS * (blockIdx.y + item * p.slots);
+    if (j < 2 * C::NSLAB) {
+      const bool even = j % 2 == 0;
+      const CUtensorMap* w = even ? &p.m_w1t : &p.m_w2;
+      mbar_expect_tx(bar, 3 * SLAB_BYTES);
+      tma_3d(s, even ? &p.m_x : &p.m_dy, bar, KS * (j / 2), row0, 0);
+      tma_3d(s + SLAB_BYTES, w, bar, KS * (j / 2), h0, 0);
+      tma_3d(s + 2 * SLAB_BYTES, w, bar, KS * (j / 2), h0, 1);
+    } else {
+      const int f = j - 2 * C::NSLAB;
+      const CUtensorMap* m = f % 2 == 0 ? &p.m_x : &p.m_dy;
+      mbar_expect_tx(bar, 2 * SLAB_BYTES);
+      tma_3d(s, m, bar, 64 * (f / 2), row0, 0);
+      tma_3d(s + SLAB_BYTES, m, bar, 64 * (f / 2) + KS, row0, 0);
+    }
+  } else if constexpr (KIND == DX || KIND == DX1) {
     const int h0 = HT * (item % (p.Hd / HT));  // DX1: the items of each row pair
     if (j < C::NSLAB) {
       mbar_expect_tx(bar, 4 * SLAB_BYTES);
@@ -1160,6 +1244,303 @@ __device__ void body_dws(const Params& p, uint8_t* sm, Ring<Cfg<DWS, D>::NSTAGE>
   if (w == 1 && c == 0 && tid < D) p.db2p[(long)slot * p.pstride + tid] = db2;
 }
 
+// DXW (D 384, 768): a block takes row tile blockIdx.x and dx's column half
+// blockIdx.y (384 columns; at D 768 both halves recompute the scores, as
+// csrc/fused_mlp.cu's forward recomputes fc1) and walks every hidden tile:
+//   a = x W1[:, tile] (warpgroup 0), dh = g W2[tile, :]^T (warpgroup 1),
+// chunked over K = D through the ring, a slab of x, dy and both weights a
+// stage, each stage's products in a fresh accumulator folded into the
+// scores with f32 adds (warpgroup 1 masks its dy slab in the stage); then
+// da = dh GELU'(a + b1) m1 (a traded through Q), written split into the da
+// tile in kpos order, and each warpgroup adds da W1[cols, tile]^T into its
+// 192 columns from shared memory, a fresh accumulator for the hidden tile.
+template <int D>
+__device__ void body_dxw(const Params& p, uint8_t* sm, Ring<Cfg<DXW, D>::NSTAGE> ring) {
+  using C = Cfg<DXW, D>;
+  constexpr int NW = WIDE_NOUT;
+  const int w = warpgroup();
+  const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ra = 16 * wi + g;
+  const long row0 = (long)blockIdx.x * ROWS;
+  float* Q = reinterpret_cast<float*>(sm + C::Q);
+  uint8_t* Ab = sm + C::B;  // da, K-major: 64 rows by the tile's 64 units in kpos order
+  uint8_t* As = Ab + Q_BYTES;
+  const uint32_t k0 = (uint32_t)p.seed[0], k1 = (uint32_t)p.seed[1];
+  const int items = p.Hd / HT;
+  Walk<DXW, D> walk(p, ring, items * C::PER_ITEM);
+
+  float dx[NW / 2];
+  zero(dx);
+  for (int c = 0; c < items; ++c) {
+    float s[HT / 2];  // warpgroup 0: a; warpgroup 1: dh
+    zero(s);
+    for (int j = 0; j < C::NSLAB; ++j) {
+      uint8_t* st = walk.wait();
+      uint8_t* T = st + w * SLAB_BYTES;  // the x or dy slab
+      if (w == 1 && p.thr) {
+        mask_slab<D>(T, KS * j, row0, p, k0, k1, tid);
+        bar_sync(2, 128);
+      }
+      uint32_t ab[4][4], as[4][4];
+      row_frags(T, 0, ra, t, ab, as);
+      fence_frag(ab);
+      fence_frag(as);
+      float part[HT / 2];
+      zero(part);
+      wg_fence();
+      mma3_rs<HT, 4>(part, ab, as, desc_sw128(st + (2 + 2 * w) * SLAB_BYTES),
+                     desc_sw128(st + (3 + 2 * w) * SLAB_BYTES), HT);
+      wg_commit();
+      walk.fill();
+      wg_wait<0>();
+      fence_acc(part);
+      walk.release();
+#pragma unroll
+      for (int i = 0; i < HT / 2; ++i) s[i] += part[i];
+    }
+
+    __syncthreads();  // every thread is done with the last tile's da and Q
+    walk.fill();
+    if (w == 0) {
+#pragma unroll
+      for (int i = 0; i < HT / 2; ++i) Q[i * 128 + tid] = s[i];
+    }
+    __syncthreads();
+    if (w == 1) {
+#pragma unroll
+      for (int j = 0; j < HT / 8; ++j)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const long unit = (long)HT * c + 8 * j + 2 * t;
+          const float2 m = mask1(row0 + ra + 8 * e2, unit, p, k0, k1);
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int i = 4 * j + 2 * e2 + e1;
+            float h, d, vb, vs;
+            gelu_both(Q[i * 128 + tid] + p.b1[unit + e1], h, d);
+            split(s[i] * d * (e1 ? m.y : m.x), vb, vs);
+            // unit 8 j + 2 t + e1 at its kpos, 8 j + 4 e1 + t, as W1's pack orders it
+            const uint32_t off = sw_off(ra + 8 * e2, 8 * j + 4 * e1 + t, ROWS);
+            *reinterpret_cast<float*>(Ab + off) = vb;
+            *reinterpret_cast<float*>(As + off) = vs;
+          }
+        }
+      fence_proxy_shared();
+    }
+    __syncthreads();
+
+    // dx's columns += da W1k: stage f holds K-slab f / 2 for warpgroup f % 2
+    float part[NW / 2];
+    zero(part);
+    for (int f = 0; f < C::OUT_STAGES; ++f) {
+      const uint8_t* st = walk.wait();
+      if (f % 2 == w) {
+        const int ks = f / 2;
+        wg_fence();
+        mma3_ss<NW, 4>(part, desc_sw128(Ab + ks * SLAB_BYTES), desc_sw128(As + ks * SLAB_BYTES),
+                       ROWS, desc_sw128(st), desc_sw128(st + C::UNIT / 2), NW);
+        wg_commit();
+        walk.fill();
+        wg_wait<0>();
+        fence_acc(part);
+      }
+      walk.release();
+    }
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) dx[i] += part[i];
+  }
+
+  // rows past N are not stored
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = NW * (2 * blockIdx.y + w) + 8 * j + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long row = row0 + ra + 8 * half;
+      if (row < p.N)
+        *reinterpret_cast<float2*>(p.dx + row * D + col) =
+            make_float2(dx[4 * j + 2 * half], dx[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// A row tile's product `fresh` for M-tile mt of dW1 (D, Hd; dw1 true) or of
+// dW2 (Hd, D), hidden tile c, folded into the slot's partial at `base` with
+// f32 adds (stored as it is at the slot's first row tile): the partial so far
+// is read before the product is issued (`load`), added after it (`store`).
+template <int D>
+struct Fold {
+  float* base;
+  int Hd, mt, c, ra, t;
+  bool dw1;
+  __device__ long at(int j, int e2, int e1) const {
+    const long m = 64 * mt + ra + 8 * e2, unit = HT * c + 8 * j + 2 * t + e1;
+    return dw1 ? m * Hd + unit : unit * D + m;
+  }
+  __device__ void load(float (&old)[HT / 2]) const {
+#pragma unroll
+    for (int j = 0; j < HT / 8; ++j)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) old[4 * j + 2 * e2 + e1] = base[at(j, e2, e1)];
+  }
+  __device__ void store(const float (&v)[HT / 2]) const {
+#pragma unroll
+    for (int j = 0; j < HT / 8; ++j)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) base[at(j, e2, e1)] = v[4 * j + 2 * e2 + e1];
+  }
+};
+
+// DWW (D 384, 768): a block takes hidden tile blockIdx.x and row tiles
+// blockIdx.y, blockIdx.y + slots, ...; per row tile
+//   a = x W1[:, tile] (warpgroup 0) and dh = g W2[tile, :]^T (warpgroup 1),
+// chunked over K = D through the ring (a stage each: the slab of x or dy and
+// the same slab of the weight; warpgroup 1 masks dy in the stage), each
+// stage's products in a fresh accumulator folded into the scores; then
+// h^T = (GELU(a + b1) m1)^T and q (warpgroup 0), da = dh q, da^T and db1
+// (warpgroup 1); then M-tile by M-tile of 64 columns of D, the x slabs for
+// dW1[:, tile] += x^T da (warpgroup 0) and the dy slabs, masked, for
+// dW2[tile, :]^T += g^T h (warpgroup 1; db2 from them in hidden tile 0's
+// blocks).  The registers do not hold the 2 D / 64 M-tiles of a hidden
+// tile, so each M-tile's fresh product is folded into the slot's partial in
+// device memory, which only this block touches.
+template <int D>
+__device__ void body_dww(const Params& p, uint8_t* sm, Ring<Cfg<DWW, D>::NSTAGE> ring,
+                         float* db1s, float* db2s) {
+  using C = Cfg<DWW, D>;
+  const int w = warpgroup();
+  const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ra = 16 * wi + g;
+  const int c = blockIdx.x, slot = blockIdx.y;
+  float* Q = reinterpret_cast<float*>(sm + C::Q);
+  uint8_t* Bh = sm + C::B;  // h^T, split
+  uint8_t* Bd = Bh + B_BYTES;  // da^T, split
+  const uint32_t k0 = (uint32_t)p.seed[0], k1 = (uint32_t)p.seed[1];
+  const int tiles = (p.N + ROWS - 1) / ROWS;
+  const int items = slot < tiles ? (tiles - slot + p.slots - 1) / p.slots : 0;
+  Walk<DWW, D> walk(p, ring, items * C::PER_ITEM);
+  const long pw = (long)slot * p.pstride;
+  const uint64_t bb = desc_sw128(w == 0 ? Bd : Bh), bs = bb + (Q_BYTES >> 4);
+
+  for (int it = 0; it < items; ++it) {
+    const long row0 = (long)(slot + it * p.slots) * ROWS;
+    float s[HT / 2];  // warpgroup 0: a; warpgroup 1: dh, then da
+    zero(s);
+    for (int j = 0; j < 2 * C::NSLAB; ++j) {
+      uint8_t* st = walk.wait();
+      if (j % 2 == w) {
+        if (w == 1 && p.thr) {
+          mask_slab<D>(st, KS * (j / 2), row0, p, k0, k1, tid);
+          bar_sync(2, 128);
+        }
+        uint32_t ab[4][4], as[4][4];
+        row_frags(st, 0, ra, t, ab, as);
+        fence_frag(ab);
+        fence_frag(as);
+        float part[HT / 2];
+        zero(part);
+        wg_fence();
+        mma3_rs<HT, 4>(part, ab, as, desc_sw128(st + SLAB_BYTES),
+                       desc_sw128(st + 2 * SLAB_BYTES), HT);
+        wg_commit();
+        walk.fill();
+        wg_wait<0>();
+        fence_acc(part);
+#pragma unroll
+        for (int i = 0; i < HT / 2; ++i) s[i] += part[i];
+      }
+      walk.release();
+    }
+
+    __syncthreads();  // Q, h^T and da^T are free: the last row tile's products are done
+    walk.fill();
+    if (w == 0) {
+#pragma unroll
+      for (int j = 0; j < HT / 8; ++j)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int unit = HT * c + 8 * j + 2 * t;
+          const float2 m = mask1(row0 + ra + 8 * e2, unit, p, k0, k1);
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int i = 4 * j + 2 * e2 + e1;
+            float h, d;
+            gelu_both(s[i] + p.b1[unit + e1], h, d);
+            const float mv = e1 ? m.y : m.x;
+            store_t(Bh, Bh + Q_BYTES, j, e2, e1, ra, t, h * mv);
+            Q[i * 128 + tid] = d * mv;
+          }
+        }
+      fence_proxy_shared();
+    }
+    __syncthreads();  // h^T and q are written
+    if (w == 1) {
+#pragma unroll
+      for (int j = 0; j < HT / 8; ++j)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int i = 4 * j + 2 * e2 + e1;
+            s[i] *= Q[i * 128 + tid];
+            store_t(Bd, Bd + Q_BYTES, j, e2, e1, ra, t, s[i]);
+          }
+      col_sums(s, db1s + wi * HT, g, t);
+      fence_proxy_shared();
+    }
+    __syncthreads();  // da^T is written
+
+    // the weight products, M-tile f / 2: x^T da (f even, warpgroup 0) or
+    // g^T h (f odd, warpgroup 1)
+    for (int f = 0; f < C::NSLAB; ++f) {
+      uint8_t* st = walk.wait();
+      if (f % 2 == w) {
+        const int mt = f / 2;
+        if (w == 1) {
+          if (p.thr) {
+            mask_slab<D>(st, 64 * mt, row0, p, k0, k1, tid);
+            mask_slab<D>(st + SLAB_BYTES, 64 * mt + KS, row0, p, k0, k1, tid);
+          }
+          bar_sync(2, 128);
+          if (c == 0 && tid < 64) db2s[64 * mt + tid] += col_sum(st, tid);
+        }
+        const Fold<D> fold{w == 0 ? p.dw1p + pw : p.dw2p + pw, p.Hd, mt, c, ra, t, w == 0};
+        float old[HT / 2], fresh[HT / 2];
+        if (it > 0) fold.load(old);
+        tile_product<C::KB>(fresh, st, 0, bb, bs, wi, g, t);
+        walk.fill();
+        if (it > 0) {
+#pragma unroll
+          for (int e = 0; e < HT / 2; ++e) fresh[e] += old[e];
+        }
+        fold.store(fresh);
+      }
+      walk.release();
+    }
+  }
+
+  // db1 and, from hidden tile 0, db2 of the slot (a slot without row tiles
+  // writes zeros throughout)
+  if (items == 0) {
+    for (long e = threadIdx.x; e < (long)D * HT; e += THREADS) {
+      const long m = e / HT, unit = HT * c + e % HT;
+      p.dw1p[pw + m * p.Hd + unit] = 0.f;
+      p.dw2p[pw + unit * D + m] = 0.f;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < HT)
+    p.db1p[pw + HT * c + threadIdx.x] =
+        (db1s[threadIdx.x] + db1s[HT + threadIdx.x]) +
+        (db1s[2 * HT + threadIdx.x] + db1s[3 * HT + threadIdx.x]);
+  if (c == 0)
+    for (int i = threadIdx.x; i < D; i += THREADS) p.db2p[pw + i] = db2s[i];
+}
+
 template <int KIND, int D>
 __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_tf32x3(const __grid_constant__ Params p) {
   using C = Cfg<KIND, D>;
@@ -1198,10 +1579,14 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_tf32x3(const __grid_consta
       for (int s = 0; s < 4 * MAX_SLABS; ++s) mbar_init(&xfull[s], 1);
       mbar_init_fence();
     }
-    if constexpr (KIND == DW || KIND == DWS)
-      for (int i = threadIdx.x; i < 4 * HT; i += THREADS) db1s[i] = 0.f;
+    if constexpr (KIND == DW || KIND == DWS || KIND == DWW)
+      for (int i = threadIdx.x; i < (C::HEAD - 1024) / 4; i += THREADS) db1s[i] = 0.f;
     __syncthreads();
-    if constexpr (KIND == DX)
+    if constexpr (KIND == DXW)
+      body_dxw<D>(p, sm, r);
+    else if constexpr (KIND == DWW)
+      body_dww<D>(p, sm, r, db1s, db1s + 4 * HT);
+    else if constexpr (KIND == DX)
       body_dx<D>(p, sm, r, xfull, gfull);
     else if constexpr (KIND == DW)
       body_dw<D>(p, sm, r, xfull, gfull, db1s);
@@ -1247,21 +1632,39 @@ __global__ void mlp_bwd_sum(const float* __restrict__ part, float* __restrict__ 
 // kind 0: the dx kernel of width D; 1: the weight-partial kernel
 template <int D>
 const void* kernel_of_d(int kind) {
-  return kind == 0 ? (const void*)mlp_bwd_tf32x3<kind_dx(D), D>
-                   : (const void*)mlp_bwd_tf32x3<kind_dw(D), D>;
+  return kind == 0 ? (const void*)mlp_bwd_tf32x3<dx_kind(D), D>
+                   : (const void*)mlp_bwd_tf32x3<dw_kind(D), D>;
+}
+
+bool width_ok(int D) {
+  return D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 768;
 }
 
 const void* kernel_of(int kind, int D) {
-  return D == 64 ? kernel_of_d<64>(kind) : D == 128 ? kernel_of_d<128>(kind) : kernel_of_d<256>(kind);
+  switch (D) {
+    case 64: return kernel_of_d<64>(kind);
+    case 128: return kernel_of_d<128>(kind);
+    case 192: return kernel_of_d<192>(kind);
+    case 256: return kernel_of_d<256>(kind);
+    case 384: return kernel_of_d<384>(kind);
+    default: return kernel_of_d<768>(kind);
+  }
 }
 
 template <int D>
 int smem_of_d(int kind) {
-  return kind == 0 ? Cfg<kind_dx(D), D>::SMEM : Cfg<kind_dw(D), D>::SMEM;
+  return kind == 0 ? Cfg<dx_kind(D), D>::SMEM : Cfg<dw_kind(D), D>::SMEM;
 }
 
 int smem_of(int kind, int D) {
-  return D == 64 ? smem_of_d<64>(kind) : D == 128 ? smem_of_d<128>(kind) : smem_of_d<256>(kind);
+  switch (D) {
+    case 64: return smem_of_d<64>(kind);
+    case 128: return smem_of_d<128>(kind);
+    case 192: return smem_of_d<192>(kind);
+    case 256: return smem_of_d<256>(kind);
+    case 384: return smem_of_d<384>(kind);
+    default: return smem_of_d<768>(kind);
+  }
 }
 
 template <int KIND, int D>
@@ -1276,7 +1679,7 @@ int launch_kind(const Params& P, dim3 grid, cudaStream_t stream) {
 
 template <int D>
 int launch_bwd(Params& P, const float* x, const float* dy, const float* pk, cudaStream_t stream) {
-  constexpr int KX = kind_dx(D), KW = kind_dw(D);
+  constexpr int KX = dx_kind(D), KW = dw_kind(D);
   const int N = P.N, Hd = P.Hd;
   const cuuint64_t xd[3] = {(cuuint64_t)D, (cuuint64_t)N, 1};
   const cuuint64_t xs[2] = {(cuuint64_t)D * 4, (cuuint64_t)N * D * 4};
@@ -1300,7 +1703,10 @@ int launch_bwd(Params& P, const float* x, const float* dy, const float* pk, cuda
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return (int)cudaGetLastError();
   const int pairs = (tiles + 1) / 2;
-  rc = launch_kind<KX, D>(P, dim3((unsigned)(KX == DX1 ? (pairs < sms ? pairs : sms) : tiles)),
+  rc = launch_kind<KX, D>(P,
+                          KX == DX1   ? dim3((unsigned)(pairs < sms ? pairs : sms))
+                          : KX == DXW ? dim3((unsigned)tiles, (unsigned)(D / (2 * WIDE_NOUT)))
+                                      : dim3((unsigned)tiles),
                           stream);
   if (rc != 0) return rc;
   return launch_kind<KW, D>(P, dim3((unsigned)(Hd / HT), (unsigned)P.slots), stream);
@@ -1314,8 +1720,7 @@ int launch_bwd(Params& P, const float* x, const float* dy, const float* pk, cuda
 // a thread, its dynamic shared memory and the blocks an SM holds.  Returns
 // a cudaError_t as int.
 extern "C" int fused_mlp_train_bwd_info(int kind, int D, int* regs, int* smem, int* blocks) {
-  if ((kind != bwd::DX && kind != bwd::DW) || (D != 64 && D != 128 && D != 256))
-    return (int)cudaErrorInvalidValue;
+  if ((kind != 0 && kind != 1) || !bwd::width_ok(D)) return (int)cudaErrorInvalidValue;
   const void* fn = bwd::kernel_of(kind, D);
   *smem = bwd::smem_of(kind, D);
   cudaFuncAttributes attr;
@@ -1357,7 +1762,10 @@ extern "C" int launch_fused_mlp_train_bwd(const float* x, const float* dy,
   switch (D) {
     case 64: rc = bwd::launch_bwd<64>(P, x, dy, pack, stream); break;
     case 128: rc = bwd::launch_bwd<128>(P, x, dy, pack, stream); break;
+    case 192: rc = bwd::launch_bwd<192>(P, x, dy, pack, stream); break;
     case 256: rc = bwd::launch_bwd<256>(P, x, dy, pack, stream); break;
+    case 384: rc = bwd::launch_bwd<384>(P, x, dy, pack, stream); break;
+    case 768: rc = bwd::launch_bwd<768>(P, x, dy, pack, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;

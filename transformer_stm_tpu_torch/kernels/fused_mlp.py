@@ -18,7 +18,11 @@ the kernels: the forward ``_mlp_train_fwd_kernel`` (:170) is
 ``csrc/fused_mlp.cu``'s body with its dropout flag, on weights it splits
 at every call (training changes them every step), and the backward
 ``_mlp_train_bwd_kernel`` (:189) is ``csrc/fused_mlp_train.cu``, both on
-the tensor cores in 3xTF32.  It is the autograd
+the tensor cores in 3xTF32, at the CvT widths (``WIDTHS``) and the ViT
+widths (``VIT_WIDTHS``).  It takes float32 or bfloat16 x: the kernels
+compute in float32, y and dx come back in x's type and the weight and bias
+gradients in the weights' float32, as the JAX ``custom_vjp`` returns them
+(:354, :437-441).  It is the autograd
 Function ``FusedMLPTrain``, which saves x, the weights and the seed, never
 the hidden activation; the backward recomputes it and writes one weight
 and bias partial per row slot (``train_bwd_slots``), summed over the slots
@@ -43,7 +47,7 @@ from ..ops.common import dense, gelu
 from ._build import aligned16, library
 
 WIDTHS = (64, 128, 256)  # the CvT stage widths the kernels are built for
-VIT_WIDTHS = (192, 384, 768)  # and the ViT widths of the inference kernel
+VIT_WIDTHS = (192, 384, 768)  # and the ViT widths (ViT-Ti, -S, -B)
 HIDDEN_CHUNK = 64
 # Widths at which the inference kernel splits fc2's hidden units between its
 # two warpgroups (csrc/fused_mlp.cu, SPLIT_K_MAX_D)
@@ -272,37 +276,53 @@ def _gelu_grad(a):
             + a * torch.exp(-0.5 * a * a) * 0.3989422804014327)
 
 
+def _compute_type(x):
+    """The kernels' float32 for bfloat16 (or float32) x; float64 x keeps
+    float64 (the plain versions then evaluate in float64, a check that
+    shares no rounding with the kernels)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate: float):
     """The forward kernel's arithmetic in PyTorch, with the same masks:
-    (GELU(x W1 + b1) m1) W2 + b2, times m2.  x: (..., D); seed: (2,)
-    int32."""
+    (GELU(x W1 + b1) m1) W2 + b2, times m2, in float32 (float64 for float64
+    x) and returned in x's type.  x: (..., D); seed: (2,) int32."""
     d, hd = w1.shape
     n = x.numel() // d
-    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate).to(x.dtype)
-    m2 = dropout_mask(seed, n, w2.shape[1], STREAM_OUT, rate).to(x.dtype)
-    h = gelu(dense(x.reshape(n, d), w1, b1)) * m1
-    return (dense(h, w2, b2) * m2).reshape(*x.shape[:-1], w2.shape[1])
+    ct = _compute_type(x)
+    w1, b1, w2, b2 = (t.to(ct) for t in (w1, b1, w2, b2))
+    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate).to(ct)
+    m2 = dropout_mask(seed, n, w2.shape[1], STREAM_OUT, rate).to(ct)
+    h = gelu(dense(x.reshape(n, d).to(ct), w1, b1)) * m1
+    y = dense(h, w2, b2) * m2
+    return y.reshape(*x.shape[:-1], w2.shape[1]).to(x.dtype)
 
 
 def fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate: float, dy):
-    """The backward kernel's arithmetic in PyTorch: a, h and both masks
-    recomputed; g = dy m2, dh = (g W2^T) m1, da = dh GELU'(a);
-    -> (dx, dW1 = x^T da, db1 = sum da, dW2 = h^T g, db2 = sum g)."""
+    """The backward kernel's arithmetic in PyTorch, in the forward's type: a,
+    h and both masks recomputed; g = dy m2, dh = (g W2^T) m1, da = dh
+    GELU'(a); -> (dx = da W1^T in x's type, dW1 = x^T da, db1 = sum da,
+    dW2 = h^T g, db2 = sum g in the weights' type)."""
     d, hd = w1.shape
     n = x.numel() // d
-    xf = x.reshape(n, d)
-    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate).to(x.dtype)
-    m2 = dropout_mask(seed, n, w2.shape[1], STREAM_OUT, rate).to(x.dtype)
+    ct = _compute_type(x)
+    wt = w1.dtype
+    w1, b1, w2 = (t.to(ct) for t in (w1, b1, w2))
+    xf = x.reshape(n, d).to(ct)
+    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate).to(ct)
+    m2 = dropout_mask(seed, n, w2.shape[1], STREAM_OUT, rate).to(ct)
     a = dense(xf, w1, b1)
     h = gelu(a) * m1
-    g = dy.reshape(n, -1) * m2
+    g = dy.reshape(n, -1).to(ct) * m2
     da = (g @ w2.T) * m1 * _gelu_grad(a)
-    return ((da @ w1.T).reshape(x.shape), xf.T @ da, da.sum(0), h.T @ g,
-            g.sum(0))
+    wgrads = (xf.T @ da, da.sum(0), h.T @ g, g.sum(0))
+    return ((da @ w1.T).reshape(x.shape).to(x.dtype),
+            *(t if ct == torch.float64 else t.to(wt) for t in wgrads))
 
 
 def _train_check(x, w1, b1, w2, b2, seed, **more):
-    _check(x, w1, b1, w2, b2, "fused_mlp_train", seed=seed, **more)
+    _check(x, w1, b1, w2, b2, "fused_mlp_train", widths=WIDTHS + VIT_WIDTHS,
+           seed=seed, **more)
     if seed.shape != (2,):
         raise ValueError(f"fused_mlp_train: seed must have shape (2,), got "
                          f"{tuple(seed.shape)}")
@@ -313,12 +333,15 @@ def _on_cpu(*tensors):
 
 
 def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
-    """y (..., D) outside autograd: the plain version on the CPU, else the
-    forward kernel, after a launch that splits the weights as
-    ``pack_mlp_weights`` does into scratch of 4 D Hd floats (kept for no
-    later call: the weights change every step)."""
+    """y (..., D) in x's type outside autograd: the plain version on the
+    CPU, else the forward kernel on x in float32, after a launch that splits
+    the weights as ``pack_mlp_weights`` does into scratch of 4 D Hd floats
+    (kept for no later call: the weights change every step)."""
     if _on_cpu(x, w1, b1, w2, b2, seed):
         return fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate)
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x = x.float().contiguous()
     _train_check(x, w1, b1, w2, b2, seed)
     d, hd = w1.shape
     x = aligned16(x)
@@ -333,7 +356,7 @@ def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
         raise RuntimeError(f"launch_fused_mlp_train_fwd failed: CUDA error "
                            f"{rc}")
     fused_mlp_train.launches += 1
-    return y
+    return y.to(dtype)
 
 
 def train_bwd_slots(n: int, hd: int, sms: int = 132) -> int:
@@ -354,11 +377,15 @@ def train_bwd_scratch(n: int, d: int, hd: int, sms: int = 132):
 
 def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
     """(dx, dW1, db1, dW2, db2) for the output gradient dy (contiguous):
-    the plain version on the CPU, else the backward kernels, whose per-slot
-    partials their last launch sums in slot order (the JAX package sums its
-    partials outside the kernel, :437-441)."""
+    the plain version on the CPU, else the backward kernels on x and dy in
+    float32, whose per-slot partials their last launch sums in slot order
+    (the JAX package sums its partials outside the kernel, :437-441).  dx
+    comes back in x's type."""
     if _on_cpu(x, w1, b1, w2, b2, seed, dy):
         return fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate, dy)
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, dy = x.float().contiguous(), dy.float().contiguous()
     _train_check(x, w1, b1, w2, b2, seed, dy=dy)
     if dy.shape != x.shape:
         raise ValueError(f"fused_mlp_train_bwd: dy {tuple(dy.shape)} does "
@@ -382,7 +409,7 @@ def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
                            f"{rc}")
     fused_mlp_train_bwd.launches += 1
     dw1, dw2, db1, db2 = grads.split([d * hd, hd * d, hd, d])
-    return dx, dw1.view(d, hd), db1, dw2.view(hd, d), db2
+    return dx.to(dtype), dw1.view(d, hd), db1, dw2.view(hd, d), db2
 
 
 class FusedMLPTrain(torch.autograd.Function):
@@ -408,9 +435,10 @@ class FusedMLPTrain(torch.autograd.Function):
 
 
 def fused_mlp_train(x, w1, b1, w2, b2, seed, rate: float):
-    """x: (..., D) float32, D in WIDTHS; w1 (D, Hd); w2 (Hd, D); seed (2,)
-    int32 on x's device (0 <= rate < 1) -> (..., D), differentiable in x and
-    the weights."""
+    """x: (..., D) float32 or bfloat16, D in WIDTHS or VIT_WIDTHS; w1 (D,
+    Hd), b1, w2 (Hd, D), b2 float32; seed (2,) int32 on x's device (0 <=
+    rate < 1) -> (..., D) in x's type, differentiable in x and the
+    weights."""
     return FusedMLPTrain.apply(x, w1, b1, w2, b2, seed, rate)
 
 

@@ -21,7 +21,10 @@ on the cls token -> Dense.  The module tree mirrors the JAX parameter tree
   ``vit_layer_infer_int8`` (opt-in, about 1% drift); all three inference
   only, on tokens folded to (B * t_pad, E) once;
 - the composable route: ``"plain"`` (JAX's ``"xla"``), ``"small"``,
-  ``"flash"``; ``mlp_impl`` routes its MLP apart (default: ``impl``).
+  ``"flash"`` (or ``"pallas"``, the JAX name); ``mlp_impl`` routes its MLP
+  apart (default: ``impl``).  In training an MLP routed to ``"pallas"`` or
+  ``"flash"`` runs the fused training MLP (``fused_mlp_train``), as JAX's
+  does (ops/blocks.py:58-66), and any other the plain MLP.
 """
 
 from __future__ import annotations
@@ -133,14 +136,15 @@ def vit_forward(model: ViT, images, *, train: bool = False, generator=None,
                                   int8=(impl == "fused2_int8"))
     x = _embed(model, images)
     rate = spec.dropout_rate
+    m_impl = mlp_impl if mlp_impl is not None else impl
+    fused_train = "pallas" if m_impl in ("pallas", "flash") else None
     for blk in model.blocks:
         y = layer_norm(x, blk.norm1.gamma, blk.norm1.beta, 1e-6)
         y = mha(blk.attn, y, y, y, impl=impl)
         x = x + dropout(y, rate, train and rate > 0.0, generator)
         y = layer_norm(x, blk.norm2.gamma, blk.norm2.beta, 1e-6)
         x = x + mlp(blk.mlp, y, dropout_rate=rate, train=train,
-                    generator=generator,
-                    impl=mlp_impl if mlp_impl is not None else impl)
+                    generator=generator, impl=m_impl, mlp_impl=fused_train)
     return _head(model, x[:, 0, :])
 
 

@@ -90,7 +90,8 @@ class ConvTransformerBlock(nn.Module):
         tokens = x.reshape(b, h * w, c)
         with_cls = hasattr(self, "cls_token")
         if with_cls:
-            tokens = torch.cat([self.cls_token.expand(b, 1, c), tokens], 1)
+            tokens = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, c),
+                                tokens], 1)
         tokens = tokens + self.attn(self.norm1(tokens), h, w, impl=impl,
                                     train=train, generator=generator)
         tokens = tokens + mlp(self.mlp, self.norm1(tokens),

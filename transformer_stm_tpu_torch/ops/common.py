@@ -3,9 +3,10 @@ TF-SAME convolutions in NHWC with HWIO kernels, dense, LayerNorm (eps
 1e-6), BatchNorm (eps 1e-3, momentum 0.99; batch statistics in training),
 SAME average pooling whose divisor leaves out the padding, exact erf GELU
 and inverted dropout.  In bfloat16 they keep the JAX package's rounding
-points: ``dense`` casts its kernel and bias to x's type, ``layer_norm``
-takes its statistics in float32 and casts the result back, and ``gelu``
-evaluates the Abramowitz-Stegun rational erf in float32 (:245-267).  Each
+points: ``dense`` and the convolutions cast their kernel and bias to x's
+type, ``layer_norm`` and both BatchNorms compute in float32 and cast the
+result back, and ``gelu`` evaluates the Abramowitz-Stegun rational erf in
+float32 (:245-267).  Each
 parameterised op also has
 a small ``nn.Module`` that holds its parameters under the JAX names, so a
 checkpoint's path-keyed leaves map one to one onto ``state_dict`` names.
@@ -67,9 +68,9 @@ def conv2d(x, kernel, bias=None, stride: int = 1, padding: str = "same"):
     xc = x.permute(0, 3, 1, 2)
     if padding == "same":
         xc = _pad_same(xc, kh, kw, stride)
-    y = F.conv2d(xc, kernel.permute(3, 2, 0, 1), stride=stride)
+    y = F.conv2d(xc, kernel.to(x.dtype).permute(3, 2, 0, 1), stride=stride)
     y = y.permute(0, 2, 3, 1)
-    return y + bias if bias is not None else y
+    return y + bias.to(y.dtype) if bias is not None else y
 
 
 def depthwise_conv2d(x, kernel, bias=None, stride: int = 1,
@@ -79,9 +80,9 @@ def depthwise_conv2d(x, kernel, bias=None, stride: int = 1,
     xc = x.permute(0, 3, 1, 2)
     if padding == "same":
         xc = _pad_same(xc, kh, kw, stride)
-    w = kernel.permute(2, 3, 0, 1).reshape(c * mult, 1, kh, kw)
+    w = kernel.to(x.dtype).permute(2, 3, 0, 1).reshape(c * mult, 1, kh, kw)
     y = F.conv2d(xc, w, stride=stride, groups=c).permute(0, 2, 3, 1)
-    return y + bias if bias is not None else y
+    return y + bias.to(y.dtype) if bias is not None else y
 
 
 def dense(x, kernel, bias=None):
@@ -104,29 +105,37 @@ def layer_norm(x, gamma, beta, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def _f32(x):
+    """x in float32, or float64 x as it is."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def batch_norm(x, gamma, beta, mean, var, eps: float = 1e-3):
-    """Inference BatchNorm over the last axis from the moving statistics."""
-    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+    """Inference BatchNorm over the last axis from the moving statistics,
+    in float32, the result in x's type (:192-217)."""
+    xf = _f32(x)
+    return ((xf - mean) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
 def batch_norm_train(x, gamma, beta, moving_mean, moving_var,
                      momentum: float = 0.99, eps: float = 1e-3):
     """Training BatchNorm over all axes but the last (ops/common.py:186-215):
-    normalises with the batch mean and the biased variance E[x^2] - mean^2
-    (in x's dtype; the JAX function casts to f32, the port's only compute
-    type) and updates ``moving_mean`` and ``moving_var`` in place, outside
-    autograd; the moving variance takes the unbiased n/(n-1) estimate, as
-    the Keras-2 fused BatchNorm the reference ran on does."""
+    normalises with the batch mean and the biased variance E[x^2] - mean^2,
+    both taken in float32 as the normalisation is, returns x's type, and
+    updates ``moving_mean`` and ``moving_var`` in place, outside autograd;
+    the moving variance takes the unbiased n/(n-1) estimate, as the Keras-2
+    fused BatchNorm the reference ran on does."""
+    xf = _f32(x)
     axes = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=axes)
-    var = x.square().mean(dim=axes) - mean.square()
+    mean = xf.mean(dim=axes)
+    var = xf.square().mean(dim=axes) - mean.square()
     n = x.numel() // x.shape[-1]
     bessel = n / max(n - 1, 1)
     with torch.no_grad():
         moving_mean.copy_(momentum * moving_mean + (1 - momentum) * mean)
         moving_var.copy_(momentum * moving_var
                          + (1 - momentum) * var * bessel)
-    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+    return ((xf - mean) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
 def avg_pool_same(x, pool_size: int, stride: int):

@@ -18,6 +18,14 @@ deviation from Keras (loop.py:246-258), kept here.  The shuffle comes from a
 CPU generator seeded from (cfg.seed, epoch) and the dropout from a device
 generator seeded from (cfg.seed, step index), so a run is reproducible.  On
 a CUDA device the loop computes in true f32 (``use_true_f32``).
+
+``cfg.compute_dtype="bfloat16"`` casts the images and the process
+parameters to bfloat16 after the augmentation, as the JAX step does
+(loop.py:60-70); the parameters, the Adam state, the BatchNorm statistics,
+the MSE and the metrics stay float32, and validation runs in bfloat16 too.
+``augment`` (a ``data.augment.AugmentConfig``) augments each batch on the
+device, its draws taken from the step's dropout generator before the
+dropout's.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import CvTSpec, TrainConfig
+from ..data.augment import augment_batch
 from ..data.images import normalize_images
 from ..models.cvt import CvT, cvt_forward, init_cvt
 from ..ops.common import use_true_f32
@@ -59,16 +68,29 @@ def _masked_mse_mae(pred, y, mask):
     return se / n, ae / n, se, ae
 
 
-def make_train_step(cfg: TrainConfig, impl: str = "auto", mlp_impl=None):
+def compute_dtype(cfg: TrainConfig) -> torch.dtype:
+    """The forward's type of ``cfg.compute_dtype``."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
+        torch.float32
+
+
+def make_train_step(cfg: TrainConfig, impl: str = "auto", mlp_impl=None,
+                    augment=None):
     """Returns step(model, opt, batch, generator, lr) -> metrics, which
     updates the model's parameters, BatchNorm statistics and ``opt`` in
-    place.  batch = (images float, proc or None, labels, mask); metrics
-    holds device scalars loss, mae, se, ae, n.  ``generator`` draws the
-    dropout (it may be None when every rate is 0); ``mlp_impl="pallas"``
-    trains the MLPs through the fused training kernel."""
+    place.  batch = (images float in [0, 1], proc or None, labels, mask);
+    metrics holds device scalars loss, mae, se, ae, n.  ``generator`` draws
+    the augmentation, then the dropout (it may be None when every rate is 0
+    and ``augment`` is None); ``mlp_impl="pallas"`` trains the MLPs through
+    the fused training kernel.  The forward runs in ``cfg.compute_dtype``."""
+    dtype = compute_dtype(cfg)
 
     def step(model: CvT, opt: AdamState, batch, generator, lr: float):
         images, proc, labels, mask = batch
+        if augment is not None:
+            images = augment_batch(images, augment, generator)
+        images = images.to(dtype)
+        proc = proc.to(dtype) if proc is not None else None
         model.requires_grad_(True)
         params = list(model.parameters())
         with torch.enable_grad():
@@ -111,7 +133,7 @@ class TrainLoop:
 
     def __init__(self, spec: CvTSpec, cfg: TrainConfig = TrainConfig(),
                  impl: str = "auto", device="cuda",
-                 model: Optional[CvT] = None, callbacks=None):
+                 model: Optional[CvT] = None, callbacks=None, augment=None):
         self.spec = spec
         self.cfg = cfg
         self.impl = impl
@@ -125,7 +147,7 @@ class TrainLoop:
         self.model = model.to(self.device)
         self.opt = adam_init(self.model)
         self.epoch = 0
-        self._step = make_train_step(cfg, impl=impl)
+        self._step = make_train_step(cfg, impl=impl, augment=augment)
 
     # -- data feeding ------------------------------------------------------
 
@@ -215,10 +237,11 @@ class TrainLoop:
                 idx, mask = _pad(np.arange(s, min(s + bs, n)), bs)
                 idx = torch.from_numpy(idx).to(self.device)
                 mask = torch.from_numpy(mask).to(self.device)
+                dtype = compute_dtype(self.cfg)
                 pred = cvt_forward(
-                    self.model, normalize_images(images[idx]),
-                    proc[idx] if proc is not None else None,
-                    impl=self.impl).reshape(-1)
+                    self.model, normalize_images(images[idx]).to(dtype),
+                    proc[idx].to(dtype) if proc is not None else None,
+                    impl=self.impl).reshape(-1).float()
                 d = pred - labels[idx]
                 acc += torch.stack([(d.square() * mask).sum(),
                                     (d.abs() * mask).sum(), mask.sum()])
@@ -240,11 +263,12 @@ class TrainLoop:
         np.float32 (N,).  The last batch is padded to one shape with row 0,
         as the JAX loop pads it, and the pad rows dropped.
 
-        ``exact`` is the JAX keyword (harness.py:275) that makes the TPU
-        evaluate in true f32 for the metrics sheet; it changes nothing
-        here: on a CUDA device the loop already computes in true f32
-        (``use_true_f32``), and on the CPU PyTorch does."""
-        del exact
+        The batches run in ``cfg.compute_dtype``, or in float32 with
+        ``exact`` (the JAX keyword of the metrics sheet, harness.py:275;
+        loop.py:175-176): on a CUDA device float32 is true f32
+        (``use_true_f32``), so an exact prediction under a bfloat16 config
+        equals the float32 config's."""
+        dtype = torch.float32 if exact else compute_dtype(self.cfg)
         bs = batch_size or self.cfg.batch_size
         n = len(images)
         outs = []
@@ -254,9 +278,9 @@ class TrainLoop:
                 real = min(s + bs, n) - s
                 x = normalize_images(
                     torch.from_numpy(np.ascontiguousarray(images[idx]))
-                    .to(self.device))
+                    .to(self.device)).to(dtype)
                 p = (torch.from_numpy(np.asarray(proc[idx], np.float32))
-                     .to(self.device) if proc is not None else None)
+                     .to(self.device, dtype) if proc is not None else None)
                 out = cvt_forward(self.model, x, p, impl=self.impl)
                 outs.append(out.reshape(-1)[:real].float().cpu().numpy())
         return np.concatenate(outs)

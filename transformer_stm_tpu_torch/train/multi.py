@@ -39,7 +39,11 @@ the slots into one launch is a speed question for a later change.  JAX's
 Mosaic's VMEM limit under vmap and are not carried over: the CUDA kernels'
 tiles are their own constants (``kernels/fused_mlp.TRAIN_BWD_TILE``).
 ``remat`` is accepted and changes nothing (``models/cvt.cvt_forward``).
-``augment`` and ``watchdog`` are not ported yet and must be None.
+``augment`` (a ``data.augment.AugmentConfig``) augments each slot's batch
+with that slot's own draws, from its step generator (JAX :86-94);
+``cfg.train.compute_dtype="bfloat16"`` trains and validates in bfloat16
+with float32 parameters and metrics (:81, :98, :115).  ``watchdog`` is not
+ported yet and must be None.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ from ..ops.common import use_true_f32
 from .checkpoint import (adam_from_jax, latest_checkpoint, load_checkpoint,
                          load_into, save_checkpoint, save_stacked_checkpoint,
                          take_slot, to_jax_params)
-from .loop import _DROPOUT, _SHUFFLE, _seed, make_train_step
+from .loop import _DROPOUT, _SHUFFLE, _seed, compute_dtype, make_train_step
 from .metrics import RecordsWriter
 from .optimizer import adam_init, lr_at_epoch
 
@@ -96,8 +100,6 @@ class MultiTargetTrainer:
                  mlp_impl: str = "xla",
                  lr_scales: Optional[Sequence[float]] = None,
                  augment=None, device="cuda"):
-        if augment is not None:
-            raise NotImplementedError("augment is not ported yet")
         if mlp_impl not in MLP_IMPLS:
             raise ValueError(f"unknown mlp_impl {mlp_impl!r}, want "
                              f"{MLP_IMPLS}")
@@ -167,7 +169,8 @@ class MultiTargetTrainer:
                                  f"{len(self.targets)} targets")
             self.lr_scales_np = np.asarray(lr_scales, np.float32)
         self._step = make_train_step(
-            tc, impl=impl, mlp_impl="pallas" if mlp_impl == "pallas" else None)
+            tc, impl=impl, mlp_impl="pallas" if mlp_impl == "pallas" else None,
+            augment=augment)
         self._dev = None
 
     # -- device data -------------------------------------------------------
@@ -257,8 +260,11 @@ class MultiTargetTrainer:
                         self.device)
                     imgs, proc, yy = self._batch(
                         t, dev["val_rows"][t, s * VB:(s + 1) * VB])
-                    d = cvt_forward(model, imgs, proc,
-                                    impl=self.impl).reshape(-1) - yy
+                    dtype = compute_dtype(self.cfg.train)
+                    d = cvt_forward(
+                        model, imgs.to(dtype),
+                        proc.to(dtype) if proc is not None else None,
+                        impl=self.impl).reshape(-1).float() - yy
                     acc[t] += torch.stack([(d.square() * m).sum(),
                                            (d.abs() * m).sum(), m.sum()])
         return acc
