@@ -21,6 +21,10 @@ no state) maps the same way onto the port's ``ViT``:
     model = vit_from_jax_params(params, spec, device="cuda")
     params = vit_to_jax_params(model)
 
+``ViTTrainer`` (train/vit_train.py) saves its model and AdamW state with
+``save_checkpoint`` as the JAX trainer does (vit_train.py:91-114 there):
+no ``s/`` leaves, the epoch as the step, the records in the .json.
+
 The multi-target trainer's checkpoints are stacked (train/multi.py:395-420
 of the JAX package): every ``p/``, ``s/`` and ``o/`` leaf carries a leading
 slot axis T and ``o/step`` is (T,), one Adam count per slot.
