@@ -121,7 +121,8 @@ Phases, each printed as it finishes:
    the kernels (``impl="pallas"``) for 2 epochs with ``val_split=0.2`` and
    ``AugmentConfig()``, with exact launch counts (a layer's flash forward,
    flash backward pair and training MLP forward and backward a step, the
-   MLP at D 768); a loaded checkpoint predicts bit for bit the same and a
+   MLP at D 768, and a flash forward and fused_mlp a layer for each
+   evaluation batch); a loaded checkpoint predicts bit for bit the same and a
    second trainer resumes to epoch 3; 3 steps on one batch without
    augmentation through ``"auto"`` (plain PyTorch at 197 tokens, no
    launch) and ``"pallas"``, in f32 (losses within 1e-4 relative) and bf16
@@ -2515,12 +2516,13 @@ def phase_finetune(card):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = read_launches()
-        # the steps' launches, and a flash forward a layer for each
-        # evaluation batch (f32 predict on the "pallas" route; its MLP
-        # takes the plain version there)
+        # the steps' launches, and a flash forward and a fused_mlp a layer
+        # for each evaluation batch (f32 predict on the "pallas" route, as
+        # JAX routes its evaluation MLP to the fused kernel)
         want = {k: v * steps for k, v in
                 vit_step_launches("pallas", spec.depth).items()}
         want["flash_attention"] += spec.depth * evals
+        want["fused_mlp"] += spec.depth * evals
         say(f"[8] fit: {FT_EPOCHS} epochs, {steps} steps of "
             f"{cfg.batch_size} and {evals} evaluation batches in {dt:.2f} s "
             f"(host clock); launches {launches}")

@@ -1,7 +1,7 @@
 """The kind comparison of the training MLP backward against the committed source.
 
 ``transformer_stm_tpu_torch.tools.compare_mlp_bwd_kinds`` rewrites the
-``kind_dx``/``kind_dw`` lines of a copy of ``csrc/fused_mlp_train.cu``.  The
+``dx_kind``/``dw_kind`` lines of a copy of ``csrc/fused_mlp_train.cu``.  The
 timing runs only on the card; here, on the CPU, each of its builds must
 patch the committed source and name kinds that the source still has.
 """
@@ -22,7 +22,7 @@ def test_each_build_changes_only_the_two_kind_lines(name):
     old, new = SOURCE.split("\n"), kinds.patch(SOURCE, (dx, dw)).split("\n")
     changed = [(a, b) for a, b in zip(old, new) if a != b]
     assert len(old) == len(new) and len(changed) <= 2
-    for (fn, triple) in (("kind_dx", dx), ("kind_dw", dw)):
+    for (fn, triple) in (("dx_kind", dx), ("dw_kind", dw)):
         line = next(b for b in new if f"constexpr int {fn}(int D)" in b)
         for d, k in zip(kinds.WIDTHS, triple):
             assert f"D == {d} ? {k} " in line
@@ -31,6 +31,6 @@ def test_each_build_changes_only_the_two_kind_lines(name):
 def test_an_unknown_kind_or_a_missing_line_raises():
     with pytest.raises(ValueError, match="not kinds of"):
         kinds.patch(SOURCE, (("DX", "DX", "DQ"), ("DW", "DW", "DW")))
-    gone = SOURCE.replace("constexpr int kind_dw(int D)", "int kind_dw(int D)")
+    gone = SOURCE.replace("constexpr int dw_kind(int D)", "int dw_kind(int D)")
     with pytest.raises(ValueError, match="not found"):
         kinds.patch(gone, (("DX", "DX", "DX"), ("DW", "DW", "DW")))

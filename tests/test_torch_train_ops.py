@@ -219,30 +219,52 @@ def test_mlp_train_mode_is_the_plain_mlp_with_dropout(rate):
 # BatchNorm in training
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", [(4, 5, 5, 16), (2, 10, 20, 8)])
-def test_batch_norm_train_matches_jax(shape):
+@pytest.mark.parametrize("shape, dtype", [
+    ((4, 5, 5, 16), "float32"), ((2, 10, 20, 8), "float32"),
+    ((4, 5, 5, 16), "bfloat16")], ids=["shape0", "shape1", "bf16"])
+def test_batch_norm_train_matches_jax(shape, dtype):
+    """The same x on both sides (bfloat16 x: the same bf16 values).  The
+    output comes back in x's type, within 1e-5 in float32 and one bf16
+    rounding in bfloat16; the batch statistics, recovered from the moving
+    ones as (new - 0.99 old) / 0.01, agree within 1e-5 relative in both,
+    which holds them to float32 arithmetic (taken in bf16 they would be
+    off by about 4e-3 relative)."""
     rng = np.random.default_rng(shape[1])
     c = shape[-1]
     x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    if dtype == "bfloat16":
+        x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
     gamma, beta = (rng.standard_normal(c).astype(np.float32)
                    for _ in range(2))
     mean = (0.1 * rng.standard_normal(c)).astype(np.float32)
     var = rng.uniform(0.5, 1.5, c).astype(np.float32)
     want, new = jax_common.batch_norm(
         {"gamma": gamma, "beta": beta}, {"mean": mean, "var": var},
-        jnp.asarray(x), train=True)
+        jnp.asarray(x, dtype), train=True)
     bn = BatchNorm(c)
     load_into(bn, {"gamma": gamma, "beta": beta}, {"mean": mean, "var": var})
-    got = bn(torch.from_numpy(x), train=True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
-                               rtol=0)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = bn(xt, train=True)
+    assert got.dtype == xt.dtype and str(want.dtype) == dtype
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    else:  # one bf16 rounding: 2^-7 of the value at most
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                                   atol=1e-6)
     np.testing.assert_allclose(bn.mean.numpy(), np.asarray(new["mean"]),
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(bn.var.numpy(), np.asarray(new["var"]),
                                atol=1e-5, rtol=0)
+    for got_m, want_m, old in ((bn.mean, new["mean"], mean),
+                               (bn.var, new["var"], var)):
+        got_b = (got_m.double().numpy() - 0.99 * old) / 0.01
+        want_b = (np.asarray(want_m, np.float64) - 0.99 * old) / 0.01
+        np.testing.assert_allclose(got_b, want_b, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want_b).max())
     # evaluation reads the moving statistics and leaves them alone
     before = bn.mean.clone(), bn.var.clone()
-    bn(torch.from_numpy(x))
+    bn(xt)
     assert torch.equal(bn.mean, before[0]) and torch.equal(bn.var, before[1])
 
 

@@ -176,6 +176,33 @@ def test_pallas_route_matches_auto_on_the_cpu():
     assert max(np.abs(a[k] - b[k]).max() for k in live) <= STEP_TOL
 
 
+@pytest.mark.parametrize("impl, fused", [
+    ("auto", True), ("pallas", True), ("flash", True), ("plain", False),
+    ("small", False)])
+def test_evaluation_mlp_routes_as_jax(impl, fused, monkeypatch):
+    """In evaluation the MLP of "auto", "pallas" and "flash" goes through
+    fused_mlp (the kernel's wrapper; its plain version on the CPU), as
+    JAX's mlp routes "pallas" and "flash" (ops/blocks.py:67-70), a layer
+    each; "plain" and "small" take the plain MLP.  The logits agree with
+    "plain" within 1e-5."""
+    from transformer_stm_tpu_torch.ops import blocks
+
+    calls = []
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return pm.fused_mlp(*args)
+
+    monkeypatch.setattr(blocks, "fused_mlp", counted)
+    _, pspec, _, model = _carried()
+    x = torch.from_numpy(batch()[0])
+    with torch.no_grad():
+        got = vit_forward(model, x, impl=impl)
+        assert len(calls) == (pspec.depth if fused else 0)
+        want = vit_forward(model, x, impl="plain")
+    assert (got - want).abs().max() <= 1e-5
+
+
 def test_vit_fit_orchestration(tmp_path):
     """As tests/test_vit.py:118-145: held-out split, per-epoch validation
     records, checkpoint and resume; the records sheet."""
@@ -329,7 +356,9 @@ def test_train_mlp_bfloat16_dtypes_and_keep_share(d):
 
 def test_cuda_sources_build_the_training_mlp_at_the_vit_widths():
     fwd = (CSRC / "fused_mlp.cu").read_text()
-    assert "bool train_width_ok(int D) { return width_ok(D); }" in fwd
+    widths = re.search(r"bool width_ok\(int D\) \{\s*return ([^;]*);", fwd)
+    assert widths and all(f"D == {d}" in widths[1]
+                          for d in pm.WIDTHS + pm.VIT_WIDTHS)
     assert re.search(r"case 768|default: return \(const void\*\)"
                      r"fused_mlp_tf32x3<192, false, DROP>", fwd)
     bwd = (CSRC / "fused_mlp_train.cu").read_text()

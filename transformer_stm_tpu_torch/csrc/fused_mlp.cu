@@ -466,9 +466,6 @@ bool width_ok(int D) {
   return D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 768;
 }
 
-// the training forward runs at every width of the inference kernel
-bool train_width_ok(int D) { return width_ok(D); }
-
 int info(const void* fn, int* regs, int* smem, int* blocks) {
   *smem = SMEM;
   cudaFuncAttributes attr;
@@ -520,7 +517,7 @@ extern "C" int fused_mlp_info(int D, int* regs, int* smem, int* blocks) {
 
 // The same for the training forward's kernel of width D.
 extern "C" int fused_mlp_train_fwd_info(int D, int* regs, int* smem, int* blocks) {
-  if (!train_width_ok(D)) return (int)cudaErrorInvalidValue;
+  if (!width_ok(D)) return (int)cudaErrorInvalidValue;
   return info(kernel_of<true>(D), regs, smem, blocks);
 }
 
@@ -549,7 +546,7 @@ extern "C" int launch_fused_mlp_train_fwd(const float* x, const float* w1, const
                                           const float* w2, const float* b2, const int* seed,
                                           float* y, float* pack, int N, int D, int Hd, int Dout,
                                           unsigned thr, float scale, cudaStream_t stream) {
-  if (N <= 0 || Dout != D || !train_width_ok(D) || Hd <= 0 || Hd % 64 != 0 ||
+  if (N <= 0 || Dout != D || !width_ok(D) || Hd <= 0 || Hd % 64 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(pack) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const long n = (long)D * Hd;

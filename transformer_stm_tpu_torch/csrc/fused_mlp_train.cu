@@ -129,12 +129,9 @@ constexpr int MAX_STAGES = 4;
 //   slab by slab with the weights' slabs (see body_dxw and body_dww).
 enum { DX = 0, DW = 1, DX1 = 2, DW1 = 3, DWS = 4, DXW = 5, DWW = 6 };
 
-// the CvT widths' kinds
-__host__ __device__ constexpr int kind_dx(int D) { return D <= 128 ? DX1 : DX; }
-__host__ __device__ constexpr int kind_dw(int D) { return D == 64 ? DW1 : D == 128 ? DWS : DW; }
-// every width: the ViT widths 192 (the general kinds), 384 and 768 (the wide ones)
-__host__ __device__ constexpr int dx_kind(int D) { return D >= 384 ? DXW : D == 192 ? DX : kind_dx(D); }
-__host__ __device__ constexpr int dw_kind(int D) { return D >= 384 ? DWW : D == 192 ? DW : kind_dw(D); }
+// the kinds of each width: 384 and 768 on the wide ones, 192 on the general
+__host__ __device__ constexpr int dx_kind(int D) { return D >= 384 ? DXW : D <= 128 ? DX1 : DX; }
+__host__ __device__ constexpr int dw_kind(int D) { return D >= 384 ? DWW : D == 64 ? DW1 : D == 128 ? DWS : DW; }
 
 constexpr int WIDE_NOUT = 192;  // DXW: dx columns of a warpgroup (a block: 384)
 

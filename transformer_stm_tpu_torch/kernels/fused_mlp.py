@@ -43,7 +43,7 @@ import weakref
 import numpy as np
 import torch
 
-from ..ops.common import dense, gelu
+from ..ops.common import compute_type, dense, gelu
 from ._build import aligned16, library
 
 WIDTHS = (64, 128, 256)  # the CvT stage widths the kernels are built for
@@ -276,20 +276,13 @@ def _gelu_grad(a):
             + a * torch.exp(-0.5 * a * a) * 0.3989422804014327)
 
 
-def _compute_type(x):
-    """The kernels' float32 for bfloat16 (or float32) x; float64 x keeps
-    float64 (the plain versions then evaluate in float64, a check that
-    shares no rounding with the kernels)."""
-    return torch.promote_types(x.dtype, torch.float32)
-
-
 def fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate: float):
     """The forward kernel's arithmetic in PyTorch, with the same masks:
     (GELU(x W1 + b1) m1) W2 + b2, times m2, in float32 (float64 for float64
     x) and returned in x's type.  x: (..., D); seed: (2,) int32."""
     d, hd = w1.shape
     n = x.numel() // d
-    ct = _compute_type(x)
+    ct = compute_type(x)
     w1, b1, w2, b2 = (t.to(ct) for t in (w1, b1, w2, b2))
     m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate).to(ct)
     m2 = dropout_mask(seed, n, w2.shape[1], STREAM_OUT, rate).to(ct)
@@ -305,7 +298,7 @@ def fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate: float, dy):
     dW2 = h^T g, db2 = sum g in the weights' type)."""
     d, hd = w1.shape
     n = x.numel() // d
-    ct = _compute_type(x)
+    ct = compute_type(x)
     wt = w1.dtype
     w1, b1, w2 = (t.to(ct) for t in (w1, b1, w2))
     xf = x.reshape(n, d).to(ct)

@@ -33,15 +33,16 @@ MLP_IMPLS = (None, "xla", "pallas")
 
 def mlp(m: MLP, x, *, dropout_rate: float = 0.1, train: bool = False,
         generator=None, impl: str = "auto", mlp_impl=None):
-    """Dense -> exact GELU -> Dense.  In evaluation ``impl="auto"`` runs
-    the fused kernel (on the CPU its plain version) and ``impl="plain"``
-    the plain version on any device.  In training, with
-    ``mlp_impl="pallas"``, the fused training MLP with dropout after the
-    GELU and after the second Dense inside the kernel, its (2,) int32 seed
-    drawn from ``generator`` on x's device (zeros at rate 0, as
-    ops/blocks.py:60-62 draws it); otherwise the plain version with
-    dropout drawn from ``generator``.  ``mlp_impl`` is read in training
-    only."""
+    """Dense -> exact GELU -> Dense.  In evaluation ``impl="auto"``,
+    ``"pallas"`` and ``"flash"`` run the fused kernel (on the CPU its plain
+    version), as JAX's mlp routes "pallas" and "flash" (ops/blocks.py:
+    67-70), and ``"plain"`` or ``"small"`` the plain version on any device.
+    In training, with ``mlp_impl="pallas"``, the fused training MLP with
+    dropout after the GELU and after the second Dense inside the kernel,
+    its (2,) int32 seed drawn from ``generator`` on x's device (zeros at
+    rate 0, as ops/blocks.py:60-62 draws it); otherwise the plain version
+    with dropout drawn from ``generator``.  ``mlp_impl`` is read in
+    training only."""
     if impl not in IMPLS:
         raise ValueError(f"unknown mlp impl {impl!r}, want {IMPLS}")
     if mlp_impl not in MLP_IMPLS:
@@ -58,7 +59,8 @@ def mlp(m: MLP, x, *, dropout_rate: float = 0.1, train: bool = False,
         return fused_mlp_train(x, m.fc1.kernel, m.fc1.bias, m.fc2.kernel,
                                m.fc2.bias, seed, dropout_rate)
     if not train:
-        f = fused_mlp if impl == "auto" else fused_mlp_plain
+        f = (fused_mlp if impl in ("auto", "pallas", "flash")
+             else fused_mlp_plain)
         return f(x, m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias)
     y = dropout(gelu(dense(x, m.fc1.kernel, m.fc1.bias)), dropout_rate,
                 train, generator)

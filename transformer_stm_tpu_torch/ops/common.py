@@ -105,15 +105,16 @@ def layer_norm(x, gamma, beta, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
-def _f32(x):
-    """x in float32, or float64 x as it is."""
-    return x if x.dtype == torch.float64 else x.float()
+def compute_type(x):
+    """The type x is computed in: float32 for bfloat16 or float32 x, float64
+    for float64 x (a check then shares no rounding with float32)."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def batch_norm(x, gamma, beta, mean, var, eps: float = 1e-3):
     """Inference BatchNorm over the last axis from the moving statistics,
     in float32, the result in x's type (:192-217)."""
-    xf = _f32(x)
+    xf = x.to(compute_type(x))
     return ((xf - mean) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
@@ -125,7 +126,7 @@ def batch_norm_train(x, gamma, beta, moving_mean, moving_var,
     updates ``moving_mean`` and ``moving_var`` in place, outside autograd;
     the moving variance takes the unbiased n/(n-1) estimate, as the Keras-2
     fused BatchNorm the reference ran on does."""
-    xf = _f32(x)
+    xf = x.to(compute_type(x))
     axes = tuple(range(x.dim() - 1))
     mean = xf.mean(dim=axes)
     var = xf.square().mean(dim=axes) - mean.square()

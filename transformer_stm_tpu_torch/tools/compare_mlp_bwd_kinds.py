@@ -4,9 +4,10 @@
         [--rounds R] [--out FILE]
 
 ``csrc/fused_mlp_train.cu`` picks, for each width D, a dx kernel
-(``kind_dx``) and a weight-partial kernel (``kind_dw``) among the kinds of
+(``dx_kind``) and a weight-partial kernel (``dw_kind``) among the kinds of
 its ``enum``.  This tool builds copies of that source with the two
-functions replaced (``BUILDS``: a kind for D 64, 128 and 256 each; the
+functions' choices at the CvT widths replaced (``BUILDS``: a kind for D 64,
+128 and 256 each; the ViT widths keep the committed choice, and the
 committed source stays as it is), all ``nvcc`` processes started together,
 loads each in place of the kernel library, and runs ``fused_mlp_train_bwd``
 at the CvT stage shapes of one batch of 128 (chip_smoke's ``MLP_SHAPES``)
@@ -40,28 +41,29 @@ BUILDS = {
     "dws": (("DX1", "DX1", "DX"), ("DWS", "DWS", "DW")),
 }
 _KIND_LINE = re.compile(
-    r"^__host__ __device__ constexpr int (kind_dx|kind_dw)\(int D\) \{ "
+    r"^__host__ __device__ constexpr int (dx_kind|dw_kind)\(int D\) \{ "
     r"return .*; \}$", re.M)
 
 
 def patch(text, kinds):
-    """text with kind_dx and kind_dw returning the given kinds, each a
-    (D 64, D 128, D 256) triple of the enum's names."""
+    """text with dx_kind and dw_kind returning the given kinds at the CvT
+    widths, each a (D 64, D 128, D 256) triple of the enum's names, and
+    their committed choice at any other width."""
     enum = re.search(r"enum \{([^}]*)\};", text)
     names = {n.split("=")[0].strip() for n in enum.group(1).split(",")} \
         if enum else set()
     lines = _KIND_LINE.findall(text)
-    if sorted(lines) != ["kind_dw", "kind_dx"]:
-        raise ValueError("kind_dx/kind_dw lines not found in " + SOURCE)
-    for name, triple in zip(("kind_dx", "kind_dw"), kinds):
+    if sorted(lines) != ["dw_kind", "dx_kind"]:
+        raise ValueError("dx_kind/dw_kind lines not found in " + SOURCE)
+    for name, triple in zip(("dx_kind", "dw_kind"), kinds):
         if len(triple) != len(WIDTHS) or not set(triple) <= names:
             raise ValueError(f"{name}: {triple} not kinds of {sorted(names)}")
         body = " : ".join(f"D == {d} ? {k}" for d, k in zip(WIDTHS, triple))
         text = re.sub(
-            rf"^__host__ __device__ constexpr int {name}\(int D\) \{{ "
-            r"return .*; \}$",
-            f"__host__ __device__ constexpr int {name}(int D) {{ return "
-            f"{body} : -1; }}", text, count=1, flags=re.M)
+            rf"^(__host__ __device__ constexpr int {name}\(int D\) \{{ "
+            r"return )(.*)(; \}$)",
+            lambda m: f"{m[1]}{body} : ({m[2]}){m[3]}", text, count=1,
+            flags=re.M)
     return text
 
 
