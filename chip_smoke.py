@@ -13,8 +13,10 @@ Phases, each printed as it finishes:
    the training MLP's forward at the CvT widths D 64, 128 and 256 and the
    ViT widths 192, 384 and 768, the attention forward of flash_attention
    and attention_small at Dh <= 64 and above, both flash backward kernels,
-   the training MLP's dx and weight-partial kernels at the same six widths)
-   and of the int8 ViT layer's kernel (csrc/vit_layer_sm90.cu, mode 7);
+   the training MLP's dx and weight-partial kernels at D 64, 128, 192 and
+   256, and its chunked products' GEMM kernel, chunk_gemm, which runs both
+   directions at D 384 and 768) and of the int8 ViT layer's kernel
+   (csrc/vit_layer_sm90.cu, mode 7);
 2. kernels: each kernel against its plain PyTorch version at the CvT stage
    shapes (in float32, and in float64 as a check that shares no rounding),
    with its time, the plain version's time and one PyTorch call's time as
@@ -41,7 +43,13 @@ Phases, each printed as it finishes:
    bfloat16 x (y and dx in bf16 within 1e-2 of max |plain|, the weight
    gradients f32 within MLP_TOL) and its time beside plain, the library
    graph and the bounds; the scratch at most 64 MiB there too but at D 768
-   (the design's own count, at most 96 MiB); attention_small
+   (at most 96 MiB); at D 384 and 768, where both directions run as
+   products over row chunks (csrc/fused_mlp_train.cu, namespace chunk),
+   also the forward of csrc/fused_mlp.cu's fused body timed beside the
+   chunked one, each kernel's device time in a forward and a backward call
+   (torch.profiler), and a ragged N (591) at rates 0.1 and 0 within
+   MLP_TOL of plain and float64, two backward calls bit-equal and the
+   scratch within its limit; attention_small
    under torch.func.vmap and grad over 2 slots, bit-equal to a loop;
    flash_attention forward (with and without lse) and backward at T 300,
    S 257 for Dh 16, 33, 64, 128 and 256 and at the 512px stage-1 shape
@@ -134,8 +142,9 @@ is a JSON object with each kernel's numbers (``launches`` from phase 6, or
 phase 5 for the training MLP, which the multi-target trainer runs at the
 CvT widths, or phase 7 for the fused-layer kernels; ``launches_by_path``
 from phases 3 to 8, the last ``vit_finetune``, where rows 4-5 run at D
-768; rows 4-5 carry their ViT-width rows as ``vit_shapes``) and phase 8's
-step times; the last line is
+768; rows 4-5 carry their ViT-width rows as ``vit_shapes`` and, as
+``vit_source``, the source of their chunked products at D 384 and 768) and
+phase 8's step times; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing is read from or written to the
 repository except the kernels' build directory; phase 6 works in a
 temporary directory.
@@ -184,10 +193,11 @@ from transformer_stm_tpu_torch.kernels.fused_layer import (  # noqa: E402
     vit_layer_infer, vit_layer_infer_int8, vit_layer_infer_int8_plain,
     vit_layer_infer_plain)
 from transformer_stm_tpu_torch.kernels.fused_mlp import (  # noqa: E402
-    STREAM_HIDDEN, STREAM_OUT, dropout_mask, fused_mlp, fused_mlp_plain,
-    fused_mlp_train, fused_mlp_train_bwd, fused_mlp_train_bwd_plain,
-    fused_mlp_train_fwd, fused_mlp_train_plain, pack_mlp_weights,
-    train_bwd_scratch, train_bwd_slots, VIT_WIDTHS, WIDTHS)
+    CHUNKED_WIDTHS, STREAM_HIDDEN, STREAM_OUT, dropout_mask, fused_mlp,
+    fused_mlp_plain, fused_mlp_train, fused_mlp_train_bwd,
+    fused_mlp_train_bwd_plain, fused_mlp_train_fwd, fused_mlp_train_plain,
+    pack_mlp_weights, train_bwd_scratch, train_bwd_slots, train_chunk_rows,
+    VIT_WIDTHS, WIDTHS)
 from transformer_stm_tpu_torch.models.cvt import (  # noqa: E402
     cvt_forward, cvt_param_count, init_cvt)
 from transformer_stm_tpu_torch.models.vit import (  # noqa: E402
@@ -281,8 +291,8 @@ def time_ms(fn, reps=10, warmup=2):
 
 
 SCRATCH_LIMIT = 64 << 20  # the training MLP backward's scratch, bytes
-# at D 768 the design's own count, (6 + 2 slots) D Hd + slots (Hd + D)
-# floats, 94.4 MB at ViT-B B 64 with 2 slots
+# and at D 768, where the backward keeps W1^T and two chunks' arrays
+# (kernels/fused_mlp.py, train_bwd_scratch: 66.4 MB at ViT-B)
 VIT_SCRATCH_LIMIT = 96 << 20
 
 
@@ -515,7 +525,10 @@ def phase_build():
             *((f"mlp_bwd_tf32x3 {what} D{d} (fused_mlp_train_bwd)",
                lib.fused_mlp_train_bwd_info, (kind, d))
               for kind, what in ((0, "dx"), (1, "weight partials"))
-              for d in WIDTHS + VIT_WIDTHS),
+              for d in WIDTHS + VIT_WIDTHS if d not in CHUNKED_WIDTHS),
+            ("chunk_gemm (fused_mlp_train forward and backward at D "
+             f"{' and '.join(map(str, CHUNKED_WIDTHS))})",
+             lib.fused_mlp_train_chunked_info, (CHUNKED_WIDTHS[-1],)),
             ("vit_layer_sm90<7> at t_pad 200 (vit_layer_infer_int8, bf16)",
              lib.vit_layer_sm90_info,
              (MODE_ATTN | MODE_MLP | MODE_Q8, 200))):
@@ -823,8 +836,15 @@ def mlp_train_shape(dev, gen, stage, n, d, masks=False, bf16=False,
                 library_ms=blib, bound_ms=bb_ms, bound_by=bb_by,
                 bound_tc_ms=bound_tc(*bwork), scratch_bytes=scratch,
                 scratch_predicted_bytes=predicted, scratch_limit=limit,
-                slots=slots, weight_blocks=slots * hd // 64,
                 max_rel_err=rel, max_rel_err_f64=rel64)
+    if d in CHUNKED_WIDTHS:
+        brow["chunk_rows"] = train_chunk_rows(n, d)
+        plan = (f"W1^T and two chunks' arrays, chunks of "
+                f"{brow['chunk_rows']} rows")
+    else:
+        brow.update(slots=slots, weight_blocks=slots * hd // 64)
+        plan = (f"packed weights and {slots} row slots of partials, "
+                f"{brow['weight_blocks']} weight blocks")
     say(f"[2] fused_mlp_train {stage} N{n} D{d} Hd{hd} (rates {DROPOUT} "
         f"and 0; two backward calls bit-equal): max |err| / max |ref| "
         f"{rel:.2e} (vs f64 {rel64:.2e})  forward kernel {ms:.3f} ms  "
@@ -832,14 +852,100 @@ def mlp_train_shape(dev, gen, stage, n, d, masks=False, bf16=False,
         f"{lib:.3f} ms  bound {b_ms:.3f} ms ({b_by}), on the tensor cores "
         f"{frow['bound_tc_ms']:.3f} ms;  backward kernel "
         f"{bms:.3f} ms (scratch {scratch} bytes measured, {predicted} "
-        f"predicted, limit {limit}: packed weights and {slots} row slots of "
-        f"partials, {brow['weight_blocks']} weight blocks)  "
+        f"predicted, limit {limit}: {plan})  "
         f"plain {bplain:.3f} ms  "
         f"autograd of that graph {blib:.3f} ms  bound {bb_ms:.3f} ms "
         f"({bb_by}), on the tensor cores {brow['bound_tc_ms']:.3f} ms")
+    if d in CHUNKED_WIDTHS:
+        # the forward's two designs at this width, and each kernel's device
+        # time in a forward and a backward call
+        frow["fused_body_ms"] = time_ms(
+            lambda: fused_mlp_train_fwd(*args, DROPOUT, chunked=False))
+        frow["kernels_ms"] = kernel_split(
+            lambda: fused_mlp_train_fwd(*args, DROPOUT))
+        brow["kernels_ms"] = kernel_split(
+            lambda: fused_mlp_train_bwd(*args, DROPOUT, dy))
+        for what, row in (("forward", frow), ("backward", brow)):
+            say(f"[2] fused_mlp_train {stage} {what}, device ms per call by "
+                f"kernel (profiler, 3 calls): " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in row["kernels_ms"].items()))
+        say(f"[2] fused_mlp_train {stage} forward: chunked products "
+            f"{ms:.3f} ms, csrc/fused_mlp.cu's fused body "
+            f"{frow['fused_body_ms']:.3f} ms")
     worst_f = max(errs[(r, "y")][2] for r in (DROPOUT, 0.0))
     worst_b = max(v[2] for k, v in errs.items() if k[1] != "y")
     return frow, brow, worst_f, worst_b
+
+
+def kernel_split(fn, calls=3):
+    """{kernel name: device ms per call of fn}, summed by torch.profiler
+    over `calls` calls after one more."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.split("::")[-1].split("<")[0]
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+RAGGED_ROWS = 3 * 197  # a ragged N: two chunks and a part at D 768
+
+
+def mlp_train_ragged(dev, gen, d):
+    """The training MLP at a ragged N (RAGGED_ROWS) and width D: forward and
+    backward at rates 0.1 and 0 within MLP_TOL of plain and of float64, two
+    backward calls bit-equal, the backward's scratch within its limit.
+    Returns the worst relative error and the scratch bytes."""
+    n, hd = RAGGED_ROWS, 4 * d
+    x = torch.randn(n, d, device=dev, generator=gen)
+    w1 = torch.randn(d, hd, device=dev, generator=gen) / d ** 0.5
+    b1 = 0.1 * torch.randn(hd, device=dev, generator=gen)
+    w2 = torch.randn(hd, d, device=dev, generator=gen) / hd ** 0.5
+    b2 = 0.1 * torch.randn(d, device=dev, generator=gen)
+    dy = torch.randn(n, d, device=dev, generator=gen)
+    seed = torch.randint(0, 2 ** 31 - 1, (2,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    args = (x, w1, b1, w2, b2, seed)
+    worst = 0.0
+    for rate in (DROPOUT, 0.0):
+        got = (fused_mlp_train_fwd(*args, rate),
+               *fused_mlp_train_bwd(*args, rate, dy))
+        if not all(map(torch.equal, got[1:],
+                       fused_mlp_train_bwd(*args, rate, dy))):
+            raise AssertionError(f"fused_mlp_train_bwd N{n} D{d}: two calls "
+                                 "on the same inputs differ")
+        want = (fused_mlp_train_plain(*args, rate),
+                *fused_mlp_train_bwd_plain(*args, rate, dy))
+        a64 = [t.double() for t in args[:5]] + [seed]
+        want64 = (fused_mlp_train_plain(*a64, rate),
+                  *fused_mlp_train_bwd_plain(*a64, rate, dy.double()))
+        for name, g, w, w64 in zip(("y", "dx", "dW1", "db1", "dW2", "db2"),
+                                   got, want, want64):
+            scale = w.abs().max().item()
+            e = max((g - w).abs().max().item(),
+                    (g.double() - w64).abs().max().item())
+            if not torch.isfinite(g).all() or e > MLP_TOL * scale:
+                raise AssertionError(f"fused_mlp_train N{n} D{d} rate {rate} "
+                                     f"{name}: max |err| {e:.3e} over "
+                                     f"{MLP_TOL} x max {scale:.3e}")
+            worst = max(worst, e / scale)
+    limit = VIT_SCRATCH_LIMIT if d == 768 else SCRATCH_LIMIT
+    scratch, _, _ = mlp_bwd_scratch(
+        f"N{n}", lambda: fused_mlp_train_bwd(*args, DROPOUT, dy), n, d, hd,
+        limit)
+    say(f"[2] fused_mlp_train ragged N{n} D{d} (chunks of "
+        f"{train_chunk_rows(n, d)} rows; rates {DROPOUT} and 0, two backward "
+        f"calls bit-equal): max |err| / max |ref| {worst:.2e} against plain "
+        f"and f64; scratch {scratch} bytes (limit {limit})")
+    return dict(shape=[n, d, hd], max_rel_err=worst, scratch_bytes=scratch)
 
 
 def phase_mlp_train(dev, gen):
@@ -861,6 +967,8 @@ def phase_mlp_train(dev, gen):
         frow, brow, _, _ = mlp_train_shape(
             dev, gen, model, VIT_MLP_ROWS, d, masks=True, bf16=True,
             limit=SCRATCH_LIMIT if d < 768 else VIT_SCRATCH_LIMIT)
+        if d in CHUNKED_WIDTHS:
+            brow["ragged"] = mlp_train_ragged(dev, gen, d)
         vrows["fwd"].append(frow)
         vrows["bwd"].append(brow)
     out = []
@@ -876,6 +984,8 @@ def phase_mlp_train(dev, gen):
             ("fused_mlp_train", frows, 170, "fwd", "fused_mlp.cu"),
             ("fused_mlp_train_bwd", brows, 189, "bwd",
              "fused_mlp_train.cu")):
+        # the CvT widths' kernels (source) and, at D 384 and 768, the
+        # chunked products (vit_source)
         # per slot-step every stage reaches the kernel once: the sums
         out.append(dict(
             name=name, route="cuda",
@@ -889,7 +999,8 @@ def phase_mlp_train(dev, gen):
             bound_by="operations",
             bound_tc_ms=sum(r["bound_tc_ms"] for r in rows),
             library_ms=sum(r["library_ms"] for r in rows), shapes=rows,
-            vit_shapes=vrows[key]))
+            vit_shapes=vrows[key],
+            vit_source="transformer_stm_tpu_torch/csrc/fused_mlp_train.cu"))
     out[-1]["at_512px_stage1"] = big
     return out
 

@@ -166,7 +166,8 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
                "fused_mlp_info": 3, "fused_mlp_train_fwd_info": 3,
                "flash_attention_fwd_info": 3,
                "flash_attention_bwd_info": 3,
-               "fused_mlp_train_bwd_info": 3}
+               "fused_mlp_train_bwd_info": 3,
+               "fused_mlp_train_chunked_info": 3}
     for name, n_ptr in helpers.items():
         argtypes = _build.SIGNATURES[name]
         assert argtypes.count(ctypes.c_void_p) == n_ptr
@@ -180,6 +181,8 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
                  "launch_fused_mlp": 6,
                  "launch_fused_mlp_train_fwd": 8,
                  "launch_fused_mlp_train_bwd": 10,
+                 "launch_fused_mlp_train_fwd_chunked": 8,
+                 "launch_fused_mlp_train_bwd_chunked": 9,
                  "launch_fused_layer": 19,
                  "launch_vit_layer_sm90": 16}[name]
         assert argtypes.count(ctypes.c_void_p) == n_ptr + 1

@@ -16,8 +16,8 @@ against the JAX package's, and the training MLP at the ViT widths.
 - ``fused_mlp_train_plain`` and its backward at D 192, 384 and 768 against
   JAX ``make_fused_mlp_train(0.0, interpret=True)`` and its vjp within 1e-5
   of the largest entry, bfloat16 x giving the JAX dtypes, the keep share
-  at rate 0.1; the CUDA sources' widened training widths and backward
-  instantiations.
+  at rate 0.1; the CUDA sources' training widths, the backward's kinds and
+  its chunked products at D 384 and 768, and the backward's scratch plan.
 """
 
 import dataclasses
@@ -355,6 +355,10 @@ def test_train_mlp_bfloat16_dtypes_and_keep_share(d):
 
 
 def test_cuda_sources_build_the_training_mlp_at_the_vit_widths():
+    """The forward's fused body at every width (csrc/fused_mlp.cu), the
+    backward's fused kinds at the CvT widths and D 192, and the chunked
+    products at D 384 and 768 (csrc/fused_mlp_train.cu, namespace chunk),
+    where the old wide kinds DXW and DWW are gone."""
     fwd = (CSRC / "fused_mlp.cu").read_text()
     widths = re.search(r"bool width_ok\(int D\) \{\s*return ([^;]*);", fwd)
     assert widths and all(f"D == {d}" in widths[1]
@@ -362,26 +366,40 @@ def test_cuda_sources_build_the_training_mlp_at_the_vit_widths():
     assert re.search(r"case 768|default: return \(const void\*\)"
                      r"fused_mlp_tf32x3<192, false, DROP>", fwd)
     bwd = (CSRC / "fused_mlp_train.cu").read_text()
-    for d in pm.WIDTHS + pm.VIT_WIDTHS:
+    fused = sorted(set(pm.WIDTHS + pm.VIT_WIDTHS) - set(pm.CHUNKED_WIDTHS))
+    for d in fused:
         assert f"case {d}: return kernel_of_d<{d}>(kind);" in bwd or \
             f"default: return kernel_of_d<{d}>(kind);" in bwd
         assert f"bwd::launch_bwd<{d}>(P, x, dy, pack, stream)" in bwd
-    assert "dx_kind(int D) { return D >= 384 ? DXW" in bwd
-    assert "dw_kind(int D) { return D >= 384 ? DWW" in bwd
+    assert "dx_kind(int D) { return D >= 384 ? CHUNKED" in bwd
+    assert "dw_kind(int D) { return D >= 384 ? CHUNKED" in bwd
+    assert "DXW" not in bwd and "DWW" not in bwd
+    chunked = re.search(r"bool shapes_ok\([^)]*\) \{\s*return ([^;]*);", bwd)
+    assert chunked and all(f"D == {d}" in chunked[1]
+                           for d in pm.CHUNKED_WIDTHS)
+    for fn in ("launch_fused_mlp_train_bwd_chunked",
+               "launch_fused_mlp_train_fwd_chunked"):
+        assert f'extern "C" int {fn}(' in bwd
 
 
 @pytest.mark.parametrize("d", pm.VIT_WIDTHS)
 def test_train_mlp_backward_scratch_at_vit_widths(d):
-    """The backward's scratch at a ViT model's B 64 (N 12,608): under 64
-    MiB at D 192 and 384; at D 768 the design's own count, (6 + 2 slots) D
-    Hd + slots (Hd + D) floats with 2 row slots (96 weight blocks for 132
-    SMs), 94.4 MB, under chip_smoke.py's 96 MiB."""
+    """The backward's scratch at a ViT model's B 64 (N 12,608): at D 192
+    the fused kinds' packed weights and row slots; at D 384 and 768 the
+    chunked plan for chunks of ``BWD_CHUNK_ROWS`` rows (W1^T; x, g and dx's
+    four parts with the bias sums and m1's bits; two sets of x^T, g^T, h^T,
+    da^T and da), under chip_smoke.py's 64 MiB at D 192 and 384 and 96 MiB
+    at D 768, and the same at N 2,097,152."""
     n, hd = 64 * 197, 4 * d
     sizes = pm.train_bwd_scratch(n, d, hd, sms=132)
-    slots = pm.train_bwd_slots(n, hd, sms=132)
-    assert sizes == [6 * d * hd, slots * (2 * d * hd + hd + d)]
-    if d < 768:
-        assert 4 * sum(sizes) <= 64 * 2 ** 20
+    if d in pm.CHUNKED_WIDTHS:
+        r = pm.train_chunk_rows(n, d)
+        assert r == pm.BWD_CHUNK_ROWS[d] and r % pm.CHUNK_TILE_N == 0
+        assert sizes == [d * hd, 8 * r * d + r // 32 * (hd + d) + r * hd // 32,
+                         2 * (4 * r * d + 4 * r * hd)]
+        assert sizes == pm.train_bwd_scratch(2_097_152, d, hd, sms=132)
     else:
-        assert slots == 2 and slots * hd // pm.TRAIN_BWD_TILE == 96
-        assert 4 * sum(sizes) == 94_402_560 <= 96 * 2 ** 20
+        slots = pm.train_bwd_slots(n, hd, sms=132)
+        assert sizes == [6 * d * hd, slots * (2 * d * hd + hd + d)]
+    limit = 96 if d == 768 else 64
+    assert 4 * sum(sizes) <= limit * 2 ** 20

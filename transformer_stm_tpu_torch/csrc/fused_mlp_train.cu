@@ -1,8 +1,10 @@
 // fused_mlp_train's backward: the gradients of the training MLP
 // y = Drop2(Drop1(GELU(x W1 + b1)) W2 + b2) in f32, with both dropout masks
-// drawn inside the kernels (csrc/philox.cuh) and the (N, Hd) hidden
-// activation never in device memory.  The forward is csrc/fused_mlp.cu's
-// body with its dropout flag.
+// drawn inside the kernels (csrc/philox.cuh).  At the CvT widths and D 192
+// the (N, Hd) hidden activation is never in device memory and the forward
+// is csrc/fused_mlp.cu's body with its dropout flag; at D 384 and 768 both
+// directions are products over row chunks, each done once (namespace chunk,
+// the last section of this file).
 //
 // Replaces the Pallas TPU kernel `_mlp_train_bwd_kernel`
 // (transformer_stm_tpu/kernels/fused_mlp.py:189) of `make_fused_mlp_train`
@@ -58,21 +60,41 @@
 //   share a Philox group), so both equal `dropout_mask` bit for bit.
 // - Up to D 256 the scores accumulate over K = D in one accumulator (96
 //   truncating adds at most; the folds above are over the long sums).
-// - The ViT widths: D 192 takes the general DX and DW.  At D 384 and 768 a
-//   64-row f32 tile of x or dy (96 or 192 KB) does not fit beside a ring,
-//   so DXW and DWW keep nothing of a row tile resident: x and dy come
-//   through the ring a 32-column slab at a time with the weights' slabs,
-//   each slab's score products in a fresh accumulator folded into the
-//   scores (dy masked in the stage by the warpgroup that reads it).  DXW
-//   computes dx in column halves of 384 (each warpgroup 192 columns, da
-//   from a shared tile); DWW folds each M-tile's product into its slot's
-//   partial in device memory, as the registers do not hold a hidden
-//   tile's 2 D / 64 M-tiles.
+// - D 192 takes the general DX and DW.
+//
+// D 384 and 768 (ViT-S and ViT-B; kernels/fused_mlp.py, CHUNKED_WIDTHS):
+// there a 64-row f32 tile of x or dy (96 or 192 KB) leaves no room for a
+// ring, and keeping the hidden on chip cost recomputed products (18 N D Hd
+// flops where 10 suffice).  A 1,024-row chunk of h in f32 is 12.6 MB, so
+// at these widths the hidden goes through device memory (mostly L2) and
+// every product is done once, as a tile of a generic 3xTF32 GEMM kernel
+// (chunk_gemm: C = A B^T, 128 x 192 tiles, A as stored, B split, both
+// K-major through a TMA ring; its epilogue picks what the tile is for):
+//
+// - forward, per chunk of 132 x 128 x 192 / D rows: both masks as bits
+//   (mask_bits), h = Drop1(GELU(x W1 + b1)) into an (R, Hd) hidden, y =
+//   Drop2(h W2 + b2): 4 N D Hd flops.
+// - backward, per chunk of R rows (384 at D 768, 768 at D 384): prep (x
+//   and g = dy m2 as the products read them, split, and db2's sums);
+//   m1's bits; one launch of a^T = W1^T x^T + b1 and dh^T = W2 g^T (4 N D
+//   Hd); chunk_combine (h^T, da^T = (dh GELU'(a) m1)^T, da split, db1's
+//   sums); then, in a second stream so that they run beside the next
+//   chunk's scores, one launch of dx^T = W1 da^T in four parts of K = Hd
+//   (2 N D Hd) and dW1^T += da^T x, dW2 += h^T g over the chunk's rows (4 N
+//   D Hd), and the sum of dx's parts.  10 N D Hd flops in all.
+// - Bound: operations; at ViT-B B 64 (N 12,608, D 768, Hd 3,072) the
+//   backward's 2.98e11 flops take at least 1.80 ms as three TF32 products
+//   at 495 TFLOP/s, the forward's 0.72 ms.
+// - No atomics: each output tile belongs to one block, the weight
+//   gradients are added to chunk after chunk in order and the bias sums
+//   are taken in a fixed order, so two calls agree bit for bit.  The
+//   scratch does not grow with N past one chunk (train_bwd_scratch: 63 MiB
+//   at D 768, 56 MiB at D 384).
 //
 // Layout: x, dy, dx (N, D); w1 (D, Hd); b1 (Hd); w2 (Hd, D); b2 (D); seed
 // int32[2] on the device; all contiguous, x and dy 16-byte aligned.  Rows
-// past N are zero-filled by TMA (g = 0 there, so they add nothing) and are
-// not stored.
+// past N are zero-filled (g = 0 there, so they add nothing) and are not
+// stored.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -123,17 +145,13 @@ constexpr int MAX_STAGES = 4;
 //   tiles with its own accumulators, the weights resident for the block; no
 //   barrier across the block until the end, so one warpgroup's element-wise
 //   work overlaps the other's products.
-// - DXW, DWW (dx and weights, D 384 and 768): a 64-row f32 tile of x or dy
-//   is 192 KB at D 768, more than shared memory holds beside a ring, so
-//   nothing of a row tile stays resident: x and dy come through the ring
-//   slab by slab with the weights' slabs (see body_dxw and body_dww).
-enum { DX = 0, DW = 1, DX1 = 2, DW1 = 3, DWS = 4, DXW = 5, DWW = 6 };
+// - CHUNKED (D 384 and 768): no kind of this body; the products over row
+//   chunks of namespace `chunk` below, each done once.
+enum { DX = 0, DW = 1, DX1 = 2, DW1 = 3, DWS = 4, CHUNKED = 5 };
 
-// the kinds of each width: 384 and 768 on the wide ones, 192 on the general
-__host__ __device__ constexpr int dx_kind(int D) { return D >= 384 ? DXW : D <= 128 ? DX1 : DX; }
-__host__ __device__ constexpr int dw_kind(int D) { return D >= 384 ? DWW : D == 64 ? DW1 : D == 128 ? DWS : DW; }
-
-constexpr int WIDE_NOUT = 192;  // DXW: dx columns of a warpgroup (a block: 384)
+// the kinds of each width: 384 and 768 chunked, 192 on the general ones
+__host__ __device__ constexpr int dx_kind(int D) { return D >= 384 ? CHUNKED : D <= 128 ? DX1 : DX; }
+__host__ __device__ constexpr int dw_kind(int D) { return D >= 384 ? CHUNKED : D == 64 ? DW1 : D == 128 ? DWS : DW; }
 
 // The shared-memory plan of a kernel:
 // - the x and dy row tiles as loaded (dy masked in place into g; DX1: one
@@ -147,47 +165,30 @@ constexpr int WIDE_NOUT = 192;  // DXW: dx columns of a warpgroup (a block: 384)
 //   order for dx (a unit: NOUT rows of W1 by one 32-unit K-slab, big and
 //   small); DW and DWS stages one slab of one weight;
 // - DW1: both weights' hidden tile, resident.
-// - DXW: Q, then the da tile (A of dx's products, split); a ring of stages
-//   that hold, for the scores, one 32-column slab of x, dy, W1^T and W2 (big
-//   and small), or, for dx, one unit of W1 in kpos order;
-// - DWW: Q, then the h^T and da^T tiles (split); a ring of stages that hold
-//   one slab of x or dy with the same slab of W1^T or W2 (big and small) for
-//   the scores, or two slabs of x or dy (one M-tile) for the weight products.
 template <int KIND, int D>
 struct Cfg {
-  static constexpr bool WIDE = KIND == DXW || KIND == DWW;
   static constexpr bool PER_WG = KIND == DW1;  // a half of shared memory each
   static constexpr int NSLAB = D / KS;
-  static constexpr int NOUT = KIND == DXW ? WIDE_NOUT : KIND == DX ? D / 2 : D;  // dx columns of a warpgroup
-  static constexpr int TILE = WIDE ? 0 : ROWS * D * 4;
-  static constexpr int STAGE = KIND == DXW   ? 6 * SLAB_BYTES
-                               : KIND == DWW ? 3 * SLAB_BYTES
-                               : KIND == DX || KIND == DX1 ? 4 * SLAB_BYTES
-                                                           : 2 * SLAB_BYTES;
+  static constexpr int NOUT = KIND == DX ? D / 2 : D;  // dx columns of a warpgroup
+  static constexpr int TILE = ROWS * D * 4;
+  static constexpr int STAGE = KIND == DX || KIND == DX1 ? 4 * SLAB_BYTES : 2 * SLAB_BYTES;
   static constexpr int UNIT = 2 * NOUT * KS * 4;
-  static constexpr int UNITS = KIND == DX || KIND == DXW ? 4 : KIND == DX1 ? 2 : 0;  // (K-slab, warpgroup)
+  static constexpr int UNITS = KIND == DX ? 4 : KIND == DX1 ? 2 : 0;  // (K-slab, warpgroup)
   static constexpr int OUT_PER = STAGE / UNIT < UNITS ? STAGE / UNIT : UNITS;
   static constexpr int OUT_STAGES = UNITS ? UNITS / OUT_PER : 0;
-  static constexpr int PER_ITEM = KIND == DWW                 ? 3 * NSLAB
-                                  : KIND == DW || KIND == DW1 ? 2 * NSLAB
-                                  : KIND == DWS               ? NSLAB
-                                                              : NSLAB + OUT_STAGES;
+  static constexpr int PER_ITEM = KIND == DW || KIND == DW1 ? 2 * NSLAB
+                                  : KIND == DWS ? NSLAB : NSLAB + OUT_STAGES;
   static constexpr bool RING_PER_WG = KIND == DWS;
   static constexpr int X = 0, G = TILE, Q = (KIND == DX1 ? 4 : 2) * TILE;
-  static constexpr int B =
-      Q + (KIND == DX || KIND == DW || KIND == DWS || WIDE ? Q_BYTES : 0);
-  static constexpr int FIXED = B + (KIND == DW || KIND == DW1 || KIND == DXW ? B_BYTES
-                                    : KIND == DWS || KIND == DWW             ? 2 * B_BYTES
-                                                                             : 0);
+  static constexpr int B = Q + (KIND == DX || KIND == DW || KIND == DWS ? Q_BYTES : 0);
+  static constexpr int FIXED =
+      B + (KIND == DW || KIND == DW1 ? B_BYTES : KIND == DWS ? 2 * B_BYTES : 0);
   static constexpr int W = 2 * FIXED;  // DW1: the resident weights, after both halves
   static constexpr int W_BYTES = KIND == DW1 ? 2 * 2 * HT * D * 4 : 0;
   static constexpr int RINGS = KIND == DW1 ? 0 : KIND == DWS ? 2 : 1;
-  // head: mbarriers (1 KB), then db1's warp sums (DW, DWS, DW1, DWW), then
-  // db2's column sums (DWW, up to D 1024)
-  static constexpr int HEAD = 1024 + (KIND == DW || KIND == DWS ? 1024
-                                      : KIND == DW1           ? 2048
-                                      : KIND == DWW           ? 1024 + 4096
-                                                              : 0);
+  // head: mbarriers (1 KB), then db1's warp sums (DW, DWS, DW1)
+  static constexpr int HEAD =
+      1024 + (KIND == DW || KIND == DWS ? 1024 : KIND == DW1 ? 2048 : 0);
   static constexpr int FIT =
       RINGS ? (SMEM_MAX - ALIGN - HEAD - FIXED) / (RINGS * STAGE) : 0;
   static constexpr int NSTAGE = FIT < MAX_STAGES ? FIT : MAX_STAGES;
@@ -195,11 +196,10 @@ struct Cfg {
   static constexpr int SMEM = ALIGN + HEAD + W_BYTES +
                               (PER_WG ? 2 * HALF : FIXED + RINGS * NSTAGE * STAGE);
   static constexpr int NT = D >= 128 ? (D + 127) / 128 : 1;  // DW: M-tiles of each output a warpgroup owns
-  static constexpr int KB = D >= 192 && !WIDE ? 4 : 8;  // k-steps of A fragments held at once
+  static constexpr int KB = D >= 192 ? 4 : 8;  // k-steps of A fragments held at once
   static_assert(!RINGS || NSTAGE >= 2, "a ring of two stages at least");
   static_assert(UNITS == 0 || (OUT_PER >= 1 && UNITS % OUT_PER == 0), "dx stages");
-  static_assert((WIDE || NSLAB <= MAX_SLABS) && SMEM <= SMEM_MAX, "shared memory");
-  static_assert(!WIDE || D % (2 * WIDE_NOUT) == 0, "DXW: column halves of 384");
+  static_assert(NSLAB <= MAX_SLABS && SMEM <= SMEM_MAX, "shared memory");
 };
 
 struct Params {
@@ -348,44 +348,7 @@ __device__ __forceinline__ bool issue(const Params& p, Ring<Cfg<KIND, D>::NSTAGE
   const int item = u / C::PER_ITEM, j = u % C::PER_ITEM;
   uint8_t* s = r.at();
   uint64_t* bar = &r.full[r.stage];
-  if constexpr (KIND == DXW) {
-    // an item is a hidden tile of the block's row tile: NSLAB score stages
-    // (x, dy, W1^T, W2), then 4 dx stages (K-slab f / 2, warpgroup f % 2)
-    const int h0 = HT * item, row0 = ROWS * blockIdx.x;
-    if (j < C::NSLAB) {
-      mbar_expect_tx(bar, 6 * SLAB_BYTES);
-      tma_3d(s, &p.m_x, bar, KS * j, row0, 0);
-      tma_3d(s + SLAB_BYTES, &p.m_dy, bar, KS * j, row0, 0);
-      tma_3d(s + 2 * SLAB_BYTES, &p.m_w1t, bar, KS * j, h0, 0);
-      tma_3d(s + 3 * SLAB_BYTES, &p.m_w1t, bar, KS * j, h0, 1);
-      tma_3d(s + 4 * SLAB_BYTES, &p.m_w2, bar, KS * j, h0, 0);
-      tma_3d(s + 5 * SLAB_BYTES, &p.m_w2, bar, KS * j, h0, 1);
-    } else {
-      const int f = j - C::NSLAB, n0 = WIDE_NOUT * (2 * blockIdx.y + f % 2);
-      mbar_expect_tx(bar, C::UNIT);
-      tma_3d(s, &p.m_w1k, bar, h0 + KS * (f / 2), n0, 0);
-      tma_3d(s + C::UNIT / 2, &p.m_w1k, bar, h0 + KS * (f / 2), n0, 1);
-    }
-  } else if constexpr (KIND == DWW) {
-    // an item is a row tile of the block's slot: 2 NSLAB score stages (x
-    // and W1^T's slab j / 2 for even j, dy and W2's for odd j), then NSLAB
-    // product stages (x for even f, dy for odd f: M-tile f / 2's two slabs)
-    const int h0 = HT * blockIdx.x, row0 = ROWS * (blockIdx.y + item * p.slots);
-    if (j < 2 * C::NSLAB) {
-      const bool even = j % 2 == 0;
-      const CUtensorMap* w = even ? &p.m_w1t : &p.m_w2;
-      mbar_expect_tx(bar, 3 * SLAB_BYTES);
-      tma_3d(s, even ? &p.m_x : &p.m_dy, bar, KS * (j / 2), row0, 0);
-      tma_3d(s + SLAB_BYTES, w, bar, KS * (j / 2), h0, 0);
-      tma_3d(s + 2 * SLAB_BYTES, w, bar, KS * (j / 2), h0, 1);
-    } else {
-      const int f = j - 2 * C::NSLAB;
-      const CUtensorMap* m = f % 2 == 0 ? &p.m_x : &p.m_dy;
-      mbar_expect_tx(bar, 2 * SLAB_BYTES);
-      tma_3d(s, m, bar, 64 * (f / 2), row0, 0);
-      tma_3d(s + SLAB_BYTES, m, bar, 64 * (f / 2) + KS, row0, 0);
-    }
-  } else if constexpr (KIND == DX || KIND == DX1) {
+  if constexpr (KIND == DX || KIND == DX1) {
     const int h0 = HT * (item % (p.Hd / HT));  // DX1: the items of each row pair
     if (j < C::NSLAB) {
       mbar_expect_tx(bar, 4 * SLAB_BYTES);
@@ -1241,303 +1204,6 @@ __device__ void body_dws(const Params& p, uint8_t* sm, Ring<Cfg<DWS, D>::NSTAGE>
   if (w == 1 && c == 0 && tid < D) p.db2p[(long)slot * p.pstride + tid] = db2;
 }
 
-// DXW (D 384, 768): a block takes row tile blockIdx.x and dx's column half
-// blockIdx.y (384 columns; at D 768 both halves recompute the scores, as
-// csrc/fused_mlp.cu's forward recomputes fc1) and walks every hidden tile:
-//   a = x W1[:, tile] (warpgroup 0), dh = g W2[tile, :]^T (warpgroup 1),
-// chunked over K = D through the ring, a slab of x, dy and both weights a
-// stage, each stage's products in a fresh accumulator folded into the
-// scores with f32 adds (warpgroup 1 masks its dy slab in the stage); then
-// da = dh GELU'(a + b1) m1 (a traded through Q), written split into the da
-// tile in kpos order, and each warpgroup adds da W1[cols, tile]^T into its
-// 192 columns from shared memory, a fresh accumulator for the hidden tile.
-template <int D>
-__device__ void body_dxw(const Params& p, uint8_t* sm, Ring<Cfg<DXW, D>::NSTAGE> ring) {
-  using C = Cfg<DXW, D>;
-  constexpr int NW = WIDE_NOUT;
-  const int w = warpgroup();
-  const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int ra = 16 * wi + g;
-  const long row0 = (long)blockIdx.x * ROWS;
-  float* Q = reinterpret_cast<float*>(sm + C::Q);
-  uint8_t* Ab = sm + C::B;  // da, K-major: 64 rows by the tile's 64 units in kpos order
-  uint8_t* As = Ab + Q_BYTES;
-  const uint32_t k0 = (uint32_t)p.seed[0], k1 = (uint32_t)p.seed[1];
-  const int items = p.Hd / HT;
-  Walk<DXW, D> walk(p, ring, items * C::PER_ITEM);
-
-  float dx[NW / 2];
-  zero(dx);
-  for (int c = 0; c < items; ++c) {
-    float s[HT / 2];  // warpgroup 0: a; warpgroup 1: dh
-    zero(s);
-    for (int j = 0; j < C::NSLAB; ++j) {
-      uint8_t* st = walk.wait();
-      uint8_t* T = st + w * SLAB_BYTES;  // the x or dy slab
-      if (w == 1 && p.thr) {
-        mask_slab<D>(T, KS * j, row0, p, k0, k1, tid);
-        bar_sync(2, 128);
-      }
-      uint32_t ab[4][4], as[4][4];
-      row_frags(T, 0, ra, t, ab, as);
-      fence_frag(ab);
-      fence_frag(as);
-      float part[HT / 2];
-      zero(part);
-      wg_fence();
-      mma3_rs<HT, 4>(part, ab, as, desc_sw128(st + (2 + 2 * w) * SLAB_BYTES),
-                     desc_sw128(st + (3 + 2 * w) * SLAB_BYTES), HT);
-      wg_commit();
-      walk.fill();
-      wg_wait<0>();
-      fence_acc(part);
-      walk.release();
-#pragma unroll
-      for (int i = 0; i < HT / 2; ++i) s[i] += part[i];
-    }
-
-    __syncthreads();  // every thread is done with the last tile's da and Q
-    walk.fill();
-    if (w == 0) {
-#pragma unroll
-      for (int i = 0; i < HT / 2; ++i) Q[i * 128 + tid] = s[i];
-    }
-    __syncthreads();
-    if (w == 1) {
-#pragma unroll
-      for (int j = 0; j < HT / 8; ++j)
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const long unit = (long)HT * c + 8 * j + 2 * t;
-          const float2 m = mask1(row0 + ra + 8 * e2, unit, p, k0, k1);
-#pragma unroll
-          for (int e1 = 0; e1 < 2; ++e1) {
-            const int i = 4 * j + 2 * e2 + e1;
-            float h, d, vb, vs;
-            gelu_both(Q[i * 128 + tid] + p.b1[unit + e1], h, d);
-            split(s[i] * d * (e1 ? m.y : m.x), vb, vs);
-            // unit 8 j + 2 t + e1 at its kpos, 8 j + 4 e1 + t, as W1's pack orders it
-            const uint32_t off = sw_off(ra + 8 * e2, 8 * j + 4 * e1 + t, ROWS);
-            *reinterpret_cast<float*>(Ab + off) = vb;
-            *reinterpret_cast<float*>(As + off) = vs;
-          }
-        }
-      fence_proxy_shared();
-    }
-    __syncthreads();
-
-    // dx's columns += da W1k: stage f holds K-slab f / 2 for warpgroup f % 2
-    float part[NW / 2];
-    zero(part);
-    for (int f = 0; f < C::OUT_STAGES; ++f) {
-      const uint8_t* st = walk.wait();
-      if (f % 2 == w) {
-        const int ks = f / 2;
-        wg_fence();
-        mma3_ss<NW, 4>(part, desc_sw128(Ab + ks * SLAB_BYTES), desc_sw128(As + ks * SLAB_BYTES),
-                       ROWS, desc_sw128(st), desc_sw128(st + C::UNIT / 2), NW);
-        wg_commit();
-        walk.fill();
-        wg_wait<0>();
-        fence_acc(part);
-      }
-      walk.release();
-    }
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) dx[i] += part[i];
-  }
-
-  // rows past N are not stored
-#pragma unroll
-  for (int j = 0; j < NW / 8; ++j) {
-    const int col = NW * (2 * blockIdx.y + w) + 8 * j + 2 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long row = row0 + ra + 8 * half;
-      if (row < p.N)
-        *reinterpret_cast<float2*>(p.dx + row * D + col) =
-            make_float2(dx[4 * j + 2 * half], dx[4 * j + 2 * half + 1]);
-    }
-  }
-}
-
-// A row tile's product `fresh` for M-tile mt of dW1 (D, Hd; dw1 true) or of
-// dW2 (Hd, D), hidden tile c, folded into the slot's partial at `base` with
-// f32 adds (stored as it is at the slot's first row tile): the partial so far
-// is read before the product is issued (`load`), added after it (`store`).
-template <int D>
-struct Fold {
-  float* base;
-  int Hd, mt, c, ra, t;
-  bool dw1;
-  __device__ long at(int j, int e2, int e1) const {
-    const long m = 64 * mt + ra + 8 * e2, unit = HT * c + 8 * j + 2 * t + e1;
-    return dw1 ? m * Hd + unit : unit * D + m;
-  }
-  __device__ void load(float (&old)[HT / 2]) const {
-#pragma unroll
-    for (int j = 0; j < HT / 8; ++j)
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2)
-#pragma unroll
-        for (int e1 = 0; e1 < 2; ++e1) old[4 * j + 2 * e2 + e1] = base[at(j, e2, e1)];
-  }
-  __device__ void store(const float (&v)[HT / 2]) const {
-#pragma unroll
-    for (int j = 0; j < HT / 8; ++j)
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2)
-#pragma unroll
-        for (int e1 = 0; e1 < 2; ++e1) base[at(j, e2, e1)] = v[4 * j + 2 * e2 + e1];
-  }
-};
-
-// DWW (D 384, 768): a block takes hidden tile blockIdx.x and row tiles
-// blockIdx.y, blockIdx.y + slots, ...; per row tile
-//   a = x W1[:, tile] (warpgroup 0) and dh = g W2[tile, :]^T (warpgroup 1),
-// chunked over K = D through the ring (a stage each: the slab of x or dy and
-// the same slab of the weight; warpgroup 1 masks dy in the stage), each
-// stage's products in a fresh accumulator folded into the scores; then
-// h^T = (GELU(a + b1) m1)^T and q (warpgroup 0), da = dh q, da^T and db1
-// (warpgroup 1); then M-tile by M-tile of 64 columns of D, the x slabs for
-// dW1[:, tile] += x^T da (warpgroup 0) and the dy slabs, masked, for
-// dW2[tile, :]^T += g^T h (warpgroup 1; db2 from them in hidden tile 0's
-// blocks).  The registers do not hold the 2 D / 64 M-tiles of a hidden
-// tile, so each M-tile's fresh product is folded into the slot's partial in
-// device memory, which only this block touches.
-template <int D>
-__device__ void body_dww(const Params& p, uint8_t* sm, Ring<Cfg<DWW, D>::NSTAGE> ring,
-                         float* db1s, float* db2s) {
-  using C = Cfg<DWW, D>;
-  const int w = warpgroup();
-  const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int ra = 16 * wi + g;
-  const int c = blockIdx.x, slot = blockIdx.y;
-  float* Q = reinterpret_cast<float*>(sm + C::Q);
-  uint8_t* Bh = sm + C::B;  // h^T, split
-  uint8_t* Bd = Bh + B_BYTES;  // da^T, split
-  const uint32_t k0 = (uint32_t)p.seed[0], k1 = (uint32_t)p.seed[1];
-  const int tiles = (p.N + ROWS - 1) / ROWS;
-  const int items = slot < tiles ? (tiles - slot + p.slots - 1) / p.slots : 0;
-  Walk<DWW, D> walk(p, ring, items * C::PER_ITEM);
-  const long pw = (long)slot * p.pstride;
-  const uint64_t bb = desc_sw128(w == 0 ? Bd : Bh), bs = bb + (Q_BYTES >> 4);
-
-  for (int it = 0; it < items; ++it) {
-    const long row0 = (long)(slot + it * p.slots) * ROWS;
-    float s[HT / 2];  // warpgroup 0: a; warpgroup 1: dh, then da
-    zero(s);
-    for (int j = 0; j < 2 * C::NSLAB; ++j) {
-      uint8_t* st = walk.wait();
-      if (j % 2 == w) {
-        if (w == 1 && p.thr) {
-          mask_slab<D>(st, KS * (j / 2), row0, p, k0, k1, tid);
-          bar_sync(2, 128);
-        }
-        uint32_t ab[4][4], as[4][4];
-        row_frags(st, 0, ra, t, ab, as);
-        fence_frag(ab);
-        fence_frag(as);
-        float part[HT / 2];
-        zero(part);
-        wg_fence();
-        mma3_rs<HT, 4>(part, ab, as, desc_sw128(st + SLAB_BYTES),
-                       desc_sw128(st + 2 * SLAB_BYTES), HT);
-        wg_commit();
-        walk.fill();
-        wg_wait<0>();
-        fence_acc(part);
-#pragma unroll
-        for (int i = 0; i < HT / 2; ++i) s[i] += part[i];
-      }
-      walk.release();
-    }
-
-    __syncthreads();  // Q, h^T and da^T are free: the last row tile's products are done
-    walk.fill();
-    if (w == 0) {
-#pragma unroll
-      for (int j = 0; j < HT / 8; ++j)
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int unit = HT * c + 8 * j + 2 * t;
-          const float2 m = mask1(row0 + ra + 8 * e2, unit, p, k0, k1);
-#pragma unroll
-          for (int e1 = 0; e1 < 2; ++e1) {
-            const int i = 4 * j + 2 * e2 + e1;
-            float h, d;
-            gelu_both(s[i] + p.b1[unit + e1], h, d);
-            const float mv = e1 ? m.y : m.x;
-            store_t(Bh, Bh + Q_BYTES, j, e2, e1, ra, t, h * mv);
-            Q[i * 128 + tid] = d * mv;
-          }
-        }
-      fence_proxy_shared();
-    }
-    __syncthreads();  // h^T and q are written
-    if (w == 1) {
-#pragma unroll
-      for (int j = 0; j < HT / 8; ++j)
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2)
-#pragma unroll
-          for (int e1 = 0; e1 < 2; ++e1) {
-            const int i = 4 * j + 2 * e2 + e1;
-            s[i] *= Q[i * 128 + tid];
-            store_t(Bd, Bd + Q_BYTES, j, e2, e1, ra, t, s[i]);
-          }
-      col_sums(s, db1s + wi * HT, g, t);
-      fence_proxy_shared();
-    }
-    __syncthreads();  // da^T is written
-
-    // the weight products, M-tile f / 2: x^T da (f even, warpgroup 0) or
-    // g^T h (f odd, warpgroup 1)
-    for (int f = 0; f < C::NSLAB; ++f) {
-      uint8_t* st = walk.wait();
-      if (f % 2 == w) {
-        const int mt = f / 2;
-        if (w == 1) {
-          if (p.thr) {
-            mask_slab<D>(st, 64 * mt, row0, p, k0, k1, tid);
-            mask_slab<D>(st + SLAB_BYTES, 64 * mt + KS, row0, p, k0, k1, tid);
-          }
-          bar_sync(2, 128);
-          if (c == 0 && tid < 64) db2s[64 * mt + tid] += col_sum(st, tid);
-        }
-        const Fold<D> fold{w == 0 ? p.dw1p + pw : p.dw2p + pw, p.Hd, mt, c, ra, t, w == 0};
-        float old[HT / 2], fresh[HT / 2];
-        if (it > 0) fold.load(old);
-        tile_product<C::KB>(fresh, st, 0, bb, bs, wi, g, t);
-        walk.fill();
-        if (it > 0) {
-#pragma unroll
-          for (int e = 0; e < HT / 2; ++e) fresh[e] += old[e];
-        }
-        fold.store(fresh);
-      }
-      walk.release();
-    }
-  }
-
-  // db1 and, from hidden tile 0, db2 of the slot (a slot without row tiles
-  // writes zeros throughout)
-  if (items == 0) {
-    for (long e = threadIdx.x; e < (long)D * HT; e += THREADS) {
-      const long m = e / HT, unit = HT * c + e % HT;
-      p.dw1p[pw + m * p.Hd + unit] = 0.f;
-      p.dw2p[pw + unit * D + m] = 0.f;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < HT)
-    p.db1p[pw + HT * c + threadIdx.x] =
-        (db1s[threadIdx.x] + db1s[HT + threadIdx.x]) +
-        (db1s[2 * HT + threadIdx.x] + db1s[3 * HT + threadIdx.x]);
-  if (c == 0)
-    for (int i = threadIdx.x; i < D; i += THREADS) p.db2p[pw + i] = db2s[i];
-}
-
 template <int KIND, int D>
 __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_tf32x3(const __grid_constant__ Params p) {
   using C = Cfg<KIND, D>;
@@ -1576,14 +1242,10 @@ __global__ void __launch_bounds__(THREADS, 1) mlp_bwd_tf32x3(const __grid_consta
       for (int s = 0; s < 4 * MAX_SLABS; ++s) mbar_init(&xfull[s], 1);
       mbar_init_fence();
     }
-    if constexpr (KIND == DW || KIND == DWS || KIND == DWW)
+    if constexpr (KIND == DW || KIND == DWS)
       for (int i = threadIdx.x; i < (C::HEAD - 1024) / 4; i += THREADS) db1s[i] = 0.f;
     __syncthreads();
-    if constexpr (KIND == DXW)
-      body_dxw<D>(p, sm, r);
-    else if constexpr (KIND == DWW)
-      body_dww<D>(p, sm, r, db1s, db1s + 4 * HT);
-    else if constexpr (KIND == DX)
+    if constexpr (KIND == DX)
       body_dx<D>(p, sm, r, xfull, gfull);
     else if constexpr (KIND == DW)
       body_dw<D>(p, sm, r, xfull, gfull, db1s);
@@ -1633,18 +1295,15 @@ const void* kernel_of_d(int kind) {
                    : (const void*)mlp_bwd_tf32x3<dw_kind(D), D>;
 }
 
-bool width_ok(int D) {
-  return D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 768;
-}
+// the widths of this body (384 and 768: namespace chunk)
+bool width_ok(int D) { return D == 64 || D == 128 || D == 192 || D == 256; }
 
 const void* kernel_of(int kind, int D) {
   switch (D) {
     case 64: return kernel_of_d<64>(kind);
     case 128: return kernel_of_d<128>(kind);
     case 192: return kernel_of_d<192>(kind);
-    case 256: return kernel_of_d<256>(kind);
-    case 384: return kernel_of_d<384>(kind);
-    default: return kernel_of_d<768>(kind);
+    default: return kernel_of_d<256>(kind);
   }
 }
 
@@ -1658,9 +1317,7 @@ int smem_of(int kind, int D) {
     case 64: return smem_of_d<64>(kind);
     case 128: return smem_of_d<128>(kind);
     case 192: return smem_of_d<192>(kind);
-    case 256: return smem_of_d<256>(kind);
-    case 384: return smem_of_d<384>(kind);
-    default: return smem_of_d<768>(kind);
+    default: return smem_of_d<256>(kind);
   }
 }
 
@@ -1700,16 +1357,598 @@ int launch_bwd(Params& P, const float* x, const float* dy, const float* pk, cuda
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return (int)cudaGetLastError();
   const int pairs = (tiles + 1) / 2;
-  rc = launch_kind<KX, D>(P,
-                          KX == DX1   ? dim3((unsigned)(pairs < sms ? pairs : sms))
-                          : KX == DXW ? dim3((unsigned)tiles, (unsigned)(D / (2 * WIDE_NOUT)))
-                                      : dim3((unsigned)tiles),
+  rc = launch_kind<KX, D>(P, dim3((unsigned)(KX == DX1 ? (pairs < sms ? pairs : sms) : tiles)),
                           stream);
   if (rc != 0) return rc;
   return launch_kind<KW, D>(P, dim3((unsigned)(Hd / HT), (unsigned)P.slots), stream);
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// D 384 and 768: the products over row chunks, each done once
+// ---------------------------------------------------------------------------
+
+namespace chunk {
+
+using namespace tf32x3;
+using bwd::gelu_both;
+using bwd::word;
+using philox::mask_words;
+
+constexpr int BM = 128;                            // rows of a tile: two warpgroups of 64
+constexpr int BN = 192;                            // columns of a tile
+constexpr int BK = 32;                             // K of a stage: one 128-byte atom of f32
+constexpr int THREADS = 256;
+constexpr int A_BYTES = BM * BK * 4;               // A's box as stored, 16 KB
+constexpr int B_BYTES = BN * BK * 4;               // B's big or small box, 24 KB
+constexpr int STAGE = A_BYTES + 2 * B_BYTES;       // 64 KB
+constexpr int NSTAGE = 3;
+constexpr int SMALL_BYTES = A_BYTES / 2;           // a warpgroup's 64 rows of A's small half
+constexpr int ALIGN = 1024;                        // of the swizzled boxes
+constexpr int HEAD = 1024;                         // mbarriers
+// the ring, then two small-half buffers for each warpgroup: 231,424 bytes
+constexpr int SMEM = ALIGN + HEAD + NSTAGE * STAGE + 2 * 2 * SMALL_BYTES;
+static_assert(SMEM <= 232448, "shared memory");
+constexpr int MAX_JOBS = 3;
+constexpr int PREP = 32;                           // rows and columns of a prep block
+constexpr int DX_PARTS = 4;                        // dx's K (Hd) in parts, each a tile
+
+// What a tile's epilogue does with its accumulators (m: the tile's rows, n:
+// its columns; "chunk rows" count from the chunk's first row r0).
+// - E_A   (scores, a^T): m units, n chunk rows.  a + b1 into da^T's place.
+// - E_DH  (scores, dh^T): m units, n chunk rows.  dh into h^T's place
+//         (`chunk_combine` then forms h^T, da^T, da and db1's sums).
+// - E_DX  (dx^T over part `part` of K = Hd): m columns of D, n chunk rows,
+//         into partial `part` (R, D) of dxp.
+// - E_DW1 (dW1^T): m units, n columns of D.  dW1 stored, or added to.
+// - E_DW2 (dW2): m units, n columns of D.  The same.
+// - E_FH  (the forward's fc1): m chunk rows, n units.  h = GELU(a + b1) m1.
+// - E_FY  (the forward's fc2): m chunk rows, n columns.  y = (acc + b2) m2.
+enum { E_A = 0, E_DH = 1, E_DX = 2, E_DW1 = 3, E_DW2 = 4, E_FH = 5, E_FY = 6 };
+
+// One product C = A B^T of a launch: A as stored, f32 (K inner, M rows);
+// B split (K inner, N rows, big/small), both K-major as .tf32 wgmma reads
+// them; tiles of 128 x 192 in m-major order, K in stages of 32.
+struct Job {
+  CUtensorMap a;  // box 32 x 128
+  CUtensorMap b;  // box 32 x 192 x 1
+  int a_row0;     // A's row of the first tile row (E_FH: the chunk's first row of x)
+  int m_tiles, n_tiles, k_stages, epi;
+  int k_parts;    // K in parts of k_stages stages, each part its own tiles
+};
+
+struct Params {
+  Job job[MAX_JOBS];
+  int jobs;
+  const float* b1;
+  const float* b2;
+  const uint32_t* bits1;  // m1's keep bits of the chunk, (R, Hd / 32) words
+  const uint32_t* bits2;  // m2's (E_FY), (R, D / 32) words
+  float* ht;      // (Hd, R) dh, then h^T
+  float* dat;     // (Hd, R) a + b1, then da^T
+  float* dxp;     // (DX_PARTS, R, D) dx's partials
+  float* dw1;     // (D, Hd)
+  float* dw2;     // (Hd, D)
+  float* hid;     // (R, Hd) the forward's hidden chunk
+  float* y;       // (N, D)
+  long r0;        // the chunk's first row
+  int rows;       // the chunk's rows below N
+  int R, D, Hd;
+  int accumulate;  // E_DW1, E_DW2: add to the gradients (every chunk after the first)
+  uint32_t thr;
+  float scale;
+};
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// The epilogue of a tile: acc[4 j + 2 e2 + e1] is element (mb + 8 e2, nb +
+// 8 j + e1) of the job's C, mb and nb the thread's first row and column;
+// part is the tile's part of K.  Each pass over JB columns j issues all its
+// loads before it uses any (with 8 warps an SM, a load used at once stalls
+// for the whole of its latency).
+constexpr int JB = 8;
+
+__device__ __forceinline__ void epilogue(const Params& p, int epi, int part, int mb, int nb,
+                                         const float (&acc)[BN / 2]) {
+  // rate 0 (thr 0): every element kept, and the scale is 1
+  const bool masks = p.thr != 0;
+  const long R = p.R, D = p.D, Hd = p.Hd;
+  const int hw = p.Hd / 32, dw = p.D / 32;  // mask words a row
+  if (epi == E_A || epi == E_DH) {
+    const bool a = epi == E_A;
+    float* out = a ? p.dat : p.ht;
+    const float bias[2] = {a ? p.b1[mb] : 0.f, a ? p.b1[mb + 8] : 0.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2)
+        *reinterpret_cast<float2*>(out + (long)(mb + 8 * e2) * R + nb + 8 * j) =
+            make_float2(acc[4 * j + 2 * e2] + bias[e2], acc[4 * j + 2 * e2 + 1] + bias[e2]);
+  } else if (epi == E_DX) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        float* row = p.dxp + (part * R + nb + 8 * j + e1) * D;
+        row[mb] = acc[4 * j + e1];
+        row[mb + 8] = acc[4 * j + 2 + e1];
+      }
+  } else if (epi == E_DW1) {
+#pragma unroll
+    for (int j0 = 0; j0 < BN / 8; j0 += JB) {
+      float old[JB][4];
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          old[jj][c] = p.accumulate
+                           ? p.dw1[(long)(nb + 8 * (j0 + jj) + (c & 1)) * Hd + mb + 8 * (c >> 1)]
+                           : 0.f;
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          p.dw1[(long)(nb + 8 * (j0 + jj) + (c & 1)) * Hd + mb + 8 * (c >> 1)] =
+              p.accumulate ? old[jj][c] + acc[4 * (j0 + jj) + c] : acc[4 * (j0 + jj) + c];
+    }
+  } else if (epi == E_DW2) {
+#pragma unroll
+    for (int j0 = 0; j0 < BN / 8; j0 += JB) {
+      float2 old[JB][2];
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2)
+          old[jj][e2] = p.accumulate ? *reinterpret_cast<const float2*>(
+                                           p.dw2 + (long)(mb + 8 * e2) * D + nb + 8 * (j0 + jj))
+                                     : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int i = 4 * (j0 + jj) + 2 * e2;
+          *reinterpret_cast<float2*>(p.dw2 + (long)(mb + 8 * e2) * D + nb + 8 * (j0 + jj)) =
+              p.accumulate ? make_float2(old[jj][e2].x + acc[i], old[jj][e2].y + acc[i + 1])
+                           : make_float2(acc[i], acc[i + 1]);
+        }
+    }
+  } else {
+    // E_FH, E_FY: rows mb, mb + 8 are chunk rows, columns units (E_FH) or
+    // columns of D (E_FY); the mask's words of the tile's 192 columns, six
+    // a row (column nb + 8 j is in word j / 4 of them)
+    const bool fh = epi == E_FH;
+    const uint32_t* bits = fh ? p.bits1 : p.bits2;
+    const float* bvec = fh ? p.b1 : p.b2;
+    const int words = fh ? hw : dw;
+    uint32_t keep[2][BN / 32];
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2)
+#pragma unroll
+      for (int q = 0; q < BN / 32; ++q)
+        keep[e2][q] = masks ? bits[(long)(mb + 8 * e2) * words + (nb >> 5) + q] : ~0u;
+#pragma unroll
+    for (int j0 = 0; j0 < BN / 8; j0 += JB) {
+      float2 bias[JB];
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+        bias[jj] = *reinterpret_cast<const float2*>(bvec + nb + 8 * (j0 + jj));
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj) {
+        const int j = j0 + jj, col = nb + 8 * j;
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const uint32_t w = keep[e2][j / 4];
+          float v0 = acc[4 * j + 2 * e2] + bias[jj].x, v1 = acc[4 * j + 2 * e2 + 1] + bias[jj].y;
+          if (fh) {
+            v0 = gelu_erf(v0);
+            v1 = gelu_erf(v1);
+          }
+          const float2 v = make_float2(v0 * ((w >> (col & 31)) & 1 ? p.scale : 0.f),
+                                       v1 * ((w >> ((col + 1) & 31)) & 1 ? p.scale : 0.f));
+          const long r = mb + 8 * e2;
+          if (fh)
+            *reinterpret_cast<float2*>(p.hid + r * Hd + col) = v;
+          else if (r < p.rows)
+            *reinterpret_cast<float2*>(p.y + (p.r0 + r) * D + col) = v;
+        }
+      }
+    }
+  }
+}
+
+// One 128 x 192 tile of one job a block: the two warpgroups take 64 rows
+// each and every column.  Thread 0 also fills a ring of NSTAGE stages by
+// TMA (A's box as stored, B's big and small boxes), up to NSTAGE stages
+// ahead, waiting for a slot only when the stage it needs next is not issued
+// yet; every warp releases each stage.  A warpgroup splits its 64 rows of
+// A in shared memory (split_a), so that every product reads both operands
+// from there, and takes the stages in pairs: it splits the next stage while
+// the last one's products run.  A pair's products (3 a k-step, 24) go into
+// a fresh accumulator added into the tile's with f32 adds (the tensor
+// cores truncate as they accumulate).
+__global__ void __launch_bounds__(THREADS, 1) chunk_gemm(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);
+  uint64_t* empty = full + NSTAGE;
+  uint8_t* stages = base + HEAD;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], THREADS / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  int tile = blockIdx.x, jn = 0;
+  while (jn + 1 < p.jobs && tile >= p.job[jn].m_tiles * p.job[jn].n_tiles * p.job[jn].k_parts) {
+    tile -= p.job[jn].m_tiles * p.job[jn].n_tiles * p.job[jn].k_parts;
+    ++jn;
+  }
+  const Job& jb = p.job[jn];
+  const int mt = tile % jb.m_tiles, nt = tile / jb.m_tiles % jb.n_tiles, nk = jb.k_stages;
+  const int part = tile / (jb.m_tiles * jb.n_tiles), k0 = BK * nk * part;
+  const int arow = jb.a_row0 + BM * mt, brow = BN * nt;
+  const int w = warpgroup();
+  const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ra = 64 * w + 16 * wi + g;  // the thread's first row of A's box
+
+  int issued = 0;  // thread 0's count of stages issued
+  auto fill = [&](int need) {
+    if (threadIdx.x == 0) {
+      const int ahead = min(nk, need + NSTAGE);
+      while (issued < ahead) {
+        const int s = issued % NSTAGE, use = issued / NSTAGE;
+        if (use > 0) {
+          if (issued == need)
+            mbar_wait(&empty[s], (use - 1) & 1);
+          else if (!mbar_test(&empty[s], (use - 1) & 1))
+            break;
+        }
+        uint8_t* st = stages + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
+        tma_3d(st, &jb.a, &full[s], k0 + BK * issued, arow, 0);
+        tma_3d(st + A_BYTES, &jb.b, &full[s], k0 + BK * issued, brow, 0);
+        tma_3d(st + A_BYTES + B_BYTES, &jb.b, &full[s], k0 + BK * issued, brow, 1);
+        ++issued;
+      }
+    }
+    __syncwarp();
+  };
+
+  // Stage u's A rows of this warpgroup, split once they have arrived: the
+  // big half over the box in place, the small half into the warpgroup's
+  // buffer u % 2 (the same swizzled positions: the split maps each 16-byte
+  // chunk to itself).
+  uint8_t* smalls = stages + NSTAGE * STAGE + w * 2 * SMALL_BYTES;
+  auto split_a = [&](int u) {
+    fill(u);
+    mbar_wait(&full[u % NSTAGE], (u / NSTAGE) & 1);
+    uint8_t* box = stages + (u % NSTAGE) * STAGE + w * SMALL_BYTES;
+    uint8_t* small = smalls + (u & 1) * SMALL_BYTES;
+#pragma unroll
+    for (int q = tid; q < SMALL_BYTES / 16; q += 128) {
+      float4* at = reinterpret_cast<float4*>(box + 16 * q);
+      const float4 v = *at;
+      float4 b, sm;
+      split(v.x, b.x, sm.x), split(v.y, b.y, sm.y), split(v.z, b.z, sm.z), split(v.w, b.w, sm.w);
+      *at = b;
+      *reinterpret_cast<float4*>(small + 16 * q) = sm;
+    }
+    fence_proxy_shared();
+    bar_sync(1 + w, 128);
+  };
+  auto products = [&](int u, float(&d)[BN / 2]) {
+    const uint8_t* st = stages + (u % NSTAGE) * STAGE;
+    wg_fence();
+    mma3_ss<BN, 4>(d, desc_sw128(st + w * SMALL_BYTES), desc_sw128(smalls + (u & 1) * SMALL_BYTES),
+                   BM / 2, desc_sw128(st + A_BYTES), desc_sw128(st + A_BYTES + B_BYTES), BN);
+    wg_commit();
+  };
+  auto release = [&](int u) {
+    if (lane == 0) mbar_arrive(&empty[u % NSTAGE]);
+  };
+
+  // Stages in pairs, a pair's products (six a k-step) into one fresh
+  // accumulator: the next stage's A is split while the last stage's
+  // products run, so that a warpgroup keeps the tensor cores fed.
+  float acc[BN / 2], fresh[BN / 2];
+  zero(acc);
+  split_a(0);
+  for (int u = 0; u < nk; u += 2) {
+    zero(fresh);
+    products(u, fresh);
+    if (u + 1 < nk) {
+      split_a(u + 1);
+      products(u + 1, fresh);
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
+    release(u);
+    if (u + 2 < nk) split_a(u + 2);  // its small buffer is stage u's, whose products are done
+    if (u + 1 < nk) {
+      wg_wait<0>();
+      release(u + 1);
+    }
+    fence_acc(fresh);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += fresh[i];
+  }
+  epilogue(p, jb.epi, part, BM * mt + ra, brow + 2 * t, acc);
+}
+
+// dst (cols, rows) = src (rows, cols)^T; with `split` the TF32 big half at
+// dst and the small half rows x cols floats on.  Blocks of 32 x 8 threads,
+// a 32 x 32 tile each; rows and cols multiples of 32.
+__global__ void transpose_split(const float* __restrict__ src, float* __restrict__ dst, int rows,
+                                int cols, int split_it) {
+  __shared__ float tile[32][33];
+  const int c0 = 32 * blockIdx.x, r0 = 32 * blockIdx.y;
+  for (int k = threadIdx.y; k < 32; k += 8)
+    tile[k][threadIdx.x] = src[(long)(r0 + k) * cols + c0 + threadIdx.x];
+  __syncthreads();
+  const long n = (long)rows * cols;
+  for (int k = threadIdx.y; k < 32; k += 8) {
+    const long at = (long)(c0 + k) * rows + r0 + threadIdx.x;
+    const float v = tile[threadIdx.x][k];
+    if (split_it) {
+      float b, s;
+      split(v, b, s);
+      dst[at] = b;
+      dst[n + at] = s;
+    } else {
+      dst[at] = v;
+    }
+  }
+}
+
+// A chunk's x and g = dy m2 as the products read them: x and g split, (2,
+// R, D) each (B of the scores), and x^T and g^T split, (2, D, R) each (B of
+// dW1 and dW2); rows at or past N are zeros.  A block takes 32 chunk rows by
+// 32 columns, a Philox call for each group of four columns, and writes the
+// column sums of its g (in row order) into gpart (R / 32, D), for db2.
+__global__ void chunk_prep(const float* __restrict__ x, const float* __restrict__ dy,
+                           const int* __restrict__ seed, float* __restrict__ xs,
+                           float* __restrict__ gs, float* __restrict__ xts,
+                           float* __restrict__ gts, float* __restrict__ gpart, long r0, int rows,
+                           int R, int D, uint32_t thr, float scale) {
+  __shared__ float xt[PREP][PREP + 1], gt[PREP][PREP + 1];
+  const int tid = threadIdx.x, lr = PREP * blockIdx.y + tid / 8, c0 = PREP * blockIdx.x;
+  const int col = c0 + 4 * (tid % 8);
+  float xv[4] = {0.f, 0.f, 0.f, 0.f}, gv[4] = {0.f, 0.f, 0.f, 0.f};
+  if (lr < rows) {
+    const long at = (r0 + lr) * D + col;
+    const float4 a = *reinterpret_cast<const float4*>(x + at);
+    const float4 d = *reinterpret_cast<const float4*>(dy + at);
+    xv[0] = a.x, xv[1] = a.y, xv[2] = a.z, xv[3] = a.w;
+    gv[0] = d.x, gv[1] = d.y, gv[2] = d.z, gv[3] = d.w;
+    if (thr) {
+      const uint4 w = mask_words(at, philox::STREAM_OUT, (uint32_t)seed[0], (uint32_t)seed[1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gv[e] *= word(w, e) >= thr ? scale : 0.f;
+    }
+  }
+  const long RD = (long)R * D;
+  float4 big, small;
+  split(xv[0], big.x, small.x), split(xv[1], big.y, small.y);
+  split(xv[2], big.z, small.z), split(xv[3], big.w, small.w);
+  *reinterpret_cast<float4*>(xs + (long)lr * D + col) = big;
+  *reinterpret_cast<float4*>(xs + RD + (long)lr * D + col) = small;
+  split(gv[0], big.x, small.x), split(gv[1], big.y, small.y);
+  split(gv[2], big.z, small.z), split(gv[3], big.w, small.w);
+  *reinterpret_cast<float4*>(gs + (long)lr * D + col) = big;
+  *reinterpret_cast<float4*>(gs + RD + (long)lr * D + col) = small;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    xt[4 * (tid % 8) + e][tid / 8] = xv[e];
+    gt[4 * (tid % 8) + e][tid / 8] = gv[e];
+  }
+  __syncthreads();
+  // transposed: column c0 + tid / 8, chunk rows 4 (tid % 8) .. + 3 of the block's
+  const int c = tid / 8, rr = 4 * (tid % 8);
+  const long at = (long)(c0 + c) * R + PREP * blockIdx.y + rr;
+  split(xt[c][rr], big.x, small.x), split(xt[c][rr + 1], big.y, small.y);
+  split(xt[c][rr + 2], big.z, small.z), split(xt[c][rr + 3], big.w, small.w);
+  *reinterpret_cast<float4*>(xts + at) = big;
+  *reinterpret_cast<float4*>(xts + RD + at) = small;
+  split(gt[c][rr], big.x, small.x), split(gt[c][rr + 1], big.y, small.y);
+  split(gt[c][rr + 2], big.z, small.z), split(gt[c][rr + 3], big.w, small.w);
+  *reinterpret_cast<float4*>(gts + at) = big;
+  *reinterpret_cast<float4*>(gts + RD + at) = small;
+  if (tid < PREP) {
+    float s = 0.f;
+    for (int r = 0; r < PREP; ++r) s += gt[tid][r];
+    gpart[(long)blockIdx.y * D + c0 + tid] = s;
+  }
+}
+
+// db1 (Hd) and db2 (D) of a chunk: the tiles' partial sums in order, stored
+// at the first chunk and added to after it.
+__global__ void chunk_bias(const float* __restrict__ dapart, const float* __restrict__ gpart,
+                           float* __restrict__ db1, float* __restrict__ db2, int Hd, int D,
+                           int tiles32, int first) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < Hd) {
+    float s = 0.f;
+    for (int k = 0; k < tiles32; ++k) s += dapart[(long)k * Hd + i];
+    db1[i] = first ? s : db1[i] + s;
+  } else if (i < Hd + D) {
+    const int d = i - Hd;
+    float s = 0.f;
+    for (int k = 0; k < tiles32; ++k) s += gpart[(long)k * D + d];
+    db2[d] = first ? s : db2[d] + s;
+  }
+}
+
+// dx's rows r0 .. r0 + rows - 1: its DX_PARTS partials (R, D) summed in
+// order, four columns a thread
+__global__ void chunk_dx_sum(const float* __restrict__ dxp, float* __restrict__ dx, long r0,
+                             int rows, int R, int D) {
+  const long i = 4 * ((long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= (long)rows * D) return;
+  float4 s = *reinterpret_cast<const float4*>(dxp + i);
+  for (int k = 1; k < DX_PARTS; ++k) {
+    const float4 v = *reinterpret_cast<const float4*>(dxp + (long)k * R * D + i);
+    s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+  }
+  *reinterpret_cast<float4*>(dx + r0 * D + i) = s;
+}
+
+// A chunk's keep bits of the mask of `stream` and `width` columns: word i =
+// (r, q) of rows r < rows_all holds bit c % 32 for element (row0 + r, 32 q +
+// c % 32), eight Philox calls a word; rows at or past `rows` are zeros.
+__global__ void mask_bits(const int* __restrict__ seed, long row0, int rows, int rows_all,
+                          int width, uint32_t stream, uint32_t thr, uint32_t* __restrict__ bits) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int words = width / 32;
+  if (i >= (long)rows_all * words) return;
+  const long r = i / words;
+  uint32_t v = 0;
+  if (r < rows) {
+    const uint32_t k0 = (uint32_t)seed[0], k1 = (uint32_t)seed[1];
+    const long e = (row0 + r) * width + 32 * (i % words);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const uint4 w = mask_words(e + 4 * q, stream, k0, k1);
+      v |= (uint32_t)(w.x >= thr) << (4 * q) | (uint32_t)(w.y >= thr) << (4 * q + 1) |
+           (uint32_t)(w.z >= thr) << (4 * q + 2) | (uint32_t)(w.w >= thr) << (4 * q + 3);
+    }
+  }
+  bits[i] = v;
+}
+
+// From the scores' a + b1 (in dat) and dh (in ht), (Hd, R) both: h^T =
+// GELU(a) m1 in place of dh, da^T = dh GELU'(a) m1 in place of a, da split
+// into das (2, R, Hd), and da summed over each 32 chunk rows into dapart (R
+// / 32, Hd); zeros at or past `rows`.  A block takes 32 units by 32 chunk
+// rows (32 x 8 threads) and writes das's rows through a shared transpose;
+// m1 from the chunk's bits, whose word of the block's 32 units in each of
+// its rows it reads once into shared memory (rate 0: thr 0, scale 1).
+__global__ void chunk_combine(float* __restrict__ dat, float* __restrict__ ht,
+                              float* __restrict__ das, float* __restrict__ dapart,
+                              const uint32_t* __restrict__ bits, int rows, int R, int Hd,
+                              uint32_t thr, float scale) {
+  __shared__ float tda[32][33];
+  __shared__ uint32_t word[32];
+  const int u0 = 32 * blockIdx.x, r0 = 32 * blockIdx.y, tx = threadIdx.x, ty = threadIdx.y;
+  const int r = r0 + tx;
+  if (ty == 0) word[tx] = thr == 0 ? ~0u : bits[(long)r * (Hd / 32) + u0 / 32];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int u = u0 + ty + 8 * k;
+    const long at = (long)u * R + r;
+    float h, d;
+    gelu_both(dat[at], h, d);
+    const bool keep = r < rows && (word[tx] >> (u & 31)) & 1;
+    const float m = keep ? scale : 0.f;
+    const float da = ht[at] * (d * m);
+    ht[at] = h * m;
+    dat[at] = da;
+    tda[ty + 8 * k][tx] = da;
+  }
+  __syncthreads();
+  const long RH = (long)R * Hd;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int rr = ty + 8 * k;
+    float b, s;
+    split(tda[tx][rr], b, s);
+    das[(long)(r0 + rr) * Hd + u0 + tx] = b;
+    das[RH + (long)(r0 + rr) * Hd + u0 + tx] = s;
+  }
+  if (ty == 0) {
+    float s = 0.f;
+    for (int rr = 0; rr < 32; ++rr) s += tda[tx][rr];
+    dapart[(long)blockIdx.y * Hd + u0 + tx] = s;
+  }
+}
+
+// A's map: (K inner, rows) f32 with ld floats between rows, box 32 x 128
+int map_a(CUtensorMap* m, const float* ptr, long k, long rows, long ld) {
+  const cuuint64_t d[3] = {(cuuint64_t)k, (cuuint64_t)rows, 1};
+  const cuuint64_t s[2] = {(cuuint64_t)ld * 4, (cuuint64_t)ld * rows * 4};
+  const cuuint32_t b[3] = {BK, BM, 1};
+  return encode_f32(m, ptr, 3, d, s, b);
+}
+
+// B's map: (K inner, rows, 2), the small half `half` floats after the big,
+// box 32 x 192 x 1
+int map_b(CUtensorMap* m, const float* ptr, long k, long rows, long ld, long half) {
+  const cuuint64_t d[3] = {(cuuint64_t)k, (cuuint64_t)rows, 2};
+  const cuuint64_t s[2] = {(cuuint64_t)ld * 4, (cuuint64_t)half * 4};
+  const cuuint32_t b[3] = {BK, BN, 1};
+  return encode_f32(m, ptr, 3, d, s, b);
+}
+
+void set_job(Job& j, int epi, int m_tiles, int n_tiles, int k_stages, int a_row0 = 0,
+             int k_parts = 1) {
+  j.epi = epi, j.m_tiles = m_tiles, j.n_tiles = n_tiles, j.k_stages = k_stages;
+  j.a_row0 = a_row0, j.k_parts = k_parts;
+}
+
+// the kernel's shared memory, set once for each device
+cudaError_t allow_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidValue;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(chunk_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    done[dev] = err == cudaSuccess;
+  }
+  return err;
+}
+
+int launch(const Params& P, cudaStream_t stream) {
+  int tiles = 0;
+  for (int j = 0; j < P.jobs; ++j) tiles += P.job[j].m_tiles * P.job[j].n_tiles * P.job[j].k_parts;
+  chunk_gemm<<<tiles, THREADS, SMEM, stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
+// D and Hd are tiled by 128 and by 192; the chunk rows R by `rows`
+bool shapes_ok(int N, int D, int Hd, int R, int rows) {
+  return N > 0 && (D == 384 || D == 768) && Hd > 0 && Hd % (3 * BM) == 0 && R > 0 &&
+         R % rows == 0;
+}
+
+bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The backward's second stream and its events, one set for each device,
+// made at the first call on it.
+struct Side {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t start, done, scores[2], products[2];
+};
+
+Side* side_stream() {
+  static Side sides[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return nullptr;
+  Side& sd = sides[dev];
+  if (sd.stream == nullptr) {
+    cudaEvent_t* evs[6] = {&sd.start, &sd.done, &sd.scores[0], &sd.scores[1], &sd.products[0],
+                           &sd.products[1]};
+    for (cudaEvent_t* e : evs)
+      if (cudaEventCreateWithFlags(e, cudaEventDisableTiming) != cudaSuccess) return nullptr;
+    if (cudaStreamCreateWithFlags(&sd.stream, cudaStreamNonBlocking) != cudaSuccess) {
+      sd.stream = nullptr;
+      return nullptr;
+    }
+  }
+  return &sd;
+}
+
+}  // namespace chunk
+
 
 }  // namespace
 
@@ -1761,12 +2000,207 @@ extern "C" int launch_fused_mlp_train_bwd(const float* x, const float* dy,
     case 128: rc = bwd::launch_bwd<128>(P, x, dy, pack, stream); break;
     case 192: rc = bwd::launch_bwd<192>(P, x, dy, pack, stream); break;
     case 256: rc = bwd::launch_bwd<256>(P, x, dy, pack, stream); break;
-    case 384: rc = bwd::launch_bwd<384>(P, x, dy, pack, stream); break;
-    case 768: rc = bwd::launch_bwd<768>(P, x, dy, pack, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
   const int sum_blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024);
   bwd::mlp_bwd_sum<<<sum_blocks, 256, 0, stream>>>(part, grads, total, slots);
   return (int)cudaGetLastError();
+}
+
+// The chunked products' GEMM kernel at width D (384 or 768; one kernel for
+// both): its registers a thread, its dynamic shared memory and the blocks
+// an SM holds.  Returns a cudaError_t as int.
+extern "C" int fused_mlp_train_chunked_info(int D, int* regs, int* smem, int* blocks) {
+  if (D != 384 && D != 768) return (int)cudaErrorInvalidValue;
+  *smem = chunk::SMEM;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, chunk::chunk_gemm);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(chunk::chunk_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               chunk::SMEM);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, chunk::chunk_gemm, chunk::THREADS,
+                                                        chunk::SMEM);
+  *regs = attr.numRegs;
+  return (int)err;
+}
+
+// The backward at D 384 and 768 over chunks of R rows (a multiple of 192).
+// Per chunk: prep (x, g and their transposes, split; db2's sums), m1's bits,
+// one launch of both scores (a^T: E_A, dh^T: E_DH), chunk_combine (h^T,
+// da^T, da split, db1's sums), the bias sums, one launch of dx^T's parts
+// (E_DX), dW1^T (E_DW1) and dW2 (E_DW2), and the sum of dx's parts.  The
+// caller's stream runs each chunk up to the bias sums and a second stream
+// its products and dx's sum, so that chunk c + 1's scores fill the SMs that
+// chunk c's products leave idle; the arrays that the products read are kept
+// for two chunks (sets c % 2).  scratch (16-byte aligned), in floats: W1^T
+// (Hd, D); x, g split (2, R, D) each; dapart (R / 32, Hd); gpart (R / 32,
+// D); dxp (DX_PARTS, R, D); m1's bits (R, Hd / 32); then twice: x^T, g^T
+// split (2, D, R) each, h^T and da^T (Hd, R) each, da split (2, R, Hd).
+// grads: dW1 (D, Hd), dW2 (Hd, D), db1 (Hd), db2 (D).  Returns a
+// cudaError_t as int (or 1000 + a CUresult from encoding a tensor map): 0
+// when every launch was accepted.
+extern "C" int launch_fused_mlp_train_bwd_chunked(const float* x, const float* dy,
+                                                  const float* w1, const float* b1,
+                                                  const float* w2, const int* seed, float* dx,
+                                                  float* grads, float* scratch, int N, int D,
+                                                  int Hd, int R, unsigned thr, float scale,
+                                                  cudaStream_t stream) {
+  using namespace chunk;
+  if (!shapes_ok(N, D, Hd, R, BN) || !aligned(x) || !aligned(dy) || !aligned(w1) ||
+      !aligned(w2) || !aligned(scratch) || !aligned(grads))
+    return (int)cudaErrorInvalidValue;
+  Side* side = side_stream();
+  if (side == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t second = side->stream;
+  const long DH = (long)D * Hd, RD = (long)R * D, RH = (long)R * Hd;
+  float* w1t = scratch;
+  float* xs = w1t + DH;
+  float* gs = xs + 2 * RD;
+  float* dapart = gs + 2 * RD;
+  float* gpart = dapart + (R / PREP) * (long)Hd;
+  float* dxp = gpart + (R / PREP) * (long)D;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(dxp + DX_PARTS * RD);
+  float* db1 = grads + 2 * DH;
+  float* db2 = db1 + Hd;
+  struct Buf {
+    float *xts, *gts, *ht, *dat, *das;
+  } buf[2];
+  float* at = reinterpret_cast<float*>(bits + RH / 32);
+  for (int k = 0; k < 2; ++k) {
+    Buf& b = buf[k];
+    b.xts = at, b.gts = at + 2 * RD, b.ht = at + 4 * RD, b.dat = b.ht + RH, b.das = b.dat + RH;
+    at = b.das + 2 * RH;
+  }
+  transpose_split<<<dim3(Hd / 32, D / 32), dim3(32, 8), 0, stream>>>(w1, w1t, D, Hd, 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  Params S[2], P[2];  // per set: a^T and dh^T; dx^T, dW1^T and dW2
+  int rc = 0;
+  for (int k = 0; k < 2 && rc == 0; ++k) {
+    memset(&S[k], 0, sizeof(Params));
+    S[k].b1 = b1, S[k].ht = buf[k].ht, S[k].dat = buf[k].dat, S[k].dxp = dxp;
+    S[k].dw1 = grads, S[k].dw2 = grads + DH, S[k].R = R, S[k].D = D, S[k].Hd = Hd;
+    S[k].thr = thr, S[k].scale = scale, S[k].jobs = 2;
+    P[k] = S[k];
+    P[k].jobs = 3;
+    rc = map_a(&S[k].job[0].a, w1t, D, Hd, D);
+    if (rc == 0) rc = map_b(&S[k].job[0].b, xs, D, R, D, RD);
+    if (rc == 0) rc = map_a(&S[k].job[1].a, w2, D, Hd, D);
+    if (rc == 0) rc = map_b(&S[k].job[1].b, gs, D, R, D, RD);
+    if (rc == 0) rc = map_a(&P[k].job[0].a, w1, Hd, D, Hd);
+    if (rc == 0) rc = map_b(&P[k].job[0].b, buf[k].das, Hd, R, Hd, RH);
+    if (rc == 0) rc = map_a(&P[k].job[1].a, buf[k].dat, R, Hd, R);
+    if (rc == 0) rc = map_b(&P[k].job[1].b, buf[k].xts, R, D, R, RD);
+    if (rc == 0) rc = map_a(&P[k].job[2].a, buf[k].ht, R, Hd, R);
+    if (rc == 0) rc = map_b(&P[k].job[2].b, buf[k].gts, R, D, R, RD);
+  }
+  if (rc != 0) return rc;
+  // the second stream starts after the caller's work so far, and the
+  // caller's stream goes on after the second's last launch
+  err = cudaEventRecord(side->start, stream);
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(second, side->start, 0);
+  int c = 0;
+  for (long r0 = 0; r0 < N && err == cudaSuccess; r0 += R, ++c) {
+    const int k = c & 1, rows = (int)(N - r0 < R ? N - r0 : R);
+    const int nt = (rows + BN - 1) / BN;  // tiles of the chunk's rows
+    if (c >= 2) {  // chunk c - 2's products are done with set k
+      err = cudaStreamWaitEvent(stream, side->products[k], 0);
+      if (err != cudaSuccess) break;
+    }
+    chunk_prep<<<dim3(D / PREP, nt * (BN / PREP)), 256, 0, stream>>>(
+        x, dy, seed, xs, gs, buf[k].xts, buf[k].gts, gpart, r0, rows, R, D, thr, scale);
+    if (thr != 0)
+      mask_bits<<<(nt * BN * (Hd / 32) + 255) / 256, 256, 0, stream>>>(
+          seed, r0, rows, nt * BN, Hd, philox::STREAM_HIDDEN, thr, bits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) break;
+    S[k].r0 = P[k].r0 = r0, S[k].rows = P[k].rows = rows;
+    set_job(S[k].job[0], E_A, Hd / BM, nt, D / BK);
+    set_job(S[k].job[1], E_DH, Hd / BM, nt, D / BK);
+    rc = launch(S[k], stream);
+    if (rc != 0) return rc;
+    chunk_combine<<<dim3(Hd / 32, nt * (BN / 32)), dim3(32, 8), 0, stream>>>(
+        buf[k].dat, buf[k].ht, buf[k].das, dapart, bits, rows, R, Hd, thr, scale);
+    chunk_bias<<<(Hd + D + 255) / 256, 256, 0, stream>>>(dapart, gpart, db1, db2, Hd, D,
+                                                         nt * (BN / PREP), r0 == 0);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = cudaEventRecord(side->scores[k], stream);
+    if (err == cudaSuccess) err = cudaStreamWaitEvent(second, side->scores[k], 0);
+    if (err != cudaSuccess) break;
+    set_job(P[k].job[0], E_DX, D / BM, nt, Hd / BK / DX_PARTS, 0, DX_PARTS);
+    set_job(P[k].job[1], E_DW1, Hd / BM, D / BN, nt * (BN / BK));
+    set_job(P[k].job[2], E_DW2, Hd / BM, D / BN, nt * (BN / BK));
+    P[k].accumulate = r0 > 0;
+    rc = launch(P[k], second);
+    if (rc != 0) return rc;
+    chunk_dx_sum<<<((long)rows * D / 4 + 255) / 256, 256, 0, second>>>(dxp, dx, r0, rows, R, D);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = cudaEventRecord(side->products[k], second);
+  }
+  if (err == cudaSuccess) err = cudaEventRecord(side->done, second);
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->done, 0);
+  return (int)err;
+}
+
+// The forward at D 384 and 768 over chunks of R rows (a multiple of 128):
+// W1^T split (2, Hd, D) and W2^T split (2, D, Hd) into scratch, then per
+// chunk both masks' bits, h = GELU(x W1 + b1) m1 into scratch's (R, Hd)
+// hidden (E_FH) and y = (h W2 + b2) m2 (E_FY).  scratch: 4 D Hd + R Hd + R
+// (Hd + D) / 32 floats, 16-byte aligned.  Returns a cudaError_t as int (or
+// 1000 + a CUresult): 0 when every launch was accepted.
+extern "C" int launch_fused_mlp_train_fwd_chunked(const float* x, const float* w1,
+                                                  const float* b1, const float* w2,
+                                                  const float* b2, const int* seed, float* y,
+                                                  float* scratch, int N, int D, int Hd, int R,
+                                                  unsigned thr, float scale,
+                                                  cudaStream_t stream) {
+  using namespace chunk;
+  if (!shapes_ok(N, D, Hd, R, BM) || !aligned(x) || !aligned(scratch))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return (int)err;
+  const long DH = (long)D * Hd;
+  float* w1ts = scratch;
+  float* w2ts = w1ts + 2 * DH;
+  float* hid = w2ts + 2 * DH;
+  uint32_t* bits1 = reinterpret_cast<uint32_t*>(hid + (long)R * Hd);
+  uint32_t* bits2 = bits1 + (long)R * (Hd / 32);
+  transpose_split<<<dim3(Hd / 32, D / 32), dim3(32, 8), 0, stream>>>(w1, w1ts, D, Hd, 1);
+  transpose_split<<<dim3(D / 32, Hd / 32), dim3(32, 8), 0, stream>>>(w2, w2ts, Hd, D, 1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  Params F1, F2;
+  memset(&F1, 0, sizeof(F1));
+  F1.b1 = b1, F1.b2 = b2, F1.bits1 = bits1, F1.bits2 = bits2, F1.hid = hid, F1.y = y;
+  F1.R = R, F1.D = D, F1.Hd = Hd, F1.thr = thr, F1.scale = scale, F1.jobs = 1;
+  F2 = F1;
+  int rc = map_a(&F1.job[0].a, x, D, N, D);
+  if (rc == 0) rc = map_b(&F1.job[0].b, w1ts, D, Hd, D, DH);
+  if (rc == 0) rc = map_a(&F2.job[0].a, hid, Hd, R, Hd);
+  if (rc == 0) rc = map_b(&F2.job[0].b, w2ts, Hd, D, Hd, DH);
+  if (rc != 0) return rc;
+  for (long r0 = 0; r0 < N; r0 += R) {
+    const int rows = (int)(N - r0 < R ? N - r0 : R), mt = (rows + BM - 1) / BM;
+    if (thr != 0) {
+      mask_bits<<<(mt * BM * (Hd / 32) + 255) / 256, 256, 0, stream>>>(
+          seed, r0, rows, mt * BM, Hd, philox::STREAM_HIDDEN, thr, bits1);
+      mask_bits<<<(mt * BM * (D / 32) + 255) / 256, 256, 0, stream>>>(
+          seed, r0, rows, mt * BM, D, philox::STREAM_OUT, thr, bits2);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    F1.r0 = F2.r0 = r0, F1.rows = F2.rows = rows;
+    set_job(F1.job[0], E_FH, mt, Hd / BN, D / BK, (int)r0);
+    rc = launch(F1, stream);
+    if (rc != 0) return rc;
+    set_job(F2.job[0], E_FY, mt, D / BN, Hd / BK);
+    rc = launch(F2, stream);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }

@@ -85,6 +85,19 @@ SIGNATURES = {
     # kind (0 dx, 1 weight partials), D, registers, shared memory bytes,
     # blocks per SM
     "fused_mlp_train_bwd_info": [_I, _I, _P, _P, _P],
+    # x, dy, w1, b1, w2, seed, dx, grads (dW1, dW2, db1, db2), scratch, N,
+    # D, Hd, chunk rows, keep threshold, keep scale, stream
+    "launch_fused_mlp_train_bwd_chunked": [*[_P] * 9, _I, _I, _I, _I,
+                                           ctypes.c_uint32, ctypes.c_float,
+                                           _P],
+    # x, w1, b1, w2, b2, seed, y, scratch, N, D, Hd, chunk rows, keep
+    # threshold, keep scale, stream
+    "launch_fused_mlp_train_fwd_chunked": [*[_P] * 8, _I, _I, _I, _I,
+                                           ctypes.c_uint32, ctypes.c_float,
+                                           _P],
+    # D, registers, shared memory bytes, blocks per SM of the chunked
+    # products' kernel
+    "fused_mlp_train_chunked_info": [_I, _P, _P, _P],
 }
 
 _lib = None

@@ -14,21 +14,25 @@ from the graph.
 
 ``fused_mlp_train`` ports ``make_fused_mlp_train`` (:291), the training
 MLP y = Drop2(Drop1(GELU(x W1 + b1)) W2 + b2) with both masks drawn inside
-the kernels: the forward ``_mlp_train_fwd_kernel`` (:170) is
-``csrc/fused_mlp.cu``'s body with its dropout flag, on weights it splits
-at every call (training changes them every step), and the backward
-``_mlp_train_bwd_kernel`` (:189) is ``csrc/fused_mlp_train.cu``, both on
-the tensor cores in 3xTF32, at the CvT widths (``WIDTHS``) and the ViT
-widths (``VIT_WIDTHS``).  It takes float32 or bfloat16 x: the kernels
-compute in float32, y and dx come back in x's type and the weight and bias
-gradients in the weights' float32, as the JAX ``custom_vjp`` returns them
-(:354, :437-441).  It is the autograd
+the kernels: the forward ``_mlp_train_fwd_kernel`` (:170) and the backward
+``_mlp_train_bwd_kernel`` (:189), both on the tensor cores in 3xTF32, at
+the CvT widths (``WIDTHS``) and the ViT widths (``VIT_WIDTHS``).  At the
+CvT widths and D 192 the forward is ``csrc/fused_mlp.cu``'s body with its
+dropout flag, on weights it splits at every call (training changes them
+every step), and the backward ``csrc/fused_mlp_train.cu``'s fused kernels,
+which write one weight and bias partial per row slot (``train_bwd_slots``),
+summed over the slots in a fixed order by their last launch.  At
+``CHUNKED_WIDTHS`` (D 384 and 768) both run as products over row chunks,
+each done once, with the chunk's hidden in scratch (``csrc/fused_mlp_train.cu``,
+namespace chunk; ``train_chunk_rows``, ``train_fwd_chunk_rows``).  It takes
+float32 or bfloat16 x: the kernels compute in float32, y and dx come back
+in x's type and the weight and bias gradients in the weights' float32, as
+the JAX ``custom_vjp`` returns them (:354, :437-441).  It is the autograd
 Function ``FusedMLPTrain``, which saves x, the weights and the seed, never
-the hidden activation; the backward recomputes it and writes one weight
-and bias partial per row slot (``train_bwd_slots``), summed over the slots
-in a fixed order by its last launch.  A mask element is a pure function of the (2,)
-int32 seed and the element's global index (``dropout_mask``), so the masks
-do not depend on the block size and forward and backward agree; parity
+the hidden activation; the backward recomputes it.  A mask element is a
+pure function of the (2,) int32 seed and the element's global index
+(``dropout_mask``), so the masks do not depend on the block size and
+forward and backward agree; parity
 with JAX holds in distribution only, as for the TPU kernel, whose bits came
 from the TPU's own generator.
 
@@ -54,6 +58,14 @@ HIDDEN_CHUNK = 64
 SPLIT_K_WIDTHS = (64, 128)
 # Row tiles and hidden tiles of the training backward (csrc/fused_mlp_train.cu)
 TRAIN_BWD_TILE = 64
+# Widths at which the training MLP runs as products over row chunks, each
+# done once (csrc/fused_mlp_train.cu, namespace chunk), in tiles of 128 x 192
+CHUNKED_WIDTHS = (384, 768)
+CHUNK_TILE_M, CHUNK_TILE_N = 128, 192
+# The backward's chunk rows by width: of the sizes whose scratch (two sets
+# of the arrays the products read) stays within 64 MiB at D 384 and 96 MiB
+# at D 768, the fastest on the H100 at ViT-S and ViT-B B 64
+BWD_CHUNK_ROWS = {384: 768, 768: 384}
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2):
@@ -325,29 +337,86 @@ def _on_cpu(*tensors):
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def train_chunk_rows(n: int, d: int) -> int:
+    """Rows of a chunk of the training backward at the chunked widths
+    (``BWD_CHUNK_ROWS``), fewer for a smaller n: whole tiles of 192 rows."""
+    return min(BWD_CHUNK_ROWS[d], _round_up(n, CHUNK_TILE_N))
+
+
+def train_fwd_chunk_rows(n: int, d: int) -> int:
+    """Rows of a chunk of the chunked training forward: 132 x 128 x 192 / D
+    (4,224 at D 768, 8,448 at D 384), so that fc2 fills 132 SMs with whole
+    tiles and fc1 four times that; fewer for a smaller n (whole tiles of
+    128 rows)."""
+    return min(132 * CHUNK_TILE_M * CHUNK_TILE_N // d,
+               _round_up(n, CHUNK_TILE_M))
+
+
+def _chunk_check(hd):
+    if hd % (3 * CHUNK_TILE_M):
+        raise ValueError(f"fused_mlp_train: at the chunked widths "
+                         f"{CHUNKED_WIDTHS} the hidden width must be a "
+                         f"multiple of {3 * CHUNK_TILE_M}, got {hd}")
+
+
+def _train_fwd_fused(x, w1, b1, w2, b2, seed, rate, y):
+    """csrc/fused_mlp.cu's body with its dropout flag, after a launch that
+    splits the weights as ``pack_mlp_weights`` does into scratch of 4 D Hd
+    floats (kept for no later call: the weights change every step)."""
+    d, hd = w1.shape
+    pack = x.new_empty(4 * d * hd)
+    return library().launch_fused_mlp_train_fwd(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), seed.data_ptr(), y.data_ptr(), pack.data_ptr(),
+        x.numel() // d, d, hd, d, keep_threshold(rate), keep_scale(rate),
+        torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _train_fwd_chunked(x, w1, b1, w2, b2, seed, rate, y):
+    """The chunked forward of csrc/fused_mlp_train.cu: W1^T and W2^T split
+    into scratch, then per chunk of ``train_fwd_chunk_rows`` rows both
+    masks as bits, h = Drop1(GELU(x W1 + b1)) into the scratch's (rows, Hd)
+    hidden and y = Drop2(h W2 + b2); 4 D Hd + rows Hd + rows (Hd + D) / 32
+    floats of scratch."""
+    d, hd = w1.shape
+    _chunk_check(hd)
+    n = x.numel() // d
+    r = train_fwd_chunk_rows(n, d)
+    scratch = x.new_empty(4 * d * hd + r * hd + r * (hd + d) // 32)
+    return library().launch_fused_mlp_train_fwd_chunked(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), seed.data_ptr(), y.data_ptr(), scratch.data_ptr(), n,
+        d, hd, r, keep_threshold(rate), keep_scale(rate),
+        torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float, chunked=None):
     """y (..., D) in x's type outside autograd: the plain version on the
-    CPU, else the forward kernel on x in float32, after a launch that splits
-    the weights as ``pack_mlp_weights`` does into scratch of 4 D Hd floats
-    (kept for no later call: the weights change every step)."""
+    CPU, else on x in float32 the chunked forward at ``CHUNKED_WIDTHS`` and
+    csrc/fused_mlp.cu's body at the other widths.  ``chunked`` picks the
+    design at D 384 and 768 instead (chip_smoke.py times both there)."""
     if _on_cpu(x, w1, b1, w2, b2, seed):
         return fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate)
     dtype = x.dtype
     if dtype == torch.bfloat16:
         x = x.float().contiguous()
     _train_check(x, w1, b1, w2, b2, seed)
-    d, hd = w1.shape
+    d = w1.shape[0]
+    if chunked is None:
+        chunked = d in CHUNKED_WIDTHS
+    elif chunked and d not in CHUNKED_WIDTHS:
+        raise ValueError(f"fused_mlp_train_fwd: no chunked forward at D {d}")
     x = aligned16(x)
-    pack = x.new_empty(4 * d * hd)
     y = torch.empty_like(x)
-    rc = library().launch_fused_mlp_train_fwd(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), seed.data_ptr(), y.data_ptr(), pack.data_ptr(),
-        x.numel() // d, d, hd, d, keep_threshold(rate), keep_scale(rate),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    launch = _train_fwd_chunked if chunked else _train_fwd_fused
+    rc = launch(x, w1, b1, w2, b2, seed, rate, y)
     if rc != 0:
-        raise RuntimeError(f"launch_fused_mlp_train_fwd failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"the training MLP's forward launch failed: CUDA "
+                           f"error {rc}")
     fused_mlp_train.launches += 1
     return y.to(dtype)
 
@@ -361,10 +430,21 @@ def train_bwd_slots(n: int, hd: int, sms: int = 132) -> int:
 
 
 def train_bwd_scratch(n: int, d: int, hd: int, sms: int = 132):
-    """The float32 sizes of the training backward's scratch: the packed
-    weights (W1^T, W2 and W1 in kpos order, each split) and the row slots'
-    partials, slot by slot dW1 (D, Hd), dW2 (Hd, D), db1 (Hd), db2 (D).  It
-    does not grow with n once n passes slots row tiles."""
+    """The float32 sizes of the training backward's scratch.  At the CvT
+    widths and D 192: the packed weights (W1^T, W2 and W1 in kpos order,
+    each split) and the row slots' partials, slot by slot dW1 (D, Hd), dW2
+    (Hd, D), db1 (Hd), db2 (D); it does not grow with n once n passes slots
+    row tiles.  At ``CHUNKED_WIDTHS``, for chunks of r =
+    ``train_chunk_rows`` rows: W1^T (Hd, D); x and g split, the sums of da
+    (r / 32, Hd) and of g (r / 32, D) over 32 rows, dx's four partial sums over
+    quarters of Hd (4, r, D), m1's bits (r Hd / 32 words); and for each of
+    two chunks (one's products run beside the next one's scores) x^T and
+    g^T split, h^T and da^T as stored, and da split.  It does not grow with
+    n once n passes one chunk."""
+    if d in CHUNKED_WIDTHS:
+        r = train_chunk_rows(n, d)
+        return [d * hd, 8 * r * d + r // 32 * (hd + d) + r * hd // 32,
+                2 * (4 * r * d + 4 * r * hd)]
     return [6 * d * hd, train_bwd_slots(n, hd, sms) * (2 * d * hd + hd + d)]
 
 
@@ -389,14 +469,25 @@ def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
     x, dy = aligned16(x), aligned16(dy)
     dx = torch.empty_like(x)
     sizes = train_bwd_scratch(n, d, hd, sms)
-    pack, part = x.new_empty(sum(sizes)).split(sizes)
     grads = x.new_empty(2 * d * hd + hd + d)  # dW1, dW2, db1, db2
-    rc = library().launch_fused_mlp_train_bwd(
-        x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), seed.data_ptr(), dx.data_ptr(), grads.data_ptr(),
-        pack.data_ptr(), part.data_ptr(), n, d, hd, d,
-        train_bwd_slots(n, hd, sms), keep_threshold(rate),
-        keep_scale(rate), torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if d in CHUNKED_WIDTHS:
+        _chunk_check(hd)
+        scratch = x.new_empty(sum(sizes))
+        rc = library().launch_fused_mlp_train_bwd_chunked(
+            x.data_ptr(), dy.data_ptr(), aligned16(w1).data_ptr(),
+            b1.data_ptr(), aligned16(w2).data_ptr(), seed.data_ptr(),
+            dx.data_ptr(), grads.data_ptr(), scratch.data_ptr(), n, d, hd,
+            train_chunk_rows(n, d), keep_threshold(rate), keep_scale(rate),
+            stream)
+    else:
+        pack, part = x.new_empty(sum(sizes)).split(sizes)
+        rc = library().launch_fused_mlp_train_bwd(
+            x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), seed.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+            pack.data_ptr(), part.data_ptr(), n, d, hd, d,
+            train_bwd_slots(n, hd, sms), keep_threshold(rate),
+            keep_scale(rate), stream)
     if rc != 0:
         raise RuntimeError(f"launch_fused_mlp_train_bwd failed: CUDA error "
                            f"{rc}")
@@ -435,8 +526,9 @@ def fused_mlp_train(x, w1, b1, w2, b2, seed, rate: float):
     return FusedMLPTrain.apply(x, w1, b1, w2, b2, seed, rate)
 
 
-# Kernel launches so far; a caller resets them to 0 to count a run.  The
-# backward counts each call, which launches its four kernels (packing, dx,
-# the weight partials, their sum).
+# Kernel launches so far; a caller resets them to 0 to count a run.  Each
+# call counts once, whatever its launches: the forward's packing and fused
+# kernel, or its chunks' launches at CHUNKED_WIDTHS; the backward's four
+# kernels (packing, dx, the weight partials, their sum), or its chunks'.
 fused_mlp_train.launches = 0
 fused_mlp_train_bwd.launches = 0
