@@ -361,12 +361,13 @@ def check_close(what, got, ref, tol=ATTN_TOL):
 
 
 def device_ms(fn, calls=3, launches=()):
-    """(ms of device activity per call of fn, summed by torch.profiler over
-    its CUDA events; the five largest as (name, ms per call)).  The total is
-    None when the profiler records no device activity.  With `launches`, a
-    tuple of name patterns, a third item maps each pattern to the device ms
-    of each launch of the kernels whose names hold it, in launch order
-    within a call, the mean over the calls."""
+    """(ms of device activity per call of fn: the union of torch.profiler's
+    CUDA events' intervals, so that kernels overlapping on two streams count
+    once; the five largest by summed time as (name, ms per call)).  The
+    total is None when the profiler records no device activity.  With
+    `launches`, a tuple of name patterns, a third item maps each pattern to
+    the device ms of each launch of the kernels whose names hold it, in
+    launch order within a call, the mean over the calls."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -375,14 +376,20 @@ def device_ms(fn, calls=3, launches=()):
             fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in dev) / 1e3 / calls
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     top = [(e.key[:48], e.self_device_time_total / 1e3 / calls) for e in top]
-    if not launches:
-        return total or None, top
     events = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
+    busy, reach = 0.0, float("-inf")
+    for e in events:
+        start, end = e.time_range.start, e.time_range.end
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    total = busy / 1e3 / calls
+    if not launches:
+        return total or None, top
     each = {}
     for pattern in launches:
         ms = [e.time_range.elapsed_us() / 1e3 for e in events
@@ -514,7 +521,7 @@ def phase_build():
               for d in WIDTHS + VIT_WIDTHS),
             *((f"fused_mlp_tf32x3 with dropout D{d} (fused_mlp_train "
                "forward)", lib.fused_mlp_train_fwd_info, (d,))
-              for d in WIDTHS + VIT_WIDTHS),
+              for d in WIDTHS + VIT_WIDTHS if d not in CHUNKED_WIDTHS),
             ("flash_fwd_tf32x3 Dh <= 64 (flash_attention, attention_small)",
              lib.flash_attention_fwd_info, (0,)),
             ("flash_fwd_tf32x3 Dh > 64 (flash_attention)",
@@ -857,42 +864,43 @@ def mlp_train_shape(dev, gen, stage, n, d, masks=False, bf16=False,
         f"autograd of that graph {blib:.3f} ms  bound {bb_ms:.3f} ms "
         f"({bb_by}), on the tensor cores {brow['bound_tc_ms']:.3f} ms")
     if d in CHUNKED_WIDTHS:
-        # the forward's two designs at this width, and each kernel's device
-        # time in a forward and a backward call
-        frow["fused_body_ms"] = time_ms(
-            lambda: fused_mlp_train_fwd(*args, DROPOUT, chunked=False))
+        # each kernel's device time in a forward and a backward call
         frow["kernels_ms"] = kernel_split(
-            lambda: fused_mlp_train_fwd(*args, DROPOUT))
+            lambda: fused_mlp_train_fwd(*args, DROPOUT), call_ms=ms)
         brow["kernels_ms"] = kernel_split(
-            lambda: fused_mlp_train_bwd(*args, DROPOUT, dy))
+            lambda: fused_mlp_train_bwd(*args, DROPOUT, dy), call_ms=bms)
         for what, row in (("forward", frow), ("backward", brow)):
             say(f"[2] fused_mlp_train {stage} {what}, device ms per call by "
                 f"kernel (profiler, 3 calls): " + ", ".join(
                     f"{k} {v:.3f}" for k, v in row["kernels_ms"].items()))
-        say(f"[2] fused_mlp_train {stage} forward: chunked products "
-            f"{ms:.3f} ms, csrc/fused_mlp.cu's fused body "
-            f"{frow['fused_body_ms']:.3f} ms")
     worst_f = max(errs[(r, "y")][2] for r in (DROPOUT, 0.0))
     worst_b = max(v[2] for k, v in errs.items() if k[1] != "y")
     return frow, brow, worst_f, worst_b
 
 
-def kernel_split(fn, calls=3):
+def kernel_split(fn, calls=3, call_ms=None):
     """{kernel name: device ms per call of fn}, summed by torch.profiler
-    over `calls` calls after one more."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    over `calls` calls after one more.  The profiler has been seen to keep
+    only some calls' events: with `call_ms`, fn's time on CUDA events, a
+    session whose kernels add up to less than half of it is taken again,
+    up to three sessions."""
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
-        name = name.split("::")[-1].split("<")[0]
-        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.split("::")[-1].split("<")[0]
+            out[name] = (out.get(name, 0.0)
+                         + e.self_device_time_total / 1e3 / calls)
+        if call_ms is None or sum(out.values()) >= call_ms / 2:
+            break
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
@@ -2735,7 +2743,8 @@ def phase_finetune(card):
         busy_txt = ("device time not measured (the profiler recorded none)"
                     if busy is None else
                     f"device busy {busy:.1f} ms ({100 * busy / ms:.1f}%; "
-                    "profiler, 3 steps); largest: " + ", ".join(
+                    "union of the kernels' intervals, profiler, 3 steps); "
+                    "largest: " + ", ".join(
                         f"{n} {t:.2f}" for n, t in top))
         out[impl] = dict(ms=ms, images_per_s=1e3 * cfg.batch_size / ms,
                          peak_bytes=peak, busy_ms=busy)

@@ -101,6 +101,24 @@ def keep_from_bits(bits, rows, width, rate):
     return on.to(torch.float32) * keep_scale(rate)
 
 
+def epilogue_keep(bits, rows, width, rate):
+    """The (rows, width) multipliers the forward epilogue takes from the
+    bits: thread t of a quad holds columns col = nb + 8 j + e1 of a
+    192-column tile (nb = 192 nt + 2 t, j < 24, e1 < 2) and reads them from
+    word (nb >> 5) + j / 4 of its row, bit col & 31."""
+    out = torch.full((rows, width), float("nan"))
+    for nt in range(width // 192):
+        for t in range(4):
+            nb = 192 * nt + 2 * t
+            for j in range(24):
+                w = bits[:rows, (nb >> 5) + j // 4]
+                for e1 in range(2):
+                    col = nb + 8 * j + e1
+                    out[:, col] = (((w >> (col & 31)) & 1).to(torch.float32)
+                                   * keep_scale(rate))
+    return out
+
+
 def m2_prep(seed, n, d, rate):
     """m2 as chunk_prep draws it: one Philox group of four columns, word e
     for column 4 q + e."""
@@ -234,8 +252,8 @@ def test_emulated_chunked_mlp_within_tolerance(d):
 def test_chunked_masks_equal_dropout_mask(rate):
     """m1 and m2 as the chunked kernels read them, over two chunks at a row
     offset, equal dropout_mask bit for bit: mask_bits' words; the forward
-    epilogue's six words of a 192-column tile row (thread t's column nb +
-    8 j + e1 in word j / 4 from nb / 32, nb = 192 nt + 2 t);
+    epilogue's reads of six words a 192-column tile row
+    (``epilogue_keep``);
     chunk_combine's one word of 32 units a row; chunk_prep's Philox group
     of four columns."""
     seed = torch.tensor([2468, 1357], dtype=torch.int32)
@@ -249,14 +267,10 @@ def test_chunked_masks_equal_dropout_mask(rate):
                            want1[r0:r0 + rows])
         assert torch.equal(keep_from_bits(bits2, rows, d, rate),
                            want2[r0:r0 + rows])
-        # the forward epilogue: word (nb >> 5) + j / 4 holds column nb + 8 j + e1
-        for nt in range(d // 192):
-            for t in range(4):
-                nb = 192 * nt + 2 * t
-                for j in range(24):
-                    for e1 in range(2):
-                        col = nb + 8 * j + e1
-                        assert (nb >> 5) + j // 4 == col >> 5
+        assert torch.equal(epilogue_keep(bits1, rows, hd, rate),
+                           want1[r0:r0 + rows])
+        assert torch.equal(epilogue_keep(bits2, rows, d, rate),
+                           want2[r0:r0 + rows])
         # chunk_combine: the word of units u0 .. u0 + 31 of row r
         u0 = 32 * 7
         word = bits1[:, u0 // 32]

@@ -355,16 +355,23 @@ def test_train_mlp_bfloat16_dtypes_and_keep_share(d):
 
 
 def test_cuda_sources_build_the_training_mlp_at_the_vit_widths():
-    """The forward's fused body at every width (csrc/fused_mlp.cu), the
-    backward's fused kinds at the CvT widths and D 192, and the chunked
-    products at D 384 and 768 (csrc/fused_mlp_train.cu, namespace chunk),
-    where the old wide kinds DXW and DWW are gone."""
+    """The fused body of csrc/fused_mlp.cu at every width for inference and
+    at the CvT widths and D 192 for the training forward, the backward's
+    fused kinds at those widths, and the chunked products of both
+    directions at D 384 and 768 (csrc/fused_mlp_train.cu, namespace chunk),
+    where the old wide kinds DXW and DWW and the training forward's fused
+    body are gone."""
     fwd = (CSRC / "fused_mlp.cu").read_text()
     widths = re.search(r"bool width_ok\(int D\) \{\s*return ([^;]*);", fwd)
     assert widths and all(f"D == {d}" in widths[1]
                           for d in pm.WIDTHS + pm.VIT_WIDTHS)
-    assert re.search(r"case 768|default: return \(const void\*\)"
-                     r"fused_mlp_tf32x3<192, false, DROP>", fwd)
+    assert "return (const void*)fused_mlp_tf32x3<192, false, false>;" in fwd
+    assert "<192, false, DROP>" not in fwd
+    assert "<192, false, true>" not in fwd
+    limit = max(set(pm.WIDTHS + pm.VIT_WIDTHS) - set(pm.CHUNKED_WIDTHS))
+    assert (f"bool train_width_ok(int D) {{ return width_ok(D) && "
+            f"D <= {limit}; }}") in fwd
+    assert fwd.count("!train_width_ok(D)") == 2  # the launch and its info
     bwd = (CSRC / "fused_mlp_train.cu").read_text()
     fused = sorted(set(pm.WIDTHS + pm.VIT_WIDTHS) - set(pm.CHUNKED_WIDTHS))
     for d in fused:

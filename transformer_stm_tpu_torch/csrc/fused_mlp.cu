@@ -7,7 +7,9 @@
 // Replaces the Pallas TPU kernels `_mlp_kernel`
 // (transformer_stm_tpu/kernels/fused_mlp.py:52, launched by `fused_mlp` :62)
 // and `_mlp_train_fwd_kernel` (:170, the forward of `make_fused_mlp_train`
-// :291; its backward is csrc/fused_mlp_train.cu).  GELU is the exact erf
+// :291; its backward is csrc/fused_mlp_train.cu) at D 64 to 256; at D 384 and
+// 768 the training forward runs as products over row chunks in
+// csrc/fused_mlp_train.cu.  GELU is the exact erf
 // form through `erff`; the TPU kernel's rational erf (fused_mlp.py:33) only
 // stood in for an erf that Mosaic lacked.
 //
@@ -52,8 +54,7 @@
 // Dropout (the training forward, DROP): m1 and m2 are the Philox masks of
 // csrc/philox.cuh, equal to `dropout_mask` bit for bit.  Each element's
 // mask word comes from its global index (row, hidden unit) for m1 and (row,
-// column) for m2, so that at D 768, where both column halves recompute the
-// same fc1, they draw the same m1.  m1 multiplies the
+// column) for m2.  m1 multiplies the
 // GELU output in registers, before the split that feeds fc2; a thread holds
 // units 8 j + 2 t and 8 j + 2 t + 1 of rows ra and ra + 8, which share one
 // Philox group per row with the neighbour thread t ^ 1, so each thread draws
@@ -73,7 +74,7 @@
 // Layout: x (N, D), b1 (Hd), b2 (D), y (N, D), f32 contiguous; w1 the packed
 // W1^T, (2, Hd, D): big then small; w2 the packed W2^T, (2, D, Hd), its
 // columns in kpos order at D 64 and 128.  D is 64, 128, 192, 256, 384 or
-// 768 (the training forward too); Hd a multiple of 64; x, w1
+// 768 (the training forward 64 to 256); Hd a multiple of 64; x, w1
 // and w2 16-byte aligned; seed int32[2] on the device.
 
 #include <cuda.h>
@@ -450,7 +451,8 @@ __global__ void mlp_train_pack(const float* __restrict__ w1, const float* __rest
 // the output columns a warpgroup accumulates at width D (Plan)
 int columns(int D) { return D <= SPLIT_K_MAX_D ? D : D == 768 ? 192 : D / 2; }
 
-// the kernel of width D, the inference kernel or the training forward (DROP)
+// the kernel of width D, the inference kernel or the training forward (DROP;
+// D 384 and 768 train in chunks, csrc/fused_mlp_train.cu)
 template <bool DROP>
 const void* kernel_of(int D) {
   switch (D) {
@@ -458,13 +460,16 @@ const void* kernel_of(int D) {
     case 128: return (const void*)fused_mlp_tf32x3<128, true, DROP>;
     case 192: return (const void*)fused_mlp_tf32x3<96, false, DROP>;
     case 256: return (const void*)fused_mlp_tf32x3<128, false, DROP>;
-    default: return (const void*)fused_mlp_tf32x3<192, false, DROP>;
   }
+  if constexpr (DROP) return nullptr;
+  else return (const void*)fused_mlp_tf32x3<192, false, false>;
 }
 
 bool width_ok(int D) {
   return D == 64 || D == 128 || D == 192 || D == 256 || D == 384 || D == 768;
 }
+
+bool train_width_ok(int D) { return width_ok(D) && D <= 256; }
 
 int info(const void* fn, int* regs, int* smem, int* blocks) {
   *smem = SMEM;
@@ -517,7 +522,7 @@ extern "C" int fused_mlp_info(int D, int* regs, int* smem, int* blocks) {
 
 // The same for the training forward's kernel of width D.
 extern "C" int fused_mlp_train_fwd_info(int D, int* regs, int* smem, int* blocks) {
-  if (!width_ok(D)) return (int)cudaErrorInvalidValue;
+  if (!train_width_ok(D)) return (int)cudaErrorInvalidValue;
   return info(kernel_of<true>(D), regs, smem, blocks);
 }
 
@@ -546,7 +551,7 @@ extern "C" int launch_fused_mlp_train_fwd(const float* x, const float* w1, const
                                           const float* w2, const float* b2, const int* seed,
                                           float* y, float* pack, int N, int D, int Hd, int Dout,
                                           unsigned thr, float scale, cudaStream_t stream) {
-  if (N <= 0 || Dout != D || !width_ok(D) || Hd <= 0 || Hd % 64 != 0 ||
+  if (N <= 0 || Dout != D || !train_width_ok(D) || Hd <= 0 || Hd % 64 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(pack) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const long n = (long)D * Hd;

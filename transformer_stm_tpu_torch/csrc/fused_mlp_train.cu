@@ -2101,11 +2101,14 @@ extern "C" int launch_fused_mlp_train_bwd_chunked(const float* x, const float* d
   }
   if (rc != 0) return rc;
   // the second stream starts after the caller's work so far, and the
-  // caller's stream goes on after the second's last launch
+  // caller's stream goes on after the second's last launch: every exit past
+  // this wait joins them, so that the caller frees no buffer that a launch
+  // on the second stream may still use
   err = cudaEventRecord(side->start, stream);
   if (err == cudaSuccess) err = cudaStreamWaitEvent(second, side->start, 0);
+  if (err != cudaSuccess) return (int)err;
   int c = 0;
-  for (long r0 = 0; r0 < N && err == cudaSuccess; r0 += R, ++c) {
+  for (long r0 = 0; r0 < N && err == cudaSuccess && rc == 0; r0 += R, ++c) {
     const int k = c & 1, rows = (int)(N - r0 < R ? N - r0 : R);
     const int nt = (rows + BN - 1) / BN;  // tiles of the chunk's rows
     if (c >= 2) {  // chunk c - 2's products are done with set k
@@ -2123,7 +2126,7 @@ extern "C" int launch_fused_mlp_train_bwd_chunked(const float* x, const float* d
     set_job(S[k].job[0], E_A, Hd / BM, nt, D / BK);
     set_job(S[k].job[1], E_DH, Hd / BM, nt, D / BK);
     rc = launch(S[k], stream);
-    if (rc != 0) return rc;
+    if (rc != 0) break;
     chunk_combine<<<dim3(Hd / 32, nt * (BN / 32)), dim3(32, 8), 0, stream>>>(
         buf[k].dat, buf[k].ht, buf[k].das, dapart, bits, rows, R, Hd, thr, scale);
     chunk_bias<<<(Hd + D + 255) / 256, 256, 0, stream>>>(dapart, gpart, db1, db2, Hd, D,
@@ -2137,14 +2140,16 @@ extern "C" int launch_fused_mlp_train_bwd_chunked(const float* x, const float* d
     set_job(P[k].job[2], E_DW2, Hd / BM, D / BN, nt * (BN / BK));
     P[k].accumulate = r0 > 0;
     rc = launch(P[k], second);
-    if (rc != 0) return rc;
+    if (rc != 0) break;
     chunk_dx_sum<<<((long)rows * D / 4 + 255) / 256, 256, 0, second>>>(dxp, dx, r0, rows, R, D);
     err = cudaGetLastError();
     if (err == cudaSuccess) err = cudaEventRecord(side->products[k], second);
   }
-  if (err == cudaSuccess) err = cudaEventRecord(side->done, second);
-  if (err == cudaSuccess) err = cudaStreamWaitEvent(stream, side->done, 0);
-  return (int)err;
+  cudaError_t joined = cudaEventRecord(side->done, second);
+  if (joined == cudaSuccess) joined = cudaStreamWaitEvent(stream, side->done, 0);
+  if (joined != cudaSuccess) cudaStreamSynchronize(second);
+  if (rc != 0) return rc;
+  return (int)(err != cudaSuccess ? err : joined);
 }
 
 // The forward at D 384 and 768 over chunks of R rows (a multiple of 128):

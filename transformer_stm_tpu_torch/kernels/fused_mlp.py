@@ -394,25 +394,20 @@ def _train_fwd_chunked(x, w1, b1, w2, b2, seed, rate, y):
         torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float, chunked=None):
+def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
     """y (..., D) in x's type outside autograd: the plain version on the
     CPU, else on x in float32 the chunked forward at ``CHUNKED_WIDTHS`` and
-    csrc/fused_mlp.cu's body at the other widths.  ``chunked`` picks the
-    design at D 384 and 768 instead (chip_smoke.py times both there)."""
+    csrc/fused_mlp.cu's body at the other widths."""
     if _on_cpu(x, w1, b1, w2, b2, seed):
         return fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate)
     dtype = x.dtype
     if dtype == torch.bfloat16:
         x = x.float().contiguous()
     _train_check(x, w1, b1, w2, b2, seed)
-    d = w1.shape[0]
-    if chunked is None:
-        chunked = d in CHUNKED_WIDTHS
-    elif chunked and d not in CHUNKED_WIDTHS:
-        raise ValueError(f"fused_mlp_train_fwd: no chunked forward at D {d}")
     x = aligned16(x)
     y = torch.empty_like(x)
-    launch = _train_fwd_chunked if chunked else _train_fwd_fused
+    launch = (_train_fwd_chunked if w1.shape[0] in CHUNKED_WIDTHS
+              else _train_fwd_fused)
     rc = launch(x, w1, b1, w2, b2, seed, rate, y)
     if rc != 0:
         raise RuntimeError(f"the training MLP's forward launch failed: CUDA "
