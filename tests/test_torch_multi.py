@@ -53,6 +53,7 @@ from transformer_stm_tpu_torch.data.augment import AugmentConfig
 from transformer_stm_tpu_torch.data.xlsx import read_xlsx
 from transformer_stm_tpu_torch.kernels import fused_mlp as port_mlp
 from transformer_stm_tpu_torch.models.cvt import cvt_forward
+from transformer_stm_tpu_torch.ops import blocks
 from transformer_stm_tpu_torch.train.checkpoint import (_flatten,
                                                         load_checkpoint)
 from transformer_stm_tpu_torch.train.loop import _masked_mse_mae
@@ -309,18 +310,31 @@ def test_export_writes_the_reference_layout(small, tmp_path):
         os.path.join(str(tmp_path), "Result", "Weight"))
 
 
-def test_unported_options_raise(small):
+def test_unported_options_raise(small, monkeypatch):
     """``augment`` is ported: a slot trains with it (its records differ from
-    an unaugmented slot's); an unknown ``mlp_impl`` and ``watchdog`` still
-    raise."""
+    an unaugmented slot's); ``mlp_impl="flash"`` trains the MLPs through the
+    fused training MLP, as JAX's trainer passes it on (train/multi.py:100),
+    and at rate 0 equals ``"pallas"`` bit for bit; an unknown ``mlp_impl``
+    and ``watchdog`` still raise."""
     aug = small([("50HZ_Bm", 0, None)], augment=AugmentConfig())
     aug.fit(1, verbose=False)
     plain = small([("50HZ_Bm", 0, None)])
     plain.fit(1, verbose=False)
     assert np.isfinite(aug.records[0][0][1:]).all()
     assert aug.records[0][0][1] != plain.records[0][0][1]
+    calls = []
+    real = blocks.fused_mlp_train
+    monkeypatch.setattr(blocks, "fused_mlp_train",
+                        lambda *a: calls.append(1) or real(*a))
+    routes = {}
+    for mlp_impl in ("flash", "pallas", "xla"):
+        del calls[:]
+        routes[mlp_impl] = small([("50HZ_Bm", 0, None)], mlp_impl=mlp_impl)
+        routes[mlp_impl].fit(1, verbose=False)
+        assert bool(calls) == (mlp_impl != "xla"), mlp_impl
+    assert _same(routes["flash"], routes["pallas"])
     with pytest.raises(ValueError, match="mlp_impl"):
-        small([("50HZ_Bm", 0, None)], mlp_impl="flash")
+        small([("50HZ_Bm", 0, None)], mlp_impl="small")
     tr = small([("50HZ_Bm", 0, None)])
     with pytest.raises(NotImplementedError, match="watchdog"):
         tr.fit(1, watchdog=True)

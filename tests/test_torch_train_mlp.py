@@ -165,8 +165,9 @@ def test_wrappers_on_cpu_launch_nothing_and_off_the_cpu_raise():
 
 def test_mlp_routes_training_to_the_kernel_only_when_asked(monkeypatch):
     """mlp(train=True) takes the fused training MLP with mlp_impl="pallas"
-    (its seed drawn from the generator, zeros at rate 0) and the plain MLP
-    otherwise; at rate 0 both agree."""
+    or "flash" (its seed drawn from the generator, zeros at rate 0), as
+    JAX's mlp does (ops/blocks.py:58-66), and the plain MLP otherwise; at
+    rate 0 both agree.  An unknown mlp_impl raises."""
     gen = torch.Generator().manual_seed(0)
     m = blocks.MLP(32, 128, gen)
     x = torch.randn(2, 5, 32, generator=gen)
@@ -189,5 +190,8 @@ def test_mlp_routes_training_to_the_kernel_only_when_asked(monkeypatch):
                mlp_impl="pallas")
     assert len(seeds) == 2 and seeds[1].dtype == torch.int32
     assert (seeds[1] >= 0).all()
+    blocks.mlp(m, x, dropout_rate=0.1, train=True, generator=gen,
+               mlp_impl="flash")
+    assert len(seeds) == 3 and seeds[2].dtype == torch.int32
     with pytest.raises(ValueError, match="mlp_impl"):
-        blocks.mlp(m, x, train=True, generator=gen, mlp_impl="flash")
+        blocks.mlp(m, x, train=True, generator=gen, mlp_impl="small")

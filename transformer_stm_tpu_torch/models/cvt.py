@@ -76,9 +76,11 @@ def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
     """images: (B, H, W, C) float; proc: (B, proc_dim) or None ->
     (B, num_classes).  ``train=True`` normalises the dw_bn projections with
     batch statistics (updating the moving ones) and applies each stage's
-    dropout, drawn from ``generator`` on the images' device;
-    ``mlp_impl="pallas"`` trains the MLPs through the fused training kernel
-    (``ops/blocks.mlp``).
+    dropout, drawn from ``generator`` on the images' device.  Each block's
+    MLP runs on ``mlp_impl`` if it is given, else on ``impl``, as JAX's
+    block resolves it (``ops/blocks.mlp``): in training "pallas" and
+    "flash" go through the fused training kernel, in evaluation "auto",
+    "pallas" and "flash" through the fused kernel.
 
     ``remat`` is accepted and changes nothing.  JAX rematerialises each
     block (``jax.checkpoint``, models/cvt.py:107-108) to fit many slots'

@@ -4,11 +4,11 @@
 The block keeps the reference's quirks (:104-145): one LayerNorm ``norm1``
 serves before attention and again before the MLP; the cls token is a
 zero-initialised (1, 1, D) weight tiled over the batch.  In training the
-MLP is Dense -> GELU -> Dropout -> Dense -> Dropout in plain PyTorch, as
-the JAX single-target trainer runs it (:52-53, :72-76), unless the caller
-asks for the fused training kernel with ``mlp_impl="pallas"``, as the JAX
-multi-target trainer does (:58-66; the JAX name is kept, it names the
-CUDA kernel here).
+MLP takes the route ``mlp_impl`` if it is given, else the block's
+``impl``, as JAX's block resolves it (:136-139): "pallas" and "flash" train
+through the fused training kernel (:58-66; the JAX names are kept, they
+name the CUDA kernel here), every other route through Dense -> GELU ->
+Dropout -> Dense -> Dropout in plain PyTorch (:72-76).
 """
 
 from __future__ import annotations
@@ -28,21 +28,23 @@ class MLP(nn.Module):
         self.fc2 = Dense(hidden_dim, dim, generator)
 
 
-MLP_IMPLS = (None, "xla", "pallas")
+MLP_IMPLS = (None, "xla", "pallas", "flash")
+FUSED_ROUTES = ("pallas", "flash")
 
 
 def mlp(m: MLP, x, *, dropout_rate: float = 0.1, train: bool = False,
         generator=None, impl: str = "auto", mlp_impl=None):
-    """Dense -> exact GELU -> Dense.  In evaluation ``impl="auto"``,
-    ``"pallas"`` and ``"flash"`` run the fused kernel (on the CPU its plain
-    version), as JAX's mlp routes "pallas" and "flash" (ops/blocks.py:
-    67-70), and ``"plain"`` or ``"small"`` the plain version on any device.
-    In training, with ``mlp_impl="pallas"``, the fused training MLP with
-    dropout after the GELU and after the second Dense inside the kernel,
-    its (2,) int32 seed drawn from ``generator`` on x's device (zeros at
-    rate 0, as ops/blocks.py:60-62 draws it); otherwise the plain version
-    with dropout drawn from ``generator``.  ``mlp_impl`` is read in
-    training only."""
+    """Dense -> exact GELU -> Dense on the route ``mlp_impl`` if it is not
+    None, else ``impl``, as JAX's block passes it to its mlp
+    (ops/blocks.py:136-139).  In training "pallas" and "flash" run the
+    fused training MLP with dropout after the GELU and after the second
+    Dense inside the kernel, its (2,) int32 seed drawn from ``generator``
+    on x's device (zeros at rate 0, as :58-66 draws it); every other route
+    the plain version with dropout drawn from ``generator``.  In evaluation
+    "pallas", "flash" and "auto" run the fused kernel (on the CPU its plain
+    version), as JAX's mlp routes "pallas" and "flash" and, on its
+    accelerator, "auto" (:51-53, :67-70); "xla", "plain" and "small" the
+    plain version on any device."""
     if impl not in IMPLS:
         raise ValueError(f"unknown mlp impl {impl!r}, want {IMPLS}")
     if mlp_impl not in MLP_IMPLS:
@@ -50,7 +52,8 @@ def mlp(m: MLP, x, *, dropout_rate: float = 0.1, train: bool = False,
     if train and dropout_rate > 0.0 and generator is None:
         raise ValueError("mlp: train=True with dropout_rate > 0 requires a "
                          "generator")
-    if train and mlp_impl == "pallas":
+    route = mlp_impl if mlp_impl is not None else impl
+    if train and route in FUSED_ROUTES:
         if dropout_rate > 0.0:
             seed = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator,
                                  device=x.device, dtype=torch.int32)
@@ -59,7 +62,7 @@ def mlp(m: MLP, x, *, dropout_rate: float = 0.1, train: bool = False,
         return fused_mlp_train(x, m.fc1.kernel, m.fc1.bias, m.fc2.kernel,
                                m.fc2.bias, seed, dropout_rate)
     if not train:
-        f = (fused_mlp if impl in ("auto", "pallas", "flash")
+        f = (fused_mlp if route in ("auto",) + FUSED_ROUTES
              else fused_mlp_plain)
         return f(x, m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias)
     y = dropout(gelu(dense(x, m.fc1.kernel, m.fc1.bias)), dropout_rate,
@@ -87,7 +90,8 @@ class ConvTransformerBlock(nn.Module):
                 generator=None, mlp_impl=None):
         """x: (B, H, W, C) -> ((B, H, W, C), cls (B, 1, C) or None).
         ``train`` uses the batch statistics and dropout, drawn from
-        ``generator``; ``mlp_impl`` picks the training MLP (``mlp``)."""
+        ``generator``; the MLP runs on ``mlp_impl`` if it is given, else
+        on ``impl`` (``mlp``)."""
         b, h, w, c = x.shape
         tokens = x.reshape(b, h * w, c)
         with_cls = hasattr(self, "cls_token")

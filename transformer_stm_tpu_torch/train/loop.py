@@ -81,8 +81,10 @@ def make_train_step(cfg: TrainConfig, impl: str = "auto", mlp_impl=None,
     place.  batch = (images float in [0, 1], proc or None, labels, mask);
     metrics holds device scalars loss, mae, se, ae, n.  ``generator`` draws
     the augmentation, then the dropout (it may be None when every rate is 0
-    and ``augment`` is None); ``mlp_impl="pallas"`` trains the MLPs through
-    the fused training kernel.  The forward runs in ``cfg.compute_dtype``."""
+    and ``augment`` is None).  The MLPs train on ``mlp_impl`` if it is
+    given, else on ``impl``: "pallas" and "flash" through the fused training
+    kernel (``ops/blocks.mlp``).  The forward runs in
+    ``cfg.compute_dtype``."""
     dtype = compute_dtype(cfg)
 
     def step(model: CvT, opt: AdamState, batch, generator, lr: float):

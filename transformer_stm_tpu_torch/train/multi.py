@@ -71,7 +71,7 @@ from .loop import _DROPOUT, _SHUFFLE, _seed, compute_dtype, make_train_step
 from .metrics import RecordsWriter
 from .optimizer import adam_init, lr_at_epoch
 
-MLP_IMPLS = ("xla", "pallas")
+MLP_IMPLS = ("xla", "pallas", "flash")
 
 
 def _pad_rows(rows_list, width: int) -> np.ndarray:
@@ -87,10 +87,11 @@ def _pad_rows(rows_list, width: int) -> np.ndarray:
 class MultiTargetTrainer:
     """targets: list of (freq, seed, time_suffix); repeated freqs with
     different seeds give the "(many)" repeat mode.  ``lr_scales``: optional
-    per-slot multipliers of cfg.train.learning_rate.  ``mlp_impl="pallas"``
-    trains the MLPs through the fused training kernel (the JAX name), "xla"
-    through the plain MLP.  ``corpus``: the decoded corpus (n_specimens, L,
-    H, W) uint8, else ``decode_corpus(cfg.data)``."""
+    per-slot multipliers of cfg.train.learning_rate.  ``mlp_impl`` goes to
+    every block's MLP in training, as JAX's trainer passes it (:100):
+    "pallas" and "flash" (the JAX names) train the MLPs through the fused
+    training kernel, "xla" through the plain MLP.  ``corpus``: the decoded
+    corpus (n_specimens, L, H, W) uint8, else ``decode_corpus(cfg.data)``."""
 
     def __init__(self, cfg: ExperimentConfig,
                  targets: Sequence[Tuple[str, int, Optional[int]]],
@@ -168,9 +169,8 @@ class MultiTargetTrainer:
                 raise ValueError(f"{len(lr_scales)} lr_scales for "
                                  f"{len(self.targets)} targets")
             self.lr_scales_np = np.asarray(lr_scales, np.float32)
-        self._step = make_train_step(
-            tc, impl=impl, mlp_impl="pallas" if mlp_impl == "pallas" else None,
-            augment=augment)
+        self._step = make_train_step(tc, impl=impl, mlp_impl=mlp_impl,
+                                     augment=augment)
         self._dev = None
 
     # -- device data -------------------------------------------------------
