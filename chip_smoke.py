@@ -14,8 +14,10 @@ Phases, each printed as it finishes:
    ViT widths 192, 384 and 768, the attention forward of flash_attention
    and attention_small at Dh <= 64 and above, both flash backward kernels,
    the training MLP's dx and weight-partial kernels at D 64, 128, 192 and
-   256, and its chunked products' GEMM kernel, chunk_gemm, which runs both
-   directions at D 384 and 768) and of the int8 ViT layer's kernel
+   256, and the chunked products' GEMM kernel, chunk_gemm of
+   csrc/chunk_gemm.cuh, with the training MLP's epilogue, which runs both
+   directions at D 384 and 768, and with the f32 ViT layer's, which runs
+   rows 9-11 in f32) and of the int8 ViT layer's kernel
    (csrc/vit_layer_sm90.cu, mode 7);
 2. kernels: each kernel against its plain PyTorch version at the CvT stage
    shapes (in float32, and in float64 as a check that shares no rounding),
@@ -109,19 +111,24 @@ Phases, each printed as it finishes:
    ViT-S, B 192, bf16 (back-to-back calls, and one call alone), beside its
    plain version, the packing of its weights (once per model),
    nn.TransformerEncoderLayer (the yardstick of the whole layer) and its
-   bound; then the whole forward with weights from seed 0
+   bound; rows 9-12 on f32 x (rows 9-11 as 3xTF32 products over row
+   chunks in csrc/fused_layer.cu, row 12 its int8 kernel) alone and back
+   to back beside their plain versions and their f32 bounds (f32 FMA and
+   3xTF32), the whole f32 layer beside nn.TransformerEncoderLayer in f32;
+   then the whole forward with weights from seed 0
    in bf16: the routes ``impl="auto"`` (fused2), ``"fused"`` and
-   ``"fused2_int8"`` at B 192, f32 ``"auto"`` (fused_mlp) at B 64 and the
+   ``"fused2_int8"`` at B 192, in f32 ``"auto"`` (fused_mlp), ``"fused"``
+   and ``"fused2"`` at B 64 and the
    on-device preprocessing front end (raw uint8 345x340x3 ->
    ``preprocess_images_device`` -> 1-channel ViT-S) with exact launch
    counts; a second forward of each bf16 route packs no weights, and after
    an in-place update of one weight the next forward repacks once and
    follows it; the kernel routes against ``"plain"`` at B 8 (bf16 within 5e-2
    of max(1, |logits|); int8 against f32 within 3% of the logit scale and
-   correlation above 0.999; f32 auto within 1e-3), images/s (CUDA
-   events, median of 5) and peak memory of each route at B 192, 384 and
-   768, and the device's busy share in a B 192 auto forward; the f32 layer
-   beside nn.TransformerEncoderLayer in f32;
+   correlation above 0.999; the f32 routes at B 64 within 1e-3), images/s
+   (CUDA events, median of 5) and peak memory of each route at B 192, 384
+   and 768, of the f32 routes and f32 ``"plain"`` at B 64, and the
+   device's busy share in a B 192 auto forward;
 8. the ViT-B/16 fine-tune (BASELINE.json config 3, as
    scripts/bench_vit_finetune.py:34-38 sets it: one channel, 4 classes,
    batch 64, bf16, AdamW with weight decay 0.05, label smoothing 0.1) on
@@ -143,8 +150,9 @@ phase 5 for the training MLP, which the multi-target trainer runs at the
 CvT widths, or phase 7 for the fused-layer kernels; ``launches_by_path``
 from phases 3 to 8, the last ``vit_finetune``, where rows 4-5 run at D
 768; rows 4-5 carry their ViT-width rows as ``vit_shapes`` and, as
-``vit_source``, the source of their chunked products at D 384 and 768) and
-phase 8's step times; the last line is
+``vit_source``, the source of their chunked products at D 384 and 768;
+rows 9-12 their f32 numbers as ``f32_*``, ``f32_launches`` the launches of
+phase 7's f32 routes) and phase 8's step times; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing is read from or written to the
 repository except the kernels' build directory; phase 6 works in a
 temporary directory.
@@ -479,18 +487,33 @@ def phase_env():
     return card
 
 
-def kernel_name(mangled):
-    """The last name of a mangled nested name, with its integer template
-    arguments: '_ZN<n>_GLOBAL__N_<...><n>bwd_dqEPKf...' -> 'bwd_dq',
-    '..16fused_mlp_tf32x3ILi64ELb1EEEv..' -> 'fused_mlp_tf32x3<64,1>'."""
-    name, i = mangled, 3 if mangled.startswith("_ZN") else 2
+def _last_name(mangled, i):
+    """(the last name of the length-prefixed names from i, the index past
+    them)."""
+    name = None
     while (m := re.match(r"\d+", mangled[i:])):
         n = int(m.group())
         name = mangled[i + m.end():i + m.end() + n]
         i += m.end() + n
+    return name, i
+
+
+def kernel_name(mangled):
+    """The last name of a mangled nested name, with its integer template
+    arguments or the last name of its class argument:
+    '_ZN<n>_GLOBAL__N_<...><n>bwd_dqEPKf...' -> 'bwd_dq',
+    '..16fused_mlp_tf32x3ILi64ELb1EEEv..' -> 'fused_mlp_tf32x3<64,1>',
+    '_ZN5cgemm10chunk_gemmIN12_GLOBAL__N_18f32layer11LayerParamsEEEvT_' ->
+    'chunk_gemm<LayerParams>'."""
+    name, i = _last_name(mangled, 3 if mangled.startswith("_ZN") else 2)
+    name = name or mangled
     t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
-    return (f"{name}<{','.join(re.findall(r'L[ib](-?\d+)E', t.group(1)))}>"
-            if t else name)
+    if t:
+        return f"{name}<{','.join(re.findall(r'L[ib](-?\d+)E', t.group(1)))}>"
+    if mangled.startswith("IN", i):
+        arg, _ = _last_name(mangled, i + 2)
+        return f"{name}<{arg}>" if arg else name
+    return name
 
 
 def phase_build():
@@ -502,15 +525,15 @@ def phase_build():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = kernel_name(m.group(1))
+        elif re.search(r"\(C75\d\d\)", line):
+            m = re.search(r"(\(C75\d\d\)[^']*)'([^']+)'", line)
+            say(f"[1] ptxas note {m.group(1).strip() if m else line.strip()}"
+                f" {kernel_name(m.group(2)) if m else ''}")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
             say(f"[1] ptxas {name}: {line.split(':', 1)[-1].strip()}; "
                 f"{spill}")
-        elif re.search(r"\(C75\d\d\)", line):
-            m = re.search(r"(\(C75\d\d\)[^']*)'([^']+)'", line)
-            say(f"[1] ptxas note {m.group(1).strip() if m else line.strip()}"
-                f" {kernel_name(m.group(2)) if m else ''}")
     say(f"[1] kernels built with nvcc in {dt:.1f} s "
         f"(nvcc {_build.build_seconds} s)")
     # the 3xTF32 kernels (csrc/tf32x3.cuh): registers a thread, dynamic
@@ -533,7 +556,7 @@ def phase_build():
                lib.fused_mlp_train_bwd_info, (kind, d))
               for kind, what in ((0, "dx"), (1, "weight partials"))
               for d in WIDTHS + VIT_WIDTHS if d not in CHUNKED_WIDTHS),
-            ("chunk_gemm (fused_mlp_train forward and backward at D "
+            ("chunk_gemm<Params> (fused_mlp_train forward and backward at D "
              f"{' and '.join(map(str, CHUNKED_WIDTHS))})",
              lib.fused_mlp_train_chunked_info, (CHUNKED_WIDTHS[-1],)),
             ("vit_layer_sm90<7> at t_pad 200 (vit_layer_infer_int8, bf16)",
@@ -547,6 +570,18 @@ def phase_build():
                                "blocks an SM")
         say(f"[1] {name}: {regs.value} registers, {smem.value} bytes of "
             f"shared memory, {blocks.value} block(s) an SM")
+    # the f32 ViT layer's products (rows 9-11 in f32), with their local
+    # memory a thread, where spills land
+    regs, local, smem, blocks = (ctypes.c_int() for _ in range(4))
+    rc = lib.fused_layer_tf32x3_info(
+        MODE_ATTN | MODE_MLP, *map(ctypes.byref, (regs, local, smem, blocks)))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"fused_layer_tf32x3_info: error {rc}, "
+                           f"{blocks.value} blocks an SM")
+    say(f"[1] chunk_gemm<LayerParams> (attn_layer_infer, ln_mlp_infer and "
+        f"vit_layer_infer in f32): {regs.value} registers, {local.value} "
+        f"bytes of local memory a thread (stack and spills), {smem.value} "
+        f"bytes of shared memory, {blocks.value} block(s) an SM")
 
 
 def phase_kernels():
@@ -896,7 +931,7 @@ def kernel_split(fn, calls=3, call_ms=None):
             if e.device_type != DeviceType.CUDA:
                 continue
             name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
-            name = name.split("::")[-1].split("<")[0]
+            name = name.split("<")[0].split("::")[-1]
             out[name] = (out.get(name, 0.0)
                          + e.self_device_time_total / 1e3 / calls)
         if call_ms is None or sum(out.values()) >= call_ms / 2:
@@ -1008,7 +1043,8 @@ def phase_mlp_train(dev, gen):
             bound_tc_ms=sum(r["bound_tc_ms"] for r in rows),
             library_ms=sum(r["library_ms"] for r in rows), shapes=rows,
             vit_shapes=vrows[key],
-            vit_source="transformer_stm_tpu_torch/csrc/fused_mlp_train.cu"))
+            vit_source=("transformer_stm_tpu_torch/csrc/fused_mlp_train.cu + "
+                        "csrc/chunk_gemm.cuh")))
     out[-1]["at_512px_stage1"] = big
     return out
 
@@ -2328,25 +2364,68 @@ def vit_kernel_times(worst, card):
             f"{host_ms:.3f} ms on the host; packing its weights, once per "
             f"model, {pack_ms:.3f} ms)  plain {plain_ms:.3f} ms{lib_txt}  "
             f"bound {b_ms:.3f} ms ({rows[-1]['bound_by']}; {card})")
-    # the whole layer in f32 (true f32, FMA products) beside its f32 bound
-    # and nn.TransformerEncoderLayer in f32 (TF32 off: use_true_f32), one
-    # call alone, as the bf16 library time is taken
+    # rows 9-12 on f32 x (rows 9-11: csrc/fused_layer.cu's 3xTF32 products
+    # over row chunks; row 12: its int8 kernel) beside their f32 bounds
+    # (f32 FMA; 3xTF32 on the tensor cores) and their plain versions, one
+    # call alone and back to back, and the whole layer beside
+    # nn.TransformerEncoderLayer in f32 (TF32 off: use_true_f32), one call
+    # alone, as the bf16 library time is taken
     m32 = vit_layer(e, h, SEED, torch.float32)
+    n1f, attnf, n2f, mlpf = m32
     x32 = x.float()
     lib32 = library_layer(m32, torch.float32)
     xl32 = xl.float()
+    xio = 2.0 * n * e * 4  # x in, y out, f32
+    f32_rows = (
+        (0, lambda: attn_layer_infer(x32, n1f, attnf, **layer),
+         lambda: attn_layer_infer_plain(x32, n1f, attnf, **layer),
+         f_attn, xio + 4 * e * e * 4),
+        (1, lambda: ln_mlp_infer(x32, n2f, mlpf),
+         lambda: ln_mlp_infer_plain(x32, n2f, mlpf),
+         f_mlp, xio + 2 * e * hidden * 4),
+        (2, lambda: vit_layer_infer(x32, *m32, **layer),
+         lambda: vit_layer_infer_plain(x32, *m32, **layer),
+         f_layer, xio + (4 * e * e + 2 * e * hidden) * 4),
+        (3, lambda: vit_layer_infer_int8(x32, *m32, **layer),
+         lambda: vit_layer_infer_int8_plain(x32, *m32, **layer),
+         None, xio + (4 * e * e + 2 * e * hidden)))
     with torch.inference_mode():
-        ms32 = time_ms(lambda: vit_layer_infer(x32, *m32, **layer))
-        plain32 = time_ms(lambda: vit_layer_infer_plain(x32, *m32, **layer))
-        lib32_ms = time_ms(lambda: lib32(xl32))
-    b32, by32 = bound(f_layer, nbytes * 2)
-    tc32 = bound_tc(f_layer, nbytes * 2)
-    rows[2].update(f32_ms=ms32, f32_plain_ms=plain32, f32_bound_ms=b32,
-                   f32_bound_tc_ms=tc32, f32_library_ms=lib32_ms)
-    say(f"[7] vit_layer_infer ViT-S B{b} f32: kernel {ms32:.3f} ms  plain "
-        f"{plain32:.3f} ms  TransformerEncoderLayer f32 {lib32_ms:.3f} ms a "
-        f"call  bound {b32:.3f} ms ({by32}), on the tensor cores "
-        f"{tc32:.3f} ms ({card})")
+        for i, kernel, plain, flops, nb in f32_rows:
+            ms32 = time_ms(kernel)
+            batched32 = time_ms_batched(kernel)
+            plain32 = time_ms(plain)
+            if flops is None:
+                # int8 projections on the tensor cores, the attention's f32
+                # products on the FMA pipe
+                t_ops = ops_int8 / PEAK_INT8_OPS + f_core / PEAK_F32_FLOPS
+                b32 = 1e3 * max(t_ops, nb / PEAK_BYTES)
+                by32 = "operations" if t_ops >= nb / PEAK_BYTES else "bytes"
+                tc32 = None
+                bound_txt = f"bound {b32:.3f} ms ({by32})"
+            else:
+                b32, by32 = bound(flops, nb)
+                tc32 = bound_tc(flops, nb)
+                bound_txt = (f"bound {b32:.3f} ms ({by32}; f32 FMA), "
+                             f"{tc32:.3f} ms on the tensor cores (3xTF32)")
+            lib32_ms = time_ms(lambda: lib32(xl32)) if i == 2 else None
+            # where the whole layer's device time goes, kernel by kernel
+            split = (kernel_split(kernel, call_ms=ms32) if i == 2 else None)
+            rows[i].update(f32_ms=ms32, f32_batched_ms=batched32,
+                           f32_plain_ms=plain32, f32_bound_ms=b32,
+                           f32_bound_by=by32, f32_bound_tc_ms=tc32,
+                           f32_library_ms=lib32_ms, f32_kernels_ms=split,
+                           f32_source=("transformer_stm_tpu_torch/csrc/"
+                                       "fused_layer.cu" + (
+                                           "" if flops is None else
+                                           " + csrc/chunk_gemm.cuh + "
+                                           "csrc/flash_attention.cu")))
+            lib_txt = (f"  TransformerEncoderLayer f32 {lib32_ms:.3f} ms a "
+                       "call; device ms a call: " + ", ".join(
+                           f"{k} {v:.3f}" for k, v in split.items())
+                       if lib32_ms is not None else "")
+            say(f"[7] {rows[i]['name']} ViT-S B{b} f32: kernel {ms32:.3f} ms "
+                f"a call alone, {batched32:.3f} ms back to back  plain "
+                f"{plain32:.3f} ms{lib_txt}  {bound_txt} ({card})")
     del m32, x32, lib32, xl32
 
     # the library layer computes the same function: a loose check that the
@@ -2472,8 +2551,15 @@ def phase_vit(kernels, card):
          {"vit_layer_infer_int8": d}),
         ("auto f32", lambda: vit_forward(model32, imgs32[:VIT_F32_B]),
          {"fused_mlp": d}),
+        ("fused f32", lambda: vit_forward(model32, imgs32[:VIT_F32_B],
+                                          impl="fused"),
+         {"attn_layer_infer": d, "ln_mlp_infer": d}),
+        ("fused2 f32", lambda: vit_forward(model32, imgs32[:VIT_F32_B],
+                                           impl="fused2"),
+         {"vit_layer_infer": d}),
         ("preprocess + auto bf16", front_end, {"vit_layer_infer": d}))
-    outs = {}
+    f32_routes = ("auto f32", "fused f32", "fused2 f32")
+    outs, route_launches = {}, {}
     torch.cuda.synchronize()
     reset_launches()
     with torch.inference_mode():
@@ -2483,6 +2569,7 @@ def phase_vit(kernels, card):
             torch.cuda.synchronize()
             got = {k: n - before[k] for k, n in read_launches().items()
                    if n != before[k]}
+            route_launches[name] = got
             if got != want:
                 raise AssertionError(f"ViT route {name}: launches {got}, "
                                      f"want {want}")
@@ -2494,8 +2581,8 @@ def phase_vit(kernels, card):
                                      f"{torch.isfinite(y.float()).all()}")
     launches = read_launches()
     say(f"[7] ViT-S/16 main path (auto bf16, fused and fused2_int8 at B{b}, "
-        f"auto f32 at B{VIT_F32_B}, preprocessing + auto at B{b}): "
-        f"launches {launches}")
+        f"auto, fused and fused2 in f32 at B{VIT_F32_B}, preprocessing + "
+        f"auto at B{b}): launches {launches}")
     check_packing_once(model, imgs[:VIT_CHECK_B], imgs[:b])
 
     # Agreement with the plain route.
@@ -2524,14 +2611,17 @@ def phase_vit(kernels, card):
             f"{rel:.3e} of the logit scale (limit {VIT_INT8_REL}), "
             f"correlation {corr:.6f} (limit {VIT_INT8_CORR})")
         ref32 = vit_forward(model32, imgs32[:VIT_F32_B], impl="plain")
-        diff = (outs["auto f32"] - ref32).abs()
         lim32 = PATH_TOL * ref32.abs().clamp_min(1.0)
-        if (diff > lim32).any():
-            raise AssertionError(f"ViT-S f32 auto vs plain: max |diff| "
-                                 f"{diff.max().item():.3e}")
-        say(f"[7] ViT-S f32 auto (fused_mlp) vs f32 plain, B{VIT_F32_B}: "
-            f"max |diff| {diff.max().item():.3e} (limit {PATH_TOL} x "
-            "max(1, |y|))")
+        for name, via in zip(f32_routes, ("fused_mlp", "attn_layer_infer + "
+                                          "ln_mlp_infer", "vit_layer_infer")):
+            diff = (outs[name] - ref32).abs()
+            if (diff > lim32).any():
+                raise AssertionError(f"ViT-S {name} vs plain: max |diff| "
+                                     f"{diff.max().item():.3e}")
+            say(f"[7] ViT-S {name} ({via}) vs f32 plain, B{VIT_F32_B}: max "
+                f"|diff| {diff.max().item():.3e} (limit {PATH_TOL} x "
+                "max(1, |y|); |logits| up to "
+                f"{ref32.abs().max().item():.3f})")
 
     # images/s and peak memory of each route at each batch
     thru = {}
@@ -2548,6 +2638,15 @@ def phase_vit(kernels, card):
                 say(f"[7] ViT-S/16 224px bf16 B{bb} {impl}: {ms:.2f} ms, "
                     f"{1e3 * bb / ms:.1f} images/s (CUDA events, median of "
                     f"5), peak {peak / 2**30:.2f} GiB; {card}")
+        # the f32 routes at their batch (TF32 off), one forward each
+        for name in f32_routes + ("plain f32",):
+            impl = name.split()[0]
+            ms = time_ms(lambda: vit_forward(model32, imgs32[:VIT_F32_B],
+                                             impl=impl), reps=5, warmup=1)
+            thru[(VIT_F32_B, name)] = (ms, 1e3 * VIT_F32_B / ms, None)
+            say(f"[7] ViT-S/16 224px f32 B{VIT_F32_B} {impl}: {ms:.2f} ms, "
+                f"{1e3 * VIT_F32_B / ms:.1f} images/s (CUDA events, median "
+                f"of 5); {card}")
         # where a B 192 forward's device time goes (torch.profiler)
         busy, top = device_ms(lambda: vit_forward(model, imgs[:b]), calls=2)
         ms_fwd = thru[(b, "auto")][0]
@@ -2568,6 +2667,8 @@ def phase_vit(kernels, card):
     for r in rows:
         r["vit_images_per_s"] = {f"B{bb} {impl}": round(v[1], 1)
                                  for (bb, impl), v in thru.items()}
+        r["f32_launches"] = sum(route_launches[name].get(r["name"], 0)
+                                for name in f32_routes)
     return launches, rows
 
 

@@ -167,7 +167,8 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
                "flash_attention_fwd_info": 3,
                "flash_attention_bwd_info": 3,
                "fused_mlp_train_bwd_info": 3,
-               "fused_mlp_train_chunked_info": 3}
+               "fused_mlp_train_chunked_info": 3,
+               "fused_layer_tf32x3_info": 4}
     for name, n_ptr in helpers.items():
         argtypes = _build.SIGNATURES[name]
         assert argtypes.count(ctypes.c_void_p) == n_ptr
@@ -184,6 +185,7 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
                  "launch_fused_mlp_train_fwd_chunked": 8,
                  "launch_fused_mlp_train_bwd_chunked": 9,
                  "launch_fused_layer": 19,
+                 "launch_fused_layer_tf32x3": 15,
                  "launch_vit_layer_sm90": 16}[name]
         assert argtypes.count(ctypes.c_void_p) == n_ptr + 1
         if name == "launch_fused_layer":
@@ -191,6 +193,11 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
             # then the 16 weight, scale and bias pointers
             assert argtypes[1:4] == [ctypes.c_void_p] * 3
             assert argtypes[6:22] == [ctypes.c_void_p] * 16
+        elif name == "launch_fused_layer_tf32x3":
+            # mode, then x, y and the workspace; its floats and the chunk
+            # rows; then the 12 weight, bias and LN pointers
+            assert argtypes[1:4] == [ctypes.c_void_p] * 3
+            assert argtypes[6:18] == [ctypes.c_void_p] * 12
         elif name == "launch_vit_layer_sm90":
             # mode, then x, y and the workspace; its bytes and the slots;
             # the maps, the 8 LN and bias pointers and the 4 int8 scales

@@ -370,11 +370,11 @@ const void* kernel_of(int kind) {
   return kind == 0 ? (const void*)flash_fwd_tf32x3<false> : (const void*)flash_fwd_tf32x3<true>;
 }
 
-// a map of one of q, k, v: (Dh, H, rows, B)
-int encode_qkv(CUtensorMap* map, const float* ptr, int B, int L, int H, int Dh) {
+// a map of one of q, k, v: (Dh, H, rows, B), rows ld floats apart
+int encode_qkv(CUtensorMap* map, const float* ptr, int B, int L, int H, int Dh, int ld) {
   const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)Dh * 4, (cuuint64_t)H * Dh * 4,
-                                 (cuuint64_t)L * H * Dh * 4};
+  const cuuint64_t strides[3] = {(cuuint64_t)Dh * 4, (cuuint64_t)ld * 4,
+                                 (cuuint64_t)L * ld * 4};
   const cuuint32_t box[4] = {32, 1, TILE, 1};
   return encode_f32(map, ptr, 4, dims, strides, box);
 }
@@ -412,21 +412,33 @@ extern "C" int flash_attention_fwd_info(int kind, int* regs, int* smem, int* blo
 // Returns a cudaError_t as int (or 1000 + a CUresult from encoding a tensor
 // map): 0 when the launch was accepted.  `lse` may be null (inference).  Dh
 // is the stored (padded) head dim, a multiple of 8 from 32 to 256; q, k and
-// v must be 16-byte aligned.
-extern "C" int launch_flash_attention(const float* q, const float* k, const float* v, float* o,
-                                      float* lse, int B, int T, int S, int H, int Dh, float scale,
-                                      cudaStream_t stream) {
-  if (Dh < 32 || Dh > MAX_DH || Dh % 8 != 0 || B <= 0 || T <= 0 || S <= 0 || H <= 0 ||
-      (long)B * H > 65535 || !aligned(q) || !aligned(k) || !aligned(v))
+// v must be 16-byte aligned, their rows (tokens) `ld` floats apart, ld a
+// multiple of 4 and at least H Dh, and k and v hold `s_rows` >= S rows a
+// batch, the keys past S masked (the f32 ViT layer, csrc/fused_layer.cu,
+// reads them from its packed q|k|v rows: ld = 3 H Dh, T = s_rows = t_pad,
+// S = t_real).  o is (B, T, H, Dh).
+extern "C" int launch_flash_attention_ld(const float* q, const float* k, const float* v, float* o,
+                                         float* lse, int B, int T, int S, int s_rows, int H,
+                                         int Dh, int ld, float scale, cudaStream_t stream) {
+  if (Dh < 32 || Dh > MAX_DH || Dh % 8 != 0 || B <= 0 || T <= 0 || S <= 0 || s_rows < S ||
+      H <= 0 || (long)B * H > 65535 || ld < H * Dh || ld % 4 != 0 || !aligned(q) ||
+      !aligned(k) || !aligned(v))
     return (int)cudaErrorInvalidValue;
   Params P;
   memset(&P, 0, sizeof(P));
   P.o = o, P.lse = lse, P.T = T, P.S = S, P.H = H, P.Dh = Dh;
   P.nc = (Dh + TILE - 1) / TILE;
   P.sl = scale * LOG2E;
-  int rc = encode_qkv(&P.q, q, B, T, H, Dh);
-  if (rc == 0) rc = encode_qkv(&P.k, k, B, S, H, Dh);
-  if (rc == 0) rc = encode_qkv(&P.v, v, B, S, H, Dh);
+  int rc = encode_qkv(&P.q, q, B, T, H, Dh, ld);
+  if (rc == 0) rc = encode_qkv(&P.k, k, B, s_rows, H, Dh, ld);
+  if (rc == 0) rc = encode_qkv(&P.v, v, B, s_rows, H, Dh, ld);
   if (rc != 0) return rc;
   return P.nc == 1 ? launch<false>(P, B, H, stream) : launch<true>(P, B, H, stream);
+}
+
+// The same with q, k and v (B, T or S, H, Dh) contiguous.
+extern "C" int launch_flash_attention(const float* q, const float* k, const float* v, float* o,
+                                      float* lse, int B, int T, int S, int H, int Dh, float scale,
+                                      cudaStream_t stream) {
+  return launch_flash_attention_ld(q, k, v, o, lse, B, T, S, S, H, Dh, H * Dh, scale, stream);
 }

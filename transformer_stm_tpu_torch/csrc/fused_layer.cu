@@ -1,5 +1,5 @@
 // Fused ViT-layer inference on folded (B * t_pad, E) token rows in float32,
-// the int8 layer too:
+// the int8 layer on float32 x too:
 //
 //   mode ATTN        y = x + OutProj(MHA(LN1 x))           attn_layer_infer
 //   mode MLP         y = x + MLP(LN2 x)                     ln_mlp_infer
@@ -15,54 +15,82 @@
 //
 // Bound: operations.  At ViT-S (E 384, H 6, Dh 64, hidden 1536, t_pad 200) a
 // layer does 0.77 GFLOP an image against 0.3 MB of x in and y out, far above
-// the card's balance point.  The TPU kernels hold a block of images in VMEM:
-// q, k, v and the attention output of every head plus the scores, 614 KB an
-// image at ViT-S in bf16, where a block here has 227 KB of shared memory.  So
-// the design is one block per image (a segment of rows) and the phases in
-// turn, separated by __syncthreads(): LN1; the packed q/k/v projection; the
-// attention of one head at a time with that head's K and V for the image in
-// shared memory, query tiles of 32 rows and a whole-row softmax; the out
-// projection plus the residual; LN2; the MLP as two products.  In f32 the
-// products are FMA tiles (true f32: 4x4 outputs a thread) and the attention
-// holds K^T and V in f32 (136 KB, one block an SM); in int8 the products run
-// on the tensor cores (wmma 16x16x16 int8 -> int32, 64x128 tiles, operands
-// staged with cp.async in two stages).
-// The per-image intermediates (xn, q/k/v, the attention output, z in f32,
-// zn, the MLP hidden) go through a workspace in device memory, one slot per
-// resident block, which the wrapper allocates; a block walks the images
-// blockIdx.x, blockIdx.x + gridDim.x, ...
+// the card's balance point: at B 192 (n = 38,400 rows) 147.7 GFLOP, 2.20 ms
+// in f32 FMA (67 TFLOP/s) and 0.90 ms as three TF32 products (495 TFLOP/s).
+// The TPU kernels hold a block of images in VMEM: q, k, v and the attention
+// output of every head plus the scores, 614 KB an image at ViT-S in bf16,
+// where a block here has 227 KB of shared memory.
 //
-// Every value is f32 and every product is true f32 (int32 sums for int8),
-// so the JAX kernels' rounding points to x's type are no-ops here.  GELU is
-// the Abramowitz-Stegun form of `_gelu_exact` (kernels/fused_mlp.py:33-49).
-// Int8: weights come quantised per column from the wrapper; rows are
-// quantised here per row (amax clamped at 1e-6, q = rint(v * (127 / amax))
-// clipped to +-127), and the epilogue is ((acc * sx) * sw) + b.  Keys at or
-// past t_real are masked to -1e30; padded query rows carry junk, as on the
-// TPU.  Every offset that multiplies a row index is 64-bit.
+// Modes 1-3 (namespace f32layer): the layer as products over row chunks on
+// the tensor cores in 3xTF32 (csrc/tf32x3.cuh).  The rows go in chunks of R
+// (whole images in the attention modes; kernels/fused_layer.py,
+// layer_chunk_rows), and each chunk runs, one launch after another on the
+// caller's stream:
+//
+// - LN1 (ln_rows, a warp a row) into xn;
+// - q|k|v = xn Wqkv + bqkv on chunk_gemm (csrc/chunk_gemm.cuh, the training
+//   MLP's GEMM kernel: 128 x 192 tiles, A as stored, W^T split by the
+//   wrapper once per model), q pre-scaled by 1/sqrt(Dh) in the packing;
+// - attention per (image, head) on the 3xTF32 flash forward
+//   (csrc/flash_attention.cu, launch_flash_attention_ld), T = t_pad queries
+//   over S = t_real keys, read from the packed q|k|v rows (row stride 3 HD):
+//   keys past t_real get p = 0 and the padded query rows carry junk, as on
+//   the TPU;
+// - the out projection, its bias and the residual x in chunk_gemm's
+//   epilogue, into y (mode ATTN) or into the chunk's z (ATTN|MLP);
+// - LN2 of z (or of x) into xn; fc1 with GELU in the epilogue into the
+//   chunk's hidden (over q|k|v and o, dead by then); fc2, its bias and the
+//   residual into y.
+//
+// Every product is done once, f32-accurate (three TF32 products, the small
+// terms first); the (R, 3 HD) q|k|v, (R, HD) o and (R, hidden) hidden of a
+// chunk go through device memory (mostly L2).  R is chosen so that the
+// narrow products (E columns: the out projection and fc2) fill the SMs with
+// whole tiles: 132 x 128 x 192 / E rows, rounded down to whole images.
+//
+// Mode 7 (namespace q8), the int8 layer on f32 x: one block per image (a
+// segment of rows) and the phases in turn, separated by __syncthreads(): LN1
+// and its per-row quantisation; the packed q/k/v projection; the attention
+// of one head at a time with that head's K^T and V for the image in shared
+// memory (f32 FMA, 136 KB at t_pad 200, so one block an SM), query tiles of
+// 32 rows and a whole-row softmax; the out projection plus the residual;
+// LN2; the MLP as two products.  The products run on the tensor cores (wmma
+// 16x16x16 int8 -> int32, 64x128 tiles, operands staged with cp.async in
+// two stages).  The per-image intermediates (q/k/v, the attention output, z
+// in f32, the LN and hidden rows and their int8 form) go through a
+// workspace in device memory, one slot per resident block, which the
+// wrapper allocates; a block walks the images blockIdx.x, blockIdx.x +
+// gridDim.x, ...  Weights come quantised per column from the wrapper; rows
+// are quantised here per row (amax clamped at 1e-6, q = rint(v * (127 /
+// amax)) clipped to +-127), and the epilogue is ((acc * sx) * sw) + b.
+//
+// Both: every value is f32, so the JAX kernels' rounding points to x's type
+// are no-ops here.  GELU is the Abramowitz-Stegun form of `_gelu_exact`
+// (kernels/fused_mlp.py:33-49).  Keys at or past t_real are masked; padded
+// query rows carry junk, as on the TPU.  Every offset that multiplies a row
+// index is 64-bit.
 //
 // Limits (fused_layer.py states them for the router): Dh 64; E, H * Dh and
-// the hidden width multiples of 64; t_pad a multiple of 8 whose attention
-// phase fits 227 KB (t_pad <= 344).
+// the hidden width multiples of 64; t_pad a multiple of 8; in mode 7 the
+// attention phase must fit 227 KB (t_pad <= 344).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "chunk_gemm.cuh"
+
+// csrc/flash_attention.cu
+extern "C" int launch_flash_attention_ld(const float* q, const float* k, const float* v, float* o,
+                                         float* lse, int B, int T, int S, int s_rows, int H,
+                                         int Dh, int ld, float scale, cudaStream_t stream);
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TM = 64, TN = 64, TK = 32;  // product tile
-constexpr int APAD = TM + 4;              // row length of the transposed A tile
-constexpr int DH = 64;                    // head dim
-constexpr int QT = 32;                    // query rows per attention tile
-constexpr float NEG_INF = -1e30f;
+constexpr int DH = 64;  // head dim
 constexpr int MODE_ATTN = 1, MODE_MLP = 2, MODE_Q8 = 4;
-
-using namespace nvcuda;
 
 // `_gelu_exact`: x * 0.5 * (1 + erf(x / sqrt 2)), A&S 7.1.26 erf
 __device__ __forceinline__ float gelu_as(float x) {
@@ -89,55 +117,161 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The f32 products: 64x64 output tiles, 4x4 outputs a thread, A (transposed)
-// and B tiles of depth TK staged in shared memory, FMA sums (true f32).
-template <class Epi>
-__device__ void gemm_fma(const float* __restrict__ A, long lda, int rows,
-                         const float* __restrict__ B, long ldb, int K, int N, float* smem,
-                         Epi epi) {
-  float* As = smem;              // [TK][APAD]  A tile, transposed
-  float* Bs = smem + TK * APAD;  // [TK][TN]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int m0 = 0; m0 < rows; m0 += TM) {
-    for (int n0 = 0; n0 < N; n0 += TN) {
-      float acc[4][4];
+// ---------------------------------------------------------------------------
+// Modes 1-3: products over row chunks in 3xTF32
+// ---------------------------------------------------------------------------
+
+namespace f32layer {
+
+using namespace cgemm;
+
+// What a tile's epilogue writes into `out` (rows r < rows of the chunk,
+// columns c < N; b the job's bias, res its residual rows):
+// - L_QKV   acc + b           q | k | v (q's kernel and bias pre-scaled)
+// - L_OUT   (res + b) + acc   the out projection and the residual
+// - L_GELU  GELU(acc + b)     fc1
+// - L_FC2   res + (acc + b)   fc2 and the residual
+enum { L_QKV = 0, L_OUT = 1, L_GELU = 2, L_FC2 = 3 };
+
+struct LayerParams {
+  Job job[MAX_JOBS];
+  int jobs;
+  const float* bias;  // (N)
+  const float* res;   // (rows, N): L_OUT, L_FC2
+  float* out;         // (rows, N)
+  int rows, N;
+};
+
+// Each pass over JB columns j issues all its loads before it uses any (with
+// 8 warps an SM, a load used at once stalls for the whole of its latency).
+constexpr int JB = 8;
+
+__device__ __forceinline__ void epilogue(const LayerParams& p, int epi, int, int mb, int nb,
+                                         const float (&acc)[BN / 2]) {
+  const long N = p.N;
+  const bool res = epi == L_OUT || epi == L_FC2;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int j0 = 0; j0 < BN / 8; j0 += JB) {
+    float2 bias[JB], old[JB][2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += TK) {
-        __syncthreads();  // the previous tile consumed
-        for (int i = threadIdx.x; i < TM * TK; i += THREADS) {
-          const int r = i / TK, c = i % TK;
-          As[c * APAD + r] = m0 + r < rows ? A[(long)(m0 + r) * lda + k0 + c] : 0.f;
-        }
-        for (int i = threadIdx.x; i < TK * TN; i += THREADS) {
-          const int r = i / TN, c = i % TN;
-          Bs[r * TN + c] = B[(long)(k0 + r) * ldb + n0 + c];
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < TK; ++kk) {
-          const float4 a = *reinterpret_cast<const float4*>(As + kk * APAD + 4 * ty);
-          const float4 b = *reinterpret_cast<const float4*>(Bs + kk * TN + 4 * tx);
-          const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    for (int jj = 0; jj < JB; ++jj) {
+      const int col = nb + 8 * (j0 + jj);
+      const bool in = col < p.N;
+      bias[jj] = in ? *reinterpret_cast<const float2*>(p.bias + col) : make_float2(0.f, 0.f);
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const long r = mb + 8 * e2;
+        old[jj][e2] = res && in && r < p.rows
+                          ? *reinterpret_cast<const float2*>(p.res + r * N + col)
+                          : make_float2(0.f, 0.f);
       }
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = m0 + 4 * ty + i;
-        if (r < rows) {
+    for (int jj = 0; jj < JB; ++jj) {
+      const int j = j0 + jj, col = nb + 8 * j;
+      if (col >= p.N) continue;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) epi(r, n0 + 4 * tx + j, acc[i][j]);
-        }
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const long r = mb + 8 * e2;
+        if (r >= p.rows) continue;
+        const float a0 = acc[4 * j + 2 * e2], a1 = acc[4 * j + 2 * e2 + 1];
+        const float2 b = bias[jj], o = old[jj][e2];
+        float2 v;
+        if (epi == L_QKV)
+          v = make_float2(a0 + b.x, a1 + b.y);
+        else if (epi == L_OUT)
+          v = make_float2((o.x + b.x) + a0, (o.y + b.y) + a1);
+        else if (epi == L_GELU)
+          v = make_float2(gelu_as(a0 + b.x), gelu_as(a1 + b.y));
+        else
+          v = make_float2(o.x + (a0 + b.x), o.y + (a1 + b.y));
+        *reinterpret_cast<float2*>(p.out + r * N + col) = v;
       }
     }
   }
 }
+
+// LayerNorm of rows [0, rows) of x (E floats a row, E a multiple of 4) into
+// out, one warp a row, as `_layer_norm_rows`: the mean, then the mean of the
+// squared deviations, then ((x - mean) * rsqrt(var + eps)) * gamma + beta.
+// Each pass reads the row again (from L1).
+constexpr int LN_THREADS = 256;
+
+__global__ void __launch_bounds__(LN_THREADS) ln_rows(const float* __restrict__ x, int rows, int E,
+                                                      const float* __restrict__ g,
+                                                      const float* __restrict__ b, float eps,
+                                                      float* __restrict__ out) {
+  const long r = ((long)blockIdx.x * LN_THREADS + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const float4* xr = reinterpret_cast<const float4*>(x + r * E);
+  float s = 0.f;
+  for (int c = lane; c < E / 4; c += 32) {
+    const float4 v = xr[c];
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+  const float mu = warp_sum(s) / (float)E;
+  float q = 0.f;
+  for (int c = lane; c < E / 4; c += 32) {
+    const float4 v = xr[c];
+    const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+    q += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+  }
+  const float rs = 1.f / sqrtf(warp_sum(q) / (float)E + eps);
+  float4* orow = reinterpret_cast<float4*>(out + r * E);
+  for (int c = lane; c < E / 4; c += 32) {
+    const float4 v = xr[c];
+    const float4 gg = reinterpret_cast<const float4*>(g)[c];
+    const float4 bb = reinterpret_cast<const float4*>(b)[c];
+    orow[c] = make_float4(__fadd_rn(__fmul_rn(__fmul_rn(v.x - mu, rs), gg.x), bb.x),
+                          __fadd_rn(__fmul_rn(__fmul_rn(v.y - mu, rs), gg.y), bb.y),
+                          __fadd_rn(__fmul_rn(__fmul_rn(v.z - mu, rs), gg.z), bb.z),
+                          __fadd_rn(__fmul_rn(__fmul_rn(v.w - mu, rs), gg.w), bb.w));
+  }
+}
+
+int layer_norm(const float* x, int rows, int E, const float* g, const float* b, float eps,
+               float* out, cudaStream_t stream) {
+  const long threads = 32L * rows;
+  ln_rows<<<(unsigned)((threads + LN_THREADS - 1) / LN_THREADS), LN_THREADS, 0, stream>>>(
+      x, rows, E, g, b, eps, out);
+  return (int)cudaGetLastError();
+}
+
+// One product on `rows` rows of A (K floats a row) against the split W^T
+// whose map P.job[0].b holds (N rows), its epilogue `epi` into out.
+int product(LayerParams& P, int epi, const float* a, int rows, int K, int N, const float* bias,
+            const float* res, float* out, cudaStream_t stream) {
+  int rc = map_a(&P.job[0].a, a, K, rows, K);
+  if (rc != 0) return rc;
+  set_job(P.job[0], epi, (rows + BM - 1) / BM, (N + BN - 1) / BN, K / BK);
+  P.jobs = 1, P.bias = bias, P.res = res, P.out = out, P.rows = rows, P.N = N;
+  return launch(P, stream);
+}
+
+// Floats of the workspace for chunks of R rows (kernels/fused_layer.py,
+// workspace_bytes): xn (R, E); in ATTN|MLP z (R, E); then the wide region:
+// q|k|v (R, 3 HD) and o (R, HD) in the attention modes, the MLP's hidden
+// (R, hidden) over them.
+long workspace_floats(int mode, long R, int E, int HD, int hidden) {
+  const bool attn = mode & MODE_ATTN, mlp = mode & MODE_MLP;
+  const long wide = attn ? 4L * HD : 0, hid = mlp ? (long)hidden : 0;
+  return R * ((attn && mlp ? 2L : 1L) * E + (wide > hid ? wide : hid));
+}
+
+}  // namespace f32layer
+
+// ---------------------------------------------------------------------------
+// Mode 7: the int8 layer, one block per image
+// ---------------------------------------------------------------------------
+
+namespace q8 {
+
+using namespace nvcuda;
+
+constexpr int THREADS = 256;
+constexpr int QT = 32;                    // query rows per attention tile
+constexpr float NEG_INF = -1e30f;
 
 // 16-byte asynchronous copy global -> shared; zero-fills when !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -267,17 +401,14 @@ __device__ void gemm_mma(const int8_t* __restrict__ A, long lda, int rows,
   }
 }
 
-// C = A B over `rows` rows: A (rows, K) row-major with row stride lda, B (K, N)
-// row-major with row stride ldb; K and N multiples of 64, and for int8 the
+// C = A B over `rows` rows: A (rows, K) int8 row-major with row stride lda,
+// B (K, N) row-major with row stride ldb; K and N multiples of 64, the
 // strides multiples of 16 bytes.  For each output (r, c) with r < rows calls
-// epi(r, c, acc): acc is f32, or int32 for int8 operands.
-template <typename T, class Epi>
-__device__ void gemm(const T* __restrict__ A, long lda, int rows, const T* __restrict__ B,
-                     long ldb, int K, int N, float* smem, Epi epi) {
-  if constexpr (std::is_same<T, float>::value)
-    gemm_fma(A, lda, rows, B, ldb, K, N, smem, epi);
-  else
-    gemm_mma(A, lda, rows, B, ldb, K, N, reinterpret_cast<char*>(smem), epi);
+// epi(r, c, acc) with the int32 sum.
+template <class Epi>
+__device__ void gemm(const int8_t* __restrict__ A, long lda, int rows, const int8_t* __restrict__ B,
+                     long ldb, int K, int N, char* smem, Epi epi) {
+  gemm_mma(A, lda, rows, B, ldb, K, N, smem, epi);
   __syncthreads();  // outputs visible to the block, shared memory free
 }
 
@@ -423,8 +554,6 @@ size_t attention_smem_bytes(int Tp) {
   return sizeof(float) * ((size_t)2 * DH * Tp + (size_t)QT * Tp + DH * QT + QT);
 }
 
-constexpr size_t FMA_SMEM = sizeof(float) * (TK * APAD + TK * TN);
-
 __host__ __device__ inline size_t align256(size_t b) { return (b + 255) / 256 * 256; }
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
@@ -435,40 +564,37 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw, float b) {
 }
 
 // Byte offsets of the regions of one workspace slot (fused_layer.py mirrors
-// this in `workspace_bytes`).
+// this in `q8_slot_bytes`).
 struct Layout {
-  size_t xn, qkv, o, z, hid, f, aq, sa, total;
+  size_t qkv, o, z, f, aq, sa, total;
 };
 
-__host__ __device__ inline Layout layout(int seg, int E, int HD, int hidden, bool q8) {
+__host__ __device__ inline Layout layout(int seg, int E, int HD, int hidden) {
   const size_t s = (size_t)seg;
   Layout L;
-  L.xn = 0;                                    // xn, then zn
-  L.qkv = L.xn + align256(s * E * 4);          // q | k | v
-  L.o = L.qkv + align256(s * 3 * HD * 4);      // attention output
-  L.z = L.o + align256(s * HD * 4);            // z
-  L.hid = L.z + align256(s * E * 4);           // MLP hidden
-  L.f = L.hid + align256(s * hidden * 4);      // int8 mode: LN or hidden
-  const int wmax = imax(imax(E, HD), hidden);
-  L.aq = L.f + (q8 ? align256(s * imax(E, hidden) * 4) : 0);  // quantised rows
-  L.sa = L.aq + (q8 ? align256(s * wmax) : 0);               // their scales
-  L.total = L.sa + (q8 ? align256(s * 4) : 0);
+  L.qkv = 0;                                             // q | k | v
+  L.o = L.qkv + align256(s * 3 * HD * 4);                // attention output
+  L.z = L.o + align256(s * HD * 4);                      // z
+  L.f = L.z + align256(s * E * 4);                       // LN or hidden rows
+  L.aq = L.f + align256(s * imax(E, hidden) * 4);        // quantised rows
+  L.sa = L.aq + align256(s * imax(imax(E, HD), hidden));  // their scales
+  L.total = L.sa + align256(s * 4);
   return L;
 }
 
 struct Args {
-  const void* x;
-  void* y;
+  const float* x;
+  float* y;
   char* ws;
   const float *g1, *be1;
-  const void* wqkv;
+  const int8_t* wqkv;
   const float *sqkv, *bqkv;
-  const void* wo;
+  const int8_t* wo;
   const float *so, *bo;
   const float *g2, *be2;
-  const void* w1;
+  const int8_t* w1;
   const float *s1, *b1;
-  const void* w2;
+  const int8_t* w2;
   const float *s2, *b2;
   long n_rows;
   int seg, t_real, E, H, hidden;
@@ -476,116 +602,66 @@ struct Args {
 };
 
 // At most 128 registers a thread, so that two blocks share an SM.
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, 2) fused_layer(Args a) {
+__global__ void __launch_bounds__(THREADS, 2) fused_layer_q8(Args a) {
   extern __shared__ __align__(16) float smem[];
-  constexpr bool ATTN = MODE & MODE_ATTN, MLP = MODE & MODE_MLP, Q8 = MODE & MODE_Q8;
-  typedef typename std::conditional<Q8, int8_t, float>::type W;  // weight type
   const int E = a.E, HD = a.H * DH, HID = a.hidden;
-  const Layout L = layout(a.seg, E, HD, HID, Q8);
+  const Layout L = layout(a.seg, E, HD, HID);
   char* ws = a.ws + (size_t)blockIdx.x * L.total;
-  float* xn = reinterpret_cast<float*>(ws + L.xn);
   float* qkv = reinterpret_cast<float*>(ws + L.qkv);
   float* o = reinterpret_cast<float*>(ws + L.o);
   float* z = reinterpret_cast<float*>(ws + L.z);
-  float* hid = reinterpret_cast<float*>(ws + L.hid);
   float* f = reinterpret_cast<float*>(ws + L.f);
   int8_t* aq = reinterpret_cast<int8_t*>(ws + L.aq);
   float* sa = reinterpret_cast<float*>(ws + L.sa);
-  const W* wqkv = static_cast<const W*>(a.wqkv);
-  const W* wo = static_cast<const W*>(a.wo);
-  const W* w1 = static_cast<const W*>(a.w1);
-  const W* w2 = static_cast<const W*>(a.w2);
+  char* sm = reinterpret_cast<char*>(smem);
 
   const long nseg = (a.n_rows + a.seg - 1) / a.seg;
   for (long sg = blockIdx.x; sg < nseg; sg += gridDim.x) {
     const long base = sg * a.seg;
     const int rows = (int)(a.n_rows - base < a.seg ? a.n_rows - base : a.seg);
-    const float* x = static_cast<const float*>(a.x) + base * E;
-    float* y = static_cast<float*>(a.y) + base * E;
+    const float* x = a.x + base * E;
+    float* y = a.y + base * E;
 
-    if constexpr (ATTN) {
-      if constexpr (Q8) {
-        layer_norm_rows(x, rows, E, a.g1, a.be1, a.eps, f);
-        quant_rows(f, rows, E, aq, sa);
-        gemm(aq, E, rows, wqkv, 3 * HD, E, 3 * HD, smem, [&](int r, int c, int acc) {
-          qkv[(long)r * 3 * HD + c] = (dequant(acc, sa[r], a.sqkv[c], a.bqkv[c]));
-        });
-      } else {
-        layer_norm_rows(x, rows, E, a.g1, a.be1, a.eps, xn);
-        gemm(xn, E, rows, wqkv, 3 * HD, E, 3 * HD, smem, [&](int r, int c, float acc) {
-          qkv[(long)r * 3 * HD + c] = (acc + a.bqkv[c]);
-        });
-      }
-      attention(qkv, HD, a.H, rows, a.t_real, o, smem);
-      if constexpr (Q8) {
-        quant_rows(o, rows, HD, aq, sa);
-        gemm(aq, HD, rows, wo, E, HD, E, smem, [&](int r, int c, int acc) {
-          const long i = (long)r * E + c;
-          z[i] = x[i] + dequant(acc, sa[r], a.so[c], a.bo[c]);
-        });
-      } else {
-        gemm(o, HD, rows, wo, E, HD, E, smem, [&](int r, int c, float acc) {
-          const long i = (long)r * E + c;
-          const float v = x[i] + a.bo[c] + acc;
-          if constexpr (MLP)
-            z[i] = v;
-          else
-            y[i] = (v);
-        });
-      }
-    }
+    layer_norm_rows(x, rows, E, a.g1, a.be1, a.eps, f);
+    quant_rows(f, rows, E, aq, sa);
+    gemm(aq, E, rows, a.wqkv, 3 * HD, E, 3 * HD, sm, [&](int r, int c, int acc) {
+      qkv[(long)r * 3 * HD + c] = (dequant(acc, sa[r], a.sqkv[c], a.bqkv[c]));
+    });
+    attention(qkv, HD, a.H, rows, a.t_real, o, smem);
+    quant_rows(o, rows, HD, aq, sa);
+    gemm(aq, HD, rows, a.wo, E, HD, E, sm, [&](int r, int c, int acc) {
+      const long i = (long)r * E + c;
+      z[i] = x[i] + dequant(acc, sa[r], a.so[c], a.bo[c]);
+    });
 
-    if constexpr (MLP) {
-      // the residual: z (f32) after the attention sublayer, else x
-      auto res = [&](long i) { return ATTN ? z[i] : x[i]; };
-      if constexpr (Q8) {
-        layer_norm_rows(z, rows, E, a.g2, a.be2, a.eps, f);
-        quant_rows(f, rows, E, aq, sa);
-        gemm(aq, E, rows, w1, HID, E, HID, smem, [&](int r, int c, int acc) {
-          f[(long)r * HID + c] = gelu_as(dequant(acc, sa[r], a.s1[c], a.b1[c]));
-        });
-        quant_rows(f, rows, HID, aq, sa);
-        gemm(aq, HID, rows, w2, E, HID, E, smem, [&](int r, int c, int acc) {
-          const long i = (long)r * E + c;
-          y[i] = (res(i) + dequant(acc, sa[r], a.s2[c], a.b2[c]));
-        });
-      } else {
-        if constexpr (ATTN)
-          layer_norm_rows(z, rows, E, a.g2, a.be2, a.eps, xn);
-        else
-          layer_norm_rows(x, rows, E, a.g2, a.be2, a.eps, xn);
-        gemm(xn, E, rows, w1, HID, E, HID, smem, [&](int r, int c, float acc) {
-          hid[(long)r * HID + c] = (gelu_as(acc + a.b1[c]));
-        });
-        gemm(hid, HID, rows, w2, E, HID, E, smem, [&](int r, int c, float acc) {
-          const long i = (long)r * E + c;
-          y[i] = (res(i) + (acc + a.b2[c]));
-        });
-      }
-    }
+    layer_norm_rows(z, rows, E, a.g2, a.be2, a.eps, f);
+    quant_rows(f, rows, E, aq, sa);
+    gemm(aq, E, rows, a.w1, HID, E, HID, sm, [&](int r, int c, int acc) {
+      f[(long)r * HID + c] = gelu_as(dequant(acc, sa[r], a.s1[c], a.b1[c]));
+    });
+    quant_rows(f, rows, HID, aq, sa);
+    gemm(aq, HID, rows, a.w2, E, HID, E, sm, [&](int r, int c, int acc) {
+      const long i = (long)r * E + c;
+      y[i] = (z[i] + dequant(acc, sa[r], a.s2[c], a.b2[c]));
+    });
   }
 }
 
-template <int MODE>
 int launch(const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
-  const int HD = a.H * DH;
-  const Layout L = layout(a.seg, a.E, HD, a.hidden, MODE & MODE_Q8);
+  const Layout L = layout(a.seg, a.E, a.H * DH, a.hidden);
   if (L.total != ws_bytes) return (int)cudaErrorInvalidValue;
-  size_t smem = (MODE & MODE_Q8) ? MMA_SMEM : FMA_SMEM;
-  if (MODE & MODE_ATTN) {
-    const size_t att = attention_smem_bytes(a.seg);
-    if (att > smem) smem = att;
-  }
+  size_t smem = MMA_SMEM;
+  const size_t att = attention_smem_bytes(a.seg);
+  if (att > smem) smem = att;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(fused_layer<MODE>,
+  cudaError_t err = cudaFuncSetAttribute(fused_layer_q8,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_layer<MODE>, THREADS,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_layer_q8, THREADS,
                                                            smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -593,31 +669,20 @@ int launch(const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
   long grid = (long)per_sm * sms;
   if (grid > slots) grid = slots;
   if (grid > nseg) grid = nseg;
-  fused_layer<MODE><<<(unsigned)grid, THREADS, smem, stream>>>(a);
+  fused_layer_q8<<<(unsigned)grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int launch_mode(int mode, const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
-  switch (mode) {
-    case MODE_ATTN: return launch<MODE_ATTN>(a, slots, ws_bytes, stream);
-    case MODE_MLP: return launch<MODE_MLP>(a, slots, ws_bytes, stream);
-    case MODE_ATTN | MODE_MLP:
-      return launch<MODE_ATTN | MODE_MLP>(a, slots, ws_bytes, stream);
-    case MODE_ATTN | MODE_MLP | MODE_Q8:
-      return launch<MODE_ATTN | MODE_MLP | MODE_Q8>(a, slots, ws_bytes, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+}  // namespace q8
 
 }  // namespace
 
-// One launch of the f32 fused layer in `mode` (1 ATTN, 2 MLP, 3 ATTN|MLP, 7
-// with int8) on `n_rows` rows of x, in segments of `seg` rows (an image of
-// t_pad rows for the attention modes).  Weights: wqkv (E, 3 HD) = [Wq /
-// sqrt(Dh) | Wk | Wv], wo (HD, E), w1 (E, hidden), w2 (hidden, E) in f32, or
-// int8 with per-column scales s* in mode 7; biases and LN parameters f32.
-// ws holds `slots` slots of `ws_bytes` each.  Returns a cudaError_t as int: 0
-// when the launch was accepted.
+// One launch of the int8 layer on f32 x (mode 7, the only mode this entry
+// takes) on `n_rows` rows of x, in segments of `seg` rows (an image of t_pad
+// rows).  Weights: wqkv (E, 3 HD) = [Wq / sqrt(Dh) | Wk | Wv], wo (HD, E), w1
+// (E, hidden), w2 (hidden, E) in int8 with per-column scales s*; biases and
+// LN parameters f32.  ws holds `slots` slots of `ws_bytes` each.  Returns a
+// cudaError_t as int: 0 when the launch was accepted.
 extern "C" int launch_fused_layer(int mode, const void* x, void* y, void* ws,
                                   int slots, long long ws_bytes, const float* g1,
                                   const float* be1, const void* wqkv, const float* sqkv,
@@ -627,10 +692,95 @@ extern "C" int launch_fused_layer(int mode, const void* x, void* y, void* ws,
                                   const void* w2, const float* s2, const float* b2,
                                   long long n_rows, int seg, int t_real, int E, int H,
                                   int hidden, float eps, cudaStream_t stream) {
-  if (n_rows <= 0 || seg <= 0 || slots <= 0 || E % 64 || (H * DH) % 64 || hidden % 64 ||
-      ((mode & MODE_ATTN) && (seg % 8 || t_real <= 0 || t_real > seg || n_rows % seg)))
+  if (mode != (MODE_ATTN | MODE_MLP | MODE_Q8) || n_rows <= 0 || seg <= 0 || slots <= 0 ||
+      E % 64 || (H * DH) % 64 || hidden % 64 || seg % 8 || t_real <= 0 || t_real > seg ||
+      n_rows % seg)
     return (int)cudaErrorInvalidValue;
-  Args a{x, y, static_cast<char*>(ws), g1, be1, wqkv, sqkv, bqkv, wo, so, bo, g2, be2,
-         w1, s1, b1, w2, s2, b2, (long)n_rows, seg, t_real, E, H, hidden, eps};
-  return launch_mode(mode, a, slots, (size_t)ws_bytes, stream);
+  using I8 = const int8_t*;
+  q8::Args a{static_cast<const float*>(x), static_cast<float*>(y), static_cast<char*>(ws), g1, be1,
+             static_cast<I8>(wqkv), sqkv, bqkv, static_cast<I8>(wo), so, bo, g2, be2,
+             static_cast<I8>(w1), s1, b1, static_cast<I8>(w2), s2, b2, (long)n_rows, seg, t_real,
+             E, H, hidden, eps};
+  return q8::launch(a, slots, (size_t)ws_bytes, stream);
+}
+
+// The products' kernel of `mode` (1, 2 or 3; chunk_gemm with the layer's
+// epilogue, one kernel for the three): its registers a thread, its local
+// memory a thread (stack and spills), its dynamic shared memory and the
+// blocks an SM holds.  Returns a cudaError_t as int.
+extern "C" int fused_layer_tf32x3_info(int mode, int* regs, int* local, int* smem,
+                                       int* blocks) {
+  if (mode != MODE_ATTN && mode != MODE_MLP && mode != (MODE_ATTN | MODE_MLP))
+    return (int)cudaErrorInvalidValue;
+  return cgemm::info<f32layer::LayerParams>(regs, smem, blocks, local);
+}
+
+// The f32 layer in `mode` (1 ATTN, 2 MLP, 3 ATTN|MLP) on `n_rows` rows of x,
+// in chunks of R rows (whole images of t_pad rows in the attention modes, a
+// multiple of 128 in mode 2).  Weights as the wrapper packs them, once per
+// model: every W^T split into TF32 big and small halves, (2, N, K): wqkv
+// (2, 3 HD, E) from [Wq / sqrt(Dh) | Wk | Wv], wo (2, E, HD), w1 (2,
+// hidden, E), w2 (2, E, hidden); biases (bqkv pre-scaled as Wq) and LN
+// parameters f32.  ws holds ws_floats floats (f32layer::workspace_floats).
+// x, y and ws 16-byte aligned.  Returns a cudaError_t as int (or 1000 + a
+// CUresult from encoding a tensor map): 0 when every launch was accepted.
+extern "C" int launch_fused_layer_tf32x3(int mode, const float* x, float* y, float* ws,
+                                         long long ws_floats, int R, const float* g1,
+                                         const float* be1, const float* wqkv,
+                                         const float* bqkv, const float* wo, const float* bo,
+                                         const float* g2, const float* be2, const float* w1,
+                                         const float* b1, const float* w2, const float* b2,
+                                         long long n_rows, int t_pad, int t_real, int E, int H,
+                                         int hidden, float eps, cudaStream_t stream) {
+  using namespace f32layer;
+  const bool attn = mode & MODE_ATTN, mlp = mode & MODE_MLP;
+  const int HD = H * DH;
+  if ((mode != MODE_ATTN && mode != MODE_MLP && mode != (MODE_ATTN | MODE_MLP)) ||
+      n_rows <= 0 || R <= 0 || E % 64 || HD % 64 || hidden % 64 ||
+      !aligned(x) || !aligned(y) || !aligned(ws) ||
+      (attn && (t_pad % 8 || t_real <= 0 || t_real > t_pad || n_rows % t_pad || R % t_pad)) ||
+      (!attn && R % BM) || ws_floats != workspace_floats(mode, R, E, HD, hidden))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<LayerParams>();
+  if (err != cudaSuccess) return (int)err;
+  float* xn = ws;
+  float* z = xn + (long)R * E;                 // ATTN|MLP
+  float* wide = z + (attn && mlp ? (long)R * E : 0);
+  float* qkv = wide;
+  float* o = qkv + (long)R * 3 * HD;
+  float* hid = wide;
+  // the weights' maps, the same for every chunk
+  LayerParams Pqkv, Po, P1, P2;
+  memset(&Pqkv, 0, sizeof(LayerParams));
+  Po = P1 = P2 = Pqkv;
+  int rc = 0;
+  if (attn) {
+    rc = map_b(&Pqkv.job[0].b, wqkv, E, 3 * HD, E, 3L * HD * E);
+    if (rc == 0) rc = map_b(&Po.job[0].b, wo, HD, E, HD, (long)E * HD);
+  }
+  if (mlp && rc == 0) {
+    rc = map_b(&P1.job[0].b, w1, E, hidden, E, (long)hidden * E);
+    if (rc == 0) rc = map_b(&P2.job[0].b, w2, hidden, E, hidden, (long)E * hidden);
+  }
+  for (long r0 = 0; r0 < n_rows && rc == 0; r0 += R) {
+    const int rows = (int)(n_rows - r0 < R ? n_rows - r0 : R);
+    const float* xc = x + r0 * E;
+    float* yc = y + r0 * E;
+    const float* src = xc;  // the MLP's input and residual
+    if (attn) {
+      rc = layer_norm(xc, rows, E, g1, be1, eps, xn, stream);
+      if (rc == 0) rc = product(Pqkv, L_QKV, xn, rows, E, 3 * HD, bqkv, nullptr, qkv, stream);
+      if (rc == 0)
+        rc = launch_flash_attention_ld(qkv, qkv + HD, qkv + 2 * HD, o, nullptr, rows / t_pad,
+                                       t_pad, t_real, t_pad, H, DH, 3 * HD, 1.f, stream);
+      if (rc == 0) rc = product(Po, L_OUT, o, rows, HD, E, bo, xc, mlp ? z : yc, stream);
+      src = z;
+    }
+    if (mlp && rc == 0) {
+      rc = layer_norm(src, rows, E, g2, be2, eps, xn, stream);
+      if (rc == 0) rc = product(P1, L_GELU, xn, rows, E, hidden, b1, nullptr, hid, stream);
+      if (rc == 0) rc = product(P2, L_FC2, hid, rows, hidden, E, b2, src, yc, stream);
+    }
+  }
+  return rc;
 }

@@ -68,8 +68,9 @@
 // flops where 10 suffice).  A 1,024-row chunk of h in f32 is 12.6 MB, so
 // at these widths the hidden goes through device memory (mostly L2) and
 // every product is done once, as a tile of a generic 3xTF32 GEMM kernel
-// (chunk_gemm: C = A B^T, 128 x 192 tiles, A as stored, B split, both
-// K-major through a TMA ring; its epilogue picks what the tile is for):
+// (chunk_gemm, csrc/chunk_gemm.cuh, which the f32 ViT layer shares: C = A
+// B^T, 128 x 192 tiles, A as stored, B split, both K-major through a TMA
+// ring; the epilogue of this file picks what the tile is for):
 //
 // - forward, per chunk of 132 x 128 x 192 / D rows: both masks as bits
 //   (mask_bits), h = Drop1(GELU(x W1 + b1)) into an (R, Hd) hidden, y =
@@ -101,6 +102,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "chunk_gemm.cuh"
 #include "philox.cuh"
 #include "tf32x3.cuh"
 
@@ -1371,26 +1373,11 @@ int launch_bwd(Params& P, const float* x, const float* dy, const float* pk, cuda
 
 namespace chunk {
 
-using namespace tf32x3;
+using namespace cgemm;
 using bwd::gelu_both;
 using bwd::word;
 using philox::mask_words;
 
-constexpr int BM = 128;                            // rows of a tile: two warpgroups of 64
-constexpr int BN = 192;                            // columns of a tile
-constexpr int BK = 32;                             // K of a stage: one 128-byte atom of f32
-constexpr int THREADS = 256;
-constexpr int A_BYTES = BM * BK * 4;               // A's box as stored, 16 KB
-constexpr int B_BYTES = BN * BK * 4;               // B's big or small box, 24 KB
-constexpr int STAGE = A_BYTES + 2 * B_BYTES;       // 64 KB
-constexpr int NSTAGE = 3;
-constexpr int SMALL_BYTES = A_BYTES / 2;           // a warpgroup's 64 rows of A's small half
-constexpr int ALIGN = 1024;                        // of the swizzled boxes
-constexpr int HEAD = 1024;                         // mbarriers
-// the ring, then two small-half buffers for each warpgroup: 231,424 bytes
-constexpr int SMEM = ALIGN + HEAD + NSTAGE * STAGE + 2 * 2 * SMALL_BYTES;
-static_assert(SMEM <= 232448, "shared memory");
-constexpr int MAX_JOBS = 3;
 constexpr int PREP = 32;                           // rows and columns of a prep block
 constexpr int DX_PARTS = 4;                        // dx's K (Hd) in parts, each a tile
 
@@ -1406,17 +1393,6 @@ constexpr int DX_PARTS = 4;                        // dx's K (Hd) in parts, each
 // - E_FH  (the forward's fc1): m chunk rows, n units.  h = GELU(a + b1) m1.
 // - E_FY  (the forward's fc2): m chunk rows, n columns.  y = (acc + b2) m2.
 enum { E_A = 0, E_DH = 1, E_DX = 2, E_DW1 = 3, E_DW2 = 4, E_FH = 5, E_FY = 6 };
-
-// One product C = A B^T of a launch: A as stored, f32 (K inner, M rows);
-// B split (K inner, N rows, big/small), both K-major as .tf32 wgmma reads
-// them; tiles of 128 x 192 in m-major order, K in stages of 32.
-struct Job {
-  CUtensorMap a;  // box 32 x 128
-  CUtensorMap b;  // box 32 x 192 x 1
-  int a_row0;     // A's row of the first tile row (E_FH: the chunk's first row of x)
-  int m_tiles, n_tiles, k_stages, epi;
-  int k_parts;    // K in parts of k_stages stages, each part its own tiles
-};
 
 struct Params {
   Job job[MAX_JOBS];
@@ -1557,130 +1533,6 @@ __device__ __forceinline__ void epilogue(const Params& p, int epi, int part, int
       }
     }
   }
-}
-
-// One 128 x 192 tile of one job a block: the two warpgroups take 64 rows
-// each and every column.  Thread 0 also fills a ring of NSTAGE stages by
-// TMA (A's box as stored, B's big and small boxes), up to NSTAGE stages
-// ahead, waiting for a slot only when the stage it needs next is not issued
-// yet; every warp releases each stage.  A warpgroup splits its 64 rows of
-// A in shared memory (split_a), so that every product reads both operands
-// from there, and takes the stages in pairs: it splits the next stage while
-// the last one's products run.  A pair's products (3 a k-step, 24) go into
-// a fresh accumulator added into the tile's with f32 adds (the tensor
-// cores truncate as they accumulate).
-__global__ void __launch_bounds__(THREADS, 1) chunk_gemm(const __grid_constant__ Params p) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
-  uint64_t* full = reinterpret_cast<uint64_t*>(base);
-  uint64_t* empty = full + NSTAGE;
-  uint8_t* stages = base + HEAD;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < NSTAGE; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], THREADS / 32);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  int tile = blockIdx.x, jn = 0;
-  while (jn + 1 < p.jobs && tile >= p.job[jn].m_tiles * p.job[jn].n_tiles * p.job[jn].k_parts) {
-    tile -= p.job[jn].m_tiles * p.job[jn].n_tiles * p.job[jn].k_parts;
-    ++jn;
-  }
-  const Job& jb = p.job[jn];
-  const int mt = tile % jb.m_tiles, nt = tile / jb.m_tiles % jb.n_tiles, nk = jb.k_stages;
-  const int part = tile / (jb.m_tiles * jb.n_tiles), k0 = BK * nk * part;
-  const int arow = jb.a_row0 + BM * mt, brow = BN * nt;
-  const int w = warpgroup();
-  const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int ra = 64 * w + 16 * wi + g;  // the thread's first row of A's box
-
-  int issued = 0;  // thread 0's count of stages issued
-  auto fill = [&](int need) {
-    if (threadIdx.x == 0) {
-      const int ahead = min(nk, need + NSTAGE);
-      while (issued < ahead) {
-        const int s = issued % NSTAGE, use = issued / NSTAGE;
-        if (use > 0) {
-          if (issued == need)
-            mbar_wait(&empty[s], (use - 1) & 1);
-          else if (!mbar_test(&empty[s], (use - 1) & 1))
-            break;
-        }
-        uint8_t* st = stages + s * STAGE;
-        mbar_expect_tx(&full[s], STAGE);
-        tma_3d(st, &jb.a, &full[s], k0 + BK * issued, arow, 0);
-        tma_3d(st + A_BYTES, &jb.b, &full[s], k0 + BK * issued, brow, 0);
-        tma_3d(st + A_BYTES + B_BYTES, &jb.b, &full[s], k0 + BK * issued, brow, 1);
-        ++issued;
-      }
-    }
-    __syncwarp();
-  };
-
-  // Stage u's A rows of this warpgroup, split once they have arrived: the
-  // big half over the box in place, the small half into the warpgroup's
-  // buffer u % 2 (the same swizzled positions: the split maps each 16-byte
-  // chunk to itself).
-  uint8_t* smalls = stages + NSTAGE * STAGE + w * 2 * SMALL_BYTES;
-  auto split_a = [&](int u) {
-    fill(u);
-    mbar_wait(&full[u % NSTAGE], (u / NSTAGE) & 1);
-    uint8_t* box = stages + (u % NSTAGE) * STAGE + w * SMALL_BYTES;
-    uint8_t* small = smalls + (u & 1) * SMALL_BYTES;
-#pragma unroll
-    for (int q = tid; q < SMALL_BYTES / 16; q += 128) {
-      float4* at = reinterpret_cast<float4*>(box + 16 * q);
-      const float4 v = *at;
-      float4 b, sm;
-      split(v.x, b.x, sm.x), split(v.y, b.y, sm.y), split(v.z, b.z, sm.z), split(v.w, b.w, sm.w);
-      *at = b;
-      *reinterpret_cast<float4*>(small + 16 * q) = sm;
-    }
-    fence_proxy_shared();
-    bar_sync(1 + w, 128);
-  };
-  auto products = [&](int u, float(&d)[BN / 2]) {
-    const uint8_t* st = stages + (u % NSTAGE) * STAGE;
-    wg_fence();
-    mma3_ss<BN, 4>(d, desc_sw128(st + w * SMALL_BYTES), desc_sw128(smalls + (u & 1) * SMALL_BYTES),
-                   BM / 2, desc_sw128(st + A_BYTES), desc_sw128(st + A_BYTES + B_BYTES), BN);
-    wg_commit();
-  };
-  auto release = [&](int u) {
-    if (lane == 0) mbar_arrive(&empty[u % NSTAGE]);
-  };
-
-  // Stages in pairs, a pair's products (six a k-step) into one fresh
-  // accumulator: the next stage's A is split while the last stage's
-  // products run, so that a warpgroup keeps the tensor cores fed.
-  float acc[BN / 2], fresh[BN / 2];
-  zero(acc);
-  split_a(0);
-  for (int u = 0; u < nk; u += 2) {
-    zero(fresh);
-    products(u, fresh);
-    if (u + 1 < nk) {
-      split_a(u + 1);
-      products(u + 1, fresh);
-      wg_wait<1>();
-    } else {
-      wg_wait<0>();
-    }
-    release(u);
-    if (u + 2 < nk) split_a(u + 2);  // its small buffer is stage u's, whose products are done
-    if (u + 1 < nk) {
-      wg_wait<0>();
-      release(u + 1);
-    }
-    fence_acc(fresh);
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] += fresh[i];
-  }
-  epilogue(p, jb.epi, part, BM * mt + ra, brow + 2 * t, acc);
 }
 
 // dst (cols, rows) = src (rows, cols)^T; with `split` the TF32 big half at
@@ -1870,57 +1722,11 @@ __global__ void chunk_combine(float* __restrict__ dat, float* __restrict__ ht,
   }
 }
 
-// A's map: (K inner, rows) f32 with ld floats between rows, box 32 x 128
-int map_a(CUtensorMap* m, const float* ptr, long k, long rows, long ld) {
-  const cuuint64_t d[3] = {(cuuint64_t)k, (cuuint64_t)rows, 1};
-  const cuuint64_t s[2] = {(cuuint64_t)ld * 4, (cuuint64_t)ld * rows * 4};
-  const cuuint32_t b[3] = {BK, BM, 1};
-  return encode_f32(m, ptr, 3, d, s, b);
-}
-
-// B's map: (K inner, rows, 2), the small half `half` floats after the big,
-// box 32 x 192 x 1
-int map_b(CUtensorMap* m, const float* ptr, long k, long rows, long ld, long half) {
-  const cuuint64_t d[3] = {(cuuint64_t)k, (cuuint64_t)rows, 2};
-  const cuuint64_t s[2] = {(cuuint64_t)ld * 4, (cuuint64_t)half * 4};
-  const cuuint32_t b[3] = {BK, BN, 1};
-  return encode_f32(m, ptr, 3, d, s, b);
-}
-
-void set_job(Job& j, int epi, int m_tiles, int n_tiles, int k_stages, int a_row0 = 0,
-             int k_parts = 1) {
-  j.epi = epi, j.m_tiles = m_tiles, j.n_tiles = n_tiles, j.k_stages = k_stages;
-  j.a_row0 = a_row0, j.k_parts = k_parts;
-}
-
-// the kernel's shared memory, set once for each device
-cudaError_t allow_smem() {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidValue;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(chunk_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    done[dev] = err == cudaSuccess;
-  }
-  return err;
-}
-
-int launch(const Params& P, cudaStream_t stream) {
-  int tiles = 0;
-  for (int j = 0; j < P.jobs; ++j) tiles += P.job[j].m_tiles * P.job[j].n_tiles * P.job[j].k_parts;
-  chunk_gemm<<<tiles, THREADS, SMEM, stream>>>(P);
-  return (int)cudaGetLastError();
-}
-
 // D and Hd are tiled by 128 and by 192; the chunk rows R by `rows`
 bool shapes_ok(int N, int D, int Hd, int R, int rows) {
   return N > 0 && (D == 384 || D == 768) && Hd > 0 && Hd % (3 * BM) == 0 && R > 0 &&
          R % rows == 0;
 }
-
-bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // The backward's second stream and its events, one set for each device,
 // made at the first call on it.
@@ -2013,17 +1819,7 @@ extern "C" int launch_fused_mlp_train_bwd(const float* x, const float* dy,
 // an SM holds.  Returns a cudaError_t as int.
 extern "C" int fused_mlp_train_chunked_info(int D, int* regs, int* smem, int* blocks) {
   if (D != 384 && D != 768) return (int)cudaErrorInvalidValue;
-  *smem = chunk::SMEM;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, chunk::chunk_gemm);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(chunk::chunk_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               chunk::SMEM);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, chunk::chunk_gemm, chunk::THREADS,
-                                                        chunk::SMEM);
-  *regs = attr.numRegs;
-  return (int)err;
+  return cgemm::info<chunk::Params>(regs, smem, blocks);
 }
 
 // The backward at D 384 and 768 over chunks of R rows (a multiple of 192).
@@ -2053,7 +1849,7 @@ extern "C" int launch_fused_mlp_train_bwd_chunked(const float* x, const float* d
     return (int)cudaErrorInvalidValue;
   Side* side = side_stream();
   if (side == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem();
+  cudaError_t err = allow_smem<Params>();
   if (err != cudaSuccess) return (int)err;
   cudaStream_t second = side->stream;
   const long DH = (long)D * Hd, RD = (long)R * D, RH = (long)R * Hd;
@@ -2167,7 +1963,7 @@ extern "C" int launch_fused_mlp_train_fwd_chunked(const float* x, const float* w
   using namespace chunk;
   if (!shapes_ok(N, D, Hd, R, BM) || !aligned(x) || !aligned(scratch))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem();
+  cudaError_t err = allow_smem<Params>();
   if (err != cudaSuccess) return (int)err;
   const long DH = (long)D * Hd;
   float* w1ts = scratch;

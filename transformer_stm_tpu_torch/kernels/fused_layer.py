@@ -2,7 +2,10 @@
 
 Ports of the Pallas TPU kernels of transformer_stm_tpu/kernels/fused_layer.py
 (``csrc/vit_layer_sm90.cu`` holds all four in bfloat16, on wgmma and TMA;
-``csrc/fused_layer.cu`` holds them in float32):
+``csrc/fused_layer.cu`` holds them in float32: the first three as 3xTF32
+``wgmma`` products over row chunks, ``chunk_gemm`` of ``csrc/chunk_gemm.cuh``
+with the flash forward of ``csrc/flash_attention.cu`` between them, the int8
+layer in its own one-block-an-image kernel):
 
 - ``attn_layer_infer`` (:200, ``_attn_layer_kernel`` :62):
   y = x + OutProj(MHA(LN1 x));
@@ -26,7 +29,8 @@ their TMA descriptors, are cached per layer until a parameter changes;
 Tensors on the CPU take the plain versions; tensors on a CUDA device launch
 the kernel, or raise: for shapes outside the CUDA design, for a token count
 whose attention phase overflows a block's shared memory
-(``FusedLayerSharedMemoryError``, which ``fused_layer_fits`` predicts), and
+(``FusedLayerSharedMemoryError``, which ``fused_layer_fits`` predicts; the
+float32 layer's attention is the flash forward, which takes any count), and
 while autograd records (the kernels have no backward).
 """
 
@@ -39,12 +43,18 @@ import weakref
 import torch
 
 from ..ops.common import erf_rational
-from ._build import library
+from ._build import aligned16, library
+from .fused_mlp import CHUNK_TILE_M, CHUNK_TILE_N, tf32_split
 
 HEAD_DIM = 64        # the attention phase's head dim
 TILE = 64            # E, H * Dh and the hidden width are multiples of this
-QUERY_TILE = 32      # query rows of an attention tile (f32 and int8 kernels)
+QUERY_TILE = 32      # query rows of an attention tile (the f32 int8 kernel)
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
+# csrc/flash_attention.cu, the float32 layer's attention: 1 KB of alignment,
+# 1 KB of barriers, q, K and V^T big and small (8 tiles of 16 KB) and two
+# raw K/V stages of 32 KB, whatever t_pad
+FLASH_FWD_SMEM = 2 * 1024 + 8 * 16_384 + 2 * 32_768
+SMS = 132            # SMs of the H100, for layer_chunk_rows off the card
 # csrc/vit_layer_sm90.cu: a ring of 3 stages of 56 KB and a 16 KB hidden
 # chunk, or Q, K and V of one head in 64-row tiles of 8 KB, beside 2 KB of
 # barriers and alignment
@@ -53,8 +63,7 @@ SM90_TILE_BYTES = 8_192
 SM90_EXTRA_BYTES = 2_048
 SM90_ROWS = 64       # rows of a tile of the bf16 layer
 TMA_MAP_BYTES = 128  # one CUtensorMap
-MLP_SEGMENT = 128    # rows a block takes at a time in ln_mlp_infer
-SLOTS_PER_SM = 2     # workspace slots a launch may use, per SM
+SLOTS_PER_SM = 2     # workspace slots per SM: the int8 layer on float32 x
 NEG_INF = -1e30
 MODE_ATTN, MODE_MLP, MODE_Q8 = 1, 2, 4
 
@@ -62,22 +71,27 @@ MODE_ATTN, MODE_MLP, MODE_Q8 = 1, 2, 4
 class FusedLayerSharedMemoryError(ValueError):
     """Raised when a fused layer kernel's attention phase needs more shared
     memory than one block may use on the card (``SMEM_LIMIT``, 227 KB on
-    Hopper), ``attention_smem_bytes``: past t_pad 344 in float32 and past
-    t_pad 576 in bfloat16, the int8 layer included.  ``fused_layer_fits``
+    Hopper), ``attention_smem_bytes``: past t_pad 576 in bfloat16, the int8
+    layer included, and past t_pad 344 for the int8 layer on float32 x.  The
+    float32 layer's attention fits at any t_pad.  ``fused_layer_fits``
     predicts it; callers route to the composable impl='small' path
     instead."""
 
 
-def attention_smem_bytes(t_pad: int, itemsize: int = 2) -> int:
+def attention_smem_bytes(t_pad: int, itemsize: int = 2,
+                         int8: bool = False) -> int:
     """Shared memory a block of the kernel that runs the attention at t_pad
-    needs.  float32 (``attention_smem_bytes`` of csrc/fused_layer.cu): K^T
-    and V of one head, a score tile and a query tile of ``QUERY_TILE`` rows
-    and their row sums, all f32.  bfloat16, the int8 layer too
-    (``smem_bytes`` of csrc/vit_layer_sm90.cu): the larger of the product
-    ring with its hidden chunk and Q, K and V of one head in 64-row tiles,
-    beside the barriers."""
+    needs.  float32: the flash forward (``FLASH_FWD_SMEM``), whatever t_pad;
+    the int8 layer on float32 x (``attention_smem_bytes`` of
+    csrc/fused_layer.cu) K^T and V of one head, a score tile and a query
+    tile of ``QUERY_TILE`` rows and their row sums, all f32.  bfloat16, the
+    int8 layer too (``smem_bytes`` of csrc/vit_layer_sm90.cu): the larger
+    of the product ring with its hidden chunk and Q, K and V of one head in
+    64-row tiles, beside the barriers."""
     qt = QUERY_TILE
     if itemsize == 4:
+        if not int8:
+            return FLASH_FWD_SMEM
         return 4 * (2 * HEAD_DIM * t_pad + qt * t_pad + HEAD_DIM * qt + qt)
     tiles = -(-t_pad // SM90_ROWS)
     return SM90_EXTRA_BYTES + max(SM90_GEMM_BYTES,
@@ -85,16 +99,17 @@ def attention_smem_bytes(t_pad: int, itemsize: int = 2) -> int:
 
 
 def fused_layer_fits(t_pad: int, e: int, heads: int, dh: int, hidden: int,
-                     itemsize: int = 2) -> bool:
+                     itemsize: int = 2, int8: bool = False) -> bool:
     """True iff the CUDA fused-layer kernels take these model dims in x's
-    type (``itemsize`` 4 for float32, 2 for bfloat16): Dh 64; E, H * Dh and
-    the hidden width multiples of 64; t_pad a multiple of 8 whose attention
-    fits a block's shared memory (t_pad <= 344 in float32, <= 576 in
-    bfloat16).  Unlike JAX's, the answer is the same for the merged layer,
-    the pair and the int8 layer: all share the attention of their type."""
+    type (``itemsize`` 4 for float32, 2 for bfloat16; ``int8`` for the int8
+    layer): Dh 64; E, H * Dh and the hidden width multiples of 64; t_pad a
+    multiple of 8 whose attention fits a block's shared memory (any t_pad
+    in float32, t_pad <= 576 in bfloat16, t_pad <= 344 for the int8 layer
+    on float32 x).  Unlike JAX's, the answer is the same for the merged
+    layer and the pair."""
     return (dh == HEAD_DIM and e % TILE == 0 and (heads * dh) % TILE == 0
             and hidden % TILE == 0 and t_pad % 8 == 0
-            and attention_smem_bytes(t_pad, itemsize) <= SMEM_LIMIT)
+            and attention_smem_bytes(t_pad, itemsize, int8) <= SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------
@@ -270,20 +285,44 @@ def vit_layer_infer_int8_plain(x, norm1, attn, norm2, mlp, *, t_pad: int,
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def workspace_bytes(seg: int, e: int, hd: int, hidden: int,
-                    int8: bool) -> int:
-    """Bytes of one workspace slot of the float32 layer (``layout`` of
-    csrc/fused_layer.cu): xn, q|k|v, the attention output, z and the MLP
-    hidden, and for int8 a row buffer, the quantised rows and their scales;
-    each region rounded up to 256 bytes."""
+def layer_chunk_rows(n: int, e: int, t_pad: int = None,
+                     sms: int = SMS) -> int:
+    """Rows of a chunk of the float32 layer (csrc/fused_layer.cu, modes
+    1-3): about sms x 128 x 192 / E rows, so that the products with E
+    output columns (the out projection and fc2) fill the SMs with whole
+    tiles, in whole images of t_pad rows (the attention modes) or whole
+    tiles of 128 rows; the rows spread evenly over the chunks that takes,
+    and never past n."""
+    unit = t_pad or CHUNK_TILE_M
+    units = -(-n // unit)
+    cap = max(1, sms * CHUNK_TILE_M * CHUNK_TILE_N // e // unit)
+    chunks = -(-units // cap)
+    return -(-units // chunks) * unit
+
+
+def workspace_bytes(mode: int, rows: int, e: int, hd: int,
+                    hidden: int) -> int:
+    """Bytes of the float32 layer's workspace for chunks of ``rows`` rows
+    (``workspace_floats`` of csrc/fused_layer.cu): xn, the LN output
+    (rows, E); in the merged mode z (rows, E); and one region for the wide
+    arrays: q|k|v (rows, 3 HD) and o (rows, HD) in the attention modes,
+    the MLP hidden (rows, hidden) over them.  It grows with the chunk, not
+    with the rows of x."""
+    attn, mlp = bool(mode & MODE_ATTN), bool(mode & MODE_MLP)
+    wide = max(4 * hd if attn else 0, hidden if mlp else 0)
+    return 4 * rows * ((2 if attn and mlp else 1) * e + wide)
+
+
+def q8_slot_bytes(seg: int, e: int, hd: int, hidden: int) -> int:
+    """Bytes of one workspace slot of the int8 layer on float32 x
+    (``layout`` of csrc/fused_layer.cu): q|k|v, the attention output, z,
+    the LN or hidden rows, their int8 form and their scales; each region
+    rounded up to 256 bytes."""
     def a(n):
         return -(-n // 256) * 256
-    total = (a(seg * e * 4) + a(seg * 3 * hd * 4) + a(seg * hd * 4)
-             + a(seg * e * 4) + a(seg * hidden * 4))
-    if int8:
-        total += (a(seg * max(e, hidden) * 4) + a(seg * max(e, hd, hidden))
-                  + a(seg * 4))
-    return total
+    return (a(seg * 3 * hd * 4) + a(seg * hd * 4) + a(seg * e * 4)
+            + a(seg * max(e, hidden) * 4) + a(seg * max(e, hd, hidden))
+            + a(seg * 4))
 
 
 def _no_grad(what, x, *modules):
@@ -326,6 +365,12 @@ def sm90_workspace_bytes(mode: int, n: int, t_pad: int, e: int, hd: int,
     return total
 
 
+def _split_t(w):
+    """W^T (out, in) of an (in, out) float32 matrix, split into its TF32
+    big and small halves: (2, out, in), the B operand of chunk_gemm."""
+    return torch.stack(tf32_split(w.t().contiguous()))
+
+
 def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
     """The weight operands of one launch in the kernel's order, contiguous
     on ``device``, with a one-element placeholder for each operand ``mode``
@@ -335,10 +380,11 @@ def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
     w1^T (hidden, E), w2^T (E, hidden) in bf16, every product's operands
     K-major; g1, be1, bqkv, bo, g2, be2, b1, b2 in f32), and in
     ``MODE_Q8`` the four W^T in int8 followed by their column scales sqkv,
-    so, s1, s2 (f32).  float32: the 16 operands of ``launch_fused_layer``:
-    (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1, g2,
-    be2), products in float32, or int8 with their column scales in
-    ``MODE_Q8``."""
+    so, s1, s2 (f32).  float32 (csrc/fused_layer.cu): (wqkv^T, bqkv,
+    wo^T, bo, w1^T, b1, w2^T, b2, g1, be1, g2, be2), each W^T split into
+    its TF32 halves, (2, out, in); in ``MODE_Q8`` the 16 operands of
+    ``launch_fused_layer``: (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2,
+    s2, b2, g1, be1, g2, be2), int8 with their column scales."""
     pack_weights.packings += 1
     null = torch.zeros(1, device=device)
     if mode & MODE_Q8:
@@ -357,9 +403,13 @@ def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
         ops = (*t, g1, be1, bqkv, bo, g2, be2, b1, b2)
         if mode & MODE_Q8:
             ops += (sqkv, so, s1, s2)
-    else:
+    elif mode & MODE_Q8:
         ops = (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1,
                g2, be2)
+    else:
+        wqkv, wo, w1, w2 = (_split_t(w) if w is not null else w
+                            for w in (wqkv, wo, w1, w2))
+        ops = (wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2, be2)
     return [t.to(device).contiguous() for t in ops]
 
 
@@ -441,7 +491,7 @@ def packed_weights(mode, dtype, device, norm1, attn, norm2, mlp):
     return entry
 
 
-def _check(what, mode, x, seg, t_real, attn, mlp):
+def _check(what, mode, x, t_pad, t_real, attn, mlp):
     """Checks the shapes against the CUDA design, then the device; returns
     (heads, hidden)."""
     n, e = x.shape
@@ -450,22 +500,23 @@ def _check(what, mode, x, seg, t_real, attn, mlp):
     hidden = mlp.fc1.kernel.shape[1] if mlp is not None else TILE
     dh = attn.query.bias.shape[1] if attn is not None else HEAD_DIM
     it = x.element_size()
-    if not fused_layer_fits(seg if mode & MODE_ATTN else 8, e, heads, dh,
-                            hidden, it):
+    q8 = bool(mode & MODE_Q8)
+    seg = t_pad if mode & MODE_ATTN else 8
+    if not fused_layer_fits(seg, e, heads, dh, hidden, it, q8):
         if dh == HEAD_DIM and e % TILE == 0 and hd % TILE == 0 and \
                 hidden % TILE == 0 and seg % 8 == 0:
             raise FusedLayerSharedMemoryError(
                 f"{what}: t_pad={seg} needs "
-                f"{attention_smem_bytes(seg, it)} bytes of shared "
+                f"{attention_smem_bytes(seg, it, q8)} bytes of shared "
                 f"memory for its attention, over the {SMEM_LIMIT} a block "
                 "may use; use the composable impl='small' path")
         raise ValueError(f"{what}: E={e} heads={heads} Dh={dh} "
                          f"hidden={hidden} t_pad={seg} are outside the CUDA "
                          "design (Dh 64; E, H*Dh and hidden multiples of 64; "
                          "t_pad a multiple of 8)")
-    if mode & MODE_ATTN and (n % seg or not 0 < t_real <= seg):
+    if mode & MODE_ATTN and (n % t_pad or not 0 < t_real <= t_pad):
         raise ValueError(f"{what}: {n} rows are not whole images of t_pad="
-                         f"{seg} with 0 < t_real={t_real} <= t_pad")
+                         f"{t_pad} with 0 < t_real={t_real} <= t_pad")
     if x.device.type != "cuda" or x.dtype not in _DTYPES or \
             not x.is_contiguous():
         raise ValueError(f"{what}: x must be a contiguous float32 or "
@@ -474,24 +525,63 @@ def _check(what, mode, x, seg, t_real, attn, mlp):
     return heads, hidden
 
 
-def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
+def _launch(what, mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps):
     """Checks the shapes and the device, takes the packed weights
     (``packed_weights``), allocates the output and the workspace and
-    launches ``launch_vit_layer_sm90`` (bfloat16) or ``launch_fused_layer``
-    in ``mode``."""
-    heads, hidden = _check(what, mode, x, seg, t_real, attn, mlp)
+    launches ``launch_vit_layer_sm90`` (bfloat16), ``launch_fused_layer``
+    (the int8 layer on float32 x) or ``launch_fused_layer_tf32x3`` (the
+    float32 modes) in ``mode``; t_pad and t_real are None in ``MODE_MLP``.
+    A launch that is refused raises: there is no other path on the card."""
+    heads, hidden = _check(what, mode, x, t_pad, t_real, attn, mlp)
     if _sm90(x.dtype):
-        return _launch_sm90(what, mode, x, seg, t_real, norm1, attn, norm2,
+        return _launch_sm90(what, mode, x, t_pad, t_real, norm1, attn, norm2,
                             mlp, eps, heads, hidden)
+    launch = _launch_q8 if mode & MODE_Q8 else _launch_tf32x3
+    rc, y = launch(mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps,
+                   heads, hidden)
+    if rc != 0:
+        raise RuntimeError(f"{launch.__name__[1:]} ({what}) failed: CUDA "
+                           f"error {rc}")
+    return y
+
+
+def _launch_tf32x3(mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps,
+                   heads, hidden):
+    """One call of csrc/fused_layer.cu's float32 modes: chunks of
+    ``layer_chunk_rows`` rows through a workspace of ``workspace_bytes``."""
+    n, e = x.shape
+    dev = x.device
+    wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2, be2 = packed_weights(
+        mode, x.dtype, dev, norm1, attn, norm2, mlp)["ops"]
+    hd = heads * HEAD_DIM
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    attention = bool(mode & MODE_ATTN)
+    rows = layer_chunk_rows(n, e, t_pad if attention else None, sms)
+    ws = torch.empty(workspace_bytes(mode, rows, e, hd, hidden) // 4,
+                     dtype=torch.float32, device=dev)
+    x = aligned16(x)
+    y = torch.empty_like(x)
+    rc = library().launch_fused_layer_tf32x3(
+        mode, x.data_ptr(), y.data_ptr(), ws.data_ptr(), ws.numel(), rows,
+        g1.data_ptr(), be1.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+        wo.data_ptr(), bo.data_ptr(), g2.data_ptr(), be2.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), n,
+        t_pad if attention else 0, t_real if attention else 0, e, heads,
+        hidden, eps, torch.cuda.current_stream(dev).cuda_stream)
+    return rc, y
+
+
+def _launch_q8(mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps, heads,
+               hidden):
+    """One launch of the int8 layer on float32 x: a block an image, in
+    workspace slots of ``q8_slot_bytes``."""
     n, e = x.shape
     dev = x.device
     wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1, g2, be2 = (
         packed_weights(mode, x.dtype, dev, norm1, attn, norm2, mlp)["ops"])
-    nseg = -(-n // seg)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    slots = min(nseg, SLOTS_PER_SM * sms)
-    ws_bytes = workspace_bytes(seg, e, heads * HEAD_DIM, hidden,
-                               bool(mode & MODE_Q8))
+    slots = min(n // t_pad, SLOTS_PER_SM * sms)
+    ws_bytes = q8_slot_bytes(t_pad, e, heads * HEAD_DIM, hidden)
     ws = torch.empty(slots * ws_bytes, dtype=torch.uint8, device=dev)
     y = torch.empty_like(x)
     rc = library().launch_fused_layer(
@@ -500,12 +590,9 @@ def _launch(what, mode, x, seg, t_real, norm1, attn, norm2, mlp, eps):
         sqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), so.data_ptr(),
         bo.data_ptr(), g2.data_ptr(), be2.data_ptr(), w1.data_ptr(),
         s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
-        b2.data_ptr(), n, seg, t_real, e, heads, hidden, eps,
+        b2.data_ptr(), n, t_pad, t_real, e, heads, hidden, eps,
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"launch_fused_layer ({what}) failed: CUDA error "
-                           f"{rc}")
-    return y
+    return rc, y
 
 
 def _launch_sm90(what, mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps,
@@ -570,8 +657,8 @@ def ln_mlp_infer(x, norm2, mlp, *, eps: float = 1e-6):
     _no_grad("ln_mlp_infer", x, norm2, mlp)
     if x.device.type == "cpu":
         return ln_mlp_infer_plain(x, norm2, mlp, eps=eps)
-    y = _launch("ln_mlp_infer", MODE_MLP, x, MLP_SEGMENT, 1, None, None,
-                norm2, mlp, eps)
+    y = _launch("ln_mlp_infer", MODE_MLP, x, None, None, None, None, norm2,
+                mlp, eps)
     ln_mlp_infer.launches += 1
     return y
 
