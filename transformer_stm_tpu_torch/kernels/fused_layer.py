@@ -292,7 +292,7 @@ def layer_chunk_rows(n: int, e: int, t_pad: int = None,
     output columns (the out projection and fc2) fill the SMs with whole
     tiles, in whole images of t_pad rows (the attention modes) or whole
     tiles of 128 rows; the rows spread evenly over the chunks that takes,
-    and never past n."""
+    and no more units than n fills."""
     unit = t_pad or CHUNK_TILE_M
     units = -(-n // unit)
     cap = max(1, sms * CHUNK_TILE_M * CHUNK_TILE_N // e // unit)
