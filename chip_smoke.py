@@ -104,7 +104,8 @@ Phases, each printed as it finishes:
    ``vit_layer_infer_int8``) against their plain versions at ViT-S (B 8),
    ViT-Ti and ViT-B widths (B 2) and at B 3 with 17 tokens padded to 24, in
    f32 (within 1e-5 of the largest entry) and bf16 (within two bf16 ulps of
-   it; int8 within 1e-2 of it), fused_mlp at D 192/384/768 and
+   it; int8 within 1e-2 of it), rows 9-11 in f32 at E 320 (partial
+   192-column tiles), fused_mlp at D 192/384/768 and
    attention_small on bf16; the bf16 layer's kernel (csrc/vit_layer_sm90.cu,
    the int8 layer's too) with its registers, shared memory and blocks an SM
    in each mode; each timed at
@@ -2100,6 +2101,9 @@ VIT_LAYER_SHAPES = [("ViT-S", 384, 6, VIT_CHECK_B, 197, 200),
                     ("ViT-S 64px", 384, 6, 3, 17, 24),
                     ("ViT-S", 384, 6, VIT_TIME_B, 197, 200),
                     ("ViT-S", 384, 6, max(VIT_BATCHES), 197, 200)]
+# f32 widths that are not whole 192-column tiles of csrc/chunk_gemm.cuh (E
+# 320: the out projection's, fc1's and fc2's last tiles hold 128 columns)
+VIT_F32_EDGE_SHAPES = [("ViT E320", 320, 5, 2, 197, 200)]
 VIT_F32_TOL = 1e-5    # f32 kernel vs plain: max |err| <= tol * max |plain|
 VIT_BF16_ULPS = 2     # bf16: max |err| <= 2 bf16 ulps of max |plain|
 VIT_INT8_TOL = 1e-2   # int8 kernel vs its plain version: tol * max |plain|
@@ -2245,6 +2249,38 @@ def vit_kernel_checks():
         note("fused_mlp", err, scale)
         say(f"[7] fused_mlp {name} N{b * tp} D{e} Hd{4 * e} f32: max |err| "
             f"{err:.2e} (max |y| {scale:.2f})")
+
+    for name, e, h, b, t, tp in VIT_F32_EDGE_SHAPES:
+        x = torch.randn(b, tp, e, device="cuda", generator=gen)
+        x[:, t:] = 0.0
+        x = x.reshape(b * tp, e)
+        n1, attn, n2, mlp = vit_layer(e, h, SEED, torch.float32)
+        layer = dict(t_pad=tp, t_real=t)
+        errs = []
+        for kname, kernel, plain in (
+                ("vit_layer_infer",
+                 lambda: vit_layer_infer(x, n1, attn, n2, mlp, **layer),
+                 lambda: vit_layer_infer_plain(x, n1, attn, n2, mlp,
+                                               **layer)),
+                ("attn_layer_infer",
+                 lambda: attn_layer_infer(x, n1, attn, **layer),
+                 lambda: attn_layer_infer_plain(x, n1, attn, **layer)),
+                ("ln_mlp_infer", lambda: ln_mlp_infer(x, n2, mlp),
+                 lambda: ln_mlp_infer_plain(x, n2, mlp))):
+            with torch.inference_mode():
+                got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            if not torch.isfinite(got).all() or err > VIT_F32_TOL * scale:
+                raise AssertionError(f"{kname} {name} B{b} T{t}/{tp} f32: "
+                                     f"max |err| {err:.3e} over {VIT_F32_TOL}"
+                                     f" x {scale:.3f}")
+            note(kname, err, scale)
+            errs.append(f"{kname} {err:.2e}")
+        say(f"[7] {name} H{h} hidden {4 * e} B{b} T{t}/{tp} float32 "
+            f"(partial 192-column tiles): max |kernel - plain| "
+            f"{'; '.join(errs)} (max |y| about {scale:.2f})")
 
     # attention_small takes bf16 q, k, v (run in f32, the output rounded)
     q, k, v = (torch.randn(VIT_CHECK_B, 197, 6, 64, device="cuda",
