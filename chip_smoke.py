@@ -17,7 +17,8 @@ Phases, each printed as it finishes:
    256, and the chunked products' GEMM kernel, chunk_gemm of
    csrc/chunk_gemm.cuh, with the training MLP's epilogue, which runs both
    directions at D 384 and 768, and with the f32 ViT layer's, which runs
-   rows 9-11 in f32) and of the int8 ViT layer's kernel
+   rows 9-11 in f32; its int8 sibling chunk_gemm_s8 with the int8 layer's
+   epilogue, row 12 on f32 x) and of the bf16 int8 ViT layer's kernel
    (csrc/vit_layer_sm90.cu, mode 7);
 2. kernels: each kernel against its plain PyTorch version at the CvT stage
    shapes (in float32, and in float64 as a check that shares no rounding),
@@ -104,29 +105,32 @@ Phases, each printed as it finishes:
    ``vit_layer_infer_int8``) against their plain versions at ViT-S (B 8),
    ViT-Ti and ViT-B widths (B 2) and at B 3 with 17 tokens padded to 24, in
    f32 (within 1e-5 of the largest entry) and bf16 (within two bf16 ulps of
-   it; int8 within 1e-2 of it), rows 9-11 in f32 at E 320 (partial
-   192-column tiles), fused_mlp at D 192/384/768 and
+   it; int8 within 1e-2 of it), rows 9-12 in f32 at E 320 (partial
+   192-column tiles) and at ViT-S 512px (t_pad 1032), fused_mlp at D
+   192/384/768 and
    attention_small on bf16; the bf16 layer's kernel (csrc/vit_layer_sm90.cu,
    the int8 layer's too) with its registers, shared memory and blocks an SM
    in each mode; each timed at
    ViT-S, B 192, bf16 (back-to-back calls, and one call alone), beside its
    plain version, the packing of its weights (once per model),
    nn.TransformerEncoderLayer (the yardstick of the whole layer) and its
-   bound; rows 9-12 on f32 x (rows 9-11 as 3xTF32 products over row
-   chunks in csrc/fused_layer.cu, row 12 its int8 kernel) alone and back
-   to back beside their plain versions and their f32 bounds (f32 FMA and
-   3xTF32), the whole f32 layer beside nn.TransformerEncoderLayer in f32;
+   bound; rows 9-12 on f32 x (products over chunks of whole images in
+   csrc/fused_layer.cu: rows 9-11 3xTF32, row 12 int8 on s8 wgmma) alone
+   and back to back beside their plain versions and their f32 bounds (f32
+   FMA, and the tensor cores), the whole f32 layer beside
+   nn.TransformerEncoderLayer in f32, rows 11 and 12 split by kernel;
    then the whole forward with weights from seed 0
    in bf16: the routes ``impl="auto"`` (fused2), ``"fused"`` and
-   ``"fused2_int8"`` at B 192, in f32 ``"auto"`` (fused_mlp), ``"fused"``
-   and ``"fused2"`` at B 64 and the
+   ``"fused2_int8"`` at B 192, in f32 ``"auto"`` (fused_mlp), ``"fused"``,
+   ``"fused2"`` and ``"fused2_int8"`` at B 64 and the
    on-device preprocessing front end (raw uint8 345x340x3 ->
    ``preprocess_images_device`` -> 1-channel ViT-S) with exact launch
    counts; a second forward of each bf16 route packs no weights, and after
    an in-place update of one weight the next forward repacks once and
    follows it; the kernel routes against ``"plain"`` at B 8 (bf16 within 5e-2
    of max(1, |logits|); int8 against f32 within 3% of the logit scale and
-   correlation above 0.999; the f32 routes at B 64 within 1e-3), images/s
+   correlation above 0.999, both on bf16 and on f32 images; the other f32
+   routes at B 64 within 1e-3), images/s
    (CUDA events, median of 5) and peak memory of each route at B 192, 384
    and 768, of the f32 routes and f32 ``"plain"`` at B 64, and the
    device's busy share in a B 192 auto forward;
@@ -583,6 +587,17 @@ def phase_build():
         f"vit_layer_infer in f32): {regs.value} registers, {local.value} "
         f"bytes of local memory a thread (stack and spills), {smem.value} "
         f"bytes of shared memory, {blocks.value} block(s) an SM")
+    # the int8 layer's products on f32 x (row 12 in f32): the s8 instance
+    rc = lib.fused_layer_q8_info(
+        MODE_ATTN | MODE_MLP | MODE_Q8,
+        *map(ctypes.byref, (regs, local, smem, blocks)))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"fused_layer_q8_info: error {rc}, "
+                           f"{blocks.value} blocks an SM")
+    say(f"[1] chunk_gemm_s8<Q8Params> (vit_layer_infer_int8 on f32 x): "
+        f"{regs.value} registers, {local.value} bytes of local memory a "
+        f"thread (stack and spills), {smem.value} bytes of shared memory, "
+        f"{blocks.value} block(s) an SM")
 
 
 def phase_kernels():
@@ -2104,6 +2119,9 @@ VIT_LAYER_SHAPES = [("ViT-S", 384, 6, VIT_CHECK_B, 197, 200),
 # f32 widths that are not whole 192-column tiles of csrc/chunk_gemm.cuh (E
 # 320: the out projection's, fc1's and fc2's last tiles hold 128 columns)
 VIT_F32_EDGE_SHAPES = [("ViT E320", 320, 5, 2, 197, 200)]
+# f32 x at a t_pad past 344, where the int8 layer's one-block-an-image
+# design stopped: ViT-S/16 at 512px (1,025 tokens)
+VIT_F32_LONG_SHAPES = [("ViT-S 512px", 384, 6, 2, 1025, 1032)]
 VIT_F32_TOL = 1e-5    # f32 kernel vs plain: max |err| <= tol * max |plain|
 VIT_BF16_ULPS = 2     # bf16: max |err| <= 2 bf16 ulps of max |plain|
 VIT_INT8_TOL = 1e-2   # int8 kernel vs its plain version: tol * max |plain|
@@ -2250,7 +2268,7 @@ def vit_kernel_checks():
         say(f"[7] fused_mlp {name} N{b * tp} D{e} Hd{4 * e} f32: max |err| "
             f"{err:.2e} (max |y| {scale:.2f})")
 
-    for name, e, h, b, t, tp in VIT_F32_EDGE_SHAPES:
+    for name, e, h, b, t, tp in VIT_F32_EDGE_SHAPES + VIT_F32_LONG_SHAPES:
         x = torch.randn(b, tp, e, device="cuda", generator=gen)
         x[:, t:] = 0.0
         x = x.reshape(b * tp, e)
@@ -2266,20 +2284,28 @@ def vit_kernel_checks():
                  lambda: attn_layer_infer(x, n1, attn, **layer),
                  lambda: attn_layer_infer_plain(x, n1, attn, **layer)),
                 ("ln_mlp_infer", lambda: ln_mlp_infer(x, n2, mlp),
-                 lambda: ln_mlp_infer_plain(x, n2, mlp))):
+                 lambda: ln_mlp_infer_plain(x, n2, mlp)),
+                ("vit_layer_infer_int8",
+                 lambda: vit_layer_infer_int8(x, n1, attn, n2, mlp, **layer),
+                 lambda: vit_layer_infer_int8_plain(x, n1, attn, n2, mlp,
+                                                    **layer))):
             with torch.inference_mode():
                 got, want = kernel(), plain()
             torch.cuda.synchronize()
             scale = want.abs().max().item()
             err = (got - want).abs().max().item()
-            if not torch.isfinite(got).all() or err > VIT_F32_TOL * scale:
+            tol = (VIT_INT8_TOL if kname == "vit_layer_infer_int8"
+                   else VIT_F32_TOL)
+            if not torch.isfinite(got).all() or err > tol * scale:
                 raise AssertionError(f"{kname} {name} B{b} T{t}/{tp} f32: "
-                                     f"max |err| {err:.3e} over {VIT_F32_TOL}"
+                                     f"max |err| {err:.3e} over {tol}"
                                      f" x {scale:.3f}")
             note(kname, err, scale)
             errs.append(f"{kname} {err:.2e}")
+        what = ("partial 192-column tiles" if tp <= 576 else
+                "a t_pad past the earlier int8 design's 344")
         say(f"[7] {name} H{h} hidden {4 * e} B{b} T{t}/{tp} float32 "
-            f"(partial 192-column tiles): max |kernel - plain| "
+            f"({what}): max |kernel - plain| "
             f"{'; '.join(errs)} (max |y| about {scale:.2f})")
 
     # attention_small takes bf16 q, k, v (run in f32, the output rounded)
@@ -2432,12 +2458,18 @@ def vit_kernel_times(worst, card):
             plain32 = time_ms(plain)
             if flops is None:
                 # int8 projections on the tensor cores, the attention's f32
-                # products on the FMA pipe
+                # products on the FMA pipe; or on the tensor cores as
+                # 3xTF32, as the flash forward runs them
                 t_ops = ops_int8 / PEAK_INT8_OPS + f_core / PEAK_F32_FLOPS
                 b32 = 1e3 * max(t_ops, nb / PEAK_BYTES)
                 by32 = "operations" if t_ops >= nb / PEAK_BYTES else "bytes"
-                tc32 = None
-                bound_txt = f"bound {b32:.3f} ms ({by32})"
+                tc32 = 1e3 * max(ops_int8 / PEAK_INT8_OPS
+                                 + 3.0 * f_core / PEAK_TF32_FLOPS,
+                                 nb / PEAK_BYTES)
+                bound_txt = (f"bound {b32:.3f} ms ({by32}; int8 "
+                             f"projections, FMA attention), {tc32:.3f} ms "
+                             "on the tensor cores (int8 projections, 3xTF32 "
+                             "attention)")
             else:
                 b32, by32 = bound(flops, nb)
                 tc32 = bound_tc(flops, nb)
@@ -2445,20 +2477,21 @@ def vit_kernel_times(worst, card):
                              f"{tc32:.3f} ms on the tensor cores (3xTF32)")
             lib32_ms = time_ms(lambda: lib32(xl32)) if i == 2 else None
             # where the whole layer's device time goes, kernel by kernel
-            split = (kernel_split(kernel, call_ms=ms32) if i == 2 else None)
+            split = (kernel_split(kernel, call_ms=ms32) if i >= 2 else None)
             rows[i].update(f32_ms=ms32, f32_batched_ms=batched32,
                            f32_plain_ms=plain32, f32_bound_ms=b32,
                            f32_bound_by=by32, f32_bound_tc_ms=tc32,
                            f32_library_ms=lib32_ms, f32_kernels_ms=split,
                            f32_source=("transformer_stm_tpu_torch/csrc/"
-                                       "fused_layer.cu" + (
-                                           "" if flops is None else
-                                           " + csrc/chunk_gemm.cuh + "
-                                           "csrc/flash_attention.cu")))
+                                       "fused_layer.cu + csrc/chunk_gemm.cuh"
+                                       + (" (chunk_gemm_s8)" if flops is None
+                                          else " (chunk_gemm)")
+                                       + " + csrc/flash_attention.cu"))
             lib_txt = (f"  TransformerEncoderLayer f32 {lib32_ms:.3f} ms a "
-                       "call; device ms a call: " + ", ".join(
-                           f"{k} {v:.3f}" for k, v in split.items())
-                       if lib32_ms is not None else "")
+                       "call" if lib32_ms is not None else "")
+            if split is not None:
+                lib_txt += "; device ms a call: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in split.items())
             say(f"[7] {rows[i]['name']} ViT-S B{b} f32: kernel {ms32:.3f} ms "
                 f"a call alone, {batched32:.3f} ms back to back  plain "
                 f"{plain32:.3f} ms{lib_txt}  {bound_txt} ({card})")
@@ -2593,8 +2626,11 @@ def phase_vit(kernels, card):
         ("fused2 f32", lambda: vit_forward(model32, imgs32[:VIT_F32_B],
                                            impl="fused2"),
          {"vit_layer_infer": d}),
+        ("fused2_int8 f32", lambda: vit_forward(
+            model32, imgs32[:VIT_F32_B], impl="fused2_int8"),
+         {"vit_layer_infer_int8": d}),
         ("preprocess + auto bf16", front_end, {"vit_layer_infer": d}))
-    f32_routes = ("auto f32", "fused f32", "fused2 f32")
+    f32_routes = ("auto f32", "fused f32", "fused2 f32", "fused2_int8 f32")
     outs, route_launches = {}, {}
     torch.cuda.synchronize()
     reset_launches()
@@ -2617,8 +2653,8 @@ def phase_vit(kernels, card):
                                      f"{torch.isfinite(y.float()).all()}")
     launches = read_launches()
     say(f"[7] ViT-S/16 main path (auto bf16, fused and fused2_int8 at B{b}, "
-        f"auto, fused and fused2 in f32 at B{VIT_F32_B}, preprocessing + "
-        f"auto at B{b}): launches {launches}")
+        f"auto, fused, fused2 and fused2_int8 in f32 at B{VIT_F32_B}, "
+        f"preprocessing + auto at B{b}): launches {launches}")
     check_packing_once(model, imgs[:VIT_CHECK_B], imgs[:b])
 
     # Agreement with the plain route.
@@ -2647,6 +2683,17 @@ def phase_vit(kernels, card):
             f"{rel:.3e} of the logit scale (limit {VIT_INT8_REL}), "
             f"correlation {corr:.6f} (limit {VIT_INT8_CORR})")
         ref32 = vit_forward(model32, imgs32[:VIT_F32_B], impl="plain")
+        q8 = outs["fused2_int8 f32"]
+        rel = ((q8 - ref32).abs().max() / ref32.abs().max()).item()
+        corr = np.corrcoef(q8.cpu().numpy().ravel(),
+                           ref32.cpu().numpy().ravel())[0, 1]
+        if rel >= VIT_INT8_REL or corr <= VIT_INT8_CORR:
+            raise AssertionError(f"ViT-S fused2_int8 f32 vs f32 plain: "
+                                 f"{rel:.3e} of the scale, corr {corr:.6f}")
+        say(f"[7] ViT-S fused2_int8 f32 (vit_layer_infer_int8 on f32 x) vs "
+            f"f32 plain, B{VIT_F32_B}: max |diff| {rel:.3e} of the logit "
+            f"scale (limit {VIT_INT8_REL}), correlation {corr:.6f} (limit "
+            f"{VIT_INT8_CORR})")
         lim32 = PATH_TOL * ref32.abs().clamp_min(1.0)
         for name, via in zip(f32_routes, ("fused_mlp", "attn_layer_infer + "
                                           "ln_mlp_infer", "vit_layer_infer")):

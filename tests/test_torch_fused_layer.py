@@ -218,21 +218,22 @@ def test_attention_small_takes_bf16():
 def test_fits_at_the_cuda_limits():
     """In f32 (itemsize 4) the attention is the flash forward
     (csrc/flash_attention.cu), whose 198,656 bytes do not depend on t_pad:
-    every t_pad fits.  The int8 layer on f32 x (csrc/fused_layer.cu, mode
-    7) holds K and V of a head and a 32-row score tile: t_pad 344 fits 227
-    KB and 352 does not.  The bf16 layer (csrc/vit_layer_sm90.cu), which
-    also runs the bf16 int8 layer, holds Q, K and V of a head in 64-row
-    tiles beside its product ring: 576 fits and 584 does not (the int8
-    layer's limit was 464 while it ran in csrc/fused_layer.cu).  Dh must be
-    64 and the widths multiples of 64."""
+    every t_pad fits, for the int8 layer on f32 x too (csrc/fused_layer.cu,
+    mode 7, whose attention is that forward; it stopped at 344 while it
+    held K and V of a head in one block).  The bf16 layer
+    (csrc/vit_layer_sm90.cu), which also runs the bf16 int8 layer, holds Q,
+    K and V of a head in 64-row tiles beside its product ring: 576 fits and
+    584 does not (the int8 layer's limit was 464 while it ran in
+    csrc/fused_layer.cu).  Dh must be 64 and the widths multiples of 64."""
     limit = fused_layer.SMEM_LIMIT
     for t_pad in (24, 200, 344, 352, 1032, 4096):
         assert fused_layer.attention_smem_bytes(t_pad, 4) == 198_656
-    assert fused_layer.attention_smem_bytes(344, 4, int8=True) <= limit
-    assert fused_layer.attention_smem_bytes(352, 4, int8=True) > limit
+    for t_pad in (344, 352, 1032):
+        assert fused_layer_fits(t_pad, 384, 6, 64, 1536, 4, int8=True)
     assert fused_layer.attention_smem_bytes(576, 2) <= limit
     assert fused_layer.attention_smem_bytes(584, 2) > limit
-    assert fused_layer.attention_smem_bytes(584, 2, int8=True) > limit
+    assert fused_layer_fits(576, 384, 6, 64, 1536, 2, int8=True)
+    assert not fused_layer_fits(584, 384, 6, 64, 1536, 2, int8=True)
     assert fused_layer_fits(200, 384, 6, 64, 1536, 2)
     assert fused_layer_fits(200, 768, 12, 64, 3072, 4)
     assert fused_layer_fits(344, 192, 3, 64, 768, 4)
@@ -243,7 +244,7 @@ def test_fits_at_the_cuda_limits():
     assert fused_layer_fits(472, 384, 6, 64, 1536, 2)
     assert fused_layer_fits(576, 384, 6, 64, 1536, 2)
     assert fused_layer_fits(24, 384, 6, 64, 1536, 2)
-    assert not fused_layer_fits(352, 384, 6, 64, 1536, 4, int8=True)
+    assert fused_layer_fits(352, 384, 6, 64, 1536, 4, int8=True)
     assert not fused_layer_fits(200, 384, 12, 32, 1536, 4)
     assert not fused_layer_fits(197, 384, 6, 64, 1536, 4)
     assert not fused_layer_fits(584, 384, 6, 64, 1536, 2)
@@ -263,13 +264,12 @@ def test_refusal_error_and_no_fallback_off_the_cpu():
     the shared-memory limit the wrapper raises FusedLayerSharedMemoryError,
     and where the shapes fit, a tensor that is not on a CUDA device raises
     ValueError (a meta tensor stands in for the card here).  The f32 layer
-    fits at any t_pad (its attention is the flash forward)."""
+    and the int8 layer on f32 x fit at any t_pad (their attention is the
+    flash forward)."""
     n1, attn, n2, mlp = _meta_layer()
-    # past each kernel's limit: bf16 584 (the int8 layer too), the int8
-    # layer on f32 x 352
+    # past the bf16 kernel's limit, 584 (the int8 layer too)
     for t_pad, dtype, int8 in ((584, torch.bfloat16, False),
-                               (584, torch.bfloat16, True),
-                               (352, torch.float32, True)):
+                               (584, torch.bfloat16, True)):
         big = torch.empty(t_pad, 384, dtype=dtype, device="meta")
         if int8:
             with pytest.raises(FusedLayerSharedMemoryError):
@@ -281,12 +281,15 @@ def test_refusal_error_and_no_fallback_off_the_cpu():
                             t_real=t_pad - 2)
         with pytest.raises(FusedLayerSharedMemoryError):
             attn_layer_infer(big, n1, attn, t_pad=t_pad, t_real=t_pad - 2)
-    # f32 at t_pad 352 and 1032: refused only for lying off the card
+    # f32 at t_pad 352 and 1032, the int8 layer too: refused only for lying
+    # off the card
     f32 = [m.float() for m in (n1, attn, n2, mlp)]
     for t_pad in (352, 1032):
         big = torch.empty(t_pad, 384, device="meta")
         for call in (lambda: vit_layer_infer(big, *f32, t_pad=t_pad,
                                              t_real=t_pad - 2),
+                     lambda: vit_layer_infer_int8(big, *f32, t_pad=t_pad,
+                                                  t_real=t_pad - 2),
                      lambda: attn_layer_infer(big, *f32[:2], t_pad=t_pad,
                                               t_real=t_pad - 2)):
             with pytest.raises(ValueError, match="CUDA device"):

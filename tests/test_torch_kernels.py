@@ -168,7 +168,7 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
                "flash_attention_bwd_info": 3,
                "fused_mlp_train_bwd_info": 3,
                "fused_mlp_train_chunked_info": 3,
-               "fused_layer_tf32x3_info": 4}
+               "fused_layer_tf32x3_info": 4, "fused_layer_q8_info": 4}
     for name, n_ptr in helpers.items():
         argtypes = _build.SIGNATURES[name]
         assert argtypes.count(ctypes.c_void_p) == n_ptr
@@ -189,10 +189,14 @@ def test_ctypes_signatures_pass_pointers_as_void_p():
                  "launch_vit_layer_sm90": 16}[name]
         assert argtypes.count(ctypes.c_void_p) == n_ptr + 1
         if name == "launch_fused_layer":
-            # mode, then x, y and the workspace; slots and bytes per slot;
-            # then the 16 weight, scale and bias pointers
+            # mode, then x, y and the workspace; its bytes and the chunk
+            # rows; then the 16 weight, scale and bias pointers; the rows,
+            # t_pad, t_real, E, H, hidden, eps
             assert argtypes[1:4] == [ctypes.c_void_p] * 3
+            assert argtypes[4:6] == [ctypes.c_longlong, ctypes.c_int]
             assert argtypes[6:22] == [ctypes.c_void_p] * 16
+            assert argtypes[22:29] == [ctypes.c_longlong, *[ctypes.c_int] * 5,
+                                       ctypes.c_float]
         elif name == "launch_fused_layer_tf32x3":
             # mode, then x, y and the workspace; its floats and the chunk
             # rows; then the 12 weight, bias and LN pointers

@@ -48,36 +48,51 @@
 // narrow products (E columns: the out projection and fc2) fill the SMs with
 // whole tiles: 132 x 128 x 192 / E rows, rounded down to whole images.
 //
-// Mode 7 (namespace q8), the int8 layer on f32 x: one block per image (a
-// segment of rows) and the phases in turn, separated by __syncthreads(): LN1
-// and its per-row quantisation; the packed q/k/v projection; the attention
-// of one head at a time with that head's K^T and V for the image in shared
-// memory (f32 FMA, 136 KB at t_pad 200, so one block an SM), query tiles of
-// 32 rows and a whole-row softmax; the out projection plus the residual;
-// LN2; the MLP as two products.  The products run on the tensor cores (wmma
-// 16x16x16 int8 -> int32, 64x128 tiles, operands staged with cp.async in
-// two stages).  The per-image intermediates (q/k/v, the attention output, z
-// in f32, the LN and hidden rows and their int8 form) go through a
-// workspace in device memory, one slot per resident block, which the
-// wrapper allocates; a block walks the images blockIdx.x, blockIdx.x +
-// gridDim.x, ...  Weights come quantised per column from the wrapper; rows
-// are quantised here per row (amax clamped at 1e-6, q = rint(v * (127 /
-// amax)) clipped to +-127), and the epilogue is ((acc * sx) * sw) + b.
+// Mode 7 (namespace q8layer), the int8 layer on f32 x, runs the same chunks
+// with its six projections as int8 products (chunk_gemm_s8, the int8
+// sibling of chunk_gemm: s8 wgmma m64n192k32 with int32 sums, four k32
+// steps a 128-byte stage).  Bound at ViT-S B 192: 135.9 G int8 operations
+// in the projections (0.069 ms at 1,979 TOP/s) and the attention's 11.8
+// GFLOP as 3xTF32 (0.072 ms at 495 TFLOP/s).  Each chunk runs, one launch
+// after another on the caller's stream:
 //
-// Both: every value is f32, so the JAX kernels' rounding points to x's type
-// are no-ops here.  GELU is the Abramowitz-Stegun form of `_gelu_exact`
-// (kernels/fused_mlp.py:33-49).  Keys at or past t_real are masked; padded
-// query rows carry junk, as on the TPU.  Every offset that multiplies a row
-// index is 64-bit.
+// - LN1 and the quantisation of each row (ln_quant, a warp a row) into the
+//   int8 rows aq and their scales sa;
+// - q|k|v = ((acc * sx) * sw) + b on chunk_gemm_s8 against int8 W^T (q's
+//   kernel and bias pre-scaled by 1/sqrt(Dh) before the kernel is
+//   quantised), f32;
+// - the attention on the 3xTF32 flash forward, as in modes 1-3, into o f32;
+// - o quantised per row (quant_rows) into aq, sa;
+// - the out projection: z = x + ((acc * so) * sw) + b, f32 (the order of
+//   `xf + _qdot(...)`);
+// - LN2 of z and its quantisation into aq, sa (ln_quant, which also zeroes
+//   the hidden's row maxima);
+// - fc1: hidden = GELU(dequantised sum) f32, over q|k|v and o; the
+//   epilogue gathers each row's max |hidden| by atomicMax, so that
+// - the hidden's quantisation over its whole width (quant_rows) reads it
+//   once;
+// - fc2: y = z + dequantised sum.
+//
+// Rows are quantised as `_quant_rows`, bit for bit: amax clamped at 1e-6,
+// q = rint(v * (127 / amax)) clipped to +-127 (a true division), scale amax
+// * (1 / 127).  Weights come quantised per column from the wrapper, once per
+// model.  The workspace follows the chunk: z, q|k|v and o (the hidden over
+// them) in f32, the int8 rows and two f32 values a row (q8layer::
+// workspace_bytes).
+//
+// All modes: every value is f32, so the JAX kernels' rounding points to x's
+// type are no-ops here.  GELU is the Abramowitz-Stegun form of
+// `_gelu_exact` (kernels/fused_mlp.py:33-49).  Keys at or past t_real are
+// masked; padded query rows carry junk, as on the TPU.  Every offset that
+// multiplies a row index is 64-bit.
 //
 // Limits (fused_layer.py states them for the router): Dh 64; E, H * Dh and
-// the hidden width multiples of 64; t_pad a multiple of 8; in mode 7 the
-// attention phase must fit 227 KB (t_pad <= 344).
+// the hidden width multiples of 64; t_pad a multiple of 8, any t_pad in
+// every mode (the attention is the flash forward).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "chunk_gemm.cuh"
@@ -115,6 +130,40 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The mean and 1 / sqrt(var + eps) of a row of E floats (E a multiple of
+// 4), one warp, as `_layer_norm_rows`: the mean, then the mean of the
+// squared deviations.  Each pass reads the row again (from L1).
+__device__ __forceinline__ float2 ln_stats(const float4* __restrict__ xr, int E, float eps) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int c = lane; c < E / 4; c += 32) {
+    const float4 v = xr[c];
+    s += (v.x + v.y) + (v.z + v.w);
+  }
+  const float mu = warp_sum(s) / (float)E;
+  float q = 0.f;
+  for (int c = lane; c < E / 4; c += 32) {
+    const float4 v = xr[c];
+    const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+    q += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+  }
+  return make_float2(mu, 1.f / sqrtf(warp_sum(q) / (float)E + eps));
+}
+
+// ((x - mean) * rs) * gamma + beta of the row's columns 4c .. 4c + 3, st =
+// (mean, rs) from ln_stats
+__device__ __forceinline__ float4 ln_apply(const float4* __restrict__ xr,
+                                           const float* __restrict__ g,
+                                           const float* __restrict__ b, int c, float2 st) {
+  const float4 v = xr[c];
+  const float4 gg = reinterpret_cast<const float4*>(g)[c];
+  const float4 bb = reinterpret_cast<const float4*>(b)[c];
+  return make_float4(__fadd_rn(__fmul_rn(__fmul_rn(v.x - st.x, st.y), gg.x), bb.x),
+                     __fadd_rn(__fmul_rn(__fmul_rn(v.y - st.x, st.y), gg.y), bb.y),
+                     __fadd_rn(__fmul_rn(__fmul_rn(v.z - st.x, st.y), gg.z), bb.z),
+                     __fadd_rn(__fmul_rn(__fmul_rn(v.w - st.x, st.y), gg.w), bb.w));
 }
 
 // ---------------------------------------------------------------------------
@@ -192,9 +241,7 @@ __device__ __forceinline__ void epilogue(const LayerParams& p, int epi, int, int
 }
 
 // LayerNorm of rows [0, rows) of x (E floats a row, E a multiple of 4) into
-// out, one warp a row, as `_layer_norm_rows`: the mean, then the mean of the
-// squared deviations, then ((x - mean) * rsqrt(var + eps)) * gamma + beta.
-// Each pass reads the row again (from L1).
+// out, one warp a row (ln_stats, ln_apply).
 constexpr int LN_THREADS = 256;
 
 __global__ void __launch_bounds__(LN_THREADS) ln_rows(const float* __restrict__ x, int rows, int E,
@@ -202,32 +249,11 @@ __global__ void __launch_bounds__(LN_THREADS) ln_rows(const float* __restrict__ 
                                                       const float* __restrict__ b, float eps,
                                                       float* __restrict__ out) {
   const long r = ((long)blockIdx.x * LN_THREADS + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
   if (r >= rows) return;
   const float4* xr = reinterpret_cast<const float4*>(x + r * E);
-  float s = 0.f;
-  for (int c = lane; c < E / 4; c += 32) {
-    const float4 v = xr[c];
-    s += (v.x + v.y) + (v.z + v.w);
-  }
-  const float mu = warp_sum(s) / (float)E;
-  float q = 0.f;
-  for (int c = lane; c < E / 4; c += 32) {
-    const float4 v = xr[c];
-    const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
-    q += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
-  }
-  const float rs = 1.f / sqrtf(warp_sum(q) / (float)E + eps);
+  const float2 st = ln_stats(xr, E, eps);
   float4* orow = reinterpret_cast<float4*>(out + r * E);
-  for (int c = lane; c < E / 4; c += 32) {
-    const float4 v = xr[c];
-    const float4 gg = reinterpret_cast<const float4*>(g)[c];
-    const float4 bb = reinterpret_cast<const float4*>(b)[c];
-    orow[c] = make_float4(__fadd_rn(__fmul_rn(__fmul_rn(v.x - mu, rs), gg.x), bb.x),
-                          __fadd_rn(__fmul_rn(__fmul_rn(v.y - mu, rs), gg.y), bb.y),
-                          __fadd_rn(__fmul_rn(__fmul_rn(v.z - mu, rs), gg.z), bb.z),
-                          __fadd_rn(__fmul_rn(__fmul_rn(v.w - mu, rs), gg.w), bb.w));
-  }
+  for (int c = threadIdx.x % 32; c < E / 4; c += 32) orow[c] = ln_apply(xr, g, b, c, st);
 }
 
 int layer_norm(const float* x, int rows, int E, const float* g, const float* b, float eps,
@@ -262,447 +288,198 @@ long workspace_floats(int mode, long R, int E, int HD, int hidden) {
 }  // namespace f32layer
 
 // ---------------------------------------------------------------------------
-// Mode 7: the int8 layer, one block per image
+// Mode 7: the int8 layer, products over row chunks on wgmma s8
 // ---------------------------------------------------------------------------
 
-namespace q8 {
+namespace q8layer {
 
-using namespace nvcuda;
+using namespace cgemm;
 
-constexpr int THREADS = 256;
-constexpr int QT = 32;                    // query rows per attention tile
-constexpr float NEG_INF = -1e30f;
+// What a tile's epilogue writes into `out` from the int32 sum acc (rows r <
+// rows of the chunk, columns c < N; sx the A rows' scales, sw the weights'
+// column scales, b the bias, res the residual rows), d = ((acc * sx[r]) *
+// sw[c]) + b[c] as `_qdot`:
+// - Q_QKV   d               q | k | v (q's kernel and bias pre-scaled)
+// - Q_OUT   res + d         the out projection and the residual x: z
+// - Q_GELU  GELU(d)         fc1; each row's max |GELU(d)| into rmax
+// - Q_FC2   res + d         fc2 and the residual z
+enum { Q_QKV = 0, Q_OUT = 1, Q_GELU = 2, Q_FC2 = 3 };
 
-// 16-byte asynchronous copy global -> shared; zero-fills when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+struct Q8Params {
+  Job job[MAX_JOBS];
+  int jobs;
+  const float* sx;    // (rows)
+  const float* sw;    // (N)
+  const float* bias;  // (N)
+  const float* res;   // (rows, N): Q_OUT, Q_FC2
+  float* out;         // (rows, N)
+  float* rmax;        // (rows), as int bits: Q_GELU
+  int rows, N;
+};
 
-constexpr int MM = 64, MN = 128, MK = 64;  // tensor-core product tile
-constexpr int STAGES = 2;                  // A and B tiles in flight
-constexpr int WLD = 36;                    // row length of a warp's f32 scratch
-
-// shared memory of gemm_mma: STAGES stages of int8 A and B tiles, which the
-// warps' epilogue scratch reuses once the last stage is consumed
-constexpr size_t MMA_SMEM = STAGES * (size_t)(MM * MK + MK * MN) > (THREADS / 32) * 32 * WLD * 4
-                                ? STAGES * (size_t)(MM * MK + MK * MN)
-                                : (THREADS / 32) * 32 * WLD * 4;
-
-// The int8 products on the tensor cores (wmma 16x16x16 int8 x int8 ->
-// int32, the rounding points of the JAX kernel): 64x128 output tiles, warp w
-// owns the 32x32 piece at rows 32 (w / 4), columns 32 (w % 4) (2x2
-// accumulator fragments).  The A and B tiles of depth 64 are staged in
-// shared memory with cp.async, STAGES deep so that the next tile loads while
-// the tensor cores work on this one, in chunks of 16 columns,
-// [chunk][row][16], so that every fragment starts 32-byte aligned.
-// A warp's sums go through its own scratch (over the stage buffers) to the
-// epilogue, one row at a time across the lanes (coalesced stores).  Columns
-// past N (N % 128 == 64) and rows past `rows` are zero-filled, and a warp
-// whose whole piece lies past them skips its products.
-template <class Epi>
-__device__ void gemm_mma(const int8_t* __restrict__ A, long lda, int rows,
-                         const int8_t* __restrict__ B, long ldb, int K, int N, char* smem, Epi epi) {
-  typedef int8_t TE;
-  typedef int Acc;
-  constexpr int VEC = 16;  // elements per 16-byte copy
-  constexpr int A_EL = MM * MK, B_EL = MK * MN;
-  TE* As = reinterpret_cast<TE*>(smem);  // [STAGES][MK / 16][MM][16]
-  TE* Bs = As + STAGES * A_EL;           // [STAGES][MN / 16][MK][16]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  Acc* Cw = reinterpret_cast<Acc*>(smem) + warp * 32 * WLD;  // [32][WLD]
-  const int wr = (warp / 4) * 32, wc = (warp % 4) * 32;
-  const int nk = K / MK;
-  for (int m0 = 0; m0 < rows; m0 += MM) {
-    for (int n0 = 0; n0 < N; n0 += MN) {
-      auto load = [&](int st, int k0) {
-        TE* as = As + st * A_EL;
-        TE* bs = Bs + st * B_EL;
-        for (int i = threadIdx.x; i < A_EL / VEC; i += THREADS) {
-          const int r = i / (MK / VEC), k = (i % (MK / VEC)) * VEC;
-          const bool ok = m0 + r < rows;
-          cp_async16(as + (k / 16) * MM * 16 + r * 16 + k % 16,
-                     ok ? A + (long)(m0 + r) * lda + k0 + k : A, ok);
-        }
-        for (int i = threadIdx.x; i < B_EL / VEC; i += THREADS) {
-          const int r = i / (MN / VEC), n = (i % (MN / VEC)) * VEC;
-          const bool ok = n0 + n < N;
-          cp_async16(bs + (n / 16) * MK * 16 + r * 16 + n % 16,
-                     ok ? B + (long)(k0 + r) * ldb + n0 + n : B, ok);
-        }
-        cp_async_commit();
-      };
-      // the warp's 32 columns exist and its rows hold one at least (the last
-      // row tile of an image of 200 rows has 8)
-      const bool active = n0 + wc < N && m0 + wr < rows;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> c[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], Acc(0));
-      // one commit group per stage, empty past the last, so that
-      // wait<STAGES - 2> at step ks always means "stage ks has landed"
-      for (int st = 0; st < STAGES - 1; ++st) {
-        if (st < nk)
-          load(st, st * MK);
-        else
-          cp_async_commit();
-      }
-      for (int ks = 0; ks < nk; ++ks) {
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();  // stage ks landed for every thread; step ks - 1 done
-        const int next = ks + STAGES - 1;  // into the slot step ks - 1 used
-        if (next < nk)
-          load(next % STAGES, next * MK);
-        else
-          cp_async_commit();
-        if (active) {
-          const TE* as = As + (ks % STAGES) * A_EL;
-          const TE* bs = Bs + (ks % STAGES) * B_EL;
-#pragma unroll
-          for (int kk = 0; kk < MK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, TE, wmma::row_major> a[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, TE, wmma::row_major> b[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              wmma::load_matrix_sync(a[i], as + (kk / 16) * MM * 16 + (wr + 16 * i) * 16, 16);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              wmma::load_matrix_sync(b[j], bs + ((wc + 16 * j) / 16) * MK * 16 + kk * 16, 16);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-              for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-          }
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();  // every stage consumed: the scratch may reuse them
-      if (active) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(Cw + 16 * i * WLD + 16 * j, c[i][j], WLD, wmma::mem_row_major);
-        __syncwarp();
-        for (int i = 0; i < 32; ++i) {
-          const int r = m0 + wr + i;
-          if (r < rows) epi(r, n0 + wc + lane, Cw[i * WLD + lane]);
-        }
-      }
-      __syncthreads();  // the scratch read before the next tile's loads
-    }
-  }
-}
-
-// C = A B over `rows` rows: A (rows, K) int8 row-major with row stride lda,
-// B (K, N) row-major with row stride ldb; K and N multiples of 64, the
-// strides multiples of 16 bytes.  For each output (r, c) with r < rows calls
-// epi(r, c, acc) with the int32 sum.
-template <class Epi>
-__device__ void gemm(const int8_t* __restrict__ A, long lda, int rows, const int8_t* __restrict__ B,
-                     long ldb, int K, int N, char* smem, Epi epi) {
-  gemm_mma(A, lda, rows, B, ldb, K, N, smem, epi);
-  __syncthreads();  // outputs visible to the block, shared memory free
-}
-
-// LayerNorm of rows [0, rows) of x (row stride E), one warp a row, as
-// `_layer_norm_rows`: mean, then the mean of the squared deviations, then
-// ((x - mean) * rsqrt(var + eps)) * gamma + beta, written as TO.
-__device__ void layer_norm_rows(const float* __restrict__ x, int rows, int E,
-                                const float* __restrict__ g, const float* __restrict__ b,
-                                float eps, float* __restrict__ out) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < rows; r += THREADS / 32) {
-    const float* xr = x + (long)r * E;
-    float s = 0.f;
-    for (int c = lane; c < E; c += 32) s += xr[c];
-    const float mu = warp_sum(s) / (float)E;
-    float v = 0.f;
-    for (int c = lane; c < E; c += 32) {
-      const float d = xr[c] - mu;
-      v += d * d;
-    }
-    const float rs = 1.f / sqrtf(warp_sum(v) / (float)E + eps);
-    for (int c = lane; c < E; c += 32)
-      out[(long)r * E + c] =
-          __fadd_rn(__fmul_rn(__fmul_rn(xr[c] - mu, rs), g[c]), b[c]);
-  }
-  __syncthreads();
-}
-
-// `_quant_rows`: per-row symmetric int8 of rows [0, rows) of v (width W):
-// amax clamped at 1e-6, q = clip(rint(v * (127 / amax)), -127, 127), and the
-// dequantisation scale amax * (1 / 127).
-__device__ void quant_rows(const float* __restrict__ v, int rows, int W, int8_t* __restrict__ q,
-                           float* __restrict__ scale) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < rows; r += THREADS / 32) {
-    const float* vr = v + (long)r * W;
-    float m = 0.f;
-    for (int c = lane; c < W; c += 32) m = fmaxf(m, fabsf(vr[c]));
-    const float amax = fmaxf(warp_max(m), 1e-6f);
-    const float inv = 127.f / amax;
-    for (int c = lane; c < W; c += 32) {
-      const float t = fminf(fmaxf(rintf(vr[c] * inv), -127.f), 127.f);
-      q[(long)r * W + c] = (int8_t)t;
-    }
-    if (lane == 0) scale[r] = amax * (1.f / 127.f);
-  }
-  __syncthreads();
-}
-
-// softmax(q k^T) v for each head of one image: qkv (Tp, 3 HD) holds q (pre-
-// scaled by 1/sqrt(Dh)), k and v, head h at columns h Dh of each third; the
-// output o is (Tp, HD).
-__device__ void attention(const float* __restrict__ qkv, int HD, int H, int Tp, int t_real,
-                          float* __restrict__ o, float* smem) {
-  const long ld = 3L * HD;
-  float* Kt = smem;             // [DH][Tp]   K^T of the head
-  float* Vs = Kt + DH * Tp;     // [Tp][DH]
-  float* Ss = Vs + Tp * DH;     // [QT][Tp]   scores, then p rounded to T
-  float* Qt = Ss + QT * Tp;     // [DH][QT]   query tile, transposed
-  float* Ls = Qt + DH * QT;     // [QT]       row sums l of the unrounded p
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();  // the previous head consumed
-    for (int i = threadIdx.x; i < Tp * DH; i += THREADS) {
-      const int s = i / DH, d = i % DH;
-      const float* row = qkv + (long)s * ld + h * DH + d;
-      Kt[d * Tp + s] = row[HD];
-      Vs[s * DH + d] = row[2 * HD];
-    }
-    for (int q0 = 0; q0 < Tp; q0 += QT) {
-      __syncthreads();  // K and V written; the previous tile consumed
-      for (int i = threadIdx.x; i < QT * DH; i += THREADS) {
-        const int q = i / DH, d = i % DH;
-        Qt[d * QT + q] = q0 + q < Tp ? qkv[(long)(q0 + q) * ld + h * DH + d] : 0.f;
-      }
-      __syncthreads();
-      // scores: rows 2ty, 2ty + 1 of the tile, keys 4tx + 64 j .. + 3
-      for (int s0 = 4 * tx; s0 < Tp; s0 += 64) {
-        float a[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 8
-        for (int d = 0; d < DH; ++d) {
-          const float2 qv = *reinterpret_cast<const float2*>(Qt + d * QT + 2 * ty);
-          const float4 kv = *reinterpret_cast<const float4*>(Kt + d * Tp + s0);
-          a[0][0] = fmaf(qv.x, kv.x, a[0][0]); a[0][1] = fmaf(qv.x, kv.y, a[0][1]);
-          a[0][2] = fmaf(qv.x, kv.z, a[0][2]); a[0][3] = fmaf(qv.x, kv.w, a[0][3]);
-          a[1][0] = fmaf(qv.y, kv.x, a[1][0]); a[1][1] = fmaf(qv.y, kv.y, a[1][1]);
-          a[1][2] = fmaf(qv.y, kv.z, a[1][2]); a[1][3] = fmaf(qv.y, kv.w, a[1][3]);
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            Ss[(2 * ty + r) * Tp + s0 + j] = s0 + j < t_real ? a[r][j] : NEG_INF;
-      }
-      __syncthreads();
-      // whole-row softmax, one warp a row: m, p = exp(s - m), l = sum p
-      for (int r = warp; r < QT; r += THREADS / 32) {
-        float* sr = Ss + r * Tp;
-        float m = NEG_INF;
-        for (int s = lane; s < Tp; s += 32) m = fmaxf(m, sr[s]);
-        m = warp_max(m);
-        float l = 0.f;
-        for (int s = lane; s < Tp; s += 32) {
-          const float p = expf(sr[s] - m);
-          l += p;
-          sr[s] = p;
-        }
-        l = warp_sum(l);
-        if (lane == 0) Ls[r] = l;
-      }
-      __syncthreads();
-      // o = (p v) / l: rows 2ty, 2ty + 1, columns 4tx .. 4tx + 3
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const float* p0 = Ss + (2 * ty) * Tp;
-      const float* p1 = p0 + Tp;
-#pragma unroll 4
-      for (int s = 0; s < Tp; ++s) {
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + s * DH + 4 * tx);
-        const float a0 = p0[s], a1 = p1[s];
-        acc[0][0] = fmaf(a0, vv.x, acc[0][0]); acc[0][1] = fmaf(a0, vv.y, acc[0][1]);
-        acc[0][2] = fmaf(a0, vv.z, acc[0][2]); acc[0][3] = fmaf(a0, vv.w, acc[0][3]);
-        acc[1][0] = fmaf(a1, vv.x, acc[1][0]); acc[1][1] = fmaf(a1, vv.y, acc[1][1]);
-        acc[1][2] = fmaf(a1, vv.z, acc[1][2]); acc[1][3] = fmaf(a1, vv.w, acc[1][3]);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int q = q0 + 2 * ty + r;
-        if (q < Tp) {
-          const float l = Ls[2 * ty + r];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            o[(long)q * HD + h * DH + 4 * tx + j] = acc[r][j] / l;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// shared memory of the attention phase at t_pad Tp
-size_t attention_smem_bytes(int Tp) {
-  return sizeof(float) * ((size_t)2 * DH * Tp + (size_t)QT * Tp + DH * QT + QT);
-}
-
-__host__ __device__ inline size_t align256(size_t b) { return (b + 255) / 256 * 256; }
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-
-// ((acc * sx) * sw) + b, each step rounded (no fused multiply-add), as `_qdot`
+// ((acc * sx) * sw) + b, each step rounded (no fused multiply-add), the
+// int32 sum converted to f32 first, as `_qdot`
 __device__ __forceinline__ float dequant(int acc, float sx, float sw, float b) {
-  return __fadd_rn(__fmul_rn(__fmul_rn((float)acc, sx), sw), b);
+  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw), b);
 }
 
-// Byte offsets of the regions of one workspace slot (fused_layer.py mirrors
-// this in `q8_slot_bytes`).
-struct Layout {
-  size_t qkv, o, z, f, aq, sa, total;
-};
-
-__host__ __device__ inline Layout layout(int seg, int E, int HD, int hidden) {
-  const size_t s = (size_t)seg;
-  Layout L;
-  L.qkv = 0;                                             // q | k | v
-  L.o = L.qkv + align256(s * 3 * HD * 4);                // attention output
-  L.z = L.o + align256(s * HD * 4);                      // z
-  L.f = L.z + align256(s * E * 4);                       // LN or hidden rows
-  L.aq = L.f + align256(s * imax(E, hidden) * 4);        // quantised rows
-  L.sa = L.aq + align256(s * imax(imax(E, HD), hidden));  // their scales
-  L.total = L.sa + align256(s * 4);
-  return L;
-}
-
-struct Args {
-  const float* x;
-  float* y;
-  char* ws;
-  const float *g1, *be1;
-  const int8_t* wqkv;
-  const float *sqkv, *bqkv;
-  const int8_t* wo;
-  const float *so, *bo;
-  const float *g2, *be2;
-  const int8_t* w1;
-  const float *s1, *b1;
-  const int8_t* w2;
-  const float *s2, *b2;
-  long n_rows;
-  int seg, t_real, E, H, hidden;
-  float eps;
-};
-
-// At most 128 registers a thread, so that two blocks share an SM.
-__global__ void __launch_bounds__(THREADS, 2) fused_layer_q8(Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int E = a.E, HD = a.H * DH, HID = a.hidden;
-  const Layout L = layout(a.seg, E, HD, HID);
-  char* ws = a.ws + (size_t)blockIdx.x * L.total;
-  float* qkv = reinterpret_cast<float*>(ws + L.qkv);
-  float* o = reinterpret_cast<float*>(ws + L.o);
-  float* z = reinterpret_cast<float*>(ws + L.z);
-  float* f = reinterpret_cast<float*>(ws + L.f);
-  int8_t* aq = reinterpret_cast<int8_t*>(ws + L.aq);
-  float* sa = reinterpret_cast<float*>(ws + L.sa);
-  char* sm = reinterpret_cast<char*>(smem);
-
-  const long nseg = (a.n_rows + a.seg - 1) / a.seg;
-  for (long sg = blockIdx.x; sg < nseg; sg += gridDim.x) {
-    const long base = sg * a.seg;
-    const int rows = (int)(a.n_rows - base < a.seg ? a.n_rows - base : a.seg);
-    const float* x = a.x + base * E;
-    float* y = a.y + base * E;
-
-    layer_norm_rows(x, rows, E, a.g1, a.be1, a.eps, f);
-    quant_rows(f, rows, E, aq, sa);
-    gemm(aq, E, rows, a.wqkv, 3 * HD, E, 3 * HD, sm, [&](int r, int c, int acc) {
-      qkv[(long)r * 3 * HD + c] = (dequant(acc, sa[r], a.sqkv[c], a.bqkv[c]));
-    });
-    attention(qkv, HD, a.H, rows, a.t_real, o, smem);
-    quant_rows(o, rows, HD, aq, sa);
-    gemm(aq, HD, rows, a.wo, E, HD, E, sm, [&](int r, int c, int acc) {
-      const long i = (long)r * E + c;
-      z[i] = x[i] + dequant(acc, sa[r], a.so[c], a.bo[c]);
-    });
-
-    layer_norm_rows(z, rows, E, a.g2, a.be2, a.eps, f);
-    quant_rows(f, rows, E, aq, sa);
-    gemm(aq, E, rows, a.w1, HID, E, HID, sm, [&](int r, int c, int acc) {
-      f[(long)r * HID + c] = gelu_as(dequant(acc, sa[r], a.s1[c], a.b1[c]));
-    });
-    quant_rows(f, rows, HID, aq, sa);
-    gemm(aq, HID, rows, a.w2, E, HID, E, sm, [&](int r, int c, int acc) {
-      const long i = (long)r * E + c;
-      y[i] = (z[i] + dequant(acc, sa[r], a.s2[c], a.b2[c]));
-    });
+// Each pass over JB columns j issues all its loads before it uses any, as
+// the f32 layer's epilogue.  Q_GELU keeps each of the thread's two rows'
+// max |value|, takes the max over the quad that shares the rows and adds
+// it to rmax by atomicMax on the bits (non-negative floats order as ints):
+// what the tiles of a row give is its max over the whole hidden, exactly.
+__device__ __forceinline__ void epilogue(const Q8Params& p, int epi, int, int mb, int nb,
+                                         const int (&acc)[BN / 2]) {
+  constexpr int JB = 8;
+  const long N = p.N;
+  const bool res = epi == Q_OUT || epi == Q_FC2;
+  float sx[2], m[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) sx[e2] = mb + 8 * e2 < p.rows ? p.sx[mb + 8 * e2] : 0.f;
+#pragma unroll
+  for (int j0 = 0; j0 < BN / 8; j0 += JB) {
+    float2 sw[JB], bias[JB], old[JB][2];
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) {
+      const int col = nb + 8 * (j0 + jj);
+      const bool in = col < p.N;
+      sw[jj] = in ? *reinterpret_cast<const float2*>(p.sw + col) : make_float2(0.f, 0.f);
+      bias[jj] = in ? *reinterpret_cast<const float2*>(p.bias + col) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const long r = mb + 8 * e2;
+        old[jj][e2] = res && in && r < p.rows
+                          ? *reinterpret_cast<const float2*>(p.res + r * N + col)
+                          : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) {
+      const int j = j0 + jj, col = nb + 8 * j;
+      if (col >= p.N) continue;
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const long r = mb + 8 * e2;
+        if (r >= p.rows) continue;
+        float2 v = make_float2(dequant(acc[4 * j + 2 * e2], sx[e2], sw[jj].x, bias[jj].x),
+                               dequant(acc[4 * j + 2 * e2 + 1], sx[e2], sw[jj].y, bias[jj].y));
+        if (res) {
+          v.x = __fadd_rn(old[jj][e2].x, v.x);
+          v.y = __fadd_rn(old[jj][e2].y, v.y);
+        } else if (epi == Q_GELU) {
+          v.x = gelu_as(v.x);
+          v.y = gelu_as(v.y);
+          m[e2] = fmaxf(m[e2], fmaxf(fabsf(v.x), fabsf(v.y)));
+        }
+        *reinterpret_cast<float2*>(p.out + r * N + col) = v;
+      }
+    }
+  }
+  if (epi == Q_GELU) {
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      m[e2] = fmaxf(m[e2], __shfl_xor_sync(0xffffffffu, m[e2], 1));
+      m[e2] = fmaxf(m[e2], __shfl_xor_sync(0xffffffffu, m[e2], 2));
+      if ((threadIdx.x & 3) == 0 && mb + 8 * e2 < p.rows)
+        atomicMax(reinterpret_cast<int*>(p.rmax) + mb + 8 * e2, __float_as_int(m[e2]));
+    }
   }
 }
 
-int launch(const Args& a, int slots, size_t ws_bytes, cudaStream_t stream) {
-  const Layout L = layout(a.seg, a.E, a.H * DH, a.hidden);
-  if (L.total != ws_bytes) return (int)cudaErrorInvalidValue;
-  size_t smem = MMA_SMEM;
-  const size_t att = attention_smem_bytes(a.seg);
-  if (att > smem) smem = att;
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(fused_layer_q8,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_layer_q8, THREADS,
-                                                           smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long nseg = (a.n_rows + a.seg - 1) / a.seg;
-  long grid = (long)per_sm * sms;
-  if (grid > slots) grid = slots;
-  if (grid > nseg) grid = nseg;
-  fused_layer_q8<<<(unsigned)grid, THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+constexpr int ROW_THREADS = 256;  // the row kernels: a warp a row
+
+// 4 values as int8 clip(rint(v * inv), -127, 127)
+__device__ __forceinline__ char4 quant4(float4 v, float inv) {
+  auto q = [inv](float a) {
+    return (signed char)(int)fminf(fmaxf(rintf(__fmul_rn(a, inv)), -127.f), 127.f);
+  };
+  return make_char4(q(v.x), q(v.y), q(v.z), q(v.w));
 }
 
-}  // namespace q8
+// `_quant_rows` of a row of W values, 4 at a time from val(c4), into q and
+// *scale, by one warp: amax (the row's max |v| where amax < 0) clamped at
+// 1e-6, q = clip(rint(v * (127 / amax)), -127, 127), scale amax * (1 / 127)
+template <class Val>
+__device__ __forceinline__ void quant_row(int W, Val val, float amax, int8_t* __restrict__ q,
+                                          float* __restrict__ scale) {
+  const int lane = threadIdx.x % 32;
+  if (amax < 0.f) {
+    float m = 0.f;
+    for (int c = lane; c < W / 4; c += 32) {
+      const float4 v = val(c);
+      m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+    }
+    amax = warp_max(m);
+  }
+  amax = fmaxf(amax, 1e-6f);
+  const float inv = __fdiv_rn(127.f, amax);
+  for (int c = lane; c < W / 4; c += 32) reinterpret_cast<char4*>(q)[c] = quant4(val(c), inv);
+  if (lane == 0) *scale = __fmul_rn(amax, 1.f / 127.f);
+}
+
+// LayerNorm of rows [0, rows) of x (E floats a row, a multiple of 4) as
+// f32layer's `ln_rows` computes it, each row then quantised (quant_row) into
+// q (rows, E) and scale (rows); rmax, where given, is zeroed for the fc1
+// that follows
+__global__ void __launch_bounds__(ROW_THREADS)
+    ln_quant(const float* __restrict__ x, int rows, int E, const float* __restrict__ g,
+             const float* __restrict__ b, float eps, int8_t* __restrict__ q,
+             float* __restrict__ scale, float* __restrict__ rmax) {
+  const long r = ((long)blockIdx.x * ROW_THREADS + threadIdx.x) / 32;
+  if (r >= rows) return;
+  const float4* xr = reinterpret_cast<const float4*>(x + r * E);
+  const float2 st = ln_stats(xr, E, eps);
+  quant_row(E, [&](int c) { return ln_apply(xr, g, b, c, st); }, -1.f, q + r * E, scale + r);
+  if (rmax != nullptr && threadIdx.x % 32 == 0) rmax[r] = 0.f;
+}
+
+// rows [0, rows) of v (W floats a row, a multiple of 4) quantised per row
+// (quant_row) into q and scale; the row maxima from rmax where given
+__global__ void __launch_bounds__(ROW_THREADS)
+    quant_rows(const float* __restrict__ v, int rows, int W, const float* __restrict__ rmax,
+               int8_t* __restrict__ q, float* __restrict__ scale) {
+  const long r = ((long)blockIdx.x * ROW_THREADS + threadIdx.x) / 32;
+  if (r >= rows) return;
+  const float4* vr = reinterpret_cast<const float4*>(v + r * W);
+  quant_row(W, [&](int c) { return vr[c]; }, rmax != nullptr ? rmax[r] : -1.f, q + r * W,
+            scale + r);
+}
+
+unsigned row_blocks(int rows) { return (unsigned)((32L * rows + ROW_THREADS - 1) / ROW_THREADS); }
+
+// One int8 product on `rows` rows of A (K int8 a row) against the W^T whose
+// map P.job[0].b holds (N rows), its epilogue `epi` into out.
+int product(Q8Params& P, int epi, const int8_t* a, int rows, int K, int N, const float* sx,
+            const float* sw, const float* bias, const float* res, float* rmax, float* out,
+            cudaStream_t stream) {
+  int rc = map_a_s8(&P.job[0].a, a, K, rows, K);
+  if (rc != 0) return rc;
+  set_job(P.job[0], epi, (rows + BM - 1) / BM, (N + BN - 1) / BN, (K + QK - 1) / QK);
+  P.jobs = 1, P.sx = sx, P.sw = sw, P.bias = bias, P.res = res, P.rmax = rmax, P.out = out;
+  P.rows = rows, P.N = N;
+  return launch<Q8Params, true>(P, stream);
+}
+
+// Bytes of the workspace for chunks of R rows (kernels/fused_layer.py,
+// workspace_bytes): z (R, E) f32; the wide region, q|k|v (R, 3 HD) and o
+// (R, HD) f32 with the hidden (R, hidden) f32 over them; the int8 rows, the
+// A operand of every product (R, max(E, HD, hidden)); their scales (R) and
+// the hidden's row maxima (R) f32.  With R a multiple of 8 and the widths
+// multiples of 64, every region starts 16-byte aligned.
+long wide_floats(int HD, int hidden) { return 4L * HD > hidden ? 4L * HD : hidden; }
+
+long int8_bytes(int E, int HD, int hidden) {
+  const long a = E > HD ? E : HD;
+  return hidden > a ? hidden : a;
+}
+
+long workspace_bytes(long R, int E, int HD, int hidden) {
+  return R * (4L * E + 4 * wide_floats(HD, hidden) + int8_bytes(E, HD, hidden) + 8);
+}
+
+}  // namespace q8layer
 
 }  // namespace
-
-// One launch of the int8 layer on f32 x (mode 7, the only mode this entry
-// takes) on `n_rows` rows of x, in segments of `seg` rows (an image of t_pad
-// rows).  Weights: wqkv (E, 3 HD) = [Wq / sqrt(Dh) | Wk | Wv], wo (HD, E), w1
-// (E, hidden), w2 (hidden, E) in int8 with per-column scales s*; biases and
-// LN parameters f32.  ws holds `slots` slots of `ws_bytes` each.  Returns a
-// cudaError_t as int: 0 when the launch was accepted.
-extern "C" int launch_fused_layer(int mode, const void* x, void* y, void* ws,
-                                  int slots, long long ws_bytes, const float* g1,
-                                  const float* be1, const void* wqkv, const float* sqkv,
-                                  const float* bqkv, const void* wo, const float* so,
-                                  const float* bo, const float* g2, const float* be2,
-                                  const void* w1, const float* s1, const float* b1,
-                                  const void* w2, const float* s2, const float* b2,
-                                  long long n_rows, int seg, int t_real, int E, int H,
-                                  int hidden, float eps, cudaStream_t stream) {
-  if (mode != (MODE_ATTN | MODE_MLP | MODE_Q8) || n_rows <= 0 || seg <= 0 || slots <= 0 ||
-      E % 64 || (H * DH) % 64 || hidden % 64 || seg % 8 || t_real <= 0 || t_real > seg ||
-      n_rows % seg)
-    return (int)cudaErrorInvalidValue;
-  using I8 = const int8_t*;
-  q8::Args a{static_cast<const float*>(x), static_cast<float*>(y), static_cast<char*>(ws), g1, be1,
-             static_cast<I8>(wqkv), sqkv, bqkv, static_cast<I8>(wo), so, bo, g2, be2,
-             static_cast<I8>(w1), s1, b1, static_cast<I8>(w2), s2, b2, (long)n_rows, seg, t_real,
-             E, H, hidden, eps};
-  return q8::launch(a, slots, (size_t)ws_bytes, stream);
-}
 
 // The products' kernel of `mode` (1, 2 or 3; chunk_gemm with the layer's
 // epilogue, one kernel for the three): its registers a thread, its local
@@ -781,6 +558,92 @@ extern "C" int launch_fused_layer_tf32x3(int mode, const float* x, float* y, flo
       if (rc == 0) rc = product(P1, L_GELU, xn, rows, E, hidden, b1, nullptr, hid, stream);
       if (rc == 0) rc = product(P2, L_FC2, hid, rows, hidden, E, b2, src, yc, stream);
     }
+  }
+  return rc;
+}
+
+// The int8 products' kernel (chunk_gemm_s8 with the int8 layer's
+// epilogue), `mode` 7: its registers a thread, its local memory a thread
+// (stack and spills), its dynamic shared memory and the blocks an SM holds.
+// Returns a cudaError_t as int.
+extern "C" int fused_layer_q8_info(int mode, int* regs, int* local, int* smem, int* blocks) {
+  if (mode != (MODE_ATTN | MODE_MLP | MODE_Q8)) return (int)cudaErrorInvalidValue;
+  return cgemm::info<q8layer::Q8Params, true>(regs, smem, blocks, local);
+}
+
+// The int8 layer on f32 x (`mode` 7, the only mode this entry takes) on
+// `n_rows` rows of x, in chunks of R rows (whole images of t_pad rows).
+// Weights as the wrapper packs them, once per model: int8 W^T (out, in)
+// with f32 per-column scales s*, wqkv (3 HD, E) from [Wq / sqrt(Dh) | Wk |
+// Wv], wo (E, HD), w1 (hidden, E), w2 (E, hidden); biases (bqkv pre-scaled
+// as Wq) and LN parameters f32.  ws holds ws_bytes bytes
+// (q8layer::workspace_bytes).  x, y and ws 16-byte aligned.  Returns a
+// cudaError_t as int (or 1000 + a CUresult from encoding a tensor map): 0
+// when every launch was accepted.
+extern "C" int launch_fused_layer(int mode, const float* x, float* y, void* ws,
+                                  long long ws_bytes, int R, const float* g1, const float* be1,
+                                  const void* wqkv, const float* sqkv, const float* bqkv,
+                                  const void* wo, const float* so, const float* bo,
+                                  const float* g2, const float* be2, const void* w1,
+                                  const float* s1, const float* b1, const void* w2,
+                                  const float* s2, const float* b2, long long n_rows, int t_pad,
+                                  int t_real, int E, int H, int hidden, float eps,
+                                  cudaStream_t stream) {
+  using namespace q8layer;
+  const int HD = H * DH;
+  if (mode != (MODE_ATTN | MODE_MLP | MODE_Q8) || n_rows <= 0 || R <= 0 || E % 64 || HD % 64 ||
+      hidden % 64 || !aligned(x) || !aligned(y) || !aligned(ws) || t_pad % 8 || t_real <= 0 ||
+      t_real > t_pad || n_rows % t_pad || R % t_pad ||
+      ws_bytes != workspace_bytes(R, E, HD, hidden))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<Q8Params, true>();
+  if (err != cudaSuccess) return (int)err;
+  float* z = static_cast<float*>(ws);
+  float* qkv = z + (long)R * E;
+  float* o = qkv + (long)R * 3 * HD;
+  float* hid = qkv;
+  int8_t* aq = reinterpret_cast<int8_t*>(qkv + R * wide_floats(HD, hidden));
+  float* sa = reinterpret_cast<float*>(aq + R * int8_bytes(E, HD, hidden));
+  float* hmax = sa + R;
+  using I8 = const int8_t*;
+  // the weights' maps, the same for every chunk
+  Q8Params Pqkv, Po, P1, P2;
+  memset(&Pqkv, 0, sizeof(Q8Params));
+  Po = P1 = P2 = Pqkv;
+  int rc = map_b_s8(&Pqkv.job[0].b, static_cast<I8>(wqkv), E, 3 * HD);
+  if (rc == 0) rc = map_b_s8(&Po.job[0].b, static_cast<I8>(wo), HD, E);
+  if (rc == 0) rc = map_b_s8(&P1.job[0].b, static_cast<I8>(w1), E, hidden);
+  if (rc == 0) rc = map_b_s8(&P2.job[0].b, static_cast<I8>(w2), hidden, E);
+  for (long r0 = 0; r0 < n_rows && rc == 0; r0 += R) {
+    const int rows = (int)(n_rows - r0 < R ? n_rows - r0 : R);
+    const float* xc = x + r0 * E;
+    float* yc = y + r0 * E;
+    ln_quant<<<row_blocks(rows), ROW_THREADS, 0, stream>>>(xc, rows, E, g1, be1, eps, aq, sa,
+                                                           nullptr);
+    rc = (int)cudaGetLastError();
+    if (rc == 0)
+      rc = product(Pqkv, Q_QKV, aq, rows, E, 3 * HD, sa, sqkv, bqkv, nullptr, nullptr, qkv,
+                   stream);
+    if (rc == 0)
+      rc = launch_flash_attention_ld(qkv, qkv + HD, qkv + 2 * HD, o, nullptr, rows / t_pad,
+                                     t_pad, t_real, t_pad, H, DH, 3 * HD, 1.f, stream);
+    if (rc == 0) {
+      quant_rows<<<row_blocks(rows), ROW_THREADS, 0, stream>>>(o, rows, HD, nullptr, aq, sa);
+      rc = (int)cudaGetLastError();
+    }
+    if (rc == 0) rc = product(Po, Q_OUT, aq, rows, HD, E, sa, so, bo, xc, nullptr, z, stream);
+    if (rc == 0) {
+      ln_quant<<<row_blocks(rows), ROW_THREADS, 0, stream>>>(z, rows, E, g2, be2, eps, aq, sa,
+                                                             hmax);
+      rc = (int)cudaGetLastError();
+    }
+    if (rc == 0)
+      rc = product(P1, Q_GELU, aq, rows, E, hidden, sa, s1, b1, nullptr, hmax, hid, stream);
+    if (rc == 0) {
+      quant_rows<<<row_blocks(rows), ROW_THREADS, 0, stream>>>(hid, rows, hidden, hmax, aq, sa);
+      rc = (int)cudaGetLastError();
+    }
+    if (rc == 0) rc = product(P2, Q_FC2, aq, rows, hidden, E, sa, s2, b2, z, nullptr, yc, stream);
   }
   return rc;
 }

@@ -184,6 +184,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // the same for A fragments, once they are written and before the
 // wgmma.fence of the products that read them
@@ -201,6 +206,12 @@ template <int N>
 __device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) d[i] = 0.f;
+  fence_acc(d);
+}
+template <int N>
+__device__ __forceinline__ void zero(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0;
   fence_acc(d);
 }
 
@@ -531,20 +542,26 @@ inline EncodeTiled encoder() {
 
 constexpr int ENCODE_FAILED = 1000;  // + the CUresult
 
-// a map of an f32 array of `rank` dims (innermost first; `strides` in bytes
-// for dims 1 .. rank - 1), boxes of 32 floats (128 bytes) by box[1..] in the
+// a map of an array of `type` with `rank` dims (innermost first; `strides`
+// in bytes for dims 1 .. rank - 1), boxes of 128 bytes by box[1..] in the
 // 128-byte swizzle, zero fill past the edges
-inline int encode_f32(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                      const cuuint64_t* strides, const cuuint32_t* box) {
+inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return ENCODE_FAILED;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   memset(map, 0, sizeof(*map));
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// the same for f32 arrays: boxes of 32 floats
+inline int encode_f32(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, rank, dims, strides, box);
 }
 
 }  // namespace tf32x3

@@ -52,10 +52,10 @@ SIGNATURES = {
     "fused_mlp_info": [_I, _P, _P, _P],
     # kind (0 dk/dv, 1 dq), registers, shared memory bytes, blocks per SM
     "flash_attention_bwd_info": [_I, _P, _P, _P],
-    # mode (7, the int8 layer on f32 x), x, y, workspace, slots, bytes per
-    # slot, g1, be1, wqkv, sqkv, bqkv, wo, so, bo, g2, be2, w1, s1, b1, w2,
-    # s2, b2, rows, rows per segment, t_real, E, H, hidden, eps, stream
-    "launch_fused_layer": [_I, _P, _P, _P, _I, ctypes.c_longlong,
+    # mode (7, the int8 layer on f32 x), x, y, workspace, its bytes, chunk
+    # rows, g1, be1, wqkv, sqkv, bqkv, wo, so, bo, g2, be2, w1, s1, b1, w2,
+    # s2, b2, rows, t_pad, t_real, E, H, hidden, eps, stream
+    "launch_fused_layer": [_I, _P, _P, _P, ctypes.c_longlong, _I,
                            *[_P] * 16, ctypes.c_longlong, _I, _I, _I, _I,
                            _I, ctypes.c_float, _P],
     # mode (1, 2 or 3), x, y, workspace, its floats, chunk rows, g1, be1,
@@ -68,6 +68,10 @@ SIGNATURES = {
     # spills), shared memory bytes, blocks per SM of the f32 layer's
     # products (chunk_gemm with its epilogue)
     "fused_layer_tf32x3_info": [_I, _P, _P, _P, _P],
+    # mode (7), registers, local memory bytes a thread, shared memory
+    # bytes, blocks per SM of the int8 layer's products (chunk_gemm_s8 with
+    # its epilogue)
+    "fused_layer_q8_info": [_I, _P, _P, _P, _P],
     # mode, t_pad, registers (out), shared memory bytes (out), blocks per SM
     # (out)
     "vit_layer_sm90_info": [_I, _I, _P, _P, _P],

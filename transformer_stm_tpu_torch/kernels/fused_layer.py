@@ -2,10 +2,11 @@
 
 Ports of the Pallas TPU kernels of transformer_stm_tpu/kernels/fused_layer.py
 (``csrc/vit_layer_sm90.cu`` holds all four in bfloat16, on wgmma and TMA;
-``csrc/fused_layer.cu`` holds them in float32: the first three as 3xTF32
-``wgmma`` products over row chunks, ``chunk_gemm`` of ``csrc/chunk_gemm.cuh``
-with the flash forward of ``csrc/flash_attention.cu`` between them, the int8
-layer in its own one-block-an-image kernel):
+``csrc/fused_layer.cu`` holds them in float32 x, as products over chunks
+of whole images with the 3xTF32 flash forward of ``csrc/flash_attention.cu``
+between them: the first three on ``chunk_gemm`` of ``csrc/chunk_gemm.cuh``
+(3xTF32 ``wgmma``), the int8 layer on its sibling ``chunk_gemm_s8`` (s8
+``wgmma``)):
 
 - ``attn_layer_infer`` (:200, ``_attn_layer_kernel`` :62):
   y = x + OutProj(MHA(LN1 x));
@@ -14,8 +15,8 @@ layer in its own one-block-an-image kernel):
   z = x + MHA(LN1 x), y = z + MLP(LN2 z), with z kept in float32;
 - ``vit_layer_infer_int8`` (:509, ``_layer_kernel_int8`` :440): that layer
   with all six projections int8 x int8 -> int32, weights quantised per
-  column here (``quant_cols``), rows per row inside the kernel (in
-  bfloat16 on ``wgmma`` with s8 operands).
+  column here (``quant_cols``), rows per row inside the kernel (on
+  ``wgmma`` with s8 operands, in bfloat16 and on float32 x).
 
 Tokens are folded: x is (B * t_pad, E), t_pad a multiple of 8, keys at or
 past t_real are masked and padded query rows carry junk.  x is float32 or
@@ -29,9 +30,10 @@ their TMA descriptors, are cached per layer until a parameter changes;
 Tensors on the CPU take the plain versions; tensors on a CUDA device launch
 the kernel, or raise: for shapes outside the CUDA design, for a token count
 whose attention phase overflows a block's shared memory
-(``FusedLayerSharedMemoryError``, which ``fused_layer_fits`` predicts; the
-float32 layer's attention is the flash forward, which takes any count), and
-while autograd records (the kernels have no backward).
+(``FusedLayerSharedMemoryError``, which ``fused_layer_fits`` predicts: past
+t_pad 576 in bfloat16; on float32 x every layer, the int8 one included,
+runs its attention on the flash forward, which takes any count), and while
+autograd records (the kernels have no backward).
 """
 
 from __future__ import annotations
@@ -48,7 +50,6 @@ from .fused_mlp import CHUNK_TILE_M, CHUNK_TILE_N, tf32_split
 
 HEAD_DIM = 64        # the attention phase's head dim
 TILE = 64            # E, H * Dh and the hidden width are multiples of this
-QUERY_TILE = 32      # query rows of an attention tile (the f32 int8 kernel)
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 # csrc/flash_attention.cu, the float32 layer's attention: 1 KB of alignment,
 # 1 KB of barriers, q, K and V^T big and small (8 tiles of 16 KB) and two
@@ -63,7 +64,6 @@ SM90_TILE_BYTES = 8_192
 SM90_EXTRA_BYTES = 2_048
 SM90_ROWS = 64       # rows of a tile of the bf16 layer
 TMA_MAP_BYTES = 128  # one CUtensorMap
-SLOTS_PER_SM = 2     # workspace slots per SM: the int8 layer on float32 x
 NEG_INF = -1e30
 MODE_ATTN, MODE_MLP, MODE_Q8 = 1, 2, 4
 
@@ -72,27 +72,20 @@ class FusedLayerSharedMemoryError(ValueError):
     """Raised when a fused layer kernel's attention phase needs more shared
     memory than one block may use on the card (``SMEM_LIMIT``, 227 KB on
     Hopper), ``attention_smem_bytes``: past t_pad 576 in bfloat16, the int8
-    layer included, and past t_pad 344 for the int8 layer on float32 x.  The
-    float32 layer's attention fits at any t_pad.  ``fused_layer_fits``
-    predicts it; callers route to the composable impl='small' path
-    instead."""
+    layer included.  On float32 x every layer, the int8 one included, fits
+    at any t_pad.  ``fused_layer_fits`` predicts it; callers route to the
+    composable impl='small' path instead."""
 
 
-def attention_smem_bytes(t_pad: int, itemsize: int = 2,
-                         int8: bool = False) -> int:
+def attention_smem_bytes(t_pad: int, itemsize: int = 2) -> int:
     """Shared memory a block of the kernel that runs the attention at t_pad
-    needs.  float32: the flash forward (``FLASH_FWD_SMEM``), whatever t_pad;
-    the int8 layer on float32 x (``attention_smem_bytes`` of
-    csrc/fused_layer.cu) K^T and V of one head, a score tile and a query
-    tile of ``QUERY_TILE`` rows and their row sums, all f32.  bfloat16, the
-    int8 layer too (``smem_bytes`` of csrc/vit_layer_sm90.cu): the larger
-    of the product ring with its hidden chunk and Q, K and V of one head in
-    64-row tiles, beside the barriers."""
-    qt = QUERY_TILE
+    needs.  float32 x, the int8 layer included: the flash forward
+    (``FLASH_FWD_SMEM``), whatever t_pad.  bfloat16, the int8 layer too
+    (``smem_bytes`` of csrc/vit_layer_sm90.cu): the larger of the product
+    ring with its hidden chunk and Q, K and V of one head in 64-row tiles,
+    beside the barriers."""
     if itemsize == 4:
-        if not int8:
-            return FLASH_FWD_SMEM
-        return 4 * (2 * HEAD_DIM * t_pad + qt * t_pad + HEAD_DIM * qt + qt)
+        return FLASH_FWD_SMEM
     tiles = -(-t_pad // SM90_ROWS)
     return SM90_EXTRA_BYTES + max(SM90_GEMM_BYTES,
                                   3 * tiles * SM90_TILE_BYTES)
@@ -102,14 +95,14 @@ def fused_layer_fits(t_pad: int, e: int, heads: int, dh: int, hidden: int,
                      itemsize: int = 2, int8: bool = False) -> bool:
     """True iff the CUDA fused-layer kernels take these model dims in x's
     type (``itemsize`` 4 for float32, 2 for bfloat16; ``int8`` for the int8
-    layer): Dh 64; E, H * Dh and the hidden width multiples of 64; t_pad a
-    multiple of 8 whose attention fits a block's shared memory (any t_pad
-    in float32, t_pad <= 576 in bfloat16, t_pad <= 344 for the int8 layer
-    on float32 x).  Unlike JAX's, the answer is the same for the merged
+    layer, whose limits are the float layer's in x's type): Dh 64; E, H * Dh
+    and the hidden width multiples of 64; t_pad a multiple of 8 whose
+    attention fits a block's shared memory (any t_pad in float32, t_pad <=
+    576 in bfloat16).  Unlike JAX's, the answer is the same for the merged
     layer and the pair."""
     return (dh == HEAD_DIM and e % TILE == 0 and (heads * dh) % TILE == 0
             and hidden % TILE == 0 and t_pad % 8 == 0
-            and attention_smem_bytes(t_pad, itemsize, int8) <= SMEM_LIMIT)
+            and attention_smem_bytes(t_pad, itemsize) <= SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------
@@ -287,12 +280,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def layer_chunk_rows(n: int, e: int, t_pad: int = None,
                      sms: int = SMS) -> int:
-    """Rows of a chunk of the float32 layer (csrc/fused_layer.cu, modes
-    1-3): about sms x 128 x 192 / E rows, so that the products with E
-    output columns (the out projection and fc2) fill the SMs with whole
-    tiles, in whole images of t_pad rows (the attention modes) or whole
-    tiles of 128 rows; the rows spread evenly over the chunks that takes,
-    and no more units than n fills."""
+    """Rows of a chunk of the layers on float32 x (csrc/fused_layer.cu, the
+    int8 layer included): about sms x 128 x 192 / E rows, so that the
+    products with E output columns (the out projection and fc2) fill the
+    SMs with whole tiles, in whole images of t_pad rows (the attention
+    modes) or whole tiles of 128 rows; the rows spread evenly over the
+    chunks that takes, and no more units than n fills."""
     unit = t_pad or CHUNK_TILE_M
     units = -(-n // unit)
     cap = max(1, sms * CHUNK_TILE_M * CHUNK_TILE_N // e // unit)
@@ -302,27 +295,20 @@ def layer_chunk_rows(n: int, e: int, t_pad: int = None,
 
 def workspace_bytes(mode: int, rows: int, e: int, hd: int,
                     hidden: int) -> int:
-    """Bytes of the float32 layer's workspace for chunks of ``rows`` rows
-    (``workspace_floats`` of csrc/fused_layer.cu): xn, the LN output
-    (rows, E); in the merged mode z (rows, E); and one region for the wide
-    arrays: q|k|v (rows, 3 HD) and o (rows, HD) in the attention modes,
-    the MLP hidden (rows, hidden) over them.  It grows with the chunk, not
-    with the rows of x."""
+    """Bytes of the workspace of a layer on float32 x for chunks of
+    ``rows`` rows.  Modes 1-3 (``workspace_floats`` of csrc/fused_layer.cu):
+    xn, the LN output (rows, E); in the merged mode z (rows, E); and one
+    region for the wide arrays: q|k|v (rows, 3 HD) and o (rows, HD) in the
+    attention modes, the MLP hidden (rows, hidden) over them.  The int8
+    layer (``MODE_Q8``, ``q8layer::workspace_bytes``): z and the same wide
+    region in f32, the int8 rows that every product reads (rows, max(E,
+    HD, hidden)) and two f32 values a row (their scales, the hidden's row
+    maxima).  It grows with the chunk, not with the rows of x."""
     attn, mlp = bool(mode & MODE_ATTN), bool(mode & MODE_MLP)
     wide = max(4 * hd if attn else 0, hidden if mlp else 0)
+    if mode & MODE_Q8:
+        return rows * (4 * e + 4 * wide + max(e, hd, hidden) + 8)
     return 4 * rows * ((2 if attn and mlp else 1) * e + wide)
-
-
-def q8_slot_bytes(seg: int, e: int, hd: int, hidden: int) -> int:
-    """Bytes of one workspace slot of the int8 layer on float32 x
-    (``layout`` of csrc/fused_layer.cu): q|k|v, the attention output, z,
-    the LN or hidden rows, their int8 form and their scales; each region
-    rounded up to 256 bytes."""
-    def a(n):
-        return -(-n // 256) * 256
-    return (a(seg * 3 * hd * 4) + a(seg * hd * 4) + a(seg * e * 4)
-            + a(seg * max(e, hidden) * 4) + a(seg * max(e, hd, hidden))
-            + a(seg * 4))
 
 
 def _no_grad(what, x, *modules):
@@ -379,12 +365,10 @@ def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
     bfloat16 (csrc/vit_layer_sm90.cu): (wqkv^T (3 HD, E), wo^T (E, HD),
     w1^T (hidden, E), w2^T (E, hidden) in bf16, every product's operands
     K-major; g1, be1, bqkv, bo, g2, be2, b1, b2 in f32), and in
-    ``MODE_Q8`` the four W^T in int8 followed by their column scales sqkv,
-    so, s1, s2 (f32).  float32 (csrc/fused_layer.cu): (wqkv^T, bqkv,
-    wo^T, bo, w1^T, b1, w2^T, b2, g1, be1, g2, be2), each W^T split into
-    its TF32 halves, (2, out, in); in ``MODE_Q8`` the 16 operands of
-    ``launch_fused_layer``: (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2,
-    s2, b2, g1, be1, g2, be2), int8 with their column scales."""
+    ``MODE_Q8``, in either type, the four W^T in int8 followed by their
+    column scales sqkv, so, s1, s2 (f32).  float32 modes 1-3
+    (csrc/fused_layer.cu): (wqkv^T, bqkv, wo^T, bo, w1^T, b1, w2^T, b2, g1,
+    be1, g2, be2), each W^T split into its TF32 halves, (2, out, in)."""
     pack_weights.packings += 1
     null = torch.zeros(1, device=device)
     if mode & MODE_Q8:
@@ -398,14 +382,11 @@ def pack_weights(mode, dtype, device, norm1, attn, norm2, mlp):
                           else (null,) * 4)
     g1, be1 = _norm(norm1) if norm1 is not None else (null, null)
     g2, be2 = _norm(norm2) if norm2 is not None else (null, null)
-    if _sm90(dtype):
+    if _sm90(dtype) or mode & MODE_Q8:
         t = [w.t() if w is not null else w for w in (wqkv, wo, w1, w2)]
         ops = (*t, g1, be1, bqkv, bo, g2, be2, b1, b2)
         if mode & MODE_Q8:
             ops += (sqkv, so, s1, s2)
-    elif mode & MODE_Q8:
-        ops = (wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1,
-               g2, be2)
     else:
         wqkv, wo, w1, w2 = (_split_t(w) if w is not null else w
                             for w in (wqkv, wo, w1, w2))
@@ -507,7 +488,7 @@ def _check(what, mode, x, t_pad, t_real, attn, mlp):
                 hidden % TILE == 0 and seg % 8 == 0:
             raise FusedLayerSharedMemoryError(
                 f"{what}: t_pad={seg} needs "
-                f"{attention_smem_bytes(seg, it, q8)} bytes of shared "
+                f"{attention_smem_bytes(seg, it)} bytes of shared "
                 f"memory for its attention, over the {SMEM_LIMIT} a block "
                 "may use; use the composable impl='small' path")
         raise ValueError(f"{what}: E={e} heads={heads} Dh={dh} "
@@ -573,24 +554,27 @@ def _launch_tf32x3(mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps,
 
 def _launch_q8(mode, x, t_pad, t_real, norm1, attn, norm2, mlp, eps, heads,
                hidden):
-    """One launch of the int8 layer on float32 x: a block an image, in
-    workspace slots of ``q8_slot_bytes``."""
+    """One call of the int8 layer on float32 x (csrc/fused_layer.cu, mode
+    7): chunks of ``layer_chunk_rows`` rows (whole images) through a
+    workspace of ``workspace_bytes``."""
     n, e = x.shape
     dev = x.device
-    wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2, g1, be1, g2, be2 = (
+    wqkv, wo, w1, w2, g1, be1, bqkv, bo, g2, be2, b1, b2, sqkv, so, s1, s2 = (
         packed_weights(mode, x.dtype, dev, norm1, attn, norm2, mlp)["ops"])
+    hd = heads * HEAD_DIM
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    slots = min(n // t_pad, SLOTS_PER_SM * sms)
-    ws_bytes = q8_slot_bytes(t_pad, e, heads * HEAD_DIM, hidden)
-    ws = torch.empty(slots * ws_bytes, dtype=torch.uint8, device=dev)
+    rows = layer_chunk_rows(n, e, t_pad, sms)
+    ws = torch.empty(workspace_bytes(mode, rows, e, hd, hidden),
+                     dtype=torch.uint8, device=dev)
+    x = aligned16(x)
     y = torch.empty_like(x)
     rc = library().launch_fused_layer(
-        mode, x.data_ptr(), y.data_ptr(), ws.data_ptr(),
-        slots, ws_bytes, g1.data_ptr(), be1.data_ptr(), wqkv.data_ptr(),
-        sqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(), so.data_ptr(),
-        bo.data_ptr(), g2.data_ptr(), be2.data_ptr(), w1.data_ptr(),
-        s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
-        b2.data_ptr(), n, t_pad, t_real, e, heads, hidden, eps,
+        mode, x.data_ptr(), y.data_ptr(), ws.data_ptr(), ws.numel(), rows,
+        g1.data_ptr(), be1.data_ptr(), wqkv.data_ptr(), sqkv.data_ptr(),
+        bqkv.data_ptr(), wo.data_ptr(), so.data_ptr(), bo.data_ptr(),
+        g2.data_ptr(), be2.data_ptr(), w1.data_ptr(), s1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), n, t_pad,
+        t_real, e, heads, hidden, eps,
         torch.cuda.current_stream(dev).cuda_stream)
     return rc, y
 
