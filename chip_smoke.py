@@ -147,20 +147,41 @@ Phases, each printed as it finishes:
    augmentation through ``"auto"`` (plain PyTorch at 197 tokens, no
    launch) and ``"pallas"``, in f32 (losses within 1e-4 relative) and bf16
    (2e-2, first logits within 5e-2 x max(1, |logits|)); ms per bf16 step,
-   images/s, peak memory and busy share of both routes.
+   images/s, peak memory and busy share of both routes;
+9. the analysis and data-prep surface: Grad-CAM through
+   ``cli.main(["heatmap", ...])`` on the flagship CvT (random weights from
+   seed 0 saved at the target's weight path, a synthetic 128px corpus of
+   10 layers a specimen written into the decode cache) with exact launch
+   counts (one feature forward: attention_small once, fused_mlp 3 times),
+   its heatmaps against the plain route; ``gradcam_heatmaps`` at B 128 and
+   at 512px (``cvt_highres_spec(512)``, B 8: flash_attention once,
+   attention_small twice, fused_mlp 3 times) through the kernels and the
+   plain route, heatmaps within 1e-4 and predictions within 1e-5 of max
+   |y|, ms a call and of its feature forward; the params-only FFN through
+   ``train``/``test --inputs par`` on 40 groups x 5 pieces x 200 rows (2
+   epochs of 250 steps), no launch, its sheets read back, its checkpoint
+   predicting on the card within 1e-5 of the CPU, seconds an epoch;
+   ``preprocess_images_device(antialias=True)`` on the card against the
+   CPU; ``pickup`` (planted outliers emptied), ``plot-records``,
+   ``plot-labels``, ``plot-data --params``, ``model-plot`` and ``compare``
+   (PNGs written, or a line saying matplotlib is not installed); the
+   monitor's line with the card's memory; the native host loader built
+   where g++ and libjpeg's header are there.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON object with each kernel's numbers (``launches`` from phase 6, or
 phase 5 for the training MLP, which the multi-target trainer runs at the
 CvT widths, or phase 7 for the fused-layer kernels; ``launches_by_path``
-from phases 3 to 8, the last ``vit_finetune``, where rows 4-5 run at D
-768; rows 4-5 carry their ViT-width rows as ``vit_shapes`` and, as
-``vit_source``, the source of their chunked products at D 384 and 768;
+from phases 3 to 9: ``vit_finetune``, where rows 4-5 run at D 768, then
+phase 9's ``heatmap`` (the CLI's), ``heatmap_512px`` and ``ffn``; rows 4-5
+carry their ViT-width rows as ``vit_shapes`` and, as ``vit_source``, the
+source of their chunked products at D 384 and 768;
 rows 9-12 their f32 numbers as ``f32_*``, ``f32_launches`` the launches of
-phase 7's f32 routes) and phase 8's step times; the last line is
+phase 7's f32 routes), phase 8's step times and phase 9's numbers
+(``analysis``); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing is read from or written to the
-repository except the kernels' build directory; phase 6 works in a
-temporary directory.
+repository except the build directory (the kernels', and the native
+loader's in phase 9); phases 6 and 9 work in temporary directories.
 """
 
 import sys
@@ -173,6 +194,7 @@ import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
+import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
@@ -2938,6 +2960,332 @@ def phase_finetune(card):
         del model, opt
     return launches, out
 
+# Phase 9, the analysis and data-prep surface.  The Grad-CAM corpus: the
+# reference's `make heatmap` reads 10 layers a specimen; the label and
+# process sheets hold the reference corpus's 40 groups x 5 pieces (all 20
+# targets), which the params-only FFN trains on at its real size, 200
+# layers a specimen (32,000 training rows, 250 steps an epoch of 128).
+HEAT_TARGET = "50HZ_Bm"
+HEAT_GROUPS, HEAT_LAYERS = 2, 10
+HEAT_512_BATCH = 8
+HEAT_TOL = 1e-4       # Grad-CAM heatmaps on [0, 1], kernels vs plain: max |diff|
+HEAT_PRED_TOL = 1e-5  # its predictions: max |diff| <= tol x max |plain|
+FFN_GROUPS, FFN_LAYERS, FFN_EPOCHS = 40, 200, 2
+FFN_TOL = 1e-5        # the card's FFN checkpoint on the card vs on the CPU:
+                      # max |diff| <= tol x max(1, |y|)
+PREP_TOL = 1e-5       # preprocess_images_device(antialias=True), card vs CPU
+
+
+def analysis_fixture(root):
+    """Label and process sheets of FFN_GROUPS x 5 specimens (all 20
+    targets, the label a function of the group's process parameters; one
+    label missing) and a 128px corpus of the first HEAT_GROUPS groups,
+    HEAT_LAYERS layers a specimen, written straight into the decode cache.
+    Returns the DataConfigs of the Grad-CAM and the FFN runs."""
+    from transformer_stm_tpu_torch.config import FREQUENCIES
+
+    rng = np.random.default_rng(SEED + 10)
+    proc = rng.uniform(0.5, 3.0, (FFN_GROUPS, 5))
+    n_spec = FFN_GROUPS * 5
+    rows = [["No."] + list(FREQUENCIES)]
+    for i in range(n_spec):
+        base = 1.0 + 0.2 * proc[i // 5].sum()
+        rows.append([i + 1] + [float(base * (1 + 0.1 * t) +
+                                     0.01 * rng.standard_normal())
+                               for t in range(len(FREQUENCIES))])
+    rows[3][1] = None  # as the IQR filter leaves a piece
+    heat = DataConfig(data_root=os.path.join(root, "data"),
+                      excel_labels=os.path.join(root, "labels.xlsx"),
+                      excel_process=os.path.join(root, "process.xlsx"),
+                      group_end=HEAT_GROUPS, image_layers=HEAT_LAYERS,
+                      cache_dir=os.path.join(root, "cache"))
+    write_xlsx(heat.excel_labels, {"Sheet1": rows})
+    write_xlsx(heat.excel_process, {"Sheet1": [list(PROCESS_PARAMETERS)] +
+                                    proc.tolist()})
+    os.makedirs(heat.cache_dir)
+    npy, meta = _cache_paths(heat)
+    corpus = np.lib.format.open_memmap(
+        npy, mode="w+", dtype=np.uint8,
+        shape=(HEAT_GROUPS * 5, HEAT_LAYERS, 128, 128))
+    corpus[:] = rng.integers(0, 256, corpus.shape, dtype=np.uint8)
+    corpus.flush()
+    del corpus
+    with open(meta, "w") as f:
+        json.dump({"decoded": list(range(HEAT_GROUPS * 5))}, f)
+    ffn = dataclasses.replace(heat, group_end=FFN_GROUPS,
+                              image_layers=FFN_LAYERS)
+    return heat, ffn
+
+
+def gradcam_check(what, model, spec, images, proc, want, card, reps):
+    """gradcam_heatmaps through the kernels (impl "auto") and the plain
+    route, each with every count set to 0 just before it: exact launch
+    counts, heatmaps and predictions within their bars; ms per call and of
+    the feature forward (CUDA events)."""
+    from transformer_stm_tpu_torch.tools.grad_cam import gradcam_heatmaps
+
+    out, launches = {}, {}
+    for impl in ("auto", "plain"):
+        reset_launches()
+        out[impl] = gradcam_heatmaps(model, spec, images, proc, impl=impl)
+        torch.cuda.synchronize()
+        launches[impl] = read_launches()
+    if launches["auto"] != want or launches["plain"] != zero_launches():
+        raise AssertionError(f"{what} Grad-CAM launches {launches}, want "
+                             f"{want} through the kernels, none plain")
+    (h, p), (hp, pp) = out["auto"], out["plain"]
+    b = images.shape[0]
+    if h.shape[0] != b or p.shape != (b,) or not np.isfinite(h).all() or \
+            not np.isfinite(p).all() or h.min() < 0 or h.max() > 1:
+        raise AssertionError(f"{what} heatmaps {h.shape} in [{h.min()}, "
+                             f"{h.max()}], preds {p.shape}")
+    dh, dp = np.abs(h - hp).max(), np.abs(p - pp).max()
+    if dh > HEAT_TOL or dp > HEAT_PRED_TOL * np.abs(pp).max():
+        raise AssertionError(f"{what} Grad-CAM kernels vs plain: heatmaps "
+                             f"max |diff| {dh:.3e}, preds {dp:.3e}")
+
+    def features(impl="auto"):
+        with torch.no_grad():
+            cvt_forward(model, images, proc, impl=impl, return_features=True)
+
+    times = {"ms": time_ms(lambda: gradcam_heatmaps(model, spec, images,
+                                                    proc), reps=reps,
+                           warmup=1),
+             "plain_ms": time_ms(lambda: gradcam_heatmaps(
+                 model, spec, images, proc, impl="plain"), reps=reps,
+                 warmup=1),
+             "features_ms": time_ms(features, reps=reps, warmup=1),
+             "features_plain_ms": time_ms(lambda: features("plain"),
+                                          reps=reps, warmup=1)}
+    say(f"[9] {what} Grad-CAM, batch {b}: launches {launches['auto']} "
+        f"(plain route none); kernels vs plain: heatmaps max |diff| "
+        f"{dh:.3e} (limit {HEAT_TOL}), preds {dp:.3e} (|y| up to "
+        f"{np.abs(pp).max():.3f}, limit {HEAT_PRED_TOL} x max |y|); "
+        f"{times['ms']:.2f} ms a call ({times['features_ms']:.2f} of it the "
+        f"feature forward); plain route {times['plain_ms']:.2f} "
+        f"({times['features_plain_ms']:.2f}) (CUDA events, median of "
+        f"{reps}; {card})")
+    return launches["auto"], dict(times, batch=b, heat_max_diff=float(dh),
+                                  pred_max_diff=float(dp))
+
+
+def native_check():
+    """The native host loader builds where g++ and libjpeg's header are
+    there (the card needs neither): a constant image keeps its grey."""
+    from transformer_stm_tpu_torch.data import native
+
+    has_header = False
+    if shutil.which("g++") is not None:
+        has_header = subprocess.run(
+            ["g++", "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+            capture_output=True, text=True, timeout=60).returncode == 0
+    if not has_header:
+        say("[9] native loader: g++ or jpeglib.h missing on this machine, "
+            "not built (the host decoder is cv2's there)")
+        return
+    native.build()
+    bgr = np.full((345, 340, 3), 77, np.uint8)
+    grey = native.resize_gray(bgr, 128, 128)
+    if grey.shape != (128, 128) or (grey != 77).any():
+        raise AssertionError("native resize_gray of a constant image")
+    say(f"[9] native loader built ({native.LIB}); resize_gray checked")
+
+
+def phase_analysis(card):
+    """Grad-CAM through the CLI and at B 128 and at 512px against the plain
+    route, the params-only FFN through the CLI, the antialiased
+    preprocessing, the data-prep and plotting subcommands, the monitor."""
+    import importlib.util
+
+    from transformer_stm_tpu_torch.data.xlsx import read_table
+    from transformer_stm_tpu_torch.harness import (_load_target, _paths,
+                                                   _predict_ffn)
+    from transformer_stm_tpu_torch.tools.grad_cam import gradcam_heatmaps
+    from transformer_stm_tpu_torch.tools.monitor import format_line
+
+    root = tempfile.mkdtemp()
+    heat_data, ffn_data = analysis_fixture(root)
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    result = {"matplotlib": have_mpl}
+    by_path = {}
+
+    # Grad-CAM through the command line, random weights from SEED saved at
+    # the target's weight path.
+    spec = CvTSpec()
+    cfg = ExperimentConfig(frequencies=(HEAT_TARGET,), data=heat_data,
+                           train=TrainConfig(batch_size=BATCH, seed=SEED),
+                           result_dir=os.path.join(root, "Result"))
+    cfg_path = os.path.join(root, "heatmap.json")
+    save_config(cfg, cfg_path)
+    model = init_cvt(spec, torch.Generator().manual_seed(SEED),
+                     device="cuda")
+    save_checkpoint(_paths(cfg, HEAT_TARGET)["weights"], model, None, step=0)
+    launches, dt = cli_launches(["heatmap", "--config", cfg_path, "--layers",
+                                 str(HEAT_LAYERS)])
+    want = {**zero_launches(), "attention_small": 1, "fused_mlp": 3}
+    if launches != want:
+        raise AssertionError(f"heatmap CLI launches {launches}, want {want}")
+    by_path["heatmap"] = launches
+    panels = [os.path.join(cfg.result_dir, "Plots", cfg.variant_dir,
+                           f"gradcam_{HEAT_TARGET}_{k}.png") for k in range(4)]
+    written = [os.path.exists(p) for p in panels]
+    if written != [have_mpl] * 4:
+        raise AssertionError(f"heatmap panels written {written}, matplotlib "
+                             f"{have_mpl}")
+    # its heatmaps against the plain route on the same 4 held-out images
+    data, _, val_rows = _load_target(cfg, HEAT_TARGET, None, None)
+    rows = val_rows[:4]
+    imgs = torch.from_numpy(data["images"][rows].astype(np.float32) /
+                            255.0).cuda()
+    proc = torch.from_numpy(data["proc_scaled"][rows]).cuda()
+    plain_h, plain_p = gradcam_heatmaps(model, spec, imgs, proc,
+                                        impl="plain")
+    res = cli.main(["heatmap", "--config", cfg_path, "--layers",
+                    str(HEAT_LAYERS)])[HEAT_TARGET]
+    dh = np.abs(res["heatmaps"] - plain_h).max()
+    dp = np.abs(res["preds"] - plain_p).max()
+    if res["heatmaps"].shape != (4, 8, 8) or dh > HEAT_TOL or \
+            dp > HEAT_PRED_TOL * np.abs(plain_p).max():
+        raise AssertionError(f"heatmap CLI vs plain: {res['heatmaps'].shape}"
+                             f", max |diff| {dh:.3e}, preds {dp:.3e}")
+    say(f"[9] cli heatmap --layers {HEAT_LAYERS}, CvT dw_bn/cls at 128px: "
+        f"{dt:.2f} s (host clock), launches {launches}; 4 heatmaps 8x8 vs "
+        f"the plain route max |diff| {dh:.3e}, preds {dp:.3e}; panels "
+        + ("written" if have_mpl else "not written (no matplotlib)"))
+
+    # gradcam_heatmaps at B 128 and at 512px (B 8), kernels vs plain
+    rng = np.random.default_rng(SEED + 11)
+    imgs = torch.from_numpy(rng.integers(0, 256, (BATCH, 128, 128, 1))
+                            .astype(np.float32) / 255.0).cuda()
+    proc = torch.from_numpy(rng.standard_normal((BATCH, 5))
+                            .astype(np.float32)).cuda()
+    _, result["gradcam_128px"] = gradcam_check(
+        "128px", model, spec, imgs, proc, want, card, reps=5)
+    del model, imgs, proc
+    spec512 = cvt_highres_spec(512)
+    model = init_cvt(spec512, torch.Generator().manual_seed(SEED),
+                     device="cuda")
+    imgs = torch.from_numpy(rng.integers(0, 256, (HEAT_512_BATCH, 512, 512,
+                                                  1)).astype(np.float32) /
+                            255.0).cuda()
+    proc = torch.from_numpy(rng.standard_normal((HEAT_512_BATCH, 5))
+                            .astype(np.float32)).cuda()
+    want512 = {**zero_launches(), "attention_small": 2, "fused_mlp": 3,
+               "flash_attention": 1}
+    by_path["heatmap_512px"], result["gradcam_512px"] = gradcam_check(
+        "512px", model, spec512, imgs, proc, want512, card, reps=3)
+    del model, imgs, proc
+    torch.cuda.empty_cache()
+
+    # the params-only FFN through the command line, at the corpus's size
+    ffn_cfg = ExperimentConfig(
+        inputs="par", frequencies=(HEAT_TARGET,), data=ffn_data,
+        train=TrainConfig(batch_size=BATCH, seed=SEED, epochs=FFN_EPOCHS),
+        result_dir=os.path.join(root, "Result"))
+    ffn_path = os.path.join(root, "ffn.json")
+    save_config(ffn_cfg, ffn_path)
+    reset_launches()
+    trained = cli.main(["train", "--config", ffn_path])[(HEAT_TARGET, None)]
+    tested = cli.main(["test", "--config", ffn_path])[(HEAT_TARGET, None)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != zero_launches():
+        raise AssertionError(f"the FFN launched a kernel: {launches}")
+    by_path["ffn"] = launches
+    paths = _paths(ffn_cfg, HEAT_TARGET)
+    _, records = read_table(paths["records"])
+    sheet = read_predictions_metrics(paths["metrics"])
+    data, train_rows, val_rows = _load_target(ffn_cfg, HEAT_TARGET, None,
+                                              None)
+    if [r[0] for r in records] != list(range(1, FFN_EPOCHS + 1)) or \
+            not np.isfinite(np.asarray([r[1:] for r in records],
+                                       np.float64)).all() or \
+            len(sheet["predictions"]) != len(val_rows) or \
+            sheet["train_num"] != len(train_rows):
+        raise AssertionError(f"FFN records {records}, metrics sheet "
+                             f"{len(sheet['predictions'])} rows")
+    params = load_checkpoint(latest_checkpoint(paths["weights"]))[0]
+    x = data["proc_scaled"][val_rows]
+    on_card = _predict_ffn(ffn_cfg, params, x, "cuda")
+    on_cpu = _predict_ffn(ffn_cfg, params, x, "cpu")
+    diff = np.abs(on_card - on_cpu)
+    if (diff > FFN_TOL * np.maximum(1.0, np.abs(on_cpu))).any() or \
+            np.abs(sheet["predictions"] - on_card).max() > \
+            FFN_TOL * max(1.0, np.abs(on_card).max()):
+        raise AssertionError(f"FFN card vs CPU: max |diff| {diff.max():.3e}")
+    per_epoch = trained["seconds"] / FFN_EPOCHS
+    steps = -(-len(train_rows) // BATCH)
+    result["ffn"] = {"seconds_per_epoch": per_epoch, "steps_per_epoch": steps,
+                     "train_rows": len(train_rows), "r2": tested["r2"]}
+    say(f"[9] cli train/test --inputs par: {len(train_rows)} train rows, "
+        f"{steps} steps an epoch, {per_epoch:.3f} s an epoch "
+        f"({1e3 * per_epoch / steps:.3f} ms a step; host clock, the whole "
+        f"epoch with its validation; {card}); launches none; records "
+        f"{[[round(v, 5) for v in r[1:]] for r in records]}; R2 "
+        f"{tested['r2']:.4f}; its checkpoint on the card vs the CPU: max "
+        f"|diff| {diff.max():.3e} (limit {FFN_TOL} x max(1, |y|))")
+
+    # the antialiased preprocessing, on the card against the CPU
+    raw = torch.from_numpy(rng.integers(0, 256, (8, 345, 340, 3),
+                                        dtype=np.uint8))
+    on_card = preprocess_images_device(raw.cuda(), 224, 224, antialias=True)
+    on_cpu = preprocess_images_device(raw, 224, 224, antialias=True)
+    diff = (on_card.cpu() - on_cpu).abs().max().item()
+    if on_card.shape != (8, 224, 224, 1) or diff > PREP_TOL:
+        raise AssertionError(f"antialiased preprocessing card vs CPU: "
+                             f"{tuple(on_card.shape)}, {diff:.3e}")
+    raw_d = raw.cuda()
+    ms = time_ms(lambda: preprocess_images_device(raw_d, 224, 224,
+                                                  antialias=True))
+    say(f"[9] preprocess_images_device(antialias=True), 8 x 345x340x3 -> "
+        f"224: card vs CPU max |diff| {diff:.3e} (limit {PREP_TOL}); "
+        f"{ms:.3f} ms (CUDA events; {card})")
+
+    # label prep and the plotting subcommands on the fixture's sheets
+    header, lab_rows = read_table(heat_data.excel_labels)
+    planted = []
+    for t in range(1, len(header)):
+        r = 5 * (t % FFN_GROUPS) + t % 5  # one outlier a column
+        lab_rows[r][t] = lab_rows[r][t] * 5.0
+        planted.append((r, t))
+    raw_path = os.path.join(root, "raw_labels.xlsx")
+    write_xlsx(raw_path, {"Sheet1": [header] + lab_rows})
+    out_path = os.path.join(root, "processed.xlsx")
+    cli.main(["pickup", "--in", raw_path, "--out", out_path])
+    _, picked = read_table(out_path)
+    if any(picked[r][t] is not None for r, t in planted):
+        raise AssertionError("pickup kept a planted outlier")
+    glcm = os.path.join(root, "glcm")
+    os.makedirs(glcm)
+    write_xlsx(os.path.join(glcm, "Bm_lightgbm.xlsx"), {HEAT_TARGET: [
+        [None, "Predictions", "True Values", "R2 Score"],
+        [0, 1.1, 1.0, 0.9], [1, 1.9, 2.0, None]]})
+    plots = {
+        "plot-records": ["--records", paths["records"]],
+        "plot-labels": ["--config", cfg_path],
+        "plot-data": ["--config", cfg_path, "--params"],
+        "model-plot": ["--config", cfg_path],
+        "compare": ["--metrics-dir", os.path.dirname(paths["metrics"]),
+                    "--glcm-dir", glcm, "--prop", "Bm"]}
+    for cmd, argv in plots.items():
+        out = os.path.join(root, f"{cmd}.png")
+        rc = cli.main([cmd] + argv + ["--out", out])
+        if (rc is None) != have_mpl or os.path.exists(out) != have_mpl:
+            raise AssertionError(f"{cmd}: rc {rc}, wrote {os.path.exists(out)}"
+                                 f", matplotlib {have_mpl}")
+    say(f"[9] pickup emptied the {len(planted)} planted outliers; "
+        f"{', '.join(plots)} " + ("wrote their PNGs" if have_mpl else
+                                  "said that matplotlib is not installed"))
+
+    line = format_line()
+    if f"cuda:0 {torch.cuda.get_device_name(0)}" not in line:
+        raise AssertionError(f"monitor line without the card: {line}")
+    say(f"[9] monitor: {line}")
+    native_check()
+    shutil.rmtree(root)
+    return by_path, result
+
+
 
 def main():
     card = phase_env()
@@ -2949,6 +3297,8 @@ def main():
     by_path["cli_512px"], _ = phase_cli()
     by_path["vit_inference"], vit_kernels = phase_vit(kernels, card)
     by_path["vit_finetune"], finetune = phase_finetune(card)
+    analysis_paths, analysis = phase_analysis(card)
+    by_path.update(analysis_paths)
     kernels += vit_kernels
     for k in kernels:
         # the launches of the path each kernel belongs to: the ViT path for
@@ -2961,7 +3311,8 @@ def main():
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
     faulthandler.cancel_dump_traceback_later()
     say(card)
-    say(json.dumps({"kernels": kernels, "vit_finetune_steps": finetune}))
+    say(json.dumps({"kernels": kernels, "vit_finetune_steps": finetune,
+                    "analysis": analysis}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

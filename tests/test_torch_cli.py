@@ -3,9 +3,9 @@ JAX package.
 
 A synthetic JPEG tree and xlsx pair under ``tmp_path``
 (tests/test_torch_data.py ``write_fixture``, ``write_jpegs``: 2 groups x 5
-pieces x 4 layers, decoded to 64x64) is decoded once through cv2 into the
-shared cache, which both packages then read (the JAX native decoder
-differs from cv2 by one grey level on about 0.1% of pixels).  The JAX
+pieces x 4 layers, decoded to 64x64) is decoded once by the port (its
+native loader, bit for bit the JAX package's) into the shared cache, which
+both packages then read.  The JAX
 ``harness.train_target`` and ``test_target`` and the port's
 ``cli.main([... "--device", "cpu"])`` train one target for one epoch from
 the same weights (one epoch-0 checkpoint written into both packages'
@@ -26,7 +26,13 @@ attention on the CPU.
 - a config JSON written by each package loads in the other; a JAX field the
   port cannot honour raises, the JAX-only ones at their defaults load;
 - a second ``train`` with more epochs resumes from the latest checkpoint;
-- ``test`` without matplotlib writes the sheet and says the plots were not.
+- ``test`` without matplotlib writes the sheet and says the plots were not;
+- ``train``/``test --inputs par`` (the params-only FFN) write the JAX CLI's
+  artifact paths; ``heatmap`` writes the JAX CLI's panels from the trained
+  weights; ``pickup`` writes the JAX CLI's sheet; ``plot-records``,
+  ``model-plot``, ``compare``, ``plot-labels`` and ``plot-data --params``
+  write the JAX CLI's PNGs pixel for pixel, from the run's sheets and a
+  label sheet of all 20 targets; ``memory`` prints its line.
 """
 
 import dataclasses
@@ -41,14 +47,16 @@ import pytest
 import jax
 
 from test_torch_data import write_fixture, write_jpegs
+from transformer_stm_tpu import cli as jax_cli
 from transformer_stm_tpu import config as jax_config
 from transformer_stm_tpu import harness as jax_harness
+from transformer_stm_tpu.data.xlsx import read_xlsx as jax_read_xlsx
 from transformer_stm_tpu.models.cvt import init_cvt as jax_init_cvt
 from transformer_stm_tpu.train.checkpoint import \
     save_checkpoint as jax_save_checkpoint
 from transformer_stm_tpu_torch import cli, config, harness
 from transformer_stm_tpu_torch.data import images
-from transformer_stm_tpu_torch.data.xlsx import read_table
+from transformer_stm_tpu_torch.data.xlsx import read_table, read_xlsx
 from transformer_stm_tpu_torch.kernels import flash_attention as port_fa
 from transformer_stm_tpu_torch.ops import attention as port_attention
 from transformer_stm_tpu_torch.train.checkpoint import (latest_checkpoint,
@@ -243,7 +251,7 @@ def test_config_json_round_trips_between_packages(tmp_path):
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(ffn_hidden=128), NotImplementedError),
+    (dict(ffn_hidden=128), None),
     (dict(train=dict(loss="softmax_xent")), None),
     (dict(train=dict(label_smoothing=0.1)), None),
     (dict(train=dict(compute_dtype="bfloat16")), None),
@@ -253,9 +261,9 @@ def test_config_json_round_trips_between_packages(tmp_path):
         "unknown"])
 def test_unported_jax_fields_raise(tmp_path, change, error):
     """A JAX-written config with a field the port lacks raises; the fields
-    ported since (``error`` None: the ViT trainer's loss and label
-    smoothing, bfloat16 compute) load with the JAX value and round-trip to
-    JAX."""
+    ported since (``error`` None: the FFN's hidden width, the ViT trainer's
+    loss and label smoothing, bfloat16 compute) load with the JAX value and
+    round-trip to JAX."""
     d = jax_config._to_jsonable(jax_config.ExperimentConfig())
     for key, value in change.items():
         if isinstance(value, dict):
@@ -269,8 +277,12 @@ def test_unported_jax_fields_raise(tmp_path, change, error):
             config.load_config(str(path))
         return
     ours = config.load_config(str(path))
-    for key, value in change["train"].items():
-        assert getattr(ours.train, key) == value
+    for key, value in change.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                assert getattr(getattr(ours, key), k) == v
+        else:
+            assert getattr(ours, key) == value
     config.save_config(ours, str(tmp_path / "again.json"))
     again = jax_config.load_config(str(tmp_path / "again.json"))
     jax_cfg = jax_config.load_config(str(path))
@@ -288,10 +300,24 @@ def test_save_config_subcommand_writes_what_jax_reads(tmp_path, capsys):
         (7, ("200HZ_Pcv",), "R")
 
 
-def test_params_only_inputs_are_not_ported(runs):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["train", "--config", runs["cfg_path"], "--inputs", "par",
-                  "--device", "cpu"])
+def test_params_only_inputs_are_not_ported(runs, corpus_dir, tmp_path):
+    """``--inputs par`` was refused until the FFN was ported; now ``train``
+    and ``test`` run it and write the JAX CLI's artifact paths (its numbers
+    against JAX's: tests/test_torch_ffn.py)."""
+    _, jax_cfg = _configs(corpus_dir, str(tmp_path / "jax"))
+    jax_path = str(tmp_path / "jax.json")
+    jax_config.save_config(jax_cfg, jax_path)
+    for argv in (["train", "--epochs", "2"], ["test"]):
+        out = cli.main(argv + ["--config", runs["cfg_path"], "--inputs",
+                               "par", "--device", "cpu"])[(FREQ, None)]
+        jax_cli.main(argv + ["--config", jax_path, "--inputs", "par"])
+    for key in ("weights", "records", "metrics"):
+        rel = os.path.relpath(out["paths"][key], runs["dirs"]["port"])
+        assert rel.split(os.sep)[1] == "Parameters", rel
+        assert os.path.exists(out["paths"][key]), key
+        assert os.path.exists(os.path.join(str(tmp_path / "jax"), rel)), rel
+    assert load_checkpoint(latest_checkpoint(out["paths"]["weights"]))[3] == 2
+    assert np.isfinite(out["mse"])
 
 
 def test_test_without_matplotlib_writes_the_sheet(runs, monkeypatch, capsys,
@@ -317,13 +343,146 @@ def test_new_modules_import_without_jax_or_matplotlib():
             "import transformer_stm_tpu_torch.cli, "
             "transformer_stm_tpu_torch.harness, "
             "transformer_stm_tpu_torch.tools.plots, "
+            "transformer_stm_tpu_torch.tools.grad_cam, "
+            "transformer_stm_tpu_torch.tools.model_plot, "
+            "transformer_stm_tpu_torch.tools.monitor, "
+            "transformer_stm_tpu_torch.tools.prep, "
+            "transformer_stm_tpu_torch.data.native, "
+            "transformer_stm_tpu_torch.models.ffn, "
             "transformer_stm_tpu_torch.kernels.flash_attention, "
             "transformer_stm_tpu_torch.kernels.fused_layer, "
             "transformer_stm_tpu_torch.models.vit\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('transformer_stm_tpu', 'matplotlib')]\n"
+            "('transformer_stm_tpu', 'matplotlib', 'cv2', 'psutil', "
+            "'PIL')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONDONTWRITEBYTECODE="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+# ---------------------------------------------------------------------------
+# the analysis and data-prep subcommands
+
+
+def test_heatmap_subcommand_writes_the_jax_panels(runs, corpus_dir,
+                                                  tmp_path, capsys):
+    _, jax_cfg = _configs(corpus_dir, runs["dirs"]["jax"])
+    jax_path = str(tmp_path / "jax.json")
+    jax_config.save_config(jax_cfg, jax_path)
+    out = cli.main(["heatmap", "--config", runs["cfg_path"], "--layers", "4",
+                    "--device", "cpu"])[FREQ]
+    jax_cli.main(["heatmap", "--config", jax_path, "--layers", "4"])
+    assert len(out["panels"]) == 4 and out["heatmaps"].shape == (4, 4, 4)
+    assert capsys.readouterr().out.count("wrote ") == 8
+    for path in out["panels"]:
+        rel = os.path.relpath(path, runs["dirs"]["port"])
+        assert rel.startswith(os.path.join("Plots", "Images & Parameters",
+                                           f"gradcam_{FREQ}_"))
+        assert os.path.getsize(path) > 0
+        assert os.path.exists(os.path.join(runs["dirs"]["jax"], rel)), rel
+
+
+def test_pickup_subcommand_writes_the_jax_sheet(tmp_path, capsys):
+    from test_torch_tools import write_raw_labels
+
+    raw = str(tmp_path / "raw.xlsx")
+    write_raw_labels(raw)
+    outs = [str(tmp_path / f"{p}.xlsx") for p in ("port", "jax")]
+    cli.main(["pickup", "--in", raw, "--out", outs[0]])
+    jax_cli.main(["pickup", "--in", raw, "--out", outs[1]])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].replace(outs[0], "X") == lines[1].replace(outs[1], "X")
+    assert "outlier cells dropped" in lines[0]
+    assert read_xlsx(outs[0]) == jax_read_xlsx(outs[1])
+
+
+def test_memory_subcommand_prints_a_line(monkeypatch, capsys):
+    """It prints a line a second until Ctrl-C, here after the first."""
+    from transformer_stm_tpu_torch.tools import monitor
+
+    def interrupt(seconds):
+        assert seconds == 1.0
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(monitor.time, "sleep", interrupt)
+    assert cli.main(["memory"]) is None
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 1 and out[0].startswith("CPU ") and "RAM" in out[0]
+
+
+@pytest.fixture(scope="module")
+def sheets20(tmp_path_factory):
+    """Label sheets of all 20 targets (2 groups, two labels missing) and a
+    process sheet, a config of each package reading them, and a GLCM
+    baseline of the Bm target."""
+    from test_torch_tools import write_glcm
+
+    root = str(tmp_path_factory.mktemp("sheets20"))
+    fields, _ = write_fixture(root, groups=2, freqs=config.FREQUENCIES,
+                              missing=((0, 3), (5, 7)))
+    paths = {p: os.path.join(root, f"{p}.json") for p in ("port", "jax")}
+    config.save_config(config.ExperimentConfig(
+        data=config.DataConfig(**fields)), paths["port"])
+    jax_config.save_config(jax_config.ExperimentConfig(
+        data=jax_config.DataConfig(**fields)), paths["jax"])
+    glcm = os.path.join(root, "glcm")
+    write_glcm(glcm, "Bm", "lightgbm", (FREQ,))
+    return dict(cfg=paths, glcm=glcm)
+
+
+def _plot_argv(cmd, runs, sheets, side, out):
+    if cmd == "plot-records":
+        return [cmd, "--records", runs["port"]["paths"]["records"], "--out",
+                out]
+    if cmd == "compare":
+        return [cmd, "--metrics-dir",
+                os.path.dirname(runs["port"]["paths"]["metrics"]),
+                "--glcm-dir", sheets["glcm"], "--prop", "Bm", "--out", out]
+    argv = [cmd, "--config", sheets["cfg"][side], "--out", out]
+    return argv + (["--freq", "50HZ_Hc", "--params"] if cmd == "plot-data"
+                   else [])
+
+
+@pytest.mark.parametrize("cmd", ["plot-records", "model-plot", "compare",
+                                 "plot-labels", "plot-data"])
+def test_plot_subcommands_write_the_jax_pngs(runs, sheets20, tmp_path,
+                                             capsys, cmd):
+    import matplotlib.image
+
+    written = {}
+    for side, main in (("port", cli.main), ("jax", jax_cli.main)):
+        out = str(tmp_path / f"{side}_{{freq}}.png" if cmd == "plot-data"
+                  else tmp_path / f"{side}.png")
+        main(_plot_argv(cmd, runs, sheets20, side, out))
+        written[side] = [ln.split("wrote ", 1)[1] for ln in
+                         capsys.readouterr().out.splitlines()
+                         if ln.startswith("wrote ")]
+    assert len(written["port"]) == len(written["jax"]) == \
+        (2 if cmd == "plot-data" else 1)
+    for ours, theirs in zip(written["port"], written["jax"]):
+        got = matplotlib.image.imread(ours)
+        assert got.shape[0] > 100
+        np.testing.assert_array_equal(got, matplotlib.image.imread(theirs))
+
+
+def test_compare_without_sheets_returns_1(tmp_path, capsys):
+    assert cli.main(["compare", "--metrics-dir", str(tmp_path)]) == 1
+    assert "no Predictions_Metrics files for Hc" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cmd", ["plot-records", "model-plot", "compare",
+                                 "plot-labels", "plot-data"])
+def test_plot_subcommands_without_matplotlib_say_so(runs, sheets20, tmp_path,
+                                                    monkeypatch, capsys, cmd):
+    """The card's machine has no matplotlib: each plotting subcommand
+    writes nothing, says so on a line for each plot, and returns 1."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    out = str(tmp_path / ("p_{freq}.png" if cmd == "plot-data" else "p.png"))
+    assert cli.main(_plot_argv(cmd, runs, sheets20, "port", out)) == 1
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == (2 if cmd == "plot-data" else 1)
+    assert all(ln.startswith("not written (") and
+               ln.endswith("matplotlib is not installed") for ln in lines)
+    assert os.listdir(tmp_path) == []

@@ -6,10 +6,9 @@ writer (one label missing on a non-first piece, as the IQR filter leaves
 them), and a tiny JPEG tree.  Both packages' ``read_table``,
 ``build_target_arrays``, ``train_val_split``, ``decode_corpus`` and
 ``load_dataset`` give equal results; the harness paths and spec agree.
-The port decodes through cv2, the reference's pipeline; the JAX package's
-native libjpeg loader is not ported, so the JAX side is run on its cv2
-path (``use_native=False``; the native decoder differs from this cv2 by
-one grey level on about 0.1% of the pixels here).
+Both packages decode on their default path, the native libjpeg loader
+(each its own build of the same source), bit for bit alike; on the cv2
+path (``use_native=False``) too.
 """
 
 import dataclasses
@@ -78,14 +77,6 @@ def write_jpegs(fields, corpus):
 
 
 @pytest.fixture
-def jax_cv2(monkeypatch):
-    """The JAX package's decode on its cv2 path."""
-    orig = jax_images.decode_specimen
-    monkeypatch.setattr(jax_images, "decode_specimen",
-                        lambda cfg, idx: orig(cfg, idx, use_native=False))
-
-
-@pytest.fixture
 def fixture(tmp_path):
     return write_fixture(str(tmp_path))
 
@@ -140,7 +131,7 @@ def test_standard_scale_and_coerce_float_match_jax():
         assert labels.coerce_float(v) == jax_labels.coerce_float(v)
 
 
-def test_decode_corpus_matches_jax_and_reads_the_cache(tmp_path, jax_cv2,
+def test_decode_corpus_matches_jax_and_reads_the_cache(tmp_path,
                                                        monkeypatch):
     fields, corpus = write_fixture(str(tmp_path), groups=1, layers=2)
     write_jpegs(fields, corpus)
@@ -165,7 +156,21 @@ def test_decode_corpus_matches_jax_and_reads_the_cache(tmp_path, jax_cv2,
         jax_config.DataConfig(**fields), verbose=False)), got)
 
 
-def test_load_dataset_matches_jax(tmp_path, jax_cv2):
+@pytest.mark.parametrize("use_native", [None, False],
+                         ids=["default", "cv2"])
+def test_decode_specimen_matches_jax(tmp_path, use_native):
+    fields, corpus = write_fixture(str(tmp_path), groups=1, layers=3)
+    write_jpegs(fields, corpus)
+    for idx in (0, 4):
+        got = images.decode_specimen(config.DataConfig(**fields), idx,
+                                     use_native=use_native)
+        want = jax_images.decode_specimen(jax_config.DataConfig(**fields),
+                                          idx, use_native=use_native)
+        assert got.shape == (3, 32, 32) and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+
+
+def test_load_dataset_matches_jax(tmp_path):
     fields, corpus = write_fixture(str(tmp_path), groups=1, layers=2)
     write_jpegs(fields, corpus)
     got = images.load_dataset(config.DataConfig(**fields), "50HZ_Bm")

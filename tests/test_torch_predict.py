@@ -111,9 +111,24 @@ FORBIDDEN = ["jax", "transformer_stm_tpu", "matplotlib", "cv2", "tensorflow",
              "openpyxl"]
 
 
+# the command line and the analysis and data-prep modules behind its
+# subcommands, imported by name as a user's command imports them
+ENTRY_MODULES = [
+    "transformer_stm_tpu_torch.cli", "transformer_stm_tpu_torch.harness",
+    "transformer_stm_tpu_torch.models.ffn",
+    "transformer_stm_tpu_torch.data.native",
+    "transformer_stm_tpu_torch.tools.grad_cam",
+    "transformer_stm_tpu_torch.tools.prep",
+    "transformer_stm_tpu_torch.tools.plots",
+    "transformer_stm_tpu_torch.tools.model_plot",
+    "transformer_stm_tpu_torch.tools.monitor"]
+
+
 def test_port_and_chip_smoke_import_no_jax_or_missing_packages():
     code = (
         "import sys, json, pkgutil, importlib\n"
+        f"for m in {ENTRY_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
         "import transformer_stm_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -12,9 +12,8 @@ other.  Fields of the JAX config that the port does not have are read from
 a JAX-written file and handled one by one (``JAX_ONLY``): ``mesh`` (the
 pjit device mesh) and ``train.prng_impl`` (the jax PRNG) mean nothing to
 one card and PyTorch and are ignored, but a mesh other than the default
-raises; ``ffn_hidden`` (the params-only FFN) raises "not ported yet" when it
-differs from the JAX default.  Any other key the port does not know raises:
-nothing is dropped silently."""
+raises.  Any other key the port does not know raises: nothing is dropped
+silently."""
 
 from __future__ import annotations
 
@@ -190,6 +189,9 @@ class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     result_dir: str = "Result"
+    # hidden width of the params-only FFN (the reference's 256,
+    # models/FFN(OnlyPar).py:46-47)
+    ffn_hidden: int = 256
 
     @property
     def variant_dir(self) -> str:
@@ -217,7 +219,6 @@ class ExperimentConfig:
 # whatever its value).
 JAX_ONLY = {
     (ExperimentConfig, "mesh"): {"data": -1, "model": 1},
-    (ExperimentConfig, "ffn_hidden"): 256,
     (TrainConfig, "prng_impl"): None,
 }
 

@@ -6,8 +6,9 @@ cv2.resize to (W, H) INTER_LINEAR and BGR2GRAY, and /255
 into a uint8 memmap cache (specimen-major, resized and grayscaled) with a
 .json of the specimens decoded so far, shared by every target; when the
 cache covers the wanted specimens it decodes nothing.  The /255 runs on the
-device (``normalize_images``).  The JAX package's native C++ loader is not
-ported yet: ``decode_specimen`` takes the cv2 path, imported when it runs.
+device (``normalize_images``).  ``decode_specimen`` decodes through the
+native loader (``data/native.py``, libjpeg) where it builds, else through
+cv2, imported when it runs, as the JAX package chooses between them.
 ``preprocess_images_device`` resizes, greys and normalises raw RGB on the
 device.
 """
@@ -35,17 +36,31 @@ def _specimen_dir(cfg: DataConfig, spec_idx: int) -> str:
                         f"circle(340x345)/trail{group:01d}_{piece:02d}")
 
 
-def decode_specimen(cfg: DataConfig, spec_idx: int) -> np.ndarray:
-    """One specimen's image_layers JPEGs -> (L, H, W) uint8 gray, through
-    cv2 as the reference does (resize the 3-channel image first, then
-    BGR2GRAY: the order matters)."""
+def decode_specimen(cfg: DataConfig, spec_idx: int,
+                    use_native: Optional[bool] = None) -> np.ndarray:
+    """One specimen's image_layers JPEGs -> (L, H, W) uint8 grey, the
+    reference's pipeline (resize the 3-channel image first, then BGR2GRAY:
+    the order matters), as images.py:39-59 decodes it: through the native
+    loader unless ``use_native`` is False or it does not build here, else
+    (or where a file fails, for cv2's error) through cv2."""
+    folder = _specimen_dir(cfg, spec_idx)
+    paths = [os.path.join(folder, f"layer_{i + 1:02d}.jpg")
+             for i in range(cfg.image_layers)]
+    if use_native is not False:
+        from . import native
+
+        if native.available():
+            try:
+                return native.decode_batch(paths, cfg.image_height,
+                                           cfg.image_width)
+            except IOError:
+                pass
+
     import cv2
 
-    folder = _specimen_dir(cfg, spec_idx)
     out = np.empty((cfg.image_layers, cfg.image_height, cfg.image_width),
                    np.uint8)
-    for i in range(cfg.image_layers):
-        fn = os.path.join(folder, f"layer_{i + 1:02d}.jpg")
+    for i, fn in enumerate(paths):
         img = cv2.imread(fn)
         if img is None:
             raise FileNotFoundError(fn)
@@ -133,17 +148,15 @@ def preprocess_images_device(rgb, out_h: int, out_w: int, dtype=None,
                              antialias: bool = False):
     """Raw RGB (B, H0, W0, 3), uint8 or float, on any device -> resized,
     BT.601-greyed, /255 (B, out_h, out_w, 1) float32 or ``dtype``, on the
-    same device (images.py:146): bilinear with half-pixel centres and no
-    antialias (``F.interpolate(align_corners=False)``), the 2x2-tap resize
-    that ``jax.image.resize(method="linear", antialias=False)`` and cv2's
-    INTER_LINEAR compute.  ``antialias=True`` (the JAX package's box-filtered
-    downscale) is not ported yet."""
-    if antialias:
-        raise NotImplementedError("preprocess_images_device(antialias=True) "
-                                  "is not ported yet")
+    same device (images.py:146): bilinear with half-pixel centres
+    (``F.interpolate(align_corners=False)``).  Without ``antialias`` it is
+    the 2x2-tap resize that ``jax.image.resize(method="linear",
+    antialias=False)`` and cv2's INTER_LINEAR compute; with it, the
+    triangle filter widened by the scale when shrinking, as
+    ``jax.image.resize(..., antialias=True)`` filters."""
     x = rgb.float().permute(0, 3, 1, 2)
     x = F.interpolate(x, size=(out_h, out_w), mode="bilinear",
-                      align_corners=False, antialias=False)
+                      align_corners=False, antialias=antialias)
     w = torch.tensor(GREY_WEIGHTS, device=x.device)
     grey = torch.einsum("bchw,c->bhw", x, w) / 255.0
     if dtype is not None:

@@ -8,15 +8,14 @@ the reference's preprocess_data label logic (models/CvT(Par).py:363-407):
 - Process parameters: 5 columns per *group*, gathered per valid specimen,
   replicated x layers, then standard-scaled (fit on the replicated array,
   as sklearn's StandardScaler.fit_transform).
-
-``iqr_filter`` of the offline prep comes with the tools.
+- ``iqr_filter``: the offline label prep's outlier rule (tools/prep.py).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -118,3 +117,17 @@ def build_target_arrays(cfg: DataConfig, freq: str, labels: LabelTable,
         "proc_scaled": proc_scaled.astype(np.float32),
         "count": count,
     }
+
+
+def iqr_filter(values: Sequence) -> List[Optional[float]]:
+    """The offline label prep's IQR outlier filter (labels.py:132;
+    reference tools/PickUpData.py:15-25): values outside
+    [Q1 - 1.5 IQR, Q3 + 1.5 IQR] become None, the quartiles by linear
+    interpolation (``np.percentile``, as pandas' quantile)."""
+    nums = [coerce_float(v) for v in values]
+    arr = np.array([v for v in nums if v is not None], np.float64)
+    if arr.size == 0:
+        return [None] * len(values)
+    q1, q3 = np.percentile(arr, 25), np.percentile(arr, 75)
+    lo, hi = q1 - 1.5 * (q3 - q1), q3 + 1.5 * (q3 - q1)
+    return [None if (v is None or v < lo or v > hi) else v for v in nums]

@@ -5,6 +5,10 @@ and evaluation.
   records sheet, resuming from the latest mid-run checkpoint;
 - ``test_target`` (:231): rebuild the model, load its weights, predict the
   held-out split, write the Predictions_Metrics sheet and the two plots;
+- ``_train_ffn`` (:135): the params-only FFN (``inputs="par"``) trained on
+  the device, which ``train_target`` runs for that variant;
+- ``heatmap_target`` (:289): Grad-CAM panels over a target's trained
+  weights (``tools/grad_cam.py``);
 - ``run`` (:332): every configured target, times the repeats of the
   "(many)" mode, with the label and process sheets read once.
 
@@ -16,17 +20,18 @@ Artifact layout, the reference's:
     Result/Plots/{variant}/...
 
 Each function runs on ``device`` (the card unless the caller asks for the
-CPU).  ``inputs="par"`` (the params-only FFN, JAX ``_train_ffn`` :135) is
-not ported yet and raises.
+CPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from time import perf_counter
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from .config import ExperimentConfig
 from .data.images import load_dataset
@@ -62,12 +67,6 @@ def _paths(cfg: ExperimentConfig, freq: str, time: Optional[int] = None):
     }
 
 
-def _check_inputs(cfg: ExperimentConfig):
-    if cfg.inputs == "par":
-        raise NotImplementedError(
-            'inputs="par" (the params-only FFN) is not ported yet')
-
-
 def _load_target(cfg: ExperimentConfig, freq: str, labels, procs):
     data = load_dataset(cfg.data, freq, labels, procs,
                         with_images=(cfg.inputs != "par"))
@@ -82,17 +81,21 @@ def train_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
     """Trains one target end to end; writes the weights and the records.
     Resumes from the latest checkpoint under ``<weights>.ckpts`` (written
     every ``checkpoint_every`` epochs); a "(many)" repeat ``time`` trains
-    from the seed ``cfg.train.seed + 1000 * time``."""
+    from the seed ``cfg.train.seed + 1000 * time``.  ``inputs="par"``
+    trains the FFN (``_train_ffn``), which does not resume."""
     from .train.checkpoint import latest_checkpoint, save_checkpoint
     from .train.loop import TrainLoop
 
-    _check_inputs(cfg)
     spec = _spec_for(cfg)
     data, train_rows, val_rows = _load_target(cfg, freq, labels, procs)
     paths = _paths(cfg, freq, time)
     if isinstance(time, int):
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, seed=cfg.train.seed + 1000 * time))
+    if cfg.inputs == "par":
+        return _train_ffn(cfg, freq, data["proc_scaled"], data["labels"],
+                          train_rows, val_rows, paths, epochs, verbose,
+                          device=device)
 
     imgs, y = data["images"], data["labels"]
     proc = data["proc_scaled"] if cfg.inputs != "img" else None
@@ -116,6 +119,94 @@ def train_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
     return {"paths": paths, "records": out["records"].rows}
 
 
+def _train_ffn(cfg: ExperimentConfig, freq: str, proc, y, train_rows,
+               val_rows, paths, epochs=None, verbose: bool = True,
+               device="cuda", model=None) -> Dict:
+    """Trains the params-only FFN (reference models/FFN(OnlyPar).py) on
+    ``device`` from ``model`` (default ``init_ffn`` from cfg.train.seed);
+    writes its checkpoint and records.
+
+    As JAX's one compiled scan over the epochs (harness.py:135-232): the
+    process table and labels go to the device once; each epoch shuffles
+    the training rows (a CPU generator seeded as ``TrainLoop`` seeds its
+    shuffle), pads the last batch with row 0 and masks it, each step's loss
+    the masked MSE over max(rows, 1), one Adam step; the epoch's loss and
+    MAE are the sample-weighted sums over the rows, the validation MSE and
+    MAE those of one forward over the held-out rows, lr = lr * decay ^
+    floor(epoch / every) in float32.  Nothing is fetched from the device
+    until the last epoch is done."""
+    from .models.ffn import ffn_forward, init_ffn
+    from .ops.common import use_true_f32
+    from .train.checkpoint import save_checkpoint
+    from .train.loop import _SHUFFLE, _seed
+    from .train.metrics import RecordsWriter
+    from .train.optimizer import adam_init, adam_update
+
+    tc = cfg.train
+    device = torch.device(device)
+    if device.type == "cuda":
+        use_true_f32()
+    if model is None:
+        model = init_ffn(proc.shape[1], cfg.ffn_hidden,
+                         cfg.model.num_classes,
+                         torch.Generator().manual_seed(tc.seed),
+                         device=device)
+    model = model.to(device).requires_grad_(True)
+    params = list(model.parameters())
+    opt = adam_init(model)
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    xs, ys = dev(proc[train_rows]), dev(y[train_rows])
+    xv, yv = dev(proc[val_rows]), dev(y[val_rows])
+    n, bs = len(train_rows), tc.batch_size
+    steps = -(-n // bs)
+    epochs = epochs if epochs is not None else tc.epochs
+    mask = (torch.arange(steps * bs, device=device) < n).float().reshape(
+        steps, bs)
+    k2 = mask.sum(dim=1).clamp_min(1.0)
+    lrs = [float(np.float32(tc.learning_rate) * np.power(
+        np.float32(tc.lr_decay), np.float32(e // tc.lr_decay_every)))
+        for e in range(epochs)]
+    recs = torch.zeros(epochs, 4, device=device)
+    t0 = perf_counter()
+    for epoch in range(epochs):
+        gen = torch.Generator().manual_seed(_seed(tc.seed, _SHUFFLE, epoch))
+        idx = torch.zeros(steps * bs, dtype=torch.int64)
+        idx[:n] = torch.randperm(n, generator=gen)
+        if device.type == "cuda":
+            idx = idx.pin_memory()
+        idx = idx.to(device, non_blocking=True).reshape(steps, bs)
+        acc = torch.zeros(2, device=device)
+        for s in range(steps):
+            with torch.enable_grad():
+                err = ffn_forward(model, xs[idx[s]]).reshape(-1) - ys[idx[s]]
+                se = (err.square() * mask[s]).sum()
+                ae = (err.abs() * mask[s]).sum()
+                grads = torch.autograd.grad(se / k2[s], params)
+            adam_update(grads, opt, params, lrs[epoch])
+            acc += torch.stack([se.detach(), ae.detach()])
+        with torch.no_grad():
+            err = ffn_forward(model, xv).reshape(-1) - yv
+            recs[epoch] = torch.cat([acc / n, torch.stack(
+                [err.square().mean(), err.abs().mean()])])
+    recs = recs.cpu().numpy()  # the one fetch of the run
+    seconds = perf_counter() - t0
+    records = RecordsWriter()
+    for epoch in range(epochs):
+        records.log(epoch, *recs[epoch], lrs[epoch])
+    if verbose:
+        print(f"[{freq}] {epochs} epochs, final val_loss {recs[-1, 2]:.4f} "
+              f"({seconds / max(epochs, 1):.3f} s an epoch)")
+    model.requires_grad_(False)
+    save_checkpoint(paths["weights"], model, opt, step=epochs,
+                    metadata={"freq": freq, "config": "par"})
+    records.write(paths["records"])
+    return {"paths": paths, "records": records.rows, "model": model,
+            "seconds": seconds}
+
+
 def test_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
                 time: Optional[int] = None, verbose: bool = True,
                 device="cuda") -> Dict:
@@ -128,7 +219,6 @@ def test_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
     from .train.loop import TrainLoop
     from .train.metrics import mae, mse, r2_score, write_predictions_metrics
 
-    _check_inputs(cfg)
     spec = _spec_for(cfg)
     data, train_rows, val_rows = _load_target(cfg, freq, labels, procs)
     paths = _paths(cfg, freq, time)
@@ -138,13 +228,17 @@ def test_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
         raise FileNotFoundError(
             f"no checkpoint for {freq} under {paths['weights']}: train "
             "first")
-    loop = TrainLoop(spec, cfg.train, device=device)
     params, state, _, _ = load_checkpoint(ckpt)
-    load_into(loop.model, params, state)
-    proc = data["proc_scaled"] if cfg.inputs != "img" else None
-    pred = loop.predict(data["images"][val_rows],
-                        proc[val_rows] if proc is not None else None,
-                        exact=True)
+    if cfg.inputs == "par":
+        pred = _predict_ffn(cfg, params, data["proc_scaled"][val_rows],
+                            device)
+    else:
+        loop = TrainLoop(spec, cfg.train, device=device)
+        load_into(loop.model, params, state)
+        proc = data["proc_scaled"] if cfg.inputs != "img" else None
+        pred = loop.predict(data["images"][val_rows],
+                            proc[val_rows] if proc is not None else None,
+                            exact=True)
 
     r2, m_mse, m_mae = r2_score(y_val, pred), mse(y_val, pred), \
         mae(y_val, pred)
@@ -161,6 +255,79 @@ def test_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
     if verbose:
         print(f"[{freq}] R² {r2:.4f}  MSE {m_mse:.2f}  MAE {m_mae:.3f}")
     return {"r2": r2, "mse": m_mse, "mae": m_mae, "paths": paths}
+
+
+def _predict_ffn(cfg: ExperimentConfig, params, proc, device) -> np.ndarray:
+    """The FFN of ``cfg``'s widths with a checkpoint's parameters over
+    ``proc`` -> np.float32 (N,), in true f32 on the card (harness.py:
+    253-262)."""
+    from .models.ffn import FFN, ffn_forward
+    from .ops.common import use_true_f32
+    from .train.checkpoint import load_into
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        use_true_f32()
+    model = load_into(FFN(proc.shape[1], cfg.ffn_hidden,
+                          cfg.model.num_classes), params, {}).to(device)
+    with torch.no_grad():
+        x = torch.from_numpy(np.asarray(proc, np.float32)).to(device)
+        return ffn_forward(model, x).reshape(-1).cpu().numpy()
+
+
+def heatmap_target(cfg: ExperimentConfig, freq: str, layers: int = 10,
+                   n_images: int = 4, verbose: bool = True,
+                   device="cuda") -> Dict:
+    """Grad-CAM panels over a target's trained weights (reference ``make
+    heatmap``, tools/grad_cam_CvT.py, at image_layers 10): the data
+    reloaded at ``layers`` images a specimen, the first ``n_images``
+    held-out images, one panel each at
+    Result/Plots/{variant}/gradcam_{freq}_{k}.png.  Where matplotlib is not
+    installed the heatmaps are computed, the panels not written, and one
+    line says so.  Returns the panel paths, heatmaps and predictions."""
+    from .models.cvt import CvT
+    from .ops.common import use_true_f32
+    from .tools.grad_cam import gradcam_heatmaps, save_gradcam_panel
+    from .train.checkpoint import latest_checkpoint, load_checkpoint, \
+        load_into
+
+    if cfg.inputs == "par":
+        raise ValueError("Grad-CAM needs the image branch; inputs='par' has "
+                         "none")
+    spec = _spec_for(cfg)
+    sub_cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, image_layers=layers))
+    data, _, val_rows = _load_target(sub_cfg, freq, None, None)
+    ckpt = latest_checkpoint(_paths(cfg, freq)["weights"])
+    if ckpt is None:
+        raise FileNotFoundError(f"no trained weights for {freq}")
+    if torch.device(device).type == "cuda":
+        use_true_f32()
+    params, state, _, _ = load_checkpoint(ckpt)
+    model = load_into(CvT(spec), params, state).to(device)
+
+    rows = val_rows[:n_images]
+    imgs = data["images"][rows].astype(np.float32) / 255.0
+    proc = data["proc_scaled"][rows] if cfg.inputs != "img" else None
+    heatmaps, preds = gradcam_heatmaps(model, spec, imgs, proc)
+    plots = os.path.join(cfg.result_dir, "Plots", cfg.variant_dir)
+    outs = []
+    try:
+        for k in range(len(rows)):
+            out = os.path.join(plots, f"gradcam_{freq}_{k}.png")
+            os.makedirs(plots, exist_ok=True)
+            save_gradcam_panel(out, imgs[k, :, :, 0], heatmaps[k],
+                               float(preds[k]),
+                               float(data["labels"][rows][k]))
+            outs.append(out)
+            if verbose:
+                print(f"wrote {out}")
+    except ModuleNotFoundError as e:
+        if e.name != "matplotlib":
+            raise
+        print(f"[{freq}] Grad-CAM panels not written ({plots}): matplotlib "
+              "is not installed")
+    return {"panels": outs, "heatmaps": heatmaps, "preds": preds}
 
 
 def run(cfg: ExperimentConfig, mode: str = "train",

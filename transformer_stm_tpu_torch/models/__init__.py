@@ -1,2 +1,3 @@
-"""Models of the port: the CvT regression model (``cvt.py``) and the plain
-ViT classifiers (``vit.py``)."""
+"""Models of the port: the CvT regression model (``cvt.py``), the
+params-only FFN baseline (``ffn.py``) and the plain ViT classifiers
+(``vit.py``)."""

@@ -72,7 +72,7 @@ def init_cvt(spec: CvTSpec, generator: torch.Generator,
 
 def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
                 generator=None, impl: str = "auto", mlp_impl=None,
-                remat: bool = False):
+                return_features: bool = False, remat: bool = False):
     """images: (B, H, W, C) float; proc: (B, proc_dim) or None ->
     (B, num_classes).  ``train=True`` normalises the dw_bn projections with
     batch statistics (updating the moving ones) and applies each stage's
@@ -80,7 +80,10 @@ def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
     MLP runs on ``mlp_impl`` if it is given, else on ``impl``, as JAX's
     block resolves it (``ops/blocks.mlp``): in training "pallas" and
     "flash" go through the fused training kernel, in evaluation "auto",
-    "pallas" and "flash" through the fused kernel.
+    "pallas" and "flash" through the fused kernel.  ``return_features``
+    returns (out, features) with features each stage's last block output,
+    (B, h, w, C), as JAX's list of them (models/cvt.py:116, :137), which
+    Grad-CAM reads (tools/grad_cam.py).
 
     ``remat`` is accepted and changes nothing.  JAX rematerialises each
     block (``jax.checkpoint``, models/cvt.py:107-108) to fit many slots'
@@ -92,6 +95,7 @@ def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
     spec = model.spec
     x = images
     cls_tokens = None
+    features = []
     for stage in model.stages:
         x = stage.embed(x)
         for block in stage.blocks:
@@ -99,6 +103,7 @@ def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
                            mlp_impl=mlp_impl)
             if cls is not None:
                 cls_tokens = cls
+        features.append(x)
     if cls_tokens is not None:
         feat = model.head_norm(cls_tokens)[:, 0, :]
     else:
@@ -110,7 +115,8 @@ def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
         p = torch.relu(model.proc_fc1(proc))
         p = torch.relu(model.proc_fc2(p))
         feat = torch.cat([feat, p], dim=-1)
-    return model.final(feat)
+    out = model.final(feat)
+    return (out, features) if return_features else out
 
 
 def cvt_param_count(model: CvT) -> int:

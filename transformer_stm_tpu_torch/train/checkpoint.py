@@ -21,6 +21,13 @@ no state) maps the same way onto the port's ``ViT``:
     model = vit_from_jax_params(params, spec, device="cuda")
     params = vit_to_jax_params(model)
 
+The params-only FFN's tree (``init_ffn``: ``fc1``, ``fc2``, ``final``,
+each a ``kernel`` and a ``bias``; no state) maps onto the port's ``FFN``;
+``save_checkpoint`` writes it as JAX's ``_train_ffn`` does:
+
+    model = ffn_from_jax_params(params, device="cuda")
+    params = ffn_to_jax_params(model)
+
 ``ViTTrainer`` (train/vit_train.py) saves its model and AdamW state with
 ``save_checkpoint`` as the JAX trainer does (vit_train.py:91-114 there):
 no ``s/`` leaves, the epoch as the step, the records in the .json.
@@ -49,6 +56,7 @@ import torch
 
 from ..config import CvTSpec, ViTSpec
 from ..models.cvt import CvT
+from ..models.ffn import FFN
 from ..models.vit import ViT
 from .optimizer import AdamState
 
@@ -260,3 +268,19 @@ def vit_to_jax_params(model: ViT) -> dict:
     numpy arrays in the JAX layout, whatever the model's type."""
     return _unflatten({k.replace(".", "/"): v.detach().float().cpu().numpy()
                        for k, v in model.named_parameters()})
+
+
+def ffn_from_jax_params(np_params, device="cuda") -> FFN:
+    """A JAX FFN parameter tree (``init_ffn``'s, or ``load_checkpoint``'s
+    params) -> an ``FFN`` on ``device``, its widths read from the
+    kernels."""
+    proc_dim, hidden = np.shape(np_params["fc1"]["kernel"])
+    num_classes = np.shape(np_params["final"]["kernel"])[1]
+    return load_into(FFN(proc_dim, hidden, num_classes), np_params,
+                     {}).to(device)
+
+
+def ffn_to_jax_params(model: FFN) -> dict:
+    """The inverse of ``ffn_from_jax_params``: the parameter tree as numpy
+    arrays in the JAX layout."""
+    return to_jax_params(model)[0]
