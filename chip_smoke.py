@@ -157,10 +157,15 @@ Phases, each printed as it finishes:
    at 512px (``cvt_highres_spec(512)``, B 8: flash_attention once,
    attention_small twice, fused_mlp 3 times) through the kernels and the
    plain route, heatmaps within 1e-4 and predictions within 1e-5 of max
-   |y|, ms a call and of its feature forward; the params-only FFN through
-   ``train``/``test --inputs par`` on 40 groups x 5 pieces x 200 rows (2
-   epochs of 250 steps), no launch, its sheets read back, its checkpoint
-   predicting on the card within 1e-5 of the CPU, seconds an epoch;
+   |y|, ms a call and of its feature forward, the device's busy share of a
+   call; the params-only FFN through ``train``/``test --inputs par`` on 40
+   groups x 5 pieces x 200 rows (4 epochs of 249 steps, the first op by
+   op and captured as a CUDA graph, the rest replays), no launch, its
+   sheets read back, its checkpoint predicting on the card within 1e-5 of
+   the CPU, seconds of the first epoch and of each later one; its graph
+   replays against the same 3 epochs op by op on the card with the lr
+   decayed every epoch (records within 1e-6), and the device kernels and
+   busy time of an epoch each way (torch.profiler);
    ``preprocess_images_device(antialias=True)`` on the card against the
    CPU; ``pickup`` (planted outliers emptied), ``plot-records``,
    ``plot-labels``, ``plot-data --params``, ``model-plot`` and ``compare``
@@ -395,6 +400,25 @@ def check_close(what, got, ref, tol=ATTN_TOL):
             f"({ref.dtype}) over atol/rtol {tol}")
 
 
+def device_events(prof):
+    """torch.profiler's device events, by start."""
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def busy_ms(events):
+    """ms of device activity: the union of the events' intervals, so that
+    kernels overlapping on two streams count once."""
+    busy, reach = 0.0, float("-inf")
+    for e in events:
+        start, end = e.time_range.start, e.time_range.end
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy / 1e3
+
+
 def device_ms(fn, calls=3, launches=()):
     """(ms of device activity per call of fn: the union of torch.profiler's
     CUDA events' intervals, so that kernels overlapping on two streams count
@@ -413,16 +437,8 @@ def device_ms(fn, calls=3, launches=()):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     top = [(e.key[:48], e.self_device_time_total / 1e3 / calls) for e in top]
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    busy, reach = 0.0, float("-inf")
-    for e in events:
-        start, end = e.time_range.start, e.time_range.end
-        if end > reach:
-            busy += end - max(start, reach)
-            reach = end
-    total = busy / 1e3 / calls
+    events = device_events(prof)
+    total = busy_ms(events) / calls
     if not launches:
         return total or None, top
     each = {}
@@ -2970,9 +2986,11 @@ HEAT_GROUPS, HEAT_LAYERS = 2, 10
 HEAT_512_BATCH = 8
 HEAT_TOL = 1e-4       # Grad-CAM heatmaps on [0, 1], kernels vs plain: max |diff|
 HEAT_PRED_TOL = 1e-5  # its predictions: max |diff| <= tol x max |plain|
-FFN_GROUPS, FFN_LAYERS, FFN_EPOCHS = 40, 200, 2
+FFN_GROUPS, FFN_LAYERS, FFN_EPOCHS = 40, 200, 4
 FFN_TOL = 1e-5        # the card's FFN checkpoint on the card vs on the CPU:
                       # max |diff| <= tol x max(1, |y|)
+FFN_GRAPH_TOL = 1e-6  # FFN_CHECK_EPOCHS epochs' records on the card, graph
+FFN_CHECK_EPOCHS = 3  # replays vs op by op: |diff| <= tol x |op by op|
 PREP_TOL = 1e-5       # preprocess_images_device(antialias=True), card vs CPU
 
 
@@ -3057,6 +3075,14 @@ def gradcam_check(what, model, spec, images, proc, want, card, reps):
              "features_ms": time_ms(features, reps=reps, warmup=1),
              "features_plain_ms": time_ms(lambda: features("plain"),
                                           reps=reps, warmup=1)}
+    for impl in ("auto", "plain"):
+        busy = device_ms(lambda: gradcam_heatmaps(model, spec, images, proc,
+                                                  impl=impl))[0]
+        key = "busy_ms" if impl == "auto" else "plain_busy_ms"
+        times[key] = busy
+    share = {k: (f"{100 * times[k + 'busy_ms'] / times[k + 'ms']:.0f}%"
+                 if times[k + "busy_ms"] else "not measured")
+             for k in ("", "plain_")}
     say(f"[9] {what} Grad-CAM, batch {b}: launches {launches['auto']} "
         f"(plain route none); kernels vs plain: heatmaps max |diff| "
         f"{dh:.3e} (limit {HEAT_TOL}), preds {dp:.3e} (|y| up to "
@@ -3064,7 +3090,9 @@ def gradcam_check(what, model, spec, images, proc, want, card, reps):
         f"{times['ms']:.2f} ms a call ({times['features_ms']:.2f} of it the "
         f"feature forward); plain route {times['plain_ms']:.2f} "
         f"({times['features_plain_ms']:.2f}) (CUDA events, median of "
-        f"{reps}; {card})")
+        f"{reps}, one call at a time, host work included); the device busy "
+        f"{share['']} of a call's time, plain route {share['plain_']} "
+        f"(torch.profiler, 3 calls; {card})")
     return launches["auto"], dict(times, batch=b, heat_max_diff=float(dh),
                                   pred_max_diff=float(dp))
 
@@ -3089,6 +3117,60 @@ def native_check():
     if grey.shape != (128, 128) or (grey != 77).any():
         raise AssertionError("native resize_gray of a constant image")
     say(f"[9] native loader built ({native.LIB}); resize_gray checked")
+
+
+def ffn_train_check(cfg, data, train_rows, val_rows, root, card):
+    """The FFN's training on the card with its later epochs CUDA-graph
+    replays against the same run op by op (``cuda_graph=False``):
+    FFN_CHECK_EPOCHS epochs with the lr decayed every epoch, so each replay
+    reads a new lr, new bias corrections and a new shuffle; the same
+    kernels in the same order, so the records agree within FFN_GRAPH_TOL.
+    Both under torch.profiler: the device kernels a step and the device's
+    busy time of an epoch, op by op and replayed."""
+    from transformer_stm_tpu_torch.harness import _train_ffn
+
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, lr_decay_every=1))
+    runs = {}
+    for graph in (True, False):
+        paths = {"weights": os.path.join(root, f"ffn_graph{graph}"),
+                 "records": os.path.join(root, f"ffn_graph{graph}.xlsx")}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = _train_ffn(cfg, HEAT_TARGET, data["proc_scaled"],
+                             data["labels"], train_rows, val_rows, paths,
+                             epochs=FFN_CHECK_EPOCHS, verbose=False,
+                             device="cuda", cuda_graph=graph)
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        runs[graph] = (np.asarray([r[1:5] for r in out["records"]]),
+                       sum(not e.name.startswith(("Memcpy", "Memset"))
+                           for e in events), busy_ms(events), out)
+    rel = np.abs(runs[True][0] - runs[False][0]) / np.abs(runs[False][0])
+    if runs[True][0].shape != (FFN_CHECK_EPOCHS, 4) or \
+            not rel.max() <= FFN_GRAPH_TOL:
+        raise AssertionError(f"FFN training, graph replays vs op by op: "
+                             f"records {runs[True][0]} vs {runs[False][0]}")
+    e, steps = FFN_CHECK_EPOCHS, -(-len(train_rows) // cfg.train.batch_size)
+    op_kernels, op_busy = runs[False][1] / e, runs[False][2] / e
+    op_wall = 1e3 * runs[False][3]["seconds"] / e
+    replay_kernels = (runs[True][1] - op_kernels) / (e - 1)
+    replay_busy = (runs[True][2] - op_busy) / (e - 1)
+    replay_wall = 1e3 * (runs[True][3]["seconds"] -
+                         runs[True][3]["first_seconds"]) / (e - 1)
+    say(f"[9] FFN training, CUDA-graph replays vs op by op on the card, {e} "
+        f"epochs, lr decayed every epoch: records max rel diff "
+        f"{rel.max():.3e} (limit {FFN_GRAPH_TOL}); torch.profiler: op by op "
+        f"{op_kernels:.0f} device kernels an epoch ({op_kernels / steps:.1f} "
+        f"a step, its validation included), device busy {op_busy:.1f} ms of "
+        f"{op_wall:.1f} ms (host clock, under the profiler); replayed "
+        f"{replay_kernels:.0f} kernels an epoch, device busy "
+        f"{replay_busy:.1f} ms of {replay_wall:.1f} ms ({card})")
+    return {"graph_vs_op_by_op_max_rel_diff": float(rel.max()),
+            "kernels_per_step": op_kernels / steps,
+            "op_by_op_busy_ms": op_busy, "op_by_op_wall_ms": op_wall,
+            "replay_kernels_per_epoch": replay_kernels,
+            "replay_busy_ms": replay_busy, "replay_wall_ms": replay_wall}
 
 
 def phase_analysis(card):
@@ -3206,24 +3288,29 @@ def phase_analysis(card):
                              f"{len(sheet['predictions'])} rows")
     params = load_checkpoint(latest_checkpoint(paths["weights"]))[0]
     x = data["proc_scaled"][val_rows]
-    on_card = _predict_ffn(ffn_cfg, params, x, "cuda")
-    on_cpu = _predict_ffn(ffn_cfg, params, x, "cpu")
+    on_card = _predict_ffn(params, x, "cuda")
+    on_cpu = _predict_ffn(params, x, "cpu")
     diff = np.abs(on_card - on_cpu)
     if (diff > FFN_TOL * np.maximum(1.0, np.abs(on_cpu))).any() or \
             np.abs(sheet["predictions"] - on_card).max() > \
             FFN_TOL * max(1.0, np.abs(on_card).max()):
         raise AssertionError(f"FFN card vs CPU: max |diff| {diff.max():.3e}")
-    per_epoch = trained["seconds"] / FFN_EPOCHS
     steps = -(-len(train_rows) // BATCH)
-    result["ffn"] = {"seconds_per_epoch": per_epoch, "steps_per_epoch": steps,
-                     "train_rows": len(train_rows), "r2": tested["r2"]}
+    later = (trained["seconds"] - trained["first_seconds"]) / (FFN_EPOCHS - 1)
     say(f"[9] cli train/test --inputs par: {len(train_rows)} train rows, "
-        f"{steps} steps an epoch, {per_epoch:.3f} s an epoch "
-        f"({1e3 * per_epoch / steps:.3f} ms a step; host clock, the whole "
-        f"epoch with its validation; {card}); launches none; records "
+        f"{steps} steps an epoch of {BATCH}, {FFN_EPOCHS} epochs: the first "
+        f"{trained['first_seconds']:.3f} s (op by op, then its capture as a "
+        f"CUDA graph), each later one {later:.4f} s ({1e3 * later / steps:.4f}"
+        f" ms a step; host clock, the epoch with its validation; {card}); "
+        f"launches none; records "
         f"{[[round(v, 5) for v in r[1:]] for r in records]}; R2 "
         f"{tested['r2']:.4f}; its checkpoint on the card vs the CPU: max "
         f"|diff| {diff.max():.3e} (limit {FFN_TOL} x max(1, |y|))")
+    result["ffn"] = dict(ffn_train_check(ffn_cfg, data, train_rows, val_rows,
+                                         root, card),
+                         first_epoch_seconds=trained["first_seconds"],
+                         seconds_per_epoch=later, steps_per_epoch=steps,
+                         train_rows=len(train_rows), r2=tested["r2"])
 
     # the antialiased preprocessing, on the card against the CPU
     raw = torch.from_numpy(rng.integers(0, 256, (8, 345, 340, 3),

@@ -17,7 +17,10 @@
   synthetic sheet fixture (tests/test_torch_data.py ``write_fixture``)
   writes the same artifacts as JAX's: records within 1e-4 relative,
   predictions within 1e-4, the metrics (MSE, MAE, 1 - R²) within 1e-3
-  relative; a "(many)" repeat run draws its FFN from seed + 1000 * time.
+  relative; a "(many)" repeat run draws its FFN from seed + 1000 * time;
+- ``adam_apply`` with its lr and bias corrections as 0-dim tensors (what
+  ``_train_ffn`` reads from device buffers, so that a CUDA graph can
+  replay its epochs) updates bit for bit as ``adam_update``, over 5 steps.
 """
 
 import dataclasses
@@ -45,7 +48,9 @@ from transformer_stm_tpu_torch.train.checkpoint import (
     adam_from_jax, ffn_from_jax_params, ffn_to_jax_params, latest_checkpoint,
     load_checkpoint, save_checkpoint)
 from transformer_stm_tpu_torch.train.metrics import read_predictions_metrics
-from transformer_stm_tpu_torch.train.optimizer import adam_init
+from transformer_stm_tpu_torch.train.optimizer import (adam_apply,
+                                                       adam_init,
+                                                       adam_update)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TRAINED = os.path.join(HERE, "..", "persist", "Weight", "Parameters",
@@ -288,3 +293,27 @@ def test_repeat_runs_seed_the_ffn_as_jax(harness_runs, monkeypatch):
     harness.train_target(port_cfg, FREQ, time=2, epochs=1, verbose=False,
                          device="cpu")
     assert seeds == [port_cfg.train.seed + 2000]
+
+
+def test_adam_apply_tensor_scalars_match_adam_update():
+    models = [init_ffn(5, 16, 1, torch.Generator().manual_seed(3),
+                       device="cpu") for _ in range(2)]
+    opts = [adam_init(m) for m in models]
+    rng = np.random.default_rng(0)
+    for step in range(1, 6):
+        grads = [torch.from_numpy(rng.standard_normal(tuple(p.shape))
+                                  .astype(np.float32))
+                 for p in models[0].parameters()]
+        lr = float(np.float32(1e-3) * np.float32(0.8) ** (step // 2))
+        adam_update(grads, opts[0], list(models[0].parameters()), lr)
+        t = np.float32(step)
+        scalars = [torch.tensor(np.float32(v)) for v in (
+            lr, np.float32(1.0) - np.power(np.float32(0.9), t),
+            np.float32(1.0) - np.power(np.float32(0.999), t))]
+        adam_apply(grads, opts[1], list(models[1].parameters()), *scalars)
+    assert opts[0].step == 5 and opts[1].step == 0
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(a, b)
+    for key in opts[0].mu:
+        assert torch.equal(opts[0].mu[key], opts[1].mu[key])
+        assert torch.equal(opts[0].nu[key], opts[1].nu[key])

@@ -121,7 +121,7 @@ def train_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
 
 def _train_ffn(cfg: ExperimentConfig, freq: str, proc, y, train_rows,
                val_rows, paths, epochs=None, verbose: bool = True,
-               device="cuda", model=None) -> Dict:
+               device="cuda", model=None, cuda_graph: bool = True) -> Dict:
     """Trains the params-only FFN (reference models/FFN(OnlyPar).py) on
     ``device`` from ``model`` (default ``init_ffn`` from cfg.train.seed);
     writes its checkpoint and records.
@@ -134,13 +134,22 @@ def _train_ffn(cfg: ExperimentConfig, freq: str, proc, y, train_rows,
     MAE are the sample-weighted sums over the rows, the validation MSE and
     MAE those of one forward over the held-out rows, lr = lr * decay ^
     floor(epoch / every) in float32.  Nothing is fetched from the device
-    until the last epoch is done."""
+    until the last epoch is done.
+
+    An epoch reads its shuffle, lr and Adam bias corrections from device
+    buffers that are refilled before it, so on the card the first epoch
+    runs op by op and is then captured as one CUDA graph that each later
+    epoch replays: one launch an epoch in place of one a kernel
+    (``cuda_graph=False`` runs every epoch op by op, which chip_smoke.py
+    holds the replays against).  The result's ``first_seconds`` is the
+    first epoch's time, the capture included (capturing waits for the
+    card)."""
     from .models.ffn import ffn_forward, init_ffn
     from .ops.common import use_true_f32
     from .train.checkpoint import save_checkpoint
     from .train.loop import _SHUFFLE, _seed
     from .train.metrics import RecordsWriter
-    from .train.optimizer import adam_init, adam_update
+    from .train.optimizer import adam_apply, adam_init
 
     tc = cfg.train
     device = torch.device(device)
@@ -169,42 +178,87 @@ def _train_ffn(cfg: ExperimentConfig, freq: str, proc, y, train_rows,
     lrs = [float(np.float32(tc.learning_rate) * np.power(
         np.float32(tc.lr_decay), np.float32(e // tc.lr_decay_every)))
         for e in range(epochs)]
+    # the buffers an epoch reads: the shuffled rows, and each step's lr and
+    # bias corrections 1 - b^t in float32 (optimizer.adam_update's)
+    idx = torch.zeros(steps, bs, dtype=torch.int64, device=device)
+    sched = torch.zeros(steps, 3, device=device)
+    acc = torch.zeros(2, device=device)
+    rec = torch.zeros(4, device=device)
     recs = torch.zeros(epochs, 4, device=device)
-    t0 = perf_counter()
-    for epoch in range(epochs):
+
+    def fill(epoch):
         gen = torch.Generator().manual_seed(_seed(tc.seed, _SHUFFLE, epoch))
-        idx = torch.zeros(steps * bs, dtype=torch.int64)
-        idx[:n] = torch.randperm(n, generator=gen)
+        rows = torch.zeros(steps * bs, dtype=torch.int64)
+        rows[:n] = torch.randperm(n, generator=gen)
+        t = np.arange(epoch * steps + 1, (epoch + 1) * steps + 1,
+                      dtype=np.float32)
+        table = np.stack([np.full(steps, lrs[epoch], np.float32),
+                          np.float32(1.0) - np.power(np.float32(0.9), t),
+                          np.float32(1.0) - np.power(np.float32(0.999), t)],
+                         axis=1)
+        table = torch.from_numpy(table)
         if device.type == "cuda":
-            idx = idx.pin_memory()
-        idx = idx.to(device, non_blocking=True).reshape(steps, bs)
-        acc = torch.zeros(2, device=device)
+            rows, table = rows.pin_memory(), table.pin_memory()
+        idx.copy_(rows.reshape(steps, bs), non_blocking=True)
+        sched.copy_(table, non_blocking=True)
+
+    def run_epoch():
+        acc.zero_()
         for s in range(steps):
             with torch.enable_grad():
-                err = ffn_forward(model, xs[idx[s]]).reshape(-1) - ys[idx[s]]
+                err = (ffn_forward(model, xs.index_select(0, idx[s]))
+                       .reshape(-1) - ys.index_select(0, idx[s]))
                 se = (err.square() * mask[s]).sum()
                 ae = (err.abs() * mask[s]).sum()
                 grads = torch.autograd.grad(se / k2[s], params)
-            adam_update(grads, opt, params, lrs[epoch])
-            acc += torch.stack([se.detach(), ae.detach()])
+            adam_apply(grads, opt, params, sched[s, 0], sched[s, 1],
+                       sched[s, 2])
+            acc.add_(torch.stack([se.detach(), ae.detach()]))
         with torch.no_grad():
             err = ffn_forward(model, xv).reshape(-1) - yv
-            recs[epoch] = torch.cat([acc / n, torch.stack(
-                [err.square().mean(), err.abs().mean()])])
+            rec.copy_(torch.cat([acc / n, torch.stack(
+                [err.square().mean(), err.abs().mean()])]))
+
+    graph, first_seconds = None, 0.0
+    t0 = perf_counter()
+    for epoch in range(epochs):
+        fill(epoch)
+        if graph is not None:
+            graph.replay()
+        elif device.type != "cuda" or not cuda_graph:
+            run_epoch()
+        else:
+            # the first epoch on a side stream, torch.cuda.graph's warm-up
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                run_epoch()
+            torch.cuda.current_stream(device).wait_stream(side)
+            if epochs > 1:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):  # records; runs nothing
+                    run_epoch()
+        recs[epoch].copy_(rec)
+        if epoch == 0:
+            first_seconds = perf_counter() - t0
+    opt.step = epochs * steps
     recs = recs.cpu().numpy()  # the one fetch of the run
     seconds = perf_counter() - t0
     records = RecordsWriter()
     for epoch in range(epochs):
         records.log(epoch, *recs[epoch], lrs[epoch])
     if verbose:
+        later = (f", then {(seconds - first_seconds) / (epochs - 1):.3f} s "
+                 "an epoch" if epochs > 1 else "")
         print(f"[{freq}] {epochs} epochs, final val_loss {recs[-1, 2]:.4f} "
-              f"({seconds / max(epochs, 1):.3f} s an epoch)")
+              f"({seconds:.3f} s; the first epoch {first_seconds:.3f} s"
+              f"{later})")
     model.requires_grad_(False)
     save_checkpoint(paths["weights"], model, opt, step=epochs,
                     metadata={"freq": freq, "config": "par"})
     records.write(paths["records"])
     return {"paths": paths, "records": records.rows, "model": model,
-            "seconds": seconds}
+            "seconds": seconds, "first_seconds": first_seconds}
 
 
 def test_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
@@ -230,7 +284,7 @@ def test_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
             "first")
     params, state, _, _ = load_checkpoint(ckpt)
     if cfg.inputs == "par":
-        pred = _predict_ffn(cfg, params, data["proc_scaled"][val_rows],
+        pred = _predict_ffn(params, data["proc_scaled"][val_rows],
                             device)
     else:
         loop = TrainLoop(spec, cfg.train, device=device)
@@ -257,19 +311,17 @@ def test_target(cfg: ExperimentConfig, freq: str, labels=None, procs=None,
     return {"r2": r2, "mse": m_mse, "mae": m_mae, "paths": paths}
 
 
-def _predict_ffn(cfg: ExperimentConfig, params, proc, device) -> np.ndarray:
-    """The FFN of ``cfg``'s widths with a checkpoint's parameters over
-    ``proc`` -> np.float32 (N,), in true f32 on the card (harness.py:
-    253-262)."""
-    from .models.ffn import FFN, ffn_forward
+def _predict_ffn(params, proc, device) -> np.ndarray:
+    """The FFN of a checkpoint's parameters over ``proc`` -> np.float32
+    (N,), in true f32 on the card (harness.py:253-262)."""
+    from .models.ffn import ffn_forward
     from .ops.common import use_true_f32
-    from .train.checkpoint import load_into
+    from .train.checkpoint import ffn_from_jax_params
 
     device = torch.device(device)
     if device.type == "cuda":
         use_true_f32()
-    model = load_into(FFN(proc.shape[1], cfg.ffn_hidden,
-                          cfg.model.num_classes), params, {}).to(device)
+    model = ffn_from_jax_params(params, device)
     with torch.no_grad():
         x = torch.from_numpy(np.asarray(proc, np.float32)).to(device)
         return ffn_forward(model, x).reshape(-1).cpu().numpy()

@@ -103,7 +103,8 @@ def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
                            mlp_impl=mlp_impl)
             if cls is not None:
                 cls_tokens = cls
-        features.append(x)
+        if return_features:
+            features.append(x)
     if cls_tokens is not None:
         feat = model.head_norm(cls_tokens)[:, 0, :]
     else:

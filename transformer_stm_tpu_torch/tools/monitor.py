@@ -7,8 +7,8 @@ card's memory, one line a second.
 ``cuda_memory_stats`` takes the place of the JAX package's TPU HBM stats:
 each card's memory in use and its size (``torch.cuda.mem_get_info``) and
 this process's allocations (``torch.cuda.memory_stats``); without CUDA it
-returns [].  The host's numbers come from psutil where it is installed,
-else from /proc (Linux).
+returns [].  The host's numbers come from /proc (Linux): the busy share of
+all cores since the previous call, and MemTotal less MemAvailable.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ _last_cpu_times: Optional[List[int]] = None
 
 def _proc_cpu_percent() -> float:
     """The busy share of all cores since the previous call (0.0 at the
-    first), from /proc/stat, as psutil.cpu_percent(interval=None)."""
+    first), from /proc/stat."""
     global _last_cpu_times
     with open("/proc/stat") as f:
         times = [int(v) for v in f.readline().split()[1:]]
@@ -38,15 +38,6 @@ def _proc_cpu_percent() -> float:
 
 def cpu_ram_stats() -> Dict:
     """{"cpu_percent", "ram_used_gb", "ram_total_gb"} of the host."""
-    try:
-        import psutil
-    except ModuleNotFoundError:
-        psutil = None
-    if psutil is not None:
-        vm = psutil.virtual_memory()
-        return {"cpu_percent": psutil.cpu_percent(interval=None),
-                "ram_used_gb": vm.used / 2**30,
-                "ram_total_gb": vm.total / 2**30}
     mem = {}
     with open("/proc/meminfo") as f:
         for line in f:

@@ -14,6 +14,7 @@ are keyed by parameter name, the JAX path with dots, so a checkpoint's
 
     opt = adam_init(model)
     adam_update(grads, opt, params, lr)    # params: the model's, in order
+    adam_apply(grads, opt, params, lr_t, bc1_t, bc2_t)  # step's scalars given
 """
 
 from __future__ import annotations
@@ -45,20 +46,30 @@ def adam_update(grads: Sequence[torch.Tensor], opt: AdamState,
                 b2: float = 0.999, eps: float = 1e-7,
                 weight_decay: float = 0.0) -> None:
     """One Adam (AdamW with ``weight_decay`` > 0) step on ``params``, whose
-    order is that of ``opt.mu``, in place:
-
-        m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
-        p = p - lr * ((m / bc1) / (sqrt(v / bc2) + eps) [+ wd p])
-
-    with bc = 1 - b^t in float32, as the JAX update computes them."""
-    mu, nu = list(opt.mu.values()), list(opt.nu.values())
-    if not (len(grads) == len(params) == len(mu)):
-        raise ValueError(f"adam_update: {len(grads)} grads, {len(params)} "
-                         f"params, {len(mu)} moments")
+    order is that of ``opt.mu``, in place (``adam_apply``), with the bias
+    corrections bc = 1 - b^t in float32, as the JAX update computes them."""
     opt.step += 1
     t = np.float32(opt.step)
     bc1 = float(np.float32(1.0) - np.power(np.float32(b1), t))
     bc2 = float(np.float32(1.0) - np.power(np.float32(b2), t))
+    adam_apply(grads, opt, params, lr, bc1, bc2, b1, b2, eps, weight_decay)
+
+
+@torch.no_grad()
+def adam_apply(grads: Sequence[torch.Tensor], opt: AdamState,
+               params: Sequence[torch.Tensor], lr, bc1, bc2, b1: float = 0.9,
+               b2: float = 0.999, eps: float = 1e-7,
+               weight_decay: float = 0.0) -> None:
+    """The Adam update with the step's lr and bias corrections given, as
+    floats or as 0-dim tensors on the parameters' device (which a captured
+    CUDA graph reads anew at each replay); ``opt.step`` is left as it is:
+
+        m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
+        p = p - lr * ((m / bc1) / (sqrt(v / bc2) + eps) [+ wd p])"""
+    mu, nu = list(opt.mu.values()), list(opt.nu.values())
+    if not (len(grads) == len(params) == len(mu)):
+        raise ValueError(f"adam_apply: {len(grads)} grads, {len(params)} "
+                         f"params, {len(mu)} moments")
     torch._foreach_mul_(mu, b1)
     torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
     torch._foreach_mul_(nu, b2)
