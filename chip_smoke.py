@@ -171,22 +171,48 @@ Phases, each printed as it finishes:
    ``plot-labels``, ``plot-data --params``, ``model-plot`` and ``compare``
    (PNGs written, or a line saying matplotlib is not installed); the
    monitor's line with the card's memory; the native host loader built
-   where g++ and libjpeg's header are there.
+   where g++ and libjpeg's header are there;
+10. the multi-target family's run tooling at the flagship's full width
+   (CvTSpec(), img+par, 128px, dropout 0.1, batch 128) on phase 5's corpus
+   written into the decode cache, under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)`` (ops
+   without a deterministic implementation are named): (a) ``run_many``,
+   3 repeats x 20 epochs with a stacked checkpoint every 10, under a
+   caller's ``HangWatchdog``, with exact launch counts (under
+   ``impl="small"`` every stage's attention runs on attention_small), the
+   summary read back, ms per slot-step and seconds per repeat's
+   evaluation; (b) ``supervise`` running a child script (written into the
+   temporary directory; its patch of ``MultiTargetTrainer.run_epoch``
+   lives there only) whose first attempt wedges the "multi-epoch @ 10"
+   dispatch until the watchdog force-exits it with 75; the supervisor
+   logs the stall and respawns it, the second attempt resumes from the
+   epoch-10 stack, and its summary, records and final stacked weights
+   equal (a)'s bit for bit; (c) ``cli.main(["sweep", ...])`` over 2 dropout
+   groups of 2 slots with exact launch counts, the JSON read back, its
+   scale-1 seed-0 point of the 0.1 group bit-equal to a one-slot trainer,
+   and ``sweep --inputs par --hidden 8,16`` with no launch; (d)
+   ``debug_mode`` around a forward and backward at B 32 through the
+   kernels, bit-equal to the same calls outside it, a NaN planted in the
+   embedding convolution's weight and one in stage 1's fc1 named at
+   ``aten.convolution`` and at the ``fused_mlp_train`` kernel, ``trace()``
+   around two slot-steps holding the attention and training-MLP kernels
+   by name, ``StepTimer``'s summary; the phase's seconds.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON object with each kernel's numbers (``launches`` from phase 6, or
 phase 5 for the training MLP, which the multi-target trainer runs at the
 CvT widths, or phase 7 for the fused-layer kernels; ``launches_by_path``
-from phases 3 to 9: ``vit_finetune``, where rows 4-5 run at D 768, then
-phase 9's ``heatmap`` (the CLI's), ``heatmap_512px`` and ``ffn``; rows 4-5
+from phases 3 to 10: ``vit_finetune``, where rows 4-5 run at D 768, then
+phase 9's ``heatmap`` (the CLI's), ``heatmap_512px`` and ``ffn``, and phase
+10's ``many`` and ``sweep``; rows 4-5
 carry their ViT-width rows as ``vit_shapes`` and, as ``vit_source``, the
 source of their chunked products at D 384 and 768;
 rows 9-12 their f32 numbers as ``f32_*``, ``f32_launches`` the launches of
-phase 7's f32 routes), phase 8's step times and phase 9's numbers
-(``analysis``); the last line is
+phase 7's f32 routes), phase 8's step times, phase 9's numbers
+(``analysis``) and phase 10's (``family``); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing is read from or written to the
 repository except the build directory (the kernels', and the native
-loader's in phase 9); phases 6 and 9 work in temporary directories.
+loader's in phase 9); phases 6, 9 and 10 work in temporary directories.
 """
 
 import sys
@@ -199,11 +225,19 @@ import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
+
+# cuBLAS reads its workspace setting once; phase 10 runs under
+# torch.use_deterministic_algorithms, which wants one of the fixed ones
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+import contextlib  # noqa: E402
+import copy  # noqa: E402
+import glob  # noqa: E402
 import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
+import warnings  # noqa: E402
 
 import dataclasses  # noqa: E402
 
@@ -214,7 +248,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from transformer_stm_tpu_torch import cli  # noqa: E402
+from transformer_stm_tpu_torch import cli, harness  # noqa: E402
 from transformer_stm_tpu_torch.config import (  # noqa: E402
     PROCESS_PARAMETERS, CvTSpec, DataConfig, ExperimentConfig, TrainConfig,
     cvt_highres_spec, save_config)
@@ -3374,6 +3408,464 @@ def phase_analysis(card):
 
 
 
+# -- phase 10: the multi-target family's run tooling --------------------------
+
+FAMILY_TARGET = "50HZ_Bm"  # phase 5's first target: 512 train, 128 val rows
+FAMILY_REPEATS, FAMILY_EPOCHS, FAMILY_CKPT_EVERY = 3, 20, 10
+FAMILY_STALL_EPOCH = 10    # the child's first attempt wedges this chunk
+SWEEP_EPOCHS = 2
+DEBUG_BATCH = 32
+# The supervised child: run_many with (a)'s arguments under a short deadline;
+# its first attempt wedges the dispatch of epoch FAMILY_STALL_EPOCH's chunk.
+FAMILY_CHILD = """\
+import os, sys, time
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+sys.dont_write_bytecode = True
+repo, cfg_path, marker, deadline = sys.argv[1:5]
+sys.path.insert(0, repo)
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+from transformer_stm_tpu_torch.config import load_config
+from transformer_stm_tpu_torch.train.many import run_many
+from transformer_stm_tpu_torch.train.multi import MultiTargetTrainer
+from transformer_stm_tpu_torch.train.watchdog import HangWatchdog
+
+if not os.path.exists(marker):
+    open(marker, "w").close()
+    run_epoch = MultiTargetTrainer.run_epoch
+
+    def wedged(self, epoch):
+        if epoch == {stall}:
+            print("child: epoch {stall} wedged", flush=True)
+            time.sleep(3600)
+        return run_epoch(self, epoch)
+
+    MultiTargetTrainer.run_epoch = wedged
+wd = HangWatchdog(timeout_s=float(deadline), first_timeout_s=600.0,
+                  poll_s=0.5).start()
+run_many(load_config(cfg_path), "{target}", {epochs}, {repeats},
+         impl="small", mlp_impl="pallas", watchdog=wd,
+         checkpoint_every={every}, verbose=True)
+wd.stop()
+"""
+
+
+def family_fixture(root):
+    """Phase 5's corpus (2 groups x 5 pieces x 64 layers of 128x128) and
+    sheets, the corpus written into the decode cache, where run_many's
+    trainer and test_target read it."""
+    data, corpus = multi_fixture(root)
+    os.makedirs(data.cache_dir)
+    npy, meta = _cache_paths(data)
+    np.save(npy, corpus)
+    with open(meta, "w") as f:
+        json.dump({"decoded": list(range(corpus.shape[0]))}, f)
+    return data
+
+
+def family_cfg(data, root, name, epochs):
+    """The flagship (CvTSpec(), img+par, 128px, dropout 0.1) at batch 128
+    on FAMILY_TARGET, its artifacts under root/name."""
+    return ExperimentConfig(
+        model=CvTSpec(), data=data, frequencies=(FAMILY_TARGET,),
+        train=TrainConfig(batch_size=BATCH, seed=SEED, epochs=epochs),
+        result_dir=os.path.join(root, name))
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name, log):
+    """owner.name wrapped for the block: each call appends (its first
+    argument, its host seconds between two synchronisations) to log."""
+    real = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append((args[0], time.perf_counter() - t0))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield log
+    finally:
+        setattr(owner, name, real)
+
+
+def nondeterministic_ops(caught):
+    """The ops that warned they have no deterministic implementation."""
+    return sorted({str(w.message).split(" does not have")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def family_launches(trainers, epochs, eval_batches=0):
+    """Exact launch counts of fit(epochs) for each trainer and of
+    eval_batches evaluation batches (``TrainLoop.predict``, impl "auto": 1
+    attention_small and 3 fused_mlp a batch); with the slot-steps and
+    validation batches.  A slot-step launches attention_small forward and
+    backward once under impl "auto" (stage 1) and 3 times under "small"
+    (every stage), and the training MLP 3 times each way with mlp_impl
+    "pallas"; a validation batch 1 attention_small and 3 fused_mlp under
+    "auto", 3 attention_small and no MLP kernel under "small" (its MLP
+    runs plain, as JAX's evaluation MLP does)."""
+    want = {**zero_launches(), "attention_small": eval_batches,
+            "fused_mlp": 3 * eval_batches}
+    steps = val = 0
+    for t in trainers:
+        s_ = epochs * int((-(-t.n_train // BATCH)).sum())
+        v_ = epochs * len(t.targets) * t.n_val_steps
+        attn = 3 if t.impl == "small" else 1
+        mlp = 3 if t.mlp_impl in ("pallas", "flash") else 0
+        want["attention_small"] += attn * (s_ + v_)
+        want["attention_small_bwd"] += attn * s_
+        want["fused_mlp"] += 0 if t.impl == "small" else 3 * v_
+        want["fused_mlp_train"] += mlp * s_
+        want["fused_mlp_train_bwd"] += mlp * s_
+        steps, val = steps + s_, val + v_
+    return want, steps, val
+
+
+def stacked_final(result_dir):
+    """(records, arrays) of the newest stacked checkpoint of the repeat
+    study under result_dir."""
+    ck = latest_checkpoint(os.path.join(
+        result_dir, "Weight", "Images & Parameters",
+        f"many_{FAMILY_TARGET}.ckpts"))
+    with open(ck[:-4] + ".json") as f:
+        records = json.load(f)["records"]
+    with np.load(ck) as z:
+        return records, {k: z[k] for k in z.files}
+
+
+def family_many(data, root):
+    """(a) run_many: 3 repeats x 20 epochs under a caller's watchdog, with
+    exact launch counts, the summary read back."""
+    from transformer_stm_tpu_torch.train.many import run_many
+    from transformer_stm_tpu_torch.train.watchdog import HangWatchdog
+
+    cfg = family_cfg(data, root, "Result_a", FAMILY_EPOCHS)
+    wd = HangWatchdog(timeout_s=600.0, poll_s=1.0,
+                      log=lambda msg: say(f"[10] {msg}")).start()
+    fits, evals = [], []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, \
+            timed_calls(MultiTargetTrainer, "fit", fits), \
+            timed_calls(harness, "test_target", evals):
+        warnings.simplefilter("always")
+        summary = run_many(cfg, FAMILY_TARGET, FAMILY_EPOCHS, FAMILY_REPEATS,
+                           impl="small", mlp_impl="pallas", watchdog=wd,
+                           checkpoint_every=FAMILY_CKPT_EVERY, verbose=False)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = read_launches()
+    wd.stop()
+    (tr, fit_s), = fits
+    n_val = int(tr.n_val[0])
+    eval_batches = FAMILY_REPEATS * -(-n_val // BATCH)
+    want, steps, val = family_launches([tr], FAMILY_EPOCHS, eval_batches)
+    say(f"[10] (a) run_many: {FAMILY_REPEATS} repeats of {FAMILY_TARGET} "
+        f"(n_train {tr.n_train.tolist()}, n_val {tr.n_val.tolist()}), "
+        f"{FAMILY_EPOCHS} epochs in chunks of {tr.epochs_per_call}, a "
+        f"stacked checkpoint every {FAMILY_CKPT_EVERY}: {steps} slot-steps, "
+        f"{val} validation batches, {eval_batches} evaluation batches; "
+        f"launches {launches}")
+    if launches != want:
+        raise AssertionError(f"run_many launches {launches}, want {want}")
+    with open(os.path.join(cfg.result_dir,
+                           f"cvt_many_{FAMILY_TARGET}_summary.json")) as f:
+        back = json.load(f)
+    runs = back["runs"]
+    if back != json.loads(json.dumps(summary)) or \
+            [r["time"] for r in runs] != list(range(1, FAMILY_REPEATS + 1)) \
+            or [r["seed"] for r in runs] != [1000 + t for t in range(
+                1, FAMILY_REPEATS + 1)] or not all(
+                np.isfinite([r[k] for k in ("r2", "mse", "mae")]).all()
+                for r in runs):
+        raise AssertionError(f"run_many summary {back}")
+    for k in ("r2", "mse", "mae"):
+        v = np.array([r[k] for r in runs])
+        st = back["stats"][k]
+        if not np.allclose([st["mean"], st["std"], st["min"], st["max"]],
+                           [v.mean(), v.std(ddof=1), v.min(), v.max()],
+                           rtol=1e-12, atol=0):
+            raise AssertionError(f"run_many stats {k}: {st} from {v}")
+    records, _ = stacked_final(cfg.result_dir)
+    if [len(r) for r in records] != [FAMILY_EPOCHS] * FAMILY_REPEATS or \
+            [o.step for o in tr.opts] != \
+            (FAMILY_EPOCHS * -(-tr.n_train // BATCH)).tolist():
+        raise AssertionError("run_many records or Adam counts")
+    step_ms = 1e3 * fit_s / steps
+    eval_s = [s_ for _, s_ in evals]
+    nondet = nondeterministic_ops(caught)
+    say(f"[10] (a) summary read back: r2 {[r['r2'] for r in runs]}, stats "
+        f"{back['stats']}; fit {fit_s:.2f} s = {step_ms:.2f} ms per "
+        f"slot-step (host clock, validation and checkpoints included); "
+        f"evaluation {[round(x, 3) for x in eval_s]} s per repeat; run_many "
+        f"{total:.2f} s; ops without a deterministic implementation: "
+        f"{nondet or 'none'}")
+    return launches, {"seconds": total, "fit_seconds": fit_s,
+                      "slot_steps": steps, "ms_per_slot_step": step_ms,
+                      "eval_seconds": eval_s, "stats": back["stats"],
+                      "nondeterministic_ops": nondet}, cfg
+
+
+def family_resume(data, root, a_cfg, a):
+    """(b) The supervisor respawns a child that the watchdog force-exits
+    inside its epoch-10 chunk; the second attempt resumes from the epoch-10
+    stack and finishes equal to (a) bit for bit."""
+    from transformer_stm_tpu_torch.train.supervisor import (COMPLETION_MARKER,
+                                                            supervise)
+
+    cfg = family_cfg(data, root, "Result_b", FAMILY_EPOCHS)
+    cfg_path = os.path.join(root, "many_b.json")
+    save_config(cfg, cfg_path)
+    child = os.path.join(root, "child.py")
+    with open(child, "w") as f:
+        f.write(FAMILY_CHILD.format(
+            stall=FAMILY_STALL_EPOCH, target=FAMILY_TARGET,
+            epochs=FAMILY_EPOCHS, repeats=FAMILY_REPEATS,
+            every=FAMILY_CKPT_EVERY))
+    log = os.path.join(root, "supervisor.log")
+    # twice a chunk of (a) (fit_seconds covers two), which leaves room for
+    # a fresh process's first chunk
+    deadline = max(20.0, a["fit_seconds"])
+    t0 = time.perf_counter()
+    rc = supervise([sys.executable, child,
+                    os.path.dirname(os.path.abspath(__file__)), cfg_path,
+                    os.path.join(root, "child.attempted"), str(deadline)],
+                   max_attempts=3, retry_delay_s=1, log_path=log,
+                   env={"PYTHONDONTWRITEBYTECODE": "1"})
+    dt = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    marks = [ln for ln in text.splitlines()
+             if ln.startswith(("===", "[watchdog]", "child:", "resumed"))]
+    say(f"[10] (b) supervisor rc {rc} in {dt:.1f} s, deadline "
+        f"{deadline:.1f} s; log: " + " | ".join(marks))
+    stall = (f"'multi-epoch @ {FAMILY_STALL_EPOCH}' exceeded its deadline")
+    if rc != 0 or text.count("=== supervisor attempt") != 2 or \
+            "=== supervisor: watchdog stall; retry in 1s ===" not in text \
+            or stall not in text or COMPLETION_MARKER not in text or \
+            f"resumed at epoch {FAMILY_STALL_EPOCH}" not in text:
+        raise AssertionError("supervised run: " + text[-4000:])
+    with open(os.path.join(cfg.result_dir,
+                           f"cvt_many_{FAMILY_TARGET}_summary.json")) as f:
+        sb = json.load(f)
+    with open(os.path.join(a_cfg.result_dir,
+                           f"cvt_many_{FAMILY_TARGET}_summary.json")) as f:
+        sa = json.load(f)
+    rec_a, arr_a = stacked_final(a_cfg.result_dir)
+    rec_b, arr_b = stacked_final(cfg.result_dir)
+    same_w = arr_a.keys() == arr_b.keys() and all(
+        np.array_equal(arr_a[k], arr_b[k]) for k in arr_a)
+    ra, rb = np.asarray(rec_a, np.float64), np.asarray(rec_b, np.float64)
+    rel = float((np.abs(ra - rb) / np.maximum(np.abs(ra), 1e-30)).max())
+    bitwise = sa == sb and rec_a == rec_b and same_w
+    say(f"[10] (b) resumed run against (a): summary equal {sa == sb}, "
+        f"records equal {rec_a == rec_b}, final stacked weights equal "
+        f"{same_w}; records max rel diff {rel:.3e}")
+    if not bitwise:
+        ops = a["nondeterministic_ops"]
+        if not ops or rel > MULTI_LOSS_TOL:
+            raise AssertionError(
+                f"the resumed run differs from the uninterrupted one (max "
+                f"rel diff {rel:.3e}; ops without a deterministic "
+                f"implementation: {ops or 'none'})")
+        say(f"[10] (b) within MULTI_LOSS_TOL {MULTI_LOSS_TOL} relative: "
+            f"{ops} have no deterministic implementation")
+    return {"seconds": dt, "deadline_s": deadline, "bit_equal": bitwise,
+            "records_max_rel_diff": rel}
+
+
+def family_sweep(data, root):
+    """(c) The sweep through the command line: 2 dropout groups of 2 slots,
+    exact launch counts, the JSON read back, its scale-1 seed-0 point equal
+    to a one-slot trainer; the FFN's sweep with no launch."""
+    cfg = family_cfg(data, root, "Result_c", SWEEP_EPOCHS)
+    cfg_path = os.path.join(root, "sweep.json")
+    save_config(cfg, cfg_path)
+    fits = []
+    with timed_calls(MultiTargetTrainer, "fit", fits):
+        launches, secs = cli_launches(
+            ["sweep", "--config", cfg_path, "--lr", "1e-3,1e-4",
+             "--dropout", "0.0,0.1", "--seeds", "0"])
+    trainers = [t for t, _ in fits]
+    want, steps, val = family_launches(trainers, SWEEP_EPOCHS)
+    say(f"[10] (c) cli sweep --lr 1e-3,1e-4 --dropout 0.0,0.1 --seeds 0: "
+        f"{len(trainers)} trainers of {[len(t.targets) for t in trainers]} "
+        f"slots (dropout {[t.spec.stages[0].dropout_rate for t in trainers]}"
+        f"), {steps} slot-steps and {val} validation batches in "
+        f"{secs:.2f} s; launches {launches}")
+    if launches != want or [len(t.targets) for t in trainers] != [2, 2]:
+        raise AssertionError(f"sweep launches {launches}, want {want}")
+    with open(os.path.join(cfg.result_dir,
+                           f"sweep_{FAMILY_TARGET}_img_par.json")) as f:
+        summary = json.load(f)
+    mses = [r["val_mse"] for r in summary["results"]]
+    if summary["n_points"] != 4 or mses != sorted(mses) or \
+            summary["best"] != summary["results"][0] or \
+            not np.isfinite(mses).all():
+        raise AssertionError(f"sweep summary {summary}")
+    # the point at scale 1 and seed 0 of the 0.1 group: slot 0 of the
+    # second trainer, against a one-slot trainer of that target and seed
+    tr = trainers[1]
+    if tr.targets[0] != (FAMILY_TARGET, 0, "sweep2") or \
+            tr.lr_scales_np[0] != 1.0 or tr.spec.stages[0].dropout_rate != 0.1:
+        raise AssertionError(f"sweep group {tr.targets} {tr.lr_scales_np}")
+    one = MultiTargetTrainer(tr.cfg, [(FAMILY_TARGET, 0, "sweep2")],
+                             device="cuda")
+    one.fit(SWEEP_EPOCHS, verbose=False)
+    point = next(r for r in summary["results"] if r.get("dropout") == 0.1
+                 and r["lr"] == 1e-3 and r["seed"] == 0)
+    if one.records[0] != tr.records[0] or \
+            point["val_mse"] != one.records[0][-1][3]:
+        raise AssertionError(f"sweep slot {tr.records[0]} vs one-slot "
+                             f"trainer {one.records[0]}")
+    say(f"[10] (c) best {summary['best']}; the scale-1 seed-0 point of the "
+        f"0.1 group equals a one-slot trainer bit for bit (records "
+        f"{one.records[0]})")
+    par, par_s = cli_launches(["sweep", "--config", cfg_path, "--inputs",
+                               "par", "--hidden", "8,16"])
+    with open(os.path.join(cfg.result_dir,
+                           f"sweep_{FAMILY_TARGET}_par.json")) as f:
+        ffn = json.load(f)
+    if any(par.values()) or ffn["n_points"] != 2 or \
+            sorted(r["hidden"] for r in ffn["results"]) != [8, 16] or \
+            not np.isfinite([r["val_mse"] for r in ffn["results"]]).all():
+        raise AssertionError(f"FFN sweep: launches {par}, summary {ffn}")
+    say(f"[10] (c) cli sweep --inputs par --hidden 8,16: no launch, "
+        f"{par_s:.2f} s, best {ffn['best']}")
+    return launches, {"seconds": secs, "best": summary["best"],
+                      "ffn_seconds": par_s}
+
+
+def family_debug(data, root):
+    """(d) debug_mode on a full-width forward and backward through the
+    kernels, bit-equal to the same calls outside it; two planted NaNs
+    trapped and named; trace() around two slot-steps; StepTimer."""
+    from transformer_stm_tpu_torch.debug import debug_mode
+    from transformer_stm_tpu_torch.tools.profiling import (
+        StepTimer, annotate, device_memory_summary, trace)
+
+    model = init_cvt(CvTSpec(), torch.Generator().manual_seed(SEED),
+                     device="cuda")
+    rng = np.random.default_rng(SEED + 10)
+    x = torch.from_numpy(rng.integers(0, 256, (DEBUG_BATCH, 128, 128, 1))
+                         .astype(np.float32) / 255).to("cuda")
+    proc = torch.from_numpy(rng.standard_normal((DEBUG_BATCH, 5))
+                            .astype(np.float32)).to("cuda")
+
+    def fwd_bwd(m):
+        m.requires_grad_(True)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        out = cvt_forward(m, x, proc, train=True, generator=gen,
+                          impl="small", mlp_impl="pallas")
+        grads = torch.autograd.grad(out.square().mean(),
+                                    list(m.parameters()))
+        return [out.detach(), *grads]
+
+    clean = fwd_bwd(copy.deepcopy(model))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with debug_mode() as dbg:
+        checked = fwd_bwd(copy.deepcopy(model))
+    torch.cuda.synchronize()
+    debug_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = {**zero_launches(), "attention_small": 3,
+            "attention_small_bwd": 3, "fused_mlp_train": 3,
+            "fused_mlp_train_bwd": 3}  # impl "small": every stage
+    if launches != want or not all(map(torch.equal, clean, checked)):
+        raise AssertionError(f"debug_mode: launches {launches}, outputs and "
+                             "gradients equal: "
+                             f"{[torch.equal(a, b) for a, b in zip(clean, checked)]}")
+    say(f"[10] (d) debug_mode, full-width forward and backward at B "
+        f"{DEBUG_BATCH}: output and {len(clean) - 1} gradients bit-equal to "
+        f"the same calls outside it; {dbg.ops} aten ops and {dbg.kernels} "
+        f"kernel launches checked in {debug_s:.2f} s; launches {launches}")
+    trapped = {}
+    for name, expect in (("stages.0.embed.proj.kernel", "aten.convolution"),
+                         ("stages.0.blocks.0.mlp.fc1.kernel",
+                          "the fused_mlp_train kernel")):
+        bad = copy.deepcopy(model)
+        with torch.no_grad():
+            dict(bad.named_parameters())[name].view(-1)[0] = float("nan")
+        try:
+            with debug_mode():
+                fwd_bwd(bad)
+        except FloatingPointError as e:
+            trapped[name] = str(e)
+        if expect not in trapped.get(name, ""):
+            raise AssertionError(f"NaN in {name}: {trapped.get(name)!r}, "
+                                 f"want {expect}")
+        say(f"[10] (d) NaN planted in {name}: {trapped[name]}")
+
+    tr = MultiTargetTrainer(family_cfg(data, root, "Result_d", 1),
+                            [(FAMILY_TARGET, 0, None),
+                             (FAMILY_TARGET, 1, None)],
+                            mlp_impl="pallas", device="cuda")
+    plan = tr.epoch_plan(0)
+    acc = torch.zeros(len(tr.targets), 3, device="cuda")
+    tr.train_step(0, 0, plan, acc)  # warm
+    trace_dir = os.path.join(root, "trace")
+    with trace(trace_dir):
+        with annotate("two slot-steps"):
+            tr.train_step(0, 1, plan, acc)
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {pat: sum(pat in k for k in kernels) for pat in (
+        "flash_fwd_tf32x3", "flash_bwd_tf32x3", "fused_mlp_tf32x3",
+        "mlp_bwd_tf32x3")}
+    if len(files) != 1 or not all(found.values()) or \
+            "two slot-steps" not in {e["name"] for e in events}:
+        raise AssertionError(f"trace {files}: kernels {found}")
+    say(f"[10] (d) trace() around two slot-steps: {len(events)} events, "
+        f"{len(kernels)} kernel names, the attention and training-MLP "
+        f"kernels among them ({found}); the annotation recorded")
+    timer = StepTimer(warmup=1)
+    for s_ in range(6):
+        with timer:
+            tr.train_step(0, s_ % 4, plan, acc)
+    st = timer.summary(items_per_step=len(tr.targets) * BATCH)
+    say(f"[10] (d) StepTimer over 2-slot steps: {st}; "
+        f"{device_memory_summary()}")
+    return {"debug_seconds": debug_s, "ops_checked": dbg.ops,
+            "kernels_checked": dbg.kernels, "trapped": trapped,
+            "step_timer": st}
+
+
+def phase_family(card):
+    """The multi-target family's run tooling at the flagship's full width:
+    (a) the repeat study, (b) its resume after a watchdog force-exit under
+    the supervisor, (c) the sweep through the command line, (d) debug_mode,
+    trace() and StepTimer; all under deterministic algorithms."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the child of (b) shares the card
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    root = tempfile.mkdtemp()
+    try:
+        data = family_fixture(root)
+        many, a, a_cfg = family_many(data, root)
+        a["resume"] = family_resume(data, root, a_cfg, a)
+        sweep, c = family_sweep(data, root)
+        d = family_debug(data, root)
+    finally:
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+        shutil.rmtree(root)
+    dt = time.perf_counter() - t0
+    say(f"[10] the multi-target family in {dt:.1f} s ({card})")
+    return {"many": many, "sweep": sweep}, {
+        "seconds": dt, "many": a, "sweep": c, "debug": d}
+
+
 def main():
     card = phase_env()
     phase_build()
@@ -3386,6 +3878,8 @@ def main():
     by_path["vit_finetune"], finetune = phase_finetune(card)
     analysis_paths, analysis = phase_analysis(card)
     by_path.update(analysis_paths)
+    family_paths, family = phase_family(card)
+    by_path.update(family_paths)
     kernels += vit_kernels
     for k in kernels:
         # the launches of the path each kernel belongs to: the ViT path for
@@ -3399,7 +3893,7 @@ def main():
     faulthandler.cancel_dump_traceback_later()
     say(card)
     say(json.dumps({"kernels": kernels, "vit_finetune_steps": finetune,
-                    "analysis": analysis}))
+                    "analysis": analysis, "family": family}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

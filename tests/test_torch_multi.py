@@ -315,7 +315,8 @@ def test_unported_options_raise(small, monkeypatch):
     an unaugmented slot's); ``mlp_impl="flash"`` trains the MLPs through the
     fused training MLP, as JAX's trainer passes it on (train/multi.py:100),
     and at rate 0 equals ``"pallas"`` bit for bit; an unknown ``mlp_impl``
-    and ``watchdog`` still raise."""
+    still raises; ``watchdog=True`` is ported (train/watchdog.py): fit
+    builds one from TSTM_WATCHDOG_S and trains under it."""
     aug = small([("50HZ_Bm", 0, None)], augment=AugmentConfig())
     aug.fit(1, verbose=False)
     plain = small([("50HZ_Bm", 0, None)])
@@ -336,8 +337,9 @@ def test_unported_options_raise(small, monkeypatch):
     with pytest.raises(ValueError, match="mlp_impl"):
         small([("50HZ_Bm", 0, None)], mlp_impl="small")
     tr = small([("50HZ_Bm", 0, None)])
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        tr.fit(1, watchdog=True)
+    monkeypatch.setenv("TSTM_WATCHDOG_S", "300")
+    tr.fit(1, verbose=False, watchdog=True)
+    assert tr.epoch == 1
     launches = port_mlp.fused_mlp_train.launches
-    tr.fit(1, verbose=False)
+    tr.fit(2, verbose=False)
     assert port_mlp.fused_mlp_train.launches == launches  # CPU: plain

@@ -11,17 +11,22 @@
   python -m transformer_stm_tpu_torch.cli plot-labels --config cfg.json
   python -m transformer_stm_tpu_torch.cli plot-data --config cfg.json [--params]
   python -m transformer_stm_tpu_torch.cli save-config --out cfg.json
+  python -m transformer_stm_tpu_torch.cli sweep --config cfg.json --lr 1e-3,1e-4
+      [--dropout 0.0,0.1] [--seeds 0,1] [--inputs par --hidden 64,256]
 
 Every setting comes from one JSON config (``--config``, written by either
 package) with command-line overrides; a 512px run is set up through the
 config's ``model`` and ``data`` sizes, as in the JAX CLI; ``--inputs par``
 trains and tests the params-only FFN.  ``--device`` (default ``cuda``)
-picks where ``train``, ``test`` and ``heatmap`` run; PyTorch needs it, JAX
-does not.  The default paths are relative (``reference/...``), as
-``DataConfig``'s.  Where matplotlib is not installed, a plotting
-subcommand says on a line that it wrote nothing and returns 1.  Not ported
-yet: ``bench`` (the benchmark), ``export-h5`` (the Keras weight export)
-and ``sweep`` (the hyperparameter sweep).
+picks where ``train``, ``test``, ``heatmap`` and ``sweep`` run; PyTorch
+needs it, JAX does not.  ``sweep`` (train/sweep.py) trains the CvT's points
+as slots of one trainer a dropout group, or the FFN's (``--inputs par``,
+which may sweep ``--hidden``) one after another, and writes
+``sweep_{freq}_{inputs}.json`` into the result directory.  The default
+paths are relative (``reference/...``), as ``DataConfig``'s.  Where
+matplotlib is not installed, a plotting subcommand says on a line that it
+wrote nothing and returns 1.  Not ported yet: ``bench`` (the benchmark) and
+``export-h5`` (the Keras weight export).
 """
 
 from __future__ import annotations
@@ -114,6 +119,21 @@ def main(argv=None):
     _add_common(p)
     p.add_argument("--out", default="config.json")
 
+    p = sub.add_parser("sweep", help="hyperparameter sweep (the lineage's "
+                       "keras-tuner search: CvT points train together as "
+                       "slots of one trainer; FFN points also sweep the "
+                       "hidden width)")
+    _add_common(p)
+    p.add_argument("--lr", default="1e-3",
+                   help="comma list of learning rates")
+    p.add_argument("--dropout", default=None,
+                   help="comma list of dropout rates (CvT only)")
+    p.add_argument("--seeds", default="0", help="comma list of init seeds")
+    p.add_argument("--hidden", default=None,
+                   help="comma list of FFN hidden widths (par only)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda)")
+
     p = sub.add_parser("compare", help="CvT vs classical-ML baselines")
     p.add_argument("--metrics-dir", required=True,
                    help="dir of Predictions_Metrics_{freq}.xlsx")
@@ -163,6 +183,8 @@ def main(argv=None):
     elif cmd == "save-config":
         save_config(_build_cfg(args), args.out)
         print(f"wrote {args.out}")
+    elif cmd == "sweep":
+        return _sweep(args)
     elif cmd == "compare":
         return _compare(args)
     elif cmd == "plot-labels":
@@ -189,6 +211,28 @@ def _draw(out, plot, *args):
         return 1
     print(f"wrote {out}")
     return None
+
+
+def _sweep(args):
+    """The ``sweep`` subcommand: the grid of ``--lr`` x ``--dropout`` x
+    ``--seeds`` x ``--hidden`` for each target; returns {freq: summary}."""
+    from .train.sweep import grid_points, run_sweep, write_summary
+
+    cfg = _build_cfg(args)
+
+    def split(s, t):
+        return tuple(t(x) for x in s.split(",")) if s else (None,)
+
+    points = grid_points(split(args.lr, float), split(args.dropout, float),
+                         split(args.seeds, int) or (0,),
+                         split(args.hidden, int))
+    out = {}
+    for freq in cfg.frequencies:
+        out[freq] = run_sweep(cfg, freq, points, epochs=cfg.train.epochs,
+                              device=args.device)
+        path = write_summary(out[freq], cfg.result_dir)
+        print(f"{freq}: best {out[freq]['best']} -> {path}")
+    return out
 
 
 def _compare(args):

@@ -30,6 +30,7 @@ import types
 
 import torch
 
+from ..debug import check_kernel
 from ._build import aligned16, library
 
 HEAD_DIM = 64
@@ -115,6 +116,7 @@ def attention_small_fwd(q, k, v, with_lse: bool = False):
             f"attention_small: launch_flash_attention failed: CUDA error "
             f"{rc}")
     attention_small.launches += 1
+    check_kernel("attention_small", o, lse)
     return o, lse
 
 
@@ -150,6 +152,7 @@ def attention_small_bwd(q, k, v, o, lse, g):
             f"attention_small_bwd: launch_flash_attention_bwd failed: CUDA "
             f"error {rc}")
     attention_small_bwd.launches += 1
+    check_kernel("attention_small_bwd", dq, dk, dv)
     return dq, dk, dv
 
 

@@ -35,6 +35,7 @@ import math
 
 import torch
 
+from ..debug import check_kernel
 from ._build import aligned16, library
 from .attention_small import _on_cpu, apply, autograd_functions
 
@@ -151,6 +152,7 @@ def flash_attention_fwd(q, k, v, with_lse: bool = False):
     if rc != 0:
         raise RuntimeError(f"launch_flash_attention failed: CUDA error {rc}")
     flash_attention.launches += 1
+    check_kernel("flash_attention", o, lse)
     if dhp != dh:
         o = o[..., :dh].contiguous()
     return o, lse
@@ -188,6 +190,7 @@ def flash_attention_bwd(q, k, v, o, lse, g):
         raise RuntimeError(
             f"launch_flash_attention_bwd failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
+    check_kernel("flash_attention_bwd", dq, dk, dv)
     if dhp != dh:
         dq, dk, dv = (x[..., :dh].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

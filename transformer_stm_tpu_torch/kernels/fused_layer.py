@@ -45,6 +45,7 @@ import weakref
 import torch
 
 from ..ops.common import erf_rational
+from ..debug import check_kernel
 from ._build import aligned16, library
 from .fused_mlp import CHUNK_TILE_M, CHUNK_TILE_N, tf32_split
 
@@ -632,6 +633,7 @@ def attn_layer_infer(x, norm1, attn, *, t_pad: int, t_real: int,
     y = _launch("attn_layer_infer", MODE_ATTN, x, t_pad, t_real, norm1, attn,
                 None, None, eps)
     attn_layer_infer.launches += 1
+    check_kernel("attn_layer_infer", y)
     return y
 
 
@@ -644,6 +646,7 @@ def ln_mlp_infer(x, norm2, mlp, *, eps: float = 1e-6):
     y = _launch("ln_mlp_infer", MODE_MLP, x, None, None, None, None, norm2,
                 mlp, eps)
     ln_mlp_infer.launches += 1
+    check_kernel("ln_mlp_infer", y)
     return y
 
 
@@ -658,6 +661,7 @@ def vit_layer_infer(x, norm1, attn, norm2, mlp, *, t_pad: int, t_real: int,
     y = _launch("vit_layer_infer", MODE_ATTN | MODE_MLP, x, t_pad, t_real,
                 norm1, attn, norm2, mlp, eps)
     vit_layer_infer.launches += 1
+    check_kernel("vit_layer_infer", y)
     return y
 
 
@@ -674,6 +678,7 @@ def vit_layer_infer_int8(x, norm1, attn, norm2, mlp, *, t_pad: int,
     y = _launch("vit_layer_infer_int8", MODE_ATTN | MODE_MLP | MODE_Q8, x,
                 t_pad, t_real, norm1, attn, norm2, mlp, eps)
     vit_layer_infer_int8.launches += 1
+    check_kernel("vit_layer_infer_int8", y)
     return y
 
 

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.common import compute_type, dense, gelu
+from ..debug import check_kernel
 from ._build import aligned16, library
 
 WIDTHS = (64, 128, 256)  # the CvT stage widths the kernels are built for
@@ -215,6 +216,7 @@ def fused_mlp(x, w1, b1, w2, b2):
     if rc != 0:
         raise RuntimeError(f"launch_fused_mlp failed: CUDA error {rc}")
     fused_mlp.launches += 1
+    check_kernel("fused_mlp", y)
     return y.to(dtype)
 
 
@@ -413,6 +415,7 @@ def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
         raise RuntimeError(f"the training MLP's forward launch failed: CUDA "
                            f"error {rc}")
     fused_mlp_train.launches += 1
+    check_kernel("fused_mlp_train", y)
     return y.to(dtype)
 
 
@@ -487,6 +490,7 @@ def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
         raise RuntimeError(f"launch_fused_mlp_train_bwd failed: CUDA error "
                            f"{rc}")
     fused_mlp_train_bwd.launches += 1
+    check_kernel("fused_mlp_train_bwd", dx, grads)
     dw1, dw2, db1, db2 = grads.split([d * hd, hd * d, hd, d])
     return dx.to(dtype), dw1.view(d, hd), db1, dw2.view(hd, d), db2
 

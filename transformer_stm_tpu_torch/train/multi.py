@@ -42,8 +42,10 @@ tiles are their own constants (``kernels/fused_mlp.TRAIN_BWD_TILE``).
 ``augment`` (a ``data.augment.AugmentConfig``) augments each slot's batch
 with that slot's own draws, from its step generator (JAX :86-94);
 ``cfg.train.compute_dtype="bfloat16"`` trains and validates in bfloat16
-with float32 parameters and metrics (:81, :98, :115).  ``watchdog`` is not
-ported yet and must be None.
+with float32 parameters and metrics (:81, :98, :115).  ``fit(watchdog=...)``
+arms a ``train.watchdog.HangWatchdog`` deadline around the corpus upload,
+each chunk of epochs and each checkpoint (:432-514); each of those ends in a
+synchronisation with the card, so that a wedged launch trips it.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ import hashlib
 import json
 import os
 import time
+from contextlib import nullcontext
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -325,16 +328,40 @@ class MultiTargetTrainer:
         """Trains from ``self.epoch`` to ``epochs``, ``epochs_per_call``
         epochs per metrics fetch; checkpoints at multiples of
         ``checkpoint_every`` and at the end.  ``log_every`` is accepted as
-        in JAX, which prints once per call."""
-        if watchdog is not None:
-            raise NotImplementedError("watchdog is not ported yet")
+        in JAX, which prints once per call.
+
+        ``watchdog``: a ``train.watchdog.HangWatchdog``, which is started
+        and left running for the caller's later dispatches, or True, which
+        builds one from TSTM_WATCHDOG_S and stops it at the end.  Its
+        deadlines: "corpus upload / device init" (the upload, then a
+        synchronise), "multi-epoch @ {epoch}" (a chunk of epochs up to the
+        fetch of its metrics) and "checkpoint @ {epoch}" (the stacked save,
+        whose copies to the host wait for the card)."""
+        from .watchdog import HangWatchdog, watchdog_from_env
+
+        owns_watchdog = watchdog is True
+        if watchdog is True:
+            watchdog = watchdog_from_env()
+        if isinstance(watchdog, HangWatchdog):
+            watchdog.start()
+        wd_dispatch = (watchdog.dispatch if watchdog
+                       else (lambda label: nullcontext()))
+
+        # the first contact with the card: a wedge at device init shows here
+        with wd_dispatch("corpus upload / device init"):
+            self._upload()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         E = self.epochs_per_call
         while self.epoch < epochs:
             n_now = min(E, epochs - self.epoch)
             t0 = time.time()
-            accs = [self.run_epoch(self.epoch + e) for e in range(n_now)]
-            tr_acc = torch.stack([a for a, _ in accs]).cpu().numpy()
-            va_acc = torch.stack([v for _, v in accs]).cpu().numpy()
+            with wd_dispatch(f"multi-epoch @ {self.epoch}"):
+                accs = [self.run_epoch(self.epoch + e) for e in range(n_now)]
+                # the fetch waits for the card: the deadline covers the
+                # chunk's kernels, not only their launches
+                tr_acc = torch.stack([a for a, _ in accs]).cpu().numpy()
+                va_acc = torch.stack([v for _, v in accs]).cpu().numpy()
             dt = time.time() - t0
             tc = self.cfg.train
             for e in range(n_now):
@@ -355,7 +382,16 @@ class MultiTargetTrainer:
                       f"mean val_loss {mean_vl:.4f}", flush=True)
             if checkpoint_dir and (self.epoch % checkpoint_every == 0
                                    or self.epoch >= epochs):
-                self.save(checkpoint_dir)
+                t1 = time.time()
+                with wd_dispatch(f"checkpoint @ {self.epoch}"):
+                    self.save(checkpoint_dir)
+                if verbose:
+                    print(f"  checkpoint @ {self.epoch} "
+                          f"({time.time() - t1:.0f}s)", flush=True)
+        # only a watchdog that fit() built is stopped: a caller's keeps
+        # guarding the dispatches after training (export, evaluation)
+        if owns_watchdog and isinstance(watchdog, HangWatchdog):
+            watchdog.stop()
         return self
 
     # -- artifact export ---------------------------------------------------
