@@ -196,7 +196,21 @@ Phases, each printed as it finishes:
    embedding convolution's weight and one in stage 1's fc1 named at
    ``aten.convolution`` and at the ``fused_mlp_train`` kernel, ``trace()``
    around two slot-steps holding the attention and training-MLP kernels
-   by name, ``StepTimer``'s summary; the phase's seconds.
+   by name, ``StepTimer``'s summary; the phase's seconds;
+11. the parallel layer on an NCCL group of one rank (one process, one
+   card) and its 1 x 1 mesh, under deterministic algorithms as phase 10:
+   ``ShardedTrainer`` at the flagship's full width (128px, img+par, batch
+   128, dropout 0.1, ``AugmentConfig()``) trains an epoch of 512 synthetic
+   images with ``TrainLoop.fit``'s launches and ends bit-equal to it
+   (parameters, BatchNorm statistics, Adam moments and step), and so does
+   one with ``mlp_impl="pallas"`` (rows 4-5) against a TrainLoop whose step
+   trains its MLPs on the same route; its
+   ``eval_step`` predicts bit-equal to ``TrainLoop.predict``;
+   ``sp_attention`` at the 512px stage 1 (B 8, 16,384 tokens, one head, Dh
+   64) forward and backward through flash_attention within FLASH_TOL of the
+   plain versions; the path's exact launch counts; a sharded checkpoint
+   restored into a new trainer resumes bit-equal to the uninterrupted run,
+   which stays bit-equal to TrainLoop; ms per step of both trainers.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON object with each kernel's numbers (``launches`` from phase 6, or
@@ -204,15 +218,17 @@ phase 5 for the training MLP, which the multi-target trainer runs at the
 CvT widths, or phase 7 for the fused-layer kernels; ``launches_by_path``
 from phases 3 to 10: ``vit_finetune``, where rows 4-5 run at D 768, then
 phase 9's ``heatmap`` (the CLI's), ``heatmap_512px`` and ``ffn``, and phase
-10's ``many`` and ``sweep``; rows 4-5
+10's ``many`` and ``sweep``, and phase 11's ``parallel``; rows 4-5
 carry their ViT-width rows as ``vit_shapes`` and, as ``vit_source``, the
 source of their chunked products at D 384 and 768;
 rows 9-12 their f32 numbers as ``f32_*``, ``f32_launches`` the launches of
 phase 7's f32 routes), phase 8's step times, phase 9's numbers
-(``analysis``) and phase 10's (``family``); the last line is
+(``analysis``), phase 10's (``family``) and phase 11's (``parallel``); the
+last line is
 ``{"ok": true, "device": {...}}``.  Nothing is read from or written to the
 repository except the build directory (the kernels', and the native
-loader's in phase 9); phases 6, 9 and 10 work in temporary directories.
+loader's in phase 9); phases 6, 9, 10 and 11 work in temporary
+directories.
 """
 
 import sys
@@ -278,7 +294,7 @@ from transformer_stm_tpu_torch.models.vit import (  # noqa: E402
     init_vit, vit_forward)
 from transformer_stm_tpu_torch.config import VIT_PRESETS  # noqa: E402
 from transformer_stm_tpu_torch.data.images import (  # noqa: E402
-    preprocess_images_device)
+    normalize_images, preprocess_images_device)
 from transformer_stm_tpu_torch.ops.attention import MHA  # noqa: E402
 from transformer_stm_tpu_torch.ops.blocks import MLP  # noqa: E402
 from transformer_stm_tpu_torch.ops.common import LayerNorm  # noqa: E402
@@ -295,6 +311,10 @@ from transformer_stm_tpu_torch.train.metrics import (  # noqa: E402
 from transformer_stm_tpu_torch.train.multi import (  # noqa: E402
     MultiTargetTrainer)
 from transformer_stm_tpu_torch.data.augment import AugmentConfig  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from transformer_stm_tpu_torch.config import MeshConfig  # noqa: E402
+from transformer_stm_tpu_torch.parallel import (  # noqa: E402
+    ShardedTrainer, build_mesh, maybe_distributed_init, sp_attention)
 from transformer_stm_tpu_torch.train.vit_train import (  # noqa: E402
     ViTTrainer, make_vit_train_step)
 
@@ -3866,6 +3886,193 @@ def phase_family(card):
         "seconds": dt, "many": a, "sweep": c, "debug": d}
 
 
+PAR_IMAGES = 512     # phase 11: 4 steps of BATCH an epoch
+SP_SHAPE = (CHECK_BATCH, 16384, 1, 64)  # B, T, H, Dh: the 512px stage 1
+
+
+def bit_equal(what, a, b):
+    """Raises unless two (model, AdamState) pairs hold the same parameters,
+    BatchNorm statistics, moments and step, bit for bit."""
+    (ma, oa), (mb, ob) = a, b
+    pairs = [*zip(ma.state_dict().items(), mb.state_dict().items()),
+             *(((f"{k}/{n}", x), (f"{k}/{n}", y))
+               for k, da, db in (("mu", oa.mu, ob.mu), ("nu", oa.nu, ob.nu))
+               for (n, x), (_, y) in zip(da.items(), db.items()))]
+    differ = [na for (na, x), (nb, y) in pairs
+              if na != nb or not torch.equal(x, y)]
+    if differ or oa.step != ob.step or len(pairs) != \
+            2 * len(oa.mu) + len(ma.state_dict()):
+        raise AssertionError(f"{what}: not bit-equal: steps {oa.step} and "
+                             f"{ob.step}, leaves {differ[:8]}")
+
+
+def epoch_ms(run, steps):
+    """ms per step of one epoch run(), host clock over the epoch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def phase_parallel(card):
+    """The parallel layer on the card's NCCL group of one rank: the
+    full-width DP trainer bit-equal to TrainLoop under deterministic
+    algorithms, a sharded checkpoint resumed bit-equal, its evaluation step,
+    and sp_attention at the 512px stage 1 against the plain path."""
+    t_phase = time.perf_counter()
+    world = 1  # one process drives the one card it needs
+    root = tempfile.mkdtemp()
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        maybe_distributed_init("file://" + os.path.join(root, "store"),
+                               world, 0, device="cuda")
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, want nccl")
+        mesh = build_mesh(MeshConfig(), device="cuda")
+        say(f"[11] NCCL group of {dist.get_world_size()} rank, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}")
+        spec = CvTSpec()
+        data = synthetic(np.random.default_rng(SEED + 11), PAR_IMAGES, spec)
+        cfg = TrainConfig(batch_size=BATCH, seed=SEED, epochs=1)
+        aug = AugmentConfig()
+        steps = PAR_IMAGES // BATCH
+
+        # the references: TrainLoop, and TrainLoop whose step trains the
+        # MLPs on the fused kernels (rows 4-5), as mlp_impl="pallas" does
+        loop = TrainLoop(spec, cfg, device="cuda", augment=aug)
+        loop_p = TrainLoop(spec, cfg, device="cuda", augment=aug)
+        loop_p._step = make_train_step(cfg, mlp_impl="pallas", augment=aug)
+        ref_launches = []
+        for lp in (loop, loop_p):
+            reset_launches()
+            lp.fit(*data, epochs=1, verbose=False)
+            ref_launches.append(read_launches())
+        want_preds = loop.predict(data[0][:BATCH], data[1][:BATCH])
+        trainer = ShardedTrainer(spec, cfg, mesh, augment=aug)
+        trainer_p = ShardedTrainer(spec, cfg, mesh, augment=aug,
+                                   mlp_impl="pallas")
+        reset_launches()
+        for tr, lp, want in zip((trainer, trainer_p), (loop, loop_p),
+                                ref_launches):
+            before = read_launches()
+            tr.upload(*data)
+            m0 = tr.train_epoch_device(PAR_IMAGES, 0)
+            launches = {k: n - before[k] for k, n in read_launches().items()}
+            if launches != want or launches["attention_small"] != steps:
+                raise AssertionError(f"DP epoch launches {launches}, "
+                                     f"TrainLoop's {want}")
+            bit_equal("DP epoch vs TrainLoop", (tr.model, tr.opt),
+                      (lp.model, lp.opt))
+            say(f"[11] ShardedTrainer(mlp_impl={tr.mlp_impl!r}) epoch 0 "
+                f"({steps} steps of {BATCH}, augmented, dropout 0.1): loss "
+                f"{m0['loss']:.4f}; parameters, BatchNorm statistics and "
+                f"Adam moments bit-equal to TrainLoop's; launches "
+                f"{launches}")
+
+        x = normalize_images(torch.from_numpy(data[0][:BATCH]).cuda())
+        p = torch.from_numpy(data[1][:BATCH]).cuda()
+        preds = trainer.eval_step(x, p).cpu().numpy()
+        if not np.array_equal(preds, want_preds):
+            raise AssertionError(f"eval_step vs TrainLoop.predict: max |diff| "
+                                 f"{np.abs(preds - want_preds).max():.3e}")
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        b, t, h, dh = SP_SHAPE
+        q, k, v, g = attn_inputs(gen, b, t, t, h, dh)
+        leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        o = sp_attention(*leaves, mesh)
+        grads = torch.autograd.grad(o, leaves, g)
+        path_launches = read_launches()
+        po, plse = flash_attention_plain(q, k, v, with_lse=True)
+        pd = flash_attention_bwd_plain(q, k, v, po, plse, g)
+        err = max(check_rel("sp_attention o", o.detach(), po), *(
+            check_rel(f"sp_attention {n}", x, y)
+            for n, x, y in zip(("dq", "dk", "dv"), grads, pd)))
+        del o, grads, po, plse, pd, leaves, trainer_p, loop_p
+        want = {**zero_launches(), "attention_small": 2 * steps + 1,
+                "attention_small_bwd": 2 * steps, "fused_mlp": 3,
+                "fused_mlp_train": 3 * steps,
+                "fused_mlp_train_bwd": 3 * steps,
+                "flash_attention": 1, "flash_attention_bwd": 1}
+        if path_launches != want:
+            raise AssertionError(f"parallel path launches {path_launches}, "
+                                 f"want {want}")
+        say(f"[11] eval_step bit-equal to TrainLoop.predict; sp_attention "
+            f"at B {b} T {t} H {h} Dh {dh}, forward and backward, max |err| / "
+            f"max |plain| {err:.3e} (limit {FLASH_TOL}); path launches "
+            f"{path_launches}")
+
+        ck = os.path.join(root, "ck")
+        trainer.save(ck, epoch=1)
+        loop.fit(*data, epochs=2, verbose=False)
+        trainer.train_epoch_device(PAR_IMAGES, 1)
+        bit_equal("DP epoch 1 vs TrainLoop", (trainer.model, trainer.opt),
+                  (loop.model, loop.opt))
+        resumed = ShardedTrainer(spec, cfg, mesh, augment=aug)
+        resumed.upload(*data)
+        if resumed.load(ck) != 1:
+            raise AssertionError("the sharded checkpoint's epoch is not 1")
+        resumed.train_epoch_device(PAR_IMAGES, 1)
+        bit_equal("resumed vs uninterrupted", (resumed.model, resumed.opt),
+                  (trainer.model, trainer.opt))
+        say(f"[11] sharded checkpoint ({len(os.listdir(ck))} files) restored "
+            "into a new trainer, epoch 1 bit-equal to the uninterrupted run")
+        # epochs 2 and 3 of each, in turns: TrainLoop, DP, DP, TrainLoop
+        ms_loop = epoch_ms(lambda: loop.fit(*data, epochs=3, verbose=False),
+                           steps)
+        ms_dp = epoch_ms(lambda: trainer.train_epoch_device(PAR_IMAGES, 2),
+                         steps)
+        ms_dp = (ms_dp + epoch_ms(
+            lambda: trainer.train_epoch_device(PAR_IMAGES, 3), steps)) / 2
+        ms_loop = (ms_loop + epoch_ms(
+            lambda: loop.fit(*data, epochs=4, verbose=False), steps)) / 2
+        say(f"[11] ms per step at B {BATCH} (host clock over an epoch of "
+            f"{steps}, the mean of epochs 2 and 3, run in turns): "
+            f"ShardedTrainer {ms_dp:.2f}, TrainLoop {ms_loop:.2f} ({card})")
+        # the host's cost of one NCCL all-reduce of this group: the DP step
+        # makes 2 + 2 x (BatchNorms) of them
+        t_small = torch.zeros(2, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            dist.all_reduce(t_small)
+        host_us = 1e4 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        n_bn = sum(1 for m in trainer.model.modules()
+                   if type(m).__name__ == "BatchNorm")
+        say(f"[11] one NCCL all-reduce of 2 floats: {host_us:.1f} us of host "
+            f"time (100 calls, host clock); a DP step makes {2 + 2 * n_bn}")
+        # device work of one step of each on one batch (torch.profiler)
+        batch = (x, p, torch.from_numpy(data[2][:BATCH]).cuda(),
+                 torch.ones(BATCH, device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        busy = {}
+        for name, owner in (("ShardedTrainer", trainer), ("TrainLoop", loop)):
+            ms, top = device_ms(lambda o=owner: o._step(
+                o.model, o.opt, batch, gen, cfg.learning_rate))
+            busy[name] = ms
+            say(f"[11] {name} step: device busy " + (
+                "not measured (the profiler recorded no device activity)"
+                if ms is None else f"{ms:.2f} ms; largest: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in top)))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+        shutil.rmtree(root)
+    dt = time.perf_counter() - t_phase
+    say(f"[11] the parallel layer in {dt:.1f} s ({card})")
+    return path_launches, {"seconds": dt, "dp_step_ms": ms_dp,
+                           "train_loop_step_ms": ms_loop,
+                           "dp_step_busy_ms": busy["ShardedTrainer"],
+                           "train_loop_step_busy_ms": busy["TrainLoop"],
+                           "nccl_all_reduce_host_us": host_us,
+                           "sp_err": err, "world": world}
+
+
 def main():
     card = phase_env()
     phase_build()
@@ -3880,6 +4087,7 @@ def main():
     by_path.update(analysis_paths)
     family_paths, family = phase_family(card)
     by_path.update(family_paths)
+    by_path["parallel"], parallel = phase_parallel(card)
     kernels += vit_kernels
     for k in kernels:
         # the launches of the path each kernel belongs to: the ViT path for
@@ -3893,7 +4101,8 @@ def main():
     faulthandler.cancel_dump_traceback_later()
     say(card)
     say(json.dumps({"kernels": kernels, "vit_finetune_steps": finetune,
-                    "analysis": analysis, "family": family}))
+                    "analysis": analysis, "family": family,
+                    "parallel": parallel}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -255,15 +255,15 @@ def test_config_json_round_trips_between_packages(tmp_path):
     (dict(train=dict(loss="softmax_xent")), None),
     (dict(train=dict(label_smoothing=0.1)), None),
     (dict(train=dict(compute_dtype="bfloat16")), None),
-    (dict(mesh=dict(data=8, model=1)), ValueError),
+    (dict(mesh=dict(data=8, model=1)), None),
     (dict(extra_key=1), ValueError),
 ], ids=["ffn_hidden", "loss", "label_smoothing", "compute_dtype", "mesh",
         "unknown"])
 def test_unported_jax_fields_raise(tmp_path, change, error):
     """A JAX-written config with a field the port lacks raises; the fields
     ported since (``error`` None: the FFN's hidden width, the ViT trainer's
-    loss and label smoothing, bfloat16 compute) load with the JAX value and
-    round-trip to JAX."""
+    loss and label smoothing, bfloat16 compute, the parallel layer's mesh)
+    load with the JAX value and round-trip to JAX."""
     d = jax_config._to_jsonable(jax_config.ExperimentConfig())
     for key, value in change.items():
         if isinstance(value, dict):
@@ -351,7 +351,14 @@ def test_new_modules_import_without_jax_or_matplotlib():
             "transformer_stm_tpu_torch.models.ffn, "
             "transformer_stm_tpu_torch.kernels.flash_attention, "
             "transformer_stm_tpu_torch.kernels.fused_layer, "
-            "transformer_stm_tpu_torch.models.vit\n"
+            "transformer_stm_tpu_torch.models.vit, "
+            "transformer_stm_tpu_torch.parallel, "
+            "transformer_stm_tpu_torch.parallel.collectives, "
+            "transformer_stm_tpu_torch.parallel.mesh, "
+            "transformer_stm_tpu_torch.parallel.sharding, "
+            "transformer_stm_tpu_torch.parallel.sequence, "
+            "transformer_stm_tpu_torch.parallel.trainer, "
+            "transformer_stm_tpu_torch.train.sharded_checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('transformer_stm_tpu', 'matplotlib', 'cv2', 'psutil', "
             "'PIL')]\n"

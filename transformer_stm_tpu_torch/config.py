@@ -3,17 +3,17 @@ parts of transformer_stm_tpu/config.py that the port reads (``FREQUENCIES``
 and ``PROCESS_PARAMETERS`` :18-33, ``StageSpec`` and ``CvTSpec`` :36-90,
 ``ViTSpec`` and ``VIT_PRESETS`` :93-113, ``cvt_highres_spec`` :116,
 ``DataConfig`` :125-139, ``TrainConfig`` :143-169 but for ``prng_impl``,
-``ExperimentConfig`` :189-229 and the JSON files of
-``save_config``/``load_config`` :232-278).
+``MeshConfig`` :181-186, ``ExperimentConfig`` :189-229 and the JSON files
+of ``save_config``/``load_config`` :232-278).
 
 ``DataConfig``'s default paths are relative (``reference/...``), where the
 JAX defaults are absolute.  A JSON written by either package loads in the
-other.  Fields of the JAX config that the port does not have are read from
-a JAX-written file and handled one by one (``JAX_ONLY``): ``mesh`` (the
-pjit device mesh) and ``train.prng_impl`` (the jax PRNG) mean nothing to
-one card and PyTorch and are ignored, but a mesh other than the default
-raises.  Any other key the port does not know raises: nothing is dropped
-silently."""
+other.  ``mesh`` is the ``data`` x ``model`` layout of the ranks of a
+process group, which ``parallel.build_mesh`` reads.  The one field of the
+JAX config that the port does not have, ``train.prng_impl`` (the jax
+PRNG), means nothing to PyTorch: it is read from a JAX-written file and
+ignored (``JAX_ONLY``).  Any other key the port does not know raises:
+nothing is dropped silently."""
 
 from __future__ import annotations
 
@@ -177,6 +177,16 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh of the parallel layer: ``data`` ranks split the
+    batch, ``model`` ranks the attention heads, MLP hidden units and
+    convolution channels (parallel/sharding.py)."""
+
+    data: int = -1  # -1: all the ranks the model axis leaves
+    model: int = 1
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     """Top-level config of an experiment: inputs, projection, cls token,
     targets, model, data, training and the artifact root."""
@@ -188,6 +198,7 @@ class ExperimentConfig:
     model: CvTSpec = field(default_factory=CvTSpec)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     result_dir: str = "Result"
     # hidden width of the params-only FFN (the reference's 256,
     # models/FFN(OnlyPar).py:46-47)
@@ -213,13 +224,11 @@ class ExperimentConfig:
                 f"_cls{self.cls_token}")
 
 
-# Fields of the JAX config that the port does not have, keyed by (owning
-# class, field name): the JAX default, and whether a value other than it
-# raises ("not ported yet") or the field means nothing here (None: ignored
-# whatever its value).
+# Fields of the JAX config that mean nothing to the port, keyed by (owning
+# class, field name): read from a JAX-written file and ignored whatever
+# their value.
 JAX_ONLY = {
-    (ExperimentConfig, "mesh"): {"data": -1, "model": 1},
-    (TrainConfig, "prng_impl"): None,
+    (TrainConfig, "prng_impl"),
 }
 
 # nested-dataclass fields, keyed by (owning class, field name)
@@ -228,6 +237,7 @@ _NESTED = {
     (ExperimentConfig, "model"): ("one", CvTSpec),
     (ExperimentConfig, "data"): ("one", DataConfig),
     (ExperimentConfig, "train"): ("one", TrainConfig),
+    (ExperimentConfig, "mesh"): ("one", MeshConfig),
 }
 
 
@@ -241,19 +251,9 @@ def _to_jsonable(obj: Any) -> Any:
 
 def _from_dict(cls, d):
     names = {f.name for f in dataclasses.fields(cls)}
-    for key, value in d.items():
-        if key in names:
-            continue
-        if (cls, key) not in JAX_ONLY:
+    for key in d:
+        if key not in names and (cls, key) not in JAX_ONLY:
             raise ValueError(f"unknown config key {cls.__name__}.{key}")
-        default = JAX_ONLY[(cls, key)]
-        if key == "mesh" and value != default:
-            raise ValueError(f"mesh={value!r}: the port runs on one card; "
-                             "only the default mesh loads")
-        if default is not None and value != default:
-            raise NotImplementedError(
-                f"{cls.__name__}.{key}={value!r} is not ported yet (the "
-                f"port runs the JAX default {default!r})")
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:

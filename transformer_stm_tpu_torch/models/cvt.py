@@ -72,7 +72,8 @@ def init_cvt(spec: CvTSpec, generator: torch.Generator,
 
 def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
                 generator=None, impl: str = "auto", mlp_impl=None,
-                return_features: bool = False, remat: bool = False):
+                return_features: bool = False, remat: bool = False,
+                group=None):
     """images: (B, H, W, C) float; proc: (B, proc_dim) or None ->
     (B, num_classes).  ``train=True`` normalises the dw_bn projections with
     batch statistics (updating the moving ones) and applies each stage's
@@ -83,7 +84,11 @@ def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
     "pallas" and "flash" through the fused kernel.  ``return_features``
     returns (out, features) with features each stage's last block output,
     (B, h, w, C), as JAX's list of them (models/cvt.py:116, :137), which
-    Grad-CAM reads (tools/grad_cam.py).
+    Grad-CAM reads (tools/grad_cam.py).  ``group``, the data axis's process
+    group of a data-parallel step (parallel/trainer.py), syncs the training
+    BatchNorm statistics over the whole batch (models/cvt.py:72, :106); a
+    model that ``parallel.shard_params`` split runs its tensor-parallel
+    layers on its own.
 
     ``remat`` is accepted and changes nothing.  JAX rematerialises each
     block (``jax.checkpoint``, models/cvt.py:107-108) to fit many slots'
@@ -100,7 +105,7 @@ def cvt_forward(model: CvT, images, proc=None, *, train: bool = False,
         x = stage.embed(x)
         for block in stage.blocks:
             x, cls = block(x, impl=impl, train=train, generator=generator,
-                           mlp_impl=mlp_impl)
+                           mlp_impl=mlp_impl, group=group)
             if cls is not None:
                 cls_tokens = cls
         if return_features:

@@ -19,7 +19,16 @@ projection is the identity when the method is 'avg'; a second set of Dense
 projections proj_q/k/v follows the conv projections; Keras MHA is called as
 (query, value, key), which is standard attention on (q, k, v); attention
 dropout is built but never applied; in training the output projection is
-followed by dropout (:217) and the dw_bn BatchNorms use batch statistics.
+followed by dropout (:217) and the dw_bn BatchNorms use batch statistics,
+synced over the data axis's process group ``group`` when one is given
+(:174-196).
+
+Under tensor parallelism (parallel/sharding.py) ``MHA.tp_group`` is the
+model axis's process group and the MHA's kernels hold this rank's heads:
+query, key and value run on them (column-parallel), attention runs on the
+local heads through the same router, and the out projection is
+row-parallel: the ranks' products are summed over the group and its bias,
+which every rank holds whole, added once to the sum.
 """
 
 from __future__ import annotations
@@ -87,6 +96,8 @@ class MHA(nn.Module):
     query/key/value kernels (E, H, Dh) + bias (H, Dh); out (H, Dh, E) +
     bias (E,)."""
 
+    tp_group = None  # the model axis's group when the heads are split
+
     def __init__(self, dim: int, num_heads: int, generator=None):
         super().__init__()
         h, dh = num_heads, dim // num_heads
@@ -98,6 +109,13 @@ class MHA(nn.Module):
 
 def mha(m: MHA, query, key, value, *, impl: str = "auto"):
     """(B, T, E) x (B, S, E) x (B, S, E) -> (B, T, E), Keras numerics."""
+    group = m.tp_group
+    if group is not None:
+        from ..parallel.collectives import all_reduce_sum, replicated_input
+
+        query, key, value = (replicated_input(t, group)
+                             for t in (query, key, value))
+
     def proj_in(p, x):
         e, h, dh = p.kernel.shape
         y = dense(x, p.kernel.reshape(e, h * dh), p.bias.reshape(-1))
@@ -108,8 +126,11 @@ def mha(m: MHA, query, key, value, *, impl: str = "auto"):
     v = proj_in(m.value, value)
     o = _attention_core(q, k, v, impl=impl)
     h, dh, e = m.out.kernel.shape
-    return dense(o.reshape(o.shape[0], o.shape[1], h * dh),
-                 m.out.kernel.reshape(h * dh, e), m.out.bias)
+    o = o.reshape(o.shape[0], o.shape[1], h * dh)
+    if group is None:
+        return dense(o, m.out.kernel.reshape(h * dh, e), m.out.bias)
+    y = all_reduce_sum(dense(o, m.out.kernel.reshape(h * dh, e)), group)
+    return y + m.out.bias.to(y.dtype)
 
 
 class ConvAttention(nn.Module):
@@ -132,18 +153,19 @@ class ConvAttention(nn.Module):
         self.proj = Dense(dim, dim, generator)
 
     def forward(self, x, height: int, width: int, impl: str = "auto",
-                train: bool = False, generator=None):
+                train: bool = False, generator=None, group=None):
         """x: (B, N, C) tokens, N = H*W [+1 cls in front] -> (B, N, C).
-        ``generator`` draws the output dropout in training."""
+        ``generator`` draws the output dropout in training; ``group``, the
+        data axis's process group, syncs the BatchNorm statistics."""
         b, _, c = x.shape
         if self.with_cls_token:
             cls_tokens, grid = x[:, :1, :], x[:, 1:, :]
         else:
             grid = x
         grid = grid.reshape(b, height, width, c)
-        q = self.q_proj(grid, self.strides, train).reshape(b, -1, c)
-        k = self.k_proj(grid, self.strides, train).reshape(b, -1, c)
-        v = self.v_proj(grid, self.strides, train).reshape(b, -1, c)
+        q = self.q_proj(grid, self.strides, train, group).reshape(b, -1, c)
+        k = self.k_proj(grid, self.strides, train, group).reshape(b, -1, c)
+        v = self.v_proj(grid, self.strides, train, group).reshape(b, -1, c)
         if self.with_cls_token:
             q = torch.cat([cls_tokens, q], dim=1)
             k = torch.cat([cls_tokens, k], dim=1)

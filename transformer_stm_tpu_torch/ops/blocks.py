@@ -9,6 +9,11 @@ MLP takes the route ``mlp_impl`` if it is given, else the block's
 through the fused training kernel (:58-66; the JAX names are kept, they
 name the CUDA kernel here), every other route through Dense -> GELU ->
 Dropout -> Dense -> Dropout in plain PyTorch (:72-76).
+
+Under tensor parallelism (parallel/sharding.py) ``MLP.tp_group`` is the
+model axis's process group and fc1 and fc2 hold this rank's hidden units
+(``_mlp_sharded``); the block passes ``group``, the data axis's process
+group, on to the attention's BatchNorms.
 """
 
 from __future__ import annotations
@@ -16,12 +21,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..kernels.fused_mlp import fused_mlp, fused_mlp_plain, fused_mlp_train
+from ..kernels.fused_mlp import (STREAM_OUT, dropout_mask, fused_mlp,
+                                 fused_mlp_plain, fused_mlp_train)
 from .attention import IMPLS, ConvAttention
 from .common import Dense, LayerNorm, _param, dense, dropout, gelu
 
 
 class MLP(nn.Module):
+    tp_group = None  # the model axis's group when the hidden units are split
+
     def __init__(self, dim: int, hidden_dim: int, generator=None):
         super().__init__()
         self.fc1 = Dense(dim, hidden_dim, generator)
@@ -53,14 +61,13 @@ def mlp(m: MLP, x, *, dropout_rate: float = 0.1, train: bool = False,
         raise ValueError("mlp: train=True with dropout_rate > 0 requires a "
                          "generator")
     route = mlp_impl if mlp_impl is not None else impl
+    if m.tp_group is not None:
+        return _mlp_sharded(m, x, route, dropout_rate, train, generator)
     if train and route in FUSED_ROUTES:
-        if dropout_rate > 0.0:
-            seed = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator,
-                                 device=x.device, dtype=torch.int32)
-        else:
-            seed = torch.zeros(2, dtype=torch.int32, device=x.device)
         return fused_mlp_train(x, m.fc1.kernel, m.fc1.bias, m.fc2.kernel,
-                               m.fc2.bias, seed, dropout_rate)
+                               m.fc2.bias,
+                               _kernel_seed(generator, dropout_rate, x),
+                               dropout_rate)
     if not train:
         f = (fused_mlp if route in ("auto",) + FUSED_ROUTES
              else fused_mlp_plain)
@@ -69,6 +76,55 @@ def mlp(m: MLP, x, *, dropout_rate: float = 0.1, train: bool = False,
                 train, generator)
     return dropout(dense(y, m.fc2.kernel, m.fc2.bias), dropout_rate, train,
                    generator)
+
+
+def _kernel_seed(generator, rate: float, x):
+    """The training kernel's (2,) int32 seed, drawn from ``generator`` on
+    x's device, or zeros at rate 0 (:58-66)."""
+    if rate > 0.0:
+        return torch.randint(0, 2 ** 31 - 1, (2,), generator=generator,
+                             device=x.device, dtype=torch.int32)
+    return torch.zeros(2, dtype=torch.int32, device=x.device)
+
+
+def _mlp_sharded(m: MLP, x, route, rate: float, train: bool, generator):
+    """The MLP with its hidden units split over ``m.tp_group``: fc1
+    column-parallel on this rank's units, fc2 row-parallel, the ranks'
+    products summed over the group, then fc2's bias, which every rank holds
+    whole, added once.  The routes are the replicated MLP's, and the fused
+    kernels take the rank's shard with fc2's bias left out (zeros).  In
+    training the fused kernel drops its partial product with the output
+    mask m2, which every rank draws alike from the same seed, so the sum is
+    dropped as a whole and the bias takes m2 after it; its hidden mask is a
+    function of an element's index within the shard, so the ranks' hidden
+    units share one mask pattern.  The plain route draws the hidden mask
+    whole and keeps the rank's columns (``dropout``'s ``part``) and drops
+    the output after the sum: the shards train on the replicated MLP's
+    masks."""
+    import torch.distributed as dist
+
+    from ..parallel.collectives import all_reduce_sum, replicated_input
+
+    group = m.tp_group
+    w1, b1, w2, b2 = m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias
+    x = replicated_input(x, group)
+    zeros = torch.zeros_like(b2)
+    if train and route in FUSED_ROUTES:
+        seed = _kernel_seed(generator, rate, x)
+        y = all_reduce_sum(fused_mlp_train(x, w1, b1, w2, zeros, seed, rate),
+                           group)
+        d = y.shape[-1]
+        m2 = dropout_mask(seed, y.numel() // d, d, STREAM_OUT, rate)
+        return y + (b2 * m2).reshape(y.shape).to(y.dtype)
+    if not train:
+        f = (fused_mlp if route in ("auto",) + FUSED_ROUTES
+             else fused_mlp_plain)
+        y = all_reduce_sum(f(x, w1, b1, w2, zeros), group)
+        return y + b2.to(y.dtype)
+    part = (dist.get_rank(group), dist.get_world_size(group))
+    h = dropout(gelu(dense(x, w1, b1)), rate, train, generator, part)
+    y = all_reduce_sum(dense(h, w2), group) + b2.to(x.dtype)
+    return dropout(y, rate, train, generator)
 
 
 class ConvTransformerBlock(nn.Module):
@@ -87,9 +143,10 @@ class ConvTransformerBlock(nn.Module):
             self.cls_token = _param(torch.zeros(1, 1, dim))
 
     def forward(self, x, impl: str = "auto", train: bool = False,
-                generator=None, mlp_impl=None):
+                generator=None, mlp_impl=None, group=None):
         """x: (B, H, W, C) -> ((B, H, W, C), cls (B, 1, C) or None).
-        ``train`` uses the batch statistics and dropout, drawn from
+        ``train`` uses the batch statistics, synced over ``group`` (the data
+        axis's process group) when it is given, and dropout, drawn from
         ``generator``; the MLP runs on ``mlp_impl`` if it is given, else
         on ``impl`` (``mlp``)."""
         b, h, w, c = x.shape
@@ -99,7 +156,8 @@ class ConvTransformerBlock(nn.Module):
             tokens = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, c),
                                 tokens], 1)
         tokens = tokens + self.attn(self.norm1(tokens), h, w, impl=impl,
-                                    train=train, generator=generator)
+                                    train=train, generator=generator,
+                                    group=group)
         tokens = tokens + mlp(self.mlp, self.norm1(tokens),
                               dropout_rate=self.dropout_rate, train=train,
                               generator=generator, impl=impl,

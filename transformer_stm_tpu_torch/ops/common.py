@@ -18,6 +18,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -119,18 +120,32 @@ def batch_norm(x, gamma, beta, mean, var, eps: float = 1e-3):
 
 
 def batch_norm_train(x, gamma, beta, moving_mean, moving_var,
-                     momentum: float = 0.99, eps: float = 1e-3):
+                     momentum: float = 0.99, eps: float = 1e-3, group=None):
     """Training BatchNorm over all axes but the last (ops/common.py:186-215):
     normalises with the batch mean and the biased variance E[x^2] - mean^2,
     both taken in float32 as the normalisation is, returns x's type, and
     updates ``moving_mean`` and ``moving_var`` in place, outside autograd;
     the moving variance takes the unbiased n/(n-1) estimate, as the Keras-2
-    fused BatchNorm the reference ran on does."""
+    fused BatchNorm the reference ran on does.
+
+    With ``group`` (the data axis's process group) the statistics are the
+    whole batch's: the mean over the group of the ranks' mean and mean of
+    squares, differentiably, and n times the group's size in Bessel's
+    factor, as JAX's pmean over ``axis_name`` (:194-206)."""
     xf = x.to(compute_type(x))
     axes = tuple(range(x.dim() - 1))
     mean = xf.mean(dim=axes)
-    var = xf.square().mean(dim=axes) - mean.square()
+    mean_sq = xf.square().mean(dim=axes)
     n = x.numel() // x.shape[-1]
+    if group is not None:
+        from ..parallel.collectives import all_reduce_sum
+
+        world = dist.get_world_size(group)
+        stats = all_reduce_sum(torch.stack([mean, mean_sq]), group,
+                               grad="sum") / world
+        mean, mean_sq = stats[0], stats[1]
+        n *= world
+    var = mean_sq - mean.square()
     bessel = n / max(n - 1, 1)
     with torch.no_grad():
         moving_mean.copy_(momentum * moving_mean + (1 - momentum) * mean)
@@ -172,18 +187,25 @@ def erf_rational(x):
 
 
 def dropout(x, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None,
+            part: Tuple[int, int] = (0, 1)):
     """Inverted dropout (Keras semantics, ops/common.py:270): each element
     is kept with probability 1 - rate and scaled by 1 / (1 - rate).  The
     draws come from ``generator``, which lies on x's device.  A no-op in
-    evaluation or at rate 0."""
+    evaluation or at rate 0.  ``part`` = (i, k): x is the i-th of k equal
+    parts of the last axis of a wider tensor (a shard of the MLP's hidden
+    units, parallel/sharding.py), whose mask is drawn whole and cut, so
+    that each part keeps the mask the whole tensor would have."""
     if not train or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout: train=True with rate > 0 requires a "
                          "generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    i, k = part
+    w = x.shape[-1]
+    mask = torch.rand((*x.shape[:-1], w * k), generator=generator,
+                      device=x.device).narrow(-1, i * w, w) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -256,8 +278,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, group=None):
+        """``group``: the data axis's process group, over which training
+        syncs the batch statistics (``batch_norm_train``)."""
         if train:
             return batch_norm_train(x, self.gamma, self.beta, self.mean,
-                                    self.var)
+                                    self.var, group=group)
         return batch_norm(x, self.gamma, self.beta, self.mean, self.var)

@@ -35,9 +35,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import CvTSpec, TrainConfig
-from ..data.augment import augment_batch
+from ..data.augment import augment_with, draw
 from ..data.images import normalize_images
 from ..models.cvt import CvT, cvt_forward, init_cvt
 from ..ops.common import use_true_f32
@@ -75,7 +76,7 @@ def compute_dtype(cfg: TrainConfig) -> torch.dtype:
 
 
 def make_train_step(cfg: TrainConfig, impl: str = "auto", mlp_impl=None,
-                    augment=None):
+                    augment=None, group=None):
     """Returns step(model, opt, batch, generator, lr) -> metrics, which
     updates the model's parameters, BatchNorm statistics and ``opt`` in
     place.  batch = (images float in [0, 1], proc or None, labels, mask);
@@ -84,28 +85,69 @@ def make_train_step(cfg: TrainConfig, impl: str = "auto", mlp_impl=None,
     and ``augment`` is None).  The MLPs train on ``mlp_impl`` if it is
     given, else on ``impl``: "pallas" and "flash" through the fused training
     kernel (``ops/blocks.mlp``).  The forward runs in
-    ``cfg.compute_dtype``."""
+    ``cfg.compute_dtype``.
+
+    ``group`` is the data axis's process group of a data-parallel step
+    (parallel/trainer.py): the batch is this rank's rows of a global batch
+    of the group's size times as many, and the step keeps the JAX
+    ShardedTrainer's GSPMD semantics.  The augmentation is drawn for the
+    global batch and the rank's rows applied; the BatchNorm statistics are
+    the global batch's; the rank's loss is its sum of masked squared
+    errors over the global count of real rows, the gradients are summed
+    over the group, and so are se, ae and n.  A rank whose rows are all
+    padding adds zeros.  With more than one rank each draws its dropout
+    from its own stream, seeded from the step's generator and its rank, so
+    the shards' masks differ; at one rank the step is the one without a
+    group, collectives aside."""
     dtype = compute_dtype(cfg)
+    world = dist.get_world_size(group) if group is not None else 1
+    rank = dist.get_rank(group) if group is not None else 0
 
     def step(model: CvT, opt: AdamState, batch, generator, lr: float):
         images, proc, labels, mask = batch
+        b = images.shape[0]
         if augment is not None:
-            images = augment_batch(images, augment, generator)
+            draws = draw(b * world, augment, generator, images.device)
+            images = augment_with(images, {k: v[rank * b:(rank + 1) * b]
+                                           for k, v in draws.items()},
+                                  augment)
+        if world > 1 and generator is not None:
+            generator = torch.Generator(images.device).manual_seed(
+                _seed(generator.initial_seed(), _DROPOUT, rank))
         images = images.to(dtype)
         proc = proc.to(dtype) if proc is not None else None
+        count = mask.sum()
+        if group is not None:
+            dist.all_reduce(count, group=group)
+        n = count.clamp_min(1.0)
         model.requires_grad_(True)
         params = list(model.parameters())
         with torch.enable_grad():
             out = cvt_forward(model, images, proc, train=True,
                               generator=generator, impl=impl,
-                              mlp_impl=mlp_impl)
-            loss, mae_v, se, ae = _masked_mse_mae(out, labels, mask)
-            grads = torch.autograd.grad(loss, params)
+                              mlp_impl=mlp_impl, group=group)
+            _, _, se, ae = _masked_mse_mae(out, labels, mask)
+            grads = torch.autograd.grad(se / n, params)
+        se, ae = se.detach(), ae.detach()
+        if group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads]
+                             + [se.reshape(1), ae.reshape(1)])
+            dist.all_reduce(flat, group=group)
+            *grads, se, ae = flat.split([g.numel() for g in grads] + [1, 1])
+            grads = [g.view_as(p) for g, p in zip(grads, params)]
+            se, ae = se[0], ae[0]
         adam_update(grads, opt, params, lr, weight_decay=cfg.weight_decay)
-        return {"loss": loss.detach(), "mae": mae_v.detach(),
-                "se": se.detach(), "ae": ae.detach(), "n": mask.sum()}
+        return {"loss": se / n, "mae": ae / n, "se": se, "ae": ae,
+                "n": count}
 
     return step
+
+
+def permutation(seed: int, n: int, epoch: int) -> np.ndarray:
+    """The shuffle of n rows in ``epoch``, from a CPU generator seeded from
+    (seed, epoch)."""
+    gen = torch.Generator().manual_seed(_seed(seed, _SHUFFLE, epoch))
+    return torch.randperm(n, generator=gen).numpy()
 
 
 def _pad(idx: np.ndarray, bs: int):
@@ -154,9 +196,7 @@ class TrainLoop:
     # -- data feeding ------------------------------------------------------
 
     def _permutation(self, n: int, epoch: int) -> np.ndarray:
-        gen = torch.Generator().manual_seed(
-            _seed(self.cfg.seed, _SHUFFLE, epoch))
-        return torch.randperm(n, generator=gen).numpy()
+        return permutation(self.cfg.seed, n, epoch)
 
     def _batches(self, n: int, epoch: int):
         """Shuffled (idx, mask) pairs of the batch size; the last batch is
