@@ -210,7 +210,19 @@ Phases, each printed as it finishes:
    64) forward and backward through flash_attention within FLASH_TOL of the
    plain versions; the path's exact launch counts; a sharded checkpoint
    restored into a new trainer resumes bit-equal to the uninterrupted run,
-   which stays bit-equal to TrainLoop; ms per step of both trainers.
+   which stays bit-equal to TrainLoop; ms per step of both trainers;
+12. weight migration at full width (128px) in three variants: ``CvTSpec()``
+   (img+par, dw_bn, cls token: the reference's
+   ``cvt_model_weights_{freq}_dw_bn_clsTrue.h5``), the same with avg and no
+   cls token, and the img-only spec with ``proc_dim`` 0 (the CvT(Img).py
+   layout).  A seeded CvT on the card, every leaf drawn at random, is laid
+   out as the {dataset path: array} map of a legacy Keras-2 ``save_weights``
+   file (``legacy_layout``, the paths of tests/test_h5_import.py's
+   ``_write_legacy_h5``); the port's ``map_cvt_names`` uses each name once,
+   ``h5_trees`` gives back every leaf bit for bit, and ``from_jax_params``
+   loads them on the card, whose ``cvt_forward`` at B 128 on the default
+   route (attention_small once, fused_mlp 3 times) equals the source
+   model's bit for bit; leaves, seconds and launches a variant.
 
 Any failure raises and the exit code is non-zero.  The line before the last
 is a JSON object with each kernel's numbers (``launches`` from phase 6, or
@@ -218,7 +230,8 @@ phase 5 for the training MLP, which the multi-target trainer runs at the
 CvT widths, or phase 7 for the fused-layer kernels; ``launches_by_path``
 from phases 3 to 10: ``vit_finetune``, where rows 4-5 run at D 768, then
 phase 9's ``heatmap`` (the CLI's), ``heatmap_512px`` and ``ffn``, and phase
-10's ``many`` and ``sweep``, and phase 11's ``parallel``; rows 4-5
+10's ``many`` and ``sweep``, phase 11's ``parallel`` and phase 12's
+``weight_migration``, the imported models' forwards; rows 4-5
 carry their ViT-width rows as ``vit_shapes`` and, as ``vit_source``, the
 source of their chunked products at D 384 and 768;
 rows 9-12 their f32 numbers as ``f32_*``, ``f32_launches`` the launches of
@@ -248,6 +261,7 @@ os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 import contextlib  # noqa: E402
 import copy  # noqa: E402
 import glob  # noqa: E402
+import itertools  # noqa: E402
 import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
@@ -302,6 +316,8 @@ from transformer_stm_tpu_torch.ops.common import use_true_f32  # noqa: E402
 from transformer_stm_tpu_torch.train.checkpoint import (  # noqa: E402
     from_jax_params, latest_checkpoint, load_checkpoint, save_checkpoint,
     to_jax_params, vit_from_jax_params)
+from transformer_stm_tpu_torch.train.h5_import import (  # noqa: E402
+    flatten_tree, h5_trees, map_cvt_names)
 from transformer_stm_tpu_torch.train.loop import (  # noqa: E402
     TrainLoop, make_train_step)
 from transformer_stm_tpu_torch.train.optimizer import adam_init  # noqa: E402
@@ -1099,10 +1115,58 @@ def mlp_train_ragged(dev, gen, d):
     return dict(shape=[n, d, hd], max_rel_err=worst, scratch_bytes=scratch)
 
 
+TP_PARTS = ((1, 2), (3, 4))  # (i, k): rank i of k tensor-parallel shards
+
+
+def mlp_train_parts(dev, gen):
+    """fused_mlp_train forward and backward of one tensor-parallel shard
+    (w1's columns block i of k, Hd = 4D / k) at rate 0.1 with its part,
+    against fused_mlp_train_plain with the same part (m1 that block of the
+    whole MLP's mask), within MLP_TOL: at the three CvT stage shapes, and at
+    a ragged N at D 384 and 768 (the chunked products).  Returns the worst
+    relative error."""
+    worst = 0.0
+    shapes = [(stage, n, d) for stage, n, d in MLP_SHAPES] + [
+        (f"D{d} ragged", RAGGED_ROWS, d) for d in CHUNKED_WIDTHS]
+    for stage, n, d in shapes:
+        for part in TP_PARTS:
+            hd = 4 * d // part[1]
+            x = torch.randn(n, d, device=dev, generator=gen)
+            w1 = torch.randn(d, hd, device=dev, generator=gen) / d ** 0.5
+            b1 = 0.1 * torch.randn(hd, device=dev, generator=gen)
+            w2 = torch.randn(hd, d, device=dev, generator=gen) / hd ** 0.5
+            b2 = torch.zeros(d, device=dev)
+            dy = torch.randn(n, d, device=dev, generator=gen)
+            seed = torch.randint(0, 2 ** 31 - 1, (2,), device=dev,
+                                 generator=gen, dtype=torch.int32)
+            args = (x, w1, b1, w2, b2, seed, DROPOUT)
+            got = (fused_mlp_train_fwd(*args, part),
+                   *fused_mlp_train_bwd(*args, dy, part))
+            want = (fused_mlp_train_plain(*args, part),
+                    *fused_mlp_train_bwd_plain(*args, dy, part))
+            for name, g, w in zip(("y", "dx", "dW1", "db1", "dW2", "db2"),
+                                  got, want):
+                scale = w.abs().max().item()
+                e = (g - w).abs().max().item()
+                if not torch.isfinite(g).all() or e > MLP_TOL * scale:
+                    raise AssertionError(
+                        f"fused_mlp_train {stage} part {part} {name}: max "
+                        f"|err| {e:.3e} over {MLP_TOL} x max {scale:.3e}")
+                worst = max(worst, e / scale)
+            del x, w1, b1, w2, dy, got, want
+    say(f"[2] fused_mlp_train of a tensor-parallel shard at parts "
+        f"{', '.join(map(str, TP_PARTS))} (Hd = 4D / k; the CvT stages and "
+        f"D {' and '.join(map(str, CHUNKED_WIDTHS))} at N {RAGGED_ROWS}), "
+        f"rate {DROPOUT}, forward and backward: max |err| / max |plain| "
+        f"{worst:.2e} (limit {MLP_TOL})")
+    return worst
+
+
 def phase_mlp_train(dev, gen):
     """fused_mlp_train forward and backward at the three stage shapes
     (``mlp_train_shape``; stage 1 also checks the masks), one backward at
-    the 512px stage 1, and the ViT widths D 192, 384 and 768 at their
+    the 512px stage 1, a tensor-parallel shard's at parts (1, 2) and (3, 4)
+    (``mlp_train_parts``), and the ViT widths D 192, 384 and 768 at their
     models' B 64 (N 12,608), masks and bf16 x included."""
     frows, brows, worst = [], [], {"fwd": 0.0, "bwd": 0.0}
     for stage, n, d in MLP_SHAPES:
@@ -1113,6 +1177,7 @@ def phase_mlp_train(dev, gen):
         worst["fwd"] = max(worst["fwd"], wf)
         worst["bwd"] = max(worst["bwd"], wb)
     big = mlp_train_bwd_512px(dev, gen)
+    parts_err = mlp_train_parts(dev, gen)
     vrows = {"fwd": [], "bwd": []}
     for model, d in VIT_MLP_SHAPES:
         frow, brow, _, _ = mlp_train_shape(
@@ -1154,6 +1219,8 @@ def phase_mlp_train(dev, gen):
             vit_source=("transformer_stm_tpu_torch/csrc/fused_mlp_train.cu + "
                         "csrc/chunk_gemm.cuh")))
     out[-1]["at_512px_stage1"] = big
+    for row in out:
+        row["tp_parts_max_rel_err"] = parts_err
     return out
 
 
@@ -4073,6 +4140,149 @@ def phase_parallel(card):
                            "sp_err": err, "world": world}
 
 
+def legacy_layout(params, state, spec):
+    """{dataset path: array} of a legacy Keras-2 ``save_weights`` file
+    holding (params, state), trees in the JAX layout: layer-name groups,
+    auto-named sublayers (one dense counter over the stages) and ``:0``
+    suffixes, the paths that tests/test_h5_import.py's ``_write_legacy_h5``
+    writes."""
+    out = {}
+    dense = ("dense" if n == 0 else f"dense_{n}" for n in itertools.count())
+
+    def put(group, leaves):
+        for name, a in leaves.items():
+            out[f"{group}/{name}:0"] = np.asarray(a)
+
+    for i, stage in enumerate(params["stages"], start=1):
+        put(f"stage{i}_ConvEmbed/" + ("conv2d" if i == 1
+                                      else f"conv2d_{i - 1}"),
+            stage["embed"]["proj"])
+        t = f"stage{i}_transformer"
+        blk = stage["blocks"][0]
+        if "cls_token" in blk:
+            put(t, {"cls_token": np.asarray(blk["cls_token"]).reshape(
+                1, 1, 1, -1)})
+        put(f"{t}/layer_normalization_{i}", blk["norm1"])
+        for tag in ("q", "k", "v"):
+            # a projection without weights: an empty tree, or none in the
+            # port's trees (``to_jax_params``), whose state then may hold
+            # no stages at all
+            proj = blk["attn"].get(f"{tag}_proj")
+            if not proj:
+                continue
+            put(f"{t}/{tag}_proj/depthwise_conv2d",
+                {"depthwise_kernel": proj["conv"]["kernel"]})
+            moving = state["stages"][i - 1]["blocks"][0]["attn"][
+                f"{tag}_proj"]["bn"]
+            put(f"{t}/{tag}_proj/batch_normalization",
+                {**proj["bn"], "moving_mean": moving["mean"],
+                 "moving_variance": moving["var"]})
+        for key in ("proj_q", "proj_k", "proj_v"):
+            put(f"{t}/{next(dense)}", blk["attn"][key])
+        mha = blk["attn"]["mha"]
+        for key in ("query", "key", "value"):
+            put(f"{t}/multi_head_attention_{i}/{key}", mha[key])
+        put(f"{t}/multi_head_attention_{i}/attention_output", mha["out"])
+        put(f"{t}/{next(dense)}", blk["attn"]["proj"])
+        for key in ("fc1", "fc2"):
+            put(f"{t}/sequential/{next(dense)}", blk["mlp"][key])
+    put("layer_normalization_9", params["head_norm"])
+    for name, key in (("Proc_Dense_1", "proc_fc1"),
+                      ("Proc_Dense_2", "proc_fc2"), ("Final_Dense", "final")):
+        if key in params:
+            put(name, params[key])
+    return out
+
+
+def randomize(model, gen):
+    """Noise from the CPU generator ``gen`` added to every parameter and
+    BatchNorm mean of ``model`` (0.05 x normal) and the variances drawn in
+    [0.5, 1.5), so that no two leaves are alike and a leaf taken for
+    another shows."""
+    with torch.no_grad():
+        for name, t in [*model.named_parameters(), *model.named_buffers()]:
+            if name.endswith("var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            else:
+                t.add_(0.05 * torch.randn(t.shape, generator=gen).to(t.device))
+    return model
+
+
+MIGRATION_SPECS = (
+    ("dw_bn, cls token", CvTSpec()),
+    ("avg, no cls token", CvTSpec().with_projection("avg", False)),
+    ("img only, proc_dim 0", dataclasses.replace(CvTSpec(), proc_dim=0)))
+
+
+def phase_migration(card):
+    """The reference's weight files migrated at full width: for each of
+    ``MIGRATION_SPECS`` a seeded CvT on the card, its trees laid out as a
+    legacy Keras-2 file's datasets, resolved by ``map_cvt_names`` (each
+    name used once) and ``h5_trees`` (every leaf bit for bit), loaded by
+    ``from_jax_params`` on the card; the imported model's forward at B 128
+    on the default route equals the source model's bit for bit.  Returns
+    the launches of the imported models' forwards, summed."""
+    rng = np.random.default_rng(SEED + 12)
+    images = torch.from_numpy(rng.uniform(
+        0, 1, (BATCH, 128, 128, 1)).astype(np.float32)).cuda()
+    launches = zero_launches()
+    for what, spec in MIGRATION_SPECS:
+        t0 = time.perf_counter()
+        model = randomize(init_cvt(spec, torch.Generator().manual_seed(SEED),
+                                   device="cuda"),
+                          torch.Generator().manual_seed(SEED + 12))
+        params, state = to_jax_params(model)
+        arrays = legacy_layout(params, state, spec)
+        names_p, names_s = map_cvt_names(arrays, spec)
+        names = [*flatten_tree(names_p).values(),
+                 *flatten_tree(names_s).values()]
+        if sorted(names) != sorted(arrays):
+            raise AssertionError(
+                f"migration {what}: {len(names)} names for {len(arrays)} "
+                f"datasets, {len(set(names))} distinct; unused "
+                f"{sorted(set(arrays) - set(names))[:4]}")
+        got_p, got_s = h5_trees(arrays, spec)
+        for kind, got, want in (("params", got_p, params),
+                                ("state", got_s, state)):
+            got, want = flatten_tree(got), flatten_tree(want)
+            if set(got) != set(want):
+                raise AssertionError(f"migration {what}: {kind} leaves "
+                                     f"{sorted(set(got) ^ set(want))[:4]}")
+            for k, a in want.items():
+                if got[k].shape != a.shape or not np.array_equal(got[k], a):
+                    raise AssertionError(f"migration {what}: {kind} {k} "
+                                         "differs from the source")
+        imported = from_jax_params(got_p, got_s, spec, device="cuda")
+        proc = (torch.from_numpy(rng.standard_normal(
+            (BATCH, spec.proc_dim)).astype(np.float32)).cuda()
+            if spec.proc_dim else None)
+        with torch.no_grad():
+            want = cvt_forward(model, images, proc)
+            reset_launches()
+            got = cvt_forward(imported, images, proc)
+            torch.cuda.synchronize()
+            n = read_launches()
+        if n["attention_small"] != 1 or n["fused_mlp"] != 3 or \
+                sum(n.values()) != 4:
+            raise AssertionError(f"migration {what}: forward launches {n}, "
+                                 "want attention_small 1, fused_mlp 3")
+        if got.shape != (BATCH, spec.num_classes) or \
+                not torch.isfinite(got).all() or not torch.equal(got, want):
+            raise AssertionError(
+                f"migration {what}: the imported model's forward differs "
+                f"from the source's (max |diff| "
+                f"{(got - want).abs().max().item():.3e})")
+        launches = {k: launches[k] + n[k] for k in launches}
+        dt = time.perf_counter() - t0
+        say(f"[12] weight migration {what}: {len(arrays)} datasets -> "
+            f"{len(names)} leaves bit for bit, each name once; forward at "
+            f"B {BATCH} bit-equal to the source model's, launches "
+            f"attention_small {n['attention_small']} fused_mlp "
+            f"{n['fused_mlp']}; {dt:.2f} s ({card})")
+        del model, imported, got, want
+    return launches
+
+
 def main():
     card = phase_env()
     phase_build()
@@ -4088,6 +4298,7 @@ def main():
     family_paths, family = phase_family(card)
     by_path.update(family_paths)
     by_path["parallel"], parallel = phase_parallel(card)
+    by_path["weight_migration"] = phase_migration(card)
     kernels += vit_kernels
     for k in kernels:
         # the launches of the path each kernel belongs to: the ViT path for

@@ -97,9 +97,11 @@ def _trees(d):
 
 
 # The training forwards whose gradients the tensor-parallel check compares:
-# (name, spec, mlp_impl).  TINY's dropout on the plain MLP, whose shards
-# draw the replicated masks; the fused training MLP at dropout 0.
-TRAIN_CHECKS = (("plain", TINY, None), ("fused", TINY0, "pallas"))
+# (name, spec, mlp_impl).  TINY's dropout on the plain MLP and on the fused
+# training MLP, whose shards draw their blocks of the replicated masks; the
+# fused training MLP at dropout 0.
+TRAIN_CHECKS = (("plain", TINY, None), ("fused", TINY0, "pallas"),
+                ("fused_dropout", TINY, "pallas"))
 
 
 def train_grads(model, x, mlp_impl, seed=2):

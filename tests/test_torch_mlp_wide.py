@@ -80,13 +80,15 @@ def _words(seed, e, stream):
                                      k[0], k[1]), dim=-1)
 
 
-def mask_bits(seed, row0, rows, rows_all, width, stream, rate):
+def mask_bits(seed, row0, rows, rows_all, width, stream, rate, whole=None,
+              off=0):
     """The kernel's bit words: (rows_all, width / 32) int64, bit c % 32 of
-    word (r, q) for element (row0 + r, 32 q + c % 32), zeros past rows."""
+    word (r, q) for element (row0 + r, off + 32 q + c % 32) of a mask
+    ``whole`` wide (width unless given), zeros past rows."""
     thr = keep_threshold(rate)
     r = torch.arange(rows_all).repeat_interleave(width)
     c = torch.arange(width).repeat(rows_all)
-    w = _words(seed, (row0 + r) * width + c, stream)
+    w = _words(seed, (row0 + r) * (whole or width) + off + c, stream)
     keep = (w.gather(1, (c & 3)[:, None])[:, 0] >= thr) & (r < rows)
     bits = (keep.to(torch.int64) << (c & 31)).reshape(rows_all, width // 32,
                                                       32)
@@ -279,6 +281,21 @@ def test_chunked_masks_equal_dropout_mask(rate):
         assert torch.equal(on.to(torch.float32) * keep_scale(rate),
                            want1[r0:r0 + rows, u0:u0 + 32])
     assert torch.equal(m2_prep(seed, 800, d, rate), want2)
+
+
+@pytest.mark.parametrize("part", [(1, 2), (3, 4)])
+def test_chunked_m1_bits_take_the_part(part):
+    """mask_bits of a tensor-parallel shard (whole Hw = k Hd, first
+    column hoff = i Hd) at a row offset equal ``dropout_mask(part=(i,
+    k))``, as the kernels read them."""
+    seed = torch.tensor([2468, 1357], dtype=torch.int32)
+    hd, rows, rate = 384, 192, 0.1
+    i, k = part
+    want = dropout_mask(seed, 2 * rows, hd, STREAM_HIDDEN, rate, part)
+    bits = mask_bits(seed, rows, rows, rows, hd, STREAM_HIDDEN, rate,
+                     k * hd, i * hd)
+    assert torch.equal(keep_from_bits(bits, rows, hd, rate), want[rows:])
+    assert torch.equal(epilogue_keep(bits, rows, hd, rate), want[rows:])
 
 
 def test_chunked_bits_past_the_rows_are_zero():

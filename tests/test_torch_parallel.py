@@ -12,7 +12,8 @@ mesh; a 4 x 1 and a 1 x 4 one) run every multi-rank check but the dry run:
   model 2, on the narrow spec of tests/test_parallel.py and at full width;
 - (b) the tensor-parallel forward equals the port's replicated forward
   (atol 1e-5) and JAX ``cvt_forward`` (1e-4, tests/test_torch_model.py's
-  bar);
+  bar), and its training gradients the replicated model's, dropout 0.1 on
+  the plain and on the fused training MLP included;
 - (c) one data-parallel epoch at dropout 0 equals the port's
   ``TrainLoop``: loss rel 1e-3, parameters and BatchNorm statistics atol
   2e-3, JAX's own bars (tests/test_parallel.py:60-64); with dropout and
@@ -196,8 +197,9 @@ def test_tp_forward_matches_replicated_and_jax(runs, forwards, layout):
     np.testing.assert_allclose(got["out"], replicated, atol=1e-5, rtol=0)
     np.testing.assert_allclose(got["out"], want, atol=1e-4, rtol=0)
     # training: the gradients of every parameter, whole, equal the
-    # replicated model's (dropout drawn alike on the plain MLP; the fused
-    # training MLP with fc2's bias added once)
+    # replicated model's (dropout drawn alike on the plain MLP and, each
+    # shard its block of the hidden mask, on the fused training MLP; fc2's
+    # bias added once)
     assert set(grads) <= set(got)
     for k, g in grads.items():
         np.testing.assert_allclose(got[k], g, atol=1e-5,

@@ -242,6 +242,27 @@ def test_backward_masks_equal_dropout_mask(rate):
                        dropout_mask(seed, n, d, STREAM_OUT, rate))
 
 
+@pytest.mark.parametrize("part", [(1, 2), (3, 4)])
+def test_backward_m1_takes_the_part(part):
+    """``mask1`` of a tensor-parallel shard: element (row, u) at index row
+    Hw + hoff + u, Hw = k Hd and hoff = i Hd, equals
+    ``dropout_mask(part=(i, k))``."""
+    seed = torch.tensor([987654, 321], dtype=torch.int32)
+    n, hd, rate = 70, 64, 0.1
+    i, k = part
+    rows = torch.arange(n).repeat_interleave(hd // 2)
+    units = (2 * torch.arange(hd // 2)).repeat(n)
+    e = rows * (k * hd) + i * hd + units
+    w = _words(seed, e, STREAM_HIDDEN)
+    j = e & 3
+    pair = torch.stack([w.gather(1, j[:, None])[:, 0],
+                        w.gather(1, (j + 1)[:, None])[:, 0]], dim=-1)
+    m1 = ((pair >= keep_threshold(rate)).to(torch.float32)
+          * keep_scale(rate)).reshape(n, hd)
+    assert torch.equal(m1, dropout_mask(seed, n, hd, STREAM_HIDDEN, rate,
+                                        part))
+
+
 @pytest.mark.parametrize("n", [8320, 32768, 131072, 2097152])
 def test_scratch_stays_bounded(n):
     """Packed weights and row-slot partials: under 64 MiB at every width,

@@ -69,19 +69,22 @@ def _words(seed, e, stream):
                                      k[0], k[1]), dim=-1)
 
 
-def kernel_keep(seed, n, width, stream, rate):
+def kernel_keep(seed, n, width, stream, rate, whole=None, off=0):
     """The keep multipliers of a (n, width) mask as ``keep_quad`` draws
     them: thread t of each quad holds columns 8 j + 2 t, + 1 of rows ra and
     ra + 8 (ra = 16 w + g of a tile); it draws the group of row ra (even t)
-    or ra + 8 (odd t) and trades words with thread t ^ 1."""
+    or ra + 8 (odd t) and trades words with thread t ^ 1.  With ``whole``
+    and ``off`` (the launch's Hw and hoff) the columns are off .. off +
+    width - 1 of a mask ``whole`` wide."""
+    whole = whole or width
     thr = keep_threshold(rate)
     npad = -(-n // ROWS) * ROWS
     ra = torch.tensor([r for r in range(npad) if r % 16 < 8])
     j = torch.arange(width // 8)
     t = torch.arange(4)
     odd = (t & 1).bool()
-    e_top = ra[:, None, None] * width + 8 * j[None, :, None] + 2 * t
-    w = _words(seed, e_top - 2 * odd.long() + odd.long() * 8 * width, stream)
+    e_top = ra[:, None, None] * whole + off + 8 * j[None, :, None] + 2 * t
+    w = _words(seed, e_top - 2 * odd.long() + odd.long() * 8 * whole, stream)
     send0 = torch.where(odd, w[..., 0], w[..., 2])
     send1 = torch.where(odd, w[..., 1], w[..., 3])
     partner = t ^ 1
@@ -178,6 +181,18 @@ def test_kernel_mask_draws_equal_dropout_mask(width, rate):
     for stream in (STREAM_HIDDEN, STREAM_OUT):
         assert torch.equal(kernel_keep(seed, N, width, stream, rate),
                            dropout_mask(seed, N, width, stream, rate))
+
+
+@pytest.mark.parametrize("part", [(1, 2), (3, 4), (0, 4)])
+@pytest.mark.parametrize("width", [64, 128])
+def test_kernel_mask_draws_take_the_part(width, part):
+    """m1 of a tensor-parallel shard as ``keep_quad`` draws it at Hw = k
+    width and hoff = i width equals ``dropout_mask(part=(i, k))``."""
+    seed = torch.tensor([987654, 321], dtype=torch.int32)
+    i, k = part
+    assert torch.equal(
+        kernel_keep(seed, N, width, STREAM_HIDDEN, 0.1, k * width, i * width),
+        dropout_mask(seed, N, width, STREAM_HIDDEN, 0.1, part))
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])

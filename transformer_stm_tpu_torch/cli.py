@@ -13,6 +13,8 @@
   python -m transformer_stm_tpu_torch.cli save-config --out cfg.json
   python -m transformer_stm_tpu_torch.cli sweep --config cfg.json --lr 1e-3,1e-4
       [--dropout 0.0,0.1] [--seeds 0,1] [--inputs par --hidden 64,256]
+  python -m transformer_stm_tpu_torch.cli export-h5 --config cfg.json
+      [--freq ...] [--inputs par] [--out weights.h5]
 
 Every setting comes from one JSON config (``--config``, written by either
 package) with command-line overrides; a 512px run is set up through the
@@ -22,11 +24,13 @@ picks where ``train``, ``test``, ``heatmap`` and ``sweep`` run; PyTorch
 needs it, JAX does not.  ``sweep`` (train/sweep.py) trains the CvT's points
 as slots of one trainer a dropout group, or the FFN's (``--inputs par``,
 which may sweep ``--hidden``) one after another, and writes
-``sweep_{freq}_{inputs}.json`` into the result directory.  The default
-paths are relative (``reference/...``), as ``DataConfig``'s.  Where
-matplotlib is not installed, a plotting subcommand says on a line that it
-wrote nothing and returns 1.  Not ported yet: ``bench`` (the benchmark) and
-``export-h5`` (the Keras weight export).
+``sweep_{freq}_{inputs}.json`` into the result directory.  ``export-h5``
+(train/h5_export.py) writes each target's latest checkpoint into the
+reference's own Keras model as an ``.h5`` that its evaluation scripts load
+(``--inputs par``: the params-only FFN's), on the host.  The default paths
+are relative (``reference/...``), as ``DataConfig``'s.  Where matplotlib is
+not installed, a plotting subcommand says on a line that it wrote nothing
+and returns 1.  Not ported yet: ``bench`` (the benchmark).
 """
 
 from __future__ import annotations
@@ -134,6 +138,13 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default: cuda)")
 
+    p = sub.add_parser("export-h5", help="export trained weights into the "
+                       "reference's own Keras model (.h5 its unmodified "
+                       "eval scripts can load_weights)")
+    _add_common(p)
+    p.add_argument("--out", help="output .h5 path (default: next to the "
+                   "checkpoint, reference naming convention)")
+
     p = sub.add_parser("compare", help="CvT vs classical-ML baselines")
     p.add_argument("--metrics-dir", required=True,
                    help="dir of Predictions_Metrics_{freq}.xlsx")
@@ -185,6 +196,8 @@ def main(argv=None):
         print(f"wrote {args.out}")
     elif cmd == "sweep":
         return _sweep(args)
+    elif cmd == "export-h5":
+        return _export_h5(args)
     elif cmd == "compare":
         return _compare(args)
     elif cmd == "plot-labels":
@@ -233,6 +246,55 @@ def _sweep(args):
         path = write_summary(out[freq], cfg.result_dir)
         print(f"{freq}: best {out[freq]['best']} -> {path}")
     return out
+
+
+def _export_h5(args):
+    """The ``export-h5`` subcommand: each target's latest checkpoint, a
+    CvT's or under ``--inputs par`` the FFN's (its widths read from the
+    checkpoint), written into the reference's Keras model on the host.
+    ``--out`` takes a ``_{freq}`` suffix when there are several targets;
+    without it the file lies beside the checkpoint directory."""
+    import os
+
+    from .harness import _paths, _spec_for
+    from .train.checkpoint import (ffn_from_jax_params, ffn_to_jax_params,
+                                   from_jax_params, latest_checkpoint,
+                                   load_checkpoint, to_jax_params)
+    from .train.h5_export import (REF_FFN, export_cvt_reference_h5,
+                                  export_ffn_reference_h5,
+                                  load_reference_module)
+
+    cfg = _build_cfg(args)
+    par = cfg.inputs == "par"
+    mod = load_reference_module(REF_FFN) if par else load_reference_module()
+    spec = None if par else _spec_for(cfg)
+    for freq in cfg.frequencies:
+        paths = _paths(cfg, freq)
+        ckpt = latest_checkpoint(paths["weights"])
+        if ckpt is None:
+            print(f"{freq}: no checkpoint under {paths['weights']}")
+            continue
+        params, state, _, _ = load_checkpoint(ckpt)
+        if args.out and len(cfg.frequencies) > 1:
+            root, ext = os.path.splitext(args.out)
+            out = f"{root}_{freq}{ext or '.h5'}"
+        else:
+            out = args.out or (paths["weights"].rstrip("/") + ".h5")
+        if par:
+            if not all("kernel" in params.get(k, {})
+                       for k in ("fc1", "final")):
+                print(f"{freq}: {ckpt} is not an FFN checkpoint "
+                      f"(no fc1/final kernels); skipping")
+                continue
+            export_ffn_reference_h5(
+                ffn_to_jax_params(ffn_from_jax_params(params, device="cpu")),
+                out, mod=mod)
+        else:
+            model = from_jax_params(params, state, spec, device="cpu")
+            export_cvt_reference_h5(*to_jax_params(model), spec, out,
+                                    mod=mod)
+        print(f"{freq}: wrote {out}")
+    return 0
 
 
 def _compare(args):

@@ -54,10 +54,12 @@
 // Dropout (the training forward, DROP): m1 and m2 are the Philox masks of
 // csrc/philox.cuh, equal to `dropout_mask` bit for bit.  Each element's
 // mask word comes from its global index (row, hidden unit) for m1 and (row,
-// column) for m2.  m1 multiplies the
-// GELU output in registers, before the split that feeds fc2; a thread holds
-// units 8 j + 2 t and 8 j + 2 t + 1 of rows ra and ra + 8, which share one
-// Philox group per row with the neighbour thread t ^ 1, so each thread draws
+// column) for m2; m1's is that of the whole mask (Hw wide, this launch's
+// units from column hoff) where tensor parallelism split the hidden units.
+// m1 multiplies the GELU output in registers, before the split that feeds
+// fc2; a thread holds units 8 j + 2 t and 8 j + 2 t + 1 of rows ra and ra +
+// 8, which share one Philox group per row with the neighbour thread t ^ 1
+// (Hw and hoff are multiples of 4, so the groups stay whole), so each thread draws
 // one group (row ra for even t, ra + 8 for odd t) and the pair trades the
 // two words the other needs (`keep_quad`): one Philox call per four
 // elements.  A chunk's words are drawn a share per fc1 stage, between the
@@ -117,6 +119,7 @@ struct Params {
   uint32_t thr;
   float scale;
   int N, D, Hd;
+  int Hw, hoff;  // m1's whole width and this launch's first column in it
 };
 
 // The two ways a tile's warpgroups share the work, by the output columns NW
@@ -250,7 +253,7 @@ __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf,
     float acc[HW / 2], part1[HW / 2];
     zero(acc);
     uint32_t keep = 0;  // m1's keep bits of the chunk: element i of acc at bit i
-    const long m1_top = (row0 + ra) * (long)p.Hd + h0 + w * HW + 2 * t;
+    const long m1_top = (row0 + ra) * (long)p.Hw + p.hoff + h0 + w * HW + 2 * t;
     for (int ks = 0; ks < nslab; ++ks) {
       fill();
       mbar_wait(&r.full[r.stage], r.phase);
@@ -277,7 +280,7 @@ __device__ __forceinline__ void mlp_tile(const Params& p, Ring r, uint8_t* hbuf,
       if (masks) {
         // this stage's share of m1's words, while the products run
         for (int j = ks * per; j < min(HW / 8, (ks + 1) * per); ++j)
-          keep |= keep_quad(m1_top + 8 * j, p.Hd, t, philox::STREAM_HIDDEN, k0, k1, p.thr)
+          keep |= keep_quad(m1_top + 8 * j, p.Hw, t, philox::STREAM_HIDDEN, k0, k1, p.thr)
                   << (4 * j);
       }
       wg_wait<0>();
@@ -545,13 +548,17 @@ extern "C" int launch_fused_mlp(const float* x, const float* w1, const float* b1
 // The training forward y = ((GELU(x W1 + b1) m1) W2 + b2) m2 on w1 (D, Hd)
 // and w2 (Hd, D) as stored: a packing launch splits them into `pack` (4 D Hd
 // floats, 16-byte aligned), then the kernel runs with the masks of `seed`
-// at keep threshold thr and keep scale `scale`.  Returns a cudaError_t as
+// at keep threshold thr and keep scale `scale`, m1 being columns hoff ..
+// hoff + Hd - 1 of a mask Hw wide (Hw = Hd, hoff = 0 unless tensor
+// parallelism split the hidden units).  Returns a cudaError_t as
 // int (or 1000 + a CUresult): 0 when both launches were accepted.
 extern "C" int launch_fused_mlp_train_fwd(const float* x, const float* w1, const float* b1,
                                           const float* w2, const float* b2, const int* seed,
                                           float* y, float* pack, int N, int D, int Hd, int Dout,
-                                          unsigned thr, float scale, cudaStream_t stream) {
+                                          int Hw, int hoff, unsigned thr, float scale,
+                                          cudaStream_t stream) {
   if (N <= 0 || Dout != D || !train_width_ok(D) || Hd <= 0 || Hd % 64 != 0 ||
+      !philox::mask_part_ok(Hd, Hw, hoff) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(pack) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const long n = (long)D * Hd;
@@ -562,6 +569,6 @@ extern "C" int launch_fused_mlp_train_fwd(const float* x, const float* w1, const
   Params P;
   memset(&P, 0, sizeof(P));
   P.b1 = b1, P.b2 = b2, P.y = y, P.seed = seed, P.thr = thr, P.scale = scale;
-  P.N = N, P.D = D, P.Hd = Hd;
+  P.N = N, P.D = D, P.Hd = Hd, P.Hw = Hw, P.hoff = hoff;
   return launch<true>(P, x, pack, pack + 2 * n, stream);
 }

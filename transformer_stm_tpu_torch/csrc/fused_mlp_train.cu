@@ -219,6 +219,7 @@ struct Params {
   float* db2p;
   long pstride;
   int N, Hd, slots;
+  int Hw, hoff;  // m1's whole width and this launch's first column in it
   uint32_t thr;
   float scale;
 };
@@ -316,7 +317,7 @@ __device__ __forceinline__ void mask_g(uint8_t* T, int slab, long row0, const Pa
 __device__ __forceinline__ float2 mask1(long row, long unit, const Params& p, uint32_t k0,
                                         uint32_t k1) {
   if (p.thr == 0) return make_float2(1.f, 1.f);
-  const long e = row * p.Hd + unit;
+  const long e = row * p.Hw + p.hoff + unit;
   const uint4 w = mask_words(e, 1u, k0, k1);
   const int i = (int)(e & 3);
   return make_float2(word(w, i) >= p.thr ? p.scale : 0.f, word(w, i + 1) >= p.thr ? p.scale : 0.f);
@@ -1652,11 +1653,13 @@ __global__ void chunk_dx_sum(const float* __restrict__ dxp, float* __restrict__ 
   *reinterpret_cast<float4*>(dx + r0 * D + i) = s;
 }
 
-// A chunk's keep bits of the mask of `stream` and `width` columns: word i =
-// (r, q) of rows r < rows_all holds bit c % 32 for element (row0 + r, 32 q +
-// c % 32), eight Philox calls a word; rows at or past `rows` are zeros.
+// A chunk's keep bits of `width` columns from column `off` of the mask of
+// `stream` and `whole` columns: word i = (r, q) of rows r < rows_all holds
+// bit c % 32 for element (row0 + r, off + 32 q + c % 32), eight Philox calls
+// a word; rows at or past `rows` are zeros.
 __global__ void mask_bits(const int* __restrict__ seed, long row0, int rows, int rows_all,
-                          int width, uint32_t stream, uint32_t thr, uint32_t* __restrict__ bits) {
+                          int width, int whole, int off, uint32_t stream, uint32_t thr,
+                          uint32_t* __restrict__ bits) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const int words = width / 32;
   if (i >= (long)rows_all * words) return;
@@ -1664,7 +1667,7 @@ __global__ void mask_bits(const int* __restrict__ seed, long row0, int rows, int
   uint32_t v = 0;
   if (r < rows) {
     const uint32_t k0 = (uint32_t)seed[0], k1 = (uint32_t)seed[1];
-    const long e = (row0 + r) * width + 32 * (i % words);
+    const long e = (row0 + r) * whole + off + 32 * (i % words);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const uint4 w = mask_words(e + 4 * q, stream, k0, k1);
@@ -1784,9 +1787,10 @@ extern "C" int launch_fused_mlp_train_bwd(const float* x, const float* dy,
                                           const float* w1, const float* b1,
                                           const float* w2, const int* seed, float* dx,
                                           float* grads, float* pack, float* part, int N, int D,
-                                          int Hd, int Dout, int slots, unsigned thr,
-                                          float scale, cudaStream_t stream) {
+                                          int Hd, int Dout, int slots, int Hw, int hoff,
+                                          unsigned thr, float scale, cudaStream_t stream) {
   if (N <= 0 || Dout != D || Hd <= 0 || Hd % bwd::HT != 0 || slots <= 0 || slots > 65535 ||
+      !philox::mask_part_ok(Hd, Hw, hoff) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(dy) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(pack) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -1799,7 +1803,7 @@ extern "C" int launch_fused_mlp_train_bwd(const float* x, const float* dy,
   memset(&P, 0, sizeof(P));
   P.b1 = b1, P.seed = seed, P.dx = dx, P.dw1p = part, P.dw2p = part + n, P.db1p = part + 2 * n;
   P.db2p = part + 2 * n + Hd, P.pstride = total, P.N = N, P.Hd = Hd, P.slots = slots;
-  P.thr = thr, P.scale = scale;
+  P.Hw = Hw, P.hoff = hoff, P.thr = thr, P.scale = scale;
   int rc;
   switch (D) {
     case 64: rc = bwd::launch_bwd<64>(P, x, dy, pack, stream); break;
@@ -1841,11 +1845,12 @@ extern "C" int launch_fused_mlp_train_bwd_chunked(const float* x, const float* d
                                                   const float* w1, const float* b1,
                                                   const float* w2, const int* seed, float* dx,
                                                   float* grads, float* scratch, int N, int D,
-                                                  int Hd, int R, unsigned thr, float scale,
+                                                  int Hd, int R, int Hw, int hoff,
+                                                  unsigned thr, float scale,
                                                   cudaStream_t stream) {
   using namespace chunk;
-  if (!shapes_ok(N, D, Hd, R, BN) || !aligned(x) || !aligned(dy) || !aligned(w1) ||
-      !aligned(w2) || !aligned(scratch) || !aligned(grads))
+  if (!shapes_ok(N, D, Hd, R, BN) || !philox::mask_part_ok(Hd, Hw, hoff) || !aligned(x) ||
+      !aligned(dy) || !aligned(w1) || !aligned(w2) || !aligned(scratch) || !aligned(grads))
     return (int)cudaErrorInvalidValue;
   Side* side = side_stream();
   if (side == nullptr) return (int)cudaErrorInvalidValue;
@@ -1915,7 +1920,7 @@ extern "C" int launch_fused_mlp_train_bwd_chunked(const float* x, const float* d
         x, dy, seed, xs, gs, buf[k].xts, buf[k].gts, gpart, r0, rows, R, D, thr, scale);
     if (thr != 0)
       mask_bits<<<(nt * BN * (Hd / 32) + 255) / 256, 256, 0, stream>>>(
-          seed, r0, rows, nt * BN, Hd, philox::STREAM_HIDDEN, thr, bits);
+          seed, r0, rows, nt * BN, Hd, Hw, hoff, philox::STREAM_HIDDEN, thr, bits);
     err = cudaGetLastError();
     if (err != cudaSuccess) break;
     S[k].r0 = P[k].r0 = r0, S[k].rows = P[k].rows = rows;
@@ -1958,10 +1963,11 @@ extern "C" int launch_fused_mlp_train_fwd_chunked(const float* x, const float* w
                                                   const float* b1, const float* w2,
                                                   const float* b2, const int* seed, float* y,
                                                   float* scratch, int N, int D, int Hd, int R,
-                                                  unsigned thr, float scale,
+                                                  int Hw, int hoff, unsigned thr, float scale,
                                                   cudaStream_t stream) {
   using namespace chunk;
-  if (!shapes_ok(N, D, Hd, R, BM) || !aligned(x) || !aligned(scratch))
+  if (!shapes_ok(N, D, Hd, R, BM) || !philox::mask_part_ok(Hd, Hw, hoff) || !aligned(x) ||
+      !aligned(scratch))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem<Params>();
   if (err != cudaSuccess) return (int)err;
@@ -1989,9 +1995,9 @@ extern "C" int launch_fused_mlp_train_fwd_chunked(const float* x, const float* w
     const int rows = (int)(N - r0 < R ? N - r0 : R), mt = (rows + BM - 1) / BM;
     if (thr != 0) {
       mask_bits<<<(mt * BM * (Hd / 32) + 255) / 256, 256, 0, stream>>>(
-          seed, r0, rows, mt * BM, Hd, philox::STREAM_HIDDEN, thr, bits1);
+          seed, r0, rows, mt * BM, Hd, Hw, hoff, philox::STREAM_HIDDEN, thr, bits1);
       mask_bits<<<(mt * BM * (D / 32) + 255) / 256, 256, 0, stream>>>(
-          seed, r0, rows, mt * BM, D, philox::STREAM_OUT, thr, bits2);
+          seed, r0, rows, mt * BM, D, D, 0, philox::STREAM_OUT, thr, bits2);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

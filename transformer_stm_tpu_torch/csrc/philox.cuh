@@ -6,7 +6,11 @@
 // rebuild the same masks whatever their tiles: Philox-4x32-10 keyed on
 // (seed[0], seed[1]) with the counter (lo32(e >> 2), stream, hi32(e >> 2), 0)
 // gives four words, and word e & 3 belongs to element e.  Stream 1 is the
-// hidden mask m1 (width Hd), stream 2 the output mask m2 (width D).  A unit
+// hidden mask m1 (width Hd), stream 2 the output mask m2 (width D).  Where
+// tensor parallelism gives a launch the i-th of k column blocks of the
+// hidden units (Hd of k Hd), m1's index is that of the whole mask, e = row *
+// Hw + hoff + col with Hw = k Hd and hoff = i Hd, so that each shard drops
+// its columns of the replicated MLP's mask; m2 is every shard's whole.  A unit
 // is kept iff its word >= thr (unsigned compare, thr = min(floor(rate 2^32),
 // 2^32 - 1)) and kept units scale by 1 / (1 - rate).  The plain version,
 // `dropout_mask` in kernels/fused_mlp.py, computes the same words with int64
@@ -38,6 +42,12 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
 __device__ __forceinline__ uint4 mask_words(long e, uint32_t stream, uint32_t k0, uint32_t k1) {
   const uint64_t g = (uint64_t)e >> 2;
   return philox4x32_10(make_uint4((uint32_t)g, stream, (uint32_t)(g >> 32), 0u), k0, k1);
+}
+
+// m1's columns hoff .. hoff + Hd - 1 of a mask Hw wide: whole groups of
+// four, inside the mask
+__host__ __device__ inline bool mask_part_ok(int Hd, int Hw, int hoff) {
+  return hoff >= 0 && hoff % 4 == 0 && Hw % 4 == 0 && (long)hoff + Hd <= Hw;
 }
 
 }  // namespace philox

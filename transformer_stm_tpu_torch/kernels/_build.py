@@ -85,30 +85,31 @@ SIGNATURES = {
                               *[_P] * 12, ctypes.c_longlong, _I, _I, _I, _I,
                               _I, ctypes.c_float, _P],
     # x, w1, b1, w2, b2, seed, y, packed weights (scratch), N, D, Hd, Dout,
-    # keep threshold, keep scale, stream
+    # m1's whole width and first column, keep threshold, keep scale, stream
     "launch_fused_mlp_train_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, ctypes.c_uint32, ctypes.c_float,
-                                   _P],
+                                   _I, _I, _I, _I, ctypes.c_uint32,
+                                   ctypes.c_float, _P],
     # D, registers, shared memory bytes, blocks per SM
     "fused_mlp_train_fwd_info": [_I, _P, _P, _P],
     # x, dy, w1, b1, w2, seed, dx, grads (dW1, dW2, db1, db2), packed
-    # weights, partials, N, D, Hd, Dout, row slots, keep threshold, keep
-    # scale, stream
-    "launch_fused_mlp_train_bwd": [*[_P] * 10, _I, _I, _I, _I, _I,
+    # weights, partials, N, D, Hd, Dout, row slots, m1's whole width and
+    # first column, keep threshold, keep scale, stream
+    "launch_fused_mlp_train_bwd": [*[_P] * 10, _I, _I, _I, _I, _I, _I, _I,
                                    ctypes.c_uint32, ctypes.c_float, _P],
     # kind (0 dx, 1 weight partials), D, registers, shared memory bytes,
     # blocks per SM
     "fused_mlp_train_bwd_info": [_I, _I, _P, _P, _P],
     # x, dy, w1, b1, w2, seed, dx, grads (dW1, dW2, db1, db2), scratch, N,
-    # D, Hd, chunk rows, keep threshold, keep scale, stream
-    "launch_fused_mlp_train_bwd_chunked": [*[_P] * 9, _I, _I, _I, _I,
-                                           ctypes.c_uint32, ctypes.c_float,
-                                           _P],
-    # x, w1, b1, w2, b2, seed, y, scratch, N, D, Hd, chunk rows, keep
+    # D, Hd, chunk rows, m1's whole width and first column, keep
     # threshold, keep scale, stream
-    "launch_fused_mlp_train_fwd_chunked": [*[_P] * 8, _I, _I, _I, _I,
-                                           ctypes.c_uint32, ctypes.c_float,
-                                           _P],
+    "launch_fused_mlp_train_bwd_chunked": [*[_P] * 9, _I, _I, _I, _I, _I,
+                                           _I, ctypes.c_uint32,
+                                           ctypes.c_float, _P],
+    # x, w1, b1, w2, b2, seed, y, scratch, N, D, Hd, chunk rows, m1's whole
+    # width and first column, keep threshold, keep scale, stream
+    "launch_fused_mlp_train_fwd_chunked": [*[_P] * 8, _I, _I, _I, _I, _I,
+                                           _I, ctypes.c_uint32,
+                                           ctypes.c_float, _P],
     # D, registers, shared memory bytes, blocks per SM of the chunked
     # products' kernel
     "fused_mlp_train_chunked_info": [_I, _P, _P, _P],

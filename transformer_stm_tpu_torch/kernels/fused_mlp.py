@@ -32,7 +32,10 @@ Function ``FusedMLPTrain``, which saves x, the weights and the seed, never
 the hidden activation; the backward recomputes it.  A mask element is a
 pure function of the (2,) int32 seed and the element's global index
 (``dropout_mask``), so the masks do not depend on the block size and
-forward and backward agree; parity
+forward and backward agree.  Where tensor parallelism splits the hidden
+units, ``part`` = (i, k) says that w1's columns are the i-th of k equal
+blocks of the whole MLP's, and m1's index is the whole mask's, so that each
+shard drops its block of the replicated MLP's mask; parity
 with JAX holds in distribution only, as for the TPU kernel, whose bits came
 from the TPU's own generator.
 
@@ -268,15 +271,29 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def dropout_mask(seed, rows: int, width: int, stream: int, rate: float):
+def _check_part(part):
+    i, k = part
+    if not 0 <= i < k:
+        raise ValueError(f"part {part}: want (i, k) with 0 <= i < k")
+    return i, k
+
+
+def dropout_mask(seed, rows: int, width: int, stream: int, rate: float,
+                 part=(0, 1)):
     """The (rows, width) float32 multipliers, 0 or ``keep_scale(rate)``, of
     one dropout mask, on the seed's device.  Element e = row * width + col
     takes word e & 3 of Philox-4x32-10 keyed on the seed's two words at the
     counter (lo32(e >> 2), stream, hi32(e >> 2), 0), and is kept iff that
-    word >= ``keep_threshold(rate)``.  width must be a multiple of 4."""
+    word >= ``keep_threshold(rate)``.  width must be a multiple of 4.  With
+    ``part`` = (i, k) the mask is column block i of the (rows, k width)
+    mask: e = row * k width + i width + col."""
+    i, parts = _check_part(part)
     if rate == 0.0:
         return torch.ones(rows, width, device=seed.device)
-    g = torch.arange(rows * width // 4, device=seed.device, dtype=torch.int64)
+    q = width // 4
+    g = (torch.arange(rows, device=seed.device, dtype=torch.int64)[:, None]
+         * (parts * q) + i * q
+         + torch.arange(q, device=seed.device, dtype=torch.int64)).reshape(-1)
     k = seed.to(torch.int64) & _M32
     words = torch.stack(philox4x32_10(g & _M32, stream, g >> 32, 0,
                                       k[0], k[1]), dim=-1)
@@ -290,22 +307,25 @@ def _gelu_grad(a):
             + a * torch.exp(-0.5 * a * a) * 0.3989422804014327)
 
 
-def fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate: float):
+def fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate: float,
+                          part=(0, 1)):
     """The forward kernel's arithmetic in PyTorch, with the same masks:
     (GELU(x W1 + b1) m1) W2 + b2, times m2, in float32 (float64 for float64
-    x) and returned in x's type.  x: (..., D); seed: (2,) int32."""
+    x) and returned in x's type.  x: (..., D); seed: (2,) int32; m1 is
+    column block ``part`` of the whole hidden mask (``dropout_mask``)."""
     d, hd = w1.shape
     n = x.numel() // d
     ct = compute_type(x)
     w1, b1, w2, b2 = (t.to(ct) for t in (w1, b1, w2, b2))
-    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate).to(ct)
+    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate, part).to(ct)
     m2 = dropout_mask(seed, n, w2.shape[1], STREAM_OUT, rate).to(ct)
     h = gelu(dense(x.reshape(n, d).to(ct), w1, b1)) * m1
     y = dense(h, w2, b2) * m2
     return y.reshape(*x.shape[:-1], w2.shape[1]).to(x.dtype)
 
 
-def fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate: float, dy):
+def fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate: float, dy,
+                              part=(0, 1)):
     """The backward kernel's arithmetic in PyTorch, in the forward's type: a,
     h and both masks recomputed; g = dy m2, dh = (g W2^T) m1, da = dh
     GELU'(a); -> (dx = da W1^T in x's type, dW1 = x^T da, db1 = sum da,
@@ -316,7 +336,7 @@ def fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate: float, dy):
     wt = w1.dtype
     w1, b1, w2 = (t.to(ct) for t in (w1, b1, w2))
     xf = x.reshape(n, d).to(ct)
-    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate).to(ct)
+    m1 = dropout_mask(seed, n, hd, STREAM_HIDDEN, rate, part).to(ct)
     m2 = dropout_mask(seed, n, w2.shape[1], STREAM_OUT, rate).to(ct)
     a = dense(xf, w1, b1)
     h = gelu(a) * m1
@@ -365,7 +385,13 @@ def _chunk_check(hd):
                          f"multiple of {3 * CHUNK_TILE_M}, got {hd}")
 
 
-def _train_fwd_fused(x, w1, b1, w2, b2, seed, rate, y):
+def _mask_part(hd, part):
+    """The kernels' (whole width, first column) of m1 for ``part``."""
+    i, k = _check_part(part)
+    return k * hd, i * hd
+
+
+def _train_fwd_fused(x, w1, b1, w2, b2, seed, rate, part, y):
     """csrc/fused_mlp.cu's body with its dropout flag, after a launch that
     splits the weights as ``pack_mlp_weights`` does into scratch of 4 D Hd
     floats (kept for no later call: the weights change every step)."""
@@ -374,11 +400,12 @@ def _train_fwd_fused(x, w1, b1, w2, b2, seed, rate, y):
     return library().launch_fused_mlp_train_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), seed.data_ptr(), y.data_ptr(), pack.data_ptr(),
-        x.numel() // d, d, hd, d, keep_threshold(rate), keep_scale(rate),
+        x.numel() // d, d, hd, d, *_mask_part(hd, part),
+        keep_threshold(rate), keep_scale(rate),
         torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def _train_fwd_chunked(x, w1, b1, w2, b2, seed, rate, y):
+def _train_fwd_chunked(x, w1, b1, w2, b2, seed, rate, part, y):
     """The chunked forward of csrc/fused_mlp_train.cu: W1^T and W2^T split
     into scratch, then per chunk of ``train_fwd_chunk_rows`` rows both
     masks as bits, h = Drop1(GELU(x W1 + b1)) into the scratch's (rows, Hd)
@@ -392,16 +419,17 @@ def _train_fwd_chunked(x, w1, b1, w2, b2, seed, rate, y):
     return library().launch_fused_mlp_train_fwd_chunked(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), seed.data_ptr(), y.data_ptr(), scratch.data_ptr(), n,
-        d, hd, r, keep_threshold(rate), keep_scale(rate),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        d, hd, r, *_mask_part(hd, part), keep_threshold(rate),
+        keep_scale(rate), torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
+def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float, part=(0, 1)):
     """y (..., D) in x's type outside autograd: the plain version on the
     CPU, else on x in float32 the chunked forward at ``CHUNKED_WIDTHS`` and
-    csrc/fused_mlp.cu's body at the other widths."""
+    csrc/fused_mlp.cu's body at the other widths; m1 is column block
+    ``part`` of the whole hidden mask."""
     if _on_cpu(x, w1, b1, w2, b2, seed):
-        return fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate)
+        return fused_mlp_train_plain(x, w1, b1, w2, b2, seed, rate, part)
     dtype = x.dtype
     if dtype == torch.bfloat16:
         x = x.float().contiguous()
@@ -410,7 +438,7 @@ def fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate: float):
     y = torch.empty_like(x)
     launch = (_train_fwd_chunked if w1.shape[0] in CHUNKED_WIDTHS
               else _train_fwd_fused)
-    rc = launch(x, w1, b1, w2, b2, seed, rate, y)
+    rc = launch(x, w1, b1, w2, b2, seed, rate, part, y)
     if rc != 0:
         raise RuntimeError(f"the training MLP's forward launch failed: CUDA "
                            f"error {rc}")
@@ -446,14 +474,17 @@ def train_bwd_scratch(n: int, d: int, hd: int, sms: int = 132):
     return [6 * d * hd, train_bwd_slots(n, hd, sms) * (2 * d * hd + hd + d)]
 
 
-def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
+def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy,
+                        part=(0, 1)):
     """(dx, dW1, db1, dW2, db2) for the output gradient dy (contiguous):
     the plain version on the CPU, else the backward kernels on x and dy in
     float32, whose per-slot partials their last launch sums in slot order
     (the JAX package sums its partials outside the kernel, :437-441).  dx
-    comes back in x's type."""
+    comes back in x's type; m1 is column block ``part`` of the whole hidden
+    mask."""
     if _on_cpu(x, w1, b1, w2, b2, seed, dy):
-        return fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate, dy)
+        return fused_mlp_train_bwd_plain(x, w1, b1, w2, b2, seed, rate, dy,
+                                         part)
     dtype = x.dtype
     if dtype == torch.bfloat16:
         x, dy = x.float().contiguous(), dy.float().contiguous()
@@ -476,16 +507,16 @@ def fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, rate: float, dy):
             x.data_ptr(), dy.data_ptr(), aligned16(w1).data_ptr(),
             b1.data_ptr(), aligned16(w2).data_ptr(), seed.data_ptr(),
             dx.data_ptr(), grads.data_ptr(), scratch.data_ptr(), n, d, hd,
-            train_chunk_rows(n, d), keep_threshold(rate), keep_scale(rate),
-            stream)
+            train_chunk_rows(n, d), *_mask_part(hd, part),
+            keep_threshold(rate), keep_scale(rate), stream)
     else:
-        pack, part = x.new_empty(sum(sizes)).split(sizes)
+        pack, partials = x.new_empty(sum(sizes)).split(sizes)
         rc = library().launch_fused_mlp_train_bwd(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), seed.data_ptr(), dx.data_ptr(), grads.data_ptr(),
-            pack.data_ptr(), part.data_ptr(), n, d, hd, d,
-            train_bwd_slots(n, hd, sms), keep_threshold(rate),
-            keep_scale(rate), stream)
+            pack.data_ptr(), partials.data_ptr(), n, d, hd, d,
+            train_bwd_slots(n, hd, sms), *_mask_part(hd, part),
+            keep_threshold(rate), keep_scale(rate), stream)
     if rc != 0:
         raise RuntimeError(f"launch_fused_mlp_train_bwd failed: CUDA error "
                            f"{rc}")
@@ -500,29 +531,31 @@ class FusedMLPTrain(torch.autograd.Function):
     the saved x, weights and seed (the hidden activation is recomputed)."""
 
     @staticmethod
-    def forward(x, w1, b1, w2, b2, seed, rate):
-        return fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate)
+    def forward(x, w1, b1, w2, b2, seed, rate, part):
+        return fused_mlp_train_fwd(x, w1, b1, w2, b2, seed, rate, part)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        *tensors, rate = inputs
+        *tensors, rate, part = inputs
         ctx.save_for_backward(*tensors)
-        ctx.rate = rate
+        ctx.rate, ctx.part = rate, part
 
     @staticmethod
     def backward(ctx, dy):
         x, w1, b1, w2, b2, seed = ctx.saved_tensors
         grads = fused_mlp_train_bwd(x, w1, b1, w2, b2, seed, ctx.rate,
-                                    dy.contiguous())
-        return (*grads, None, None)
+                                    dy.contiguous(), ctx.part)
+        return (*grads, None, None, None)
 
 
-def fused_mlp_train(x, w1, b1, w2, b2, seed, rate: float):
+def fused_mlp_train(x, w1, b1, w2, b2, seed, rate: float, part=(0, 1)):
     """x: (..., D) float32 or bfloat16, D in WIDTHS or VIT_WIDTHS; w1 (D,
     Hd), b1, w2 (Hd, D), b2 float32; seed (2,) int32 on x's device (0 <=
     rate < 1) -> (..., D) in x's type, differentiable in x and the
-    weights."""
-    return FusedMLPTrain.apply(x, w1, b1, w2, b2, seed, rate)
+    weights.  ``part`` = (i, k): w1's columns (the hidden units) are the
+    i-th of k equal blocks of a tensor-parallel MLP's, and m1 is that block
+    of the whole MLP's mask."""
+    return FusedMLPTrain.apply(x, w1, b1, w2, b2, seed, rate, tuple(part))
 
 
 # Kernel launches so far; a caller resets them to 0 to count a run.  Each

@@ -95,11 +95,11 @@ def _mlp_sharded(m: MLP, x, route, rate: float, train: bool, generator):
     kernels take the rank's shard with fc2's bias left out (zeros).  In
     training the fused kernel drops its partial product with the output
     mask m2, which every rank draws alike from the same seed, so the sum is
-    dropped as a whole and the bias takes m2 after it; its hidden mask is a
-    function of an element's index within the shard, so the ranks' hidden
-    units share one mask pattern.  The plain route draws the hidden mask
-    whole and keeps the rank's columns (``dropout``'s ``part``) and drops
-    the output after the sum: the shards train on the replicated MLP's
+    dropped as a whole and the bias takes m2 after it; its hidden mask m1
+    is the rank's column block of the whole mask (``fused_mlp_train``'s
+    ``part``).  The plain route draws the hidden mask whole and keeps the
+    rank's columns (``dropout``'s ``part``) and drops the output after the
+    sum.  On either route the shards train on the replicated MLP's
     masks."""
     import torch.distributed as dist
 
@@ -109,10 +109,11 @@ def _mlp_sharded(m: MLP, x, route, rate: float, train: bool, generator):
     w1, b1, w2, b2 = m.fc1.kernel, m.fc1.bias, m.fc2.kernel, m.fc2.bias
     x = replicated_input(x, group)
     zeros = torch.zeros_like(b2)
+    part = (dist.get_rank(group), dist.get_world_size(group))
     if train and route in FUSED_ROUTES:
         seed = _kernel_seed(generator, rate, x)
-        y = all_reduce_sum(fused_mlp_train(x, w1, b1, w2, zeros, seed, rate),
-                           group)
+        y = all_reduce_sum(fused_mlp_train(x, w1, b1, w2, zeros, seed, rate,
+                                           part), group)
         d = y.shape[-1]
         m2 = dropout_mask(seed, y.numel() // d, d, STREAM_OUT, rate)
         return y + (b2 * m2).reshape(y.shape).to(y.dtype)
@@ -121,7 +122,6 @@ def _mlp_sharded(m: MLP, x, route, rate: float, train: bool, generator):
              else fused_mlp_plain)
         y = all_reduce_sum(f(x, w1, b1, w2, zeros), group)
         return y + b2.to(y.dtype)
-    part = (dist.get_rank(group), dist.get_world_size(group))
     h = dropout(gelu(dense(x, w1, b1)), rate, train, generator, part)
     y = all_reduce_sum(dense(h, w2), group) + b2.to(x.dtype)
     return dropout(y, rate, train, generator)
